@@ -1,0 +1,127 @@
+"""Seeding and the sources of random draws.
+
+``cm3_tpu.core.prng`` folds one root key by purpose and step with
+``jax.random.fold_in``.  Here a key is a 64-bit Python int and a fold
+is a splitmix64 mix of (key, data): the same root/purpose/step
+discipline, so any slice of a run is reproducible in isolation.  The
+streams are not JAX's (threefry cannot be reproduced in PyTorch); the
+parity tests feed JAX's draws in through ``FedDraws`` instead.
+
+A draw source is what the JAX code's ``key`` argument becomes: the
+driver asks it for random actions, Gumbel noise and replay indices in
+a fixed order.  ``GeneratorDraws`` makes them on the device from a
+``torch.Generator``; ``FedDraws`` hands out given arrays.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Dict, Iterable, Sequence
+
+import numpy as np
+import torch
+
+# stable purpose tags (same numbers as cm3_tpu.core.prng)
+ROLLOUT = 0
+RESET = 1
+GOALS = 2
+PARAMS = 3
+SAMPLE = 4
+EVAL = 5
+ENV = 6
+
+_MASK = (1 << 64) - 1
+
+
+def _mix(z: int) -> int:
+    """splitmix64 finaliser."""
+    z = (z + 0x9E3779B97F4A7C15) & _MASK
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK
+    return z ^ (z >> 31)
+
+
+def root_key(seed: int) -> int:
+    return _mix(seed & _MASK)
+
+
+def fold_in(key: int, data: int) -> int:
+    return _mix(key ^ _mix(data & _MASK))
+
+
+def for_purpose(key: int, purpose: int) -> int:
+    return fold_in(key, purpose)
+
+
+def for_step(key: int, purpose: int, step: int) -> int:
+    return fold_in(fold_in(key, purpose), step)
+
+
+def generator(key: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from ``key``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(key & ((1 << 63) - 1))
+    return g
+
+
+# float32 tiny, the lower bound jax.random.gumbel draws its uniforms from
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """-log(-log(u)) with u clamped to [tiny, 1) (``jax.random.gumbel``)."""
+    return -torch.log(-torch.log(u.clamp_min(_TINY)))
+
+
+class GeneratorDraws:
+    """Draws made on the generator's device."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+        self.device = gen.device
+
+    def randint(self, shape: Sequence[int], high: int) -> torch.Tensor:
+        return torch.randint(0, high, tuple(shape), generator=self.gen,
+                             device=self.device)
+
+    def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
+        u = torch.rand(tuple(shape), generator=self.gen, device=self.device)
+        return gumbel_from_uniform(u)
+
+
+class FedDraws:
+    """Hands out given arrays, per kind in the order given.
+
+    ``randint`` returns the next array of ``randints`` (random actions
+    and replay indices, in the order the driver asks for them) and
+    ``gumbel`` the next of ``gumbels``.  Each array must have the shape
+    asked for, and a randint array must lie in [0, high).
+    """
+
+    def __init__(self, randints: Iterable = (), gumbels: Iterable = (),
+                 device="cuda"):
+        self.device = torch.device(device)
+        self._q: Dict[str, collections.deque] = {
+            "randint": collections.deque(randints),
+            "gumbel": collections.deque(gumbels)}
+
+    def _next(self, kind: str, shape, dtype) -> torch.Tensor:
+        if not self._q[kind]:
+            raise IndexError(f"FedDraws: no {kind} draw left")
+        x = torch.tensor(np.asarray(self._q[kind].popleft()), dtype=dtype)
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"FedDraws: {kind} draw has shape "
+                             f"{tuple(x.shape)}, asked for {tuple(shape)}")
+        return x
+
+    def randint(self, shape: Sequence[int], high: int) -> torch.Tensor:
+        x = self._next("randint", shape, torch.int64)
+        if x.numel() and (int(x.min()) < 0 or int(x.max()) >= high):
+            raise ValueError(f"FedDraws: randint draw outside [0, {high})")
+        return x.to(self.device)
+
+    def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
+        return self._next("gumbel", shape, torch.float32).to(self.device)
+
+    def remaining(self) -> Dict[str, int]:
+        return {k: len(v) for k, v in self._q.items()}

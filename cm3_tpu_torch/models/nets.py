@@ -1,0 +1,290 @@
+"""Checkers networks: the actor and the two CM3 critics.
+
+Port of the Checkers subset of ``cm3_tpu.models.nets`` (itself the
+reference ``alg/networks.py``) as ``nn.Module``s.  Names follow the
+flax modules, so each torch parameter maps to one flax leaf:
+``<module path>.weight`` is flax's ``kernel``, every other name is the
+same (``W_h2``, ``b``, ``bias``).
+
+Layouts.  The public forwards take the JAX layouts: observation and
+state grids are NHWC.  Flax convolutions are NHWC/HWIO with SAME
+padding (``nets.py:99-101``) and flatten their output in (H, W, C)
+order (``nets.py:134,142``).  Here the grid is permuted to NCHW for
+``F.conv2d`` and the activation back to NHWC before the flatten, so a
+flax dense kernel carries over as a plain transpose.
+
+Flat parameters.  ``flatten_parameters`` moves a module's parameters
+into one flat f32 buffer in ``ravel_pytree`` order (the sorted-key
+flatten of the flax dict), each parameter a view into it, and gives it
+a flat gradient buffer the same way.  The fused optimizer kernel then
+updates a whole network in one launch, as ``ops/fused_opt.py`` does in
+the JAX package (``fused_opt.py:112-133``).
+
+Initialization (``nets.py:47-92``): dense and conv kernels are
+Glorot-uniform, biases zero, the branch-combination matrices ``W_h2``
+truncated-normal with sigma 0.01, and the h2 bias ``b`` follows the init
+scheme: zeros under "ref" and "trunc001", TF1's rank-1 Glorot under
+"tf1"; "trunc001" also draws every kernel truncated-normal 0.01.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+INIT_SCHEMES = ("ref", "tf1", "trunc001")
+
+
+def init_scheme(name: str = "ref") -> str:
+    """Validate an init-scheme name (``AlgConfig.init_scheme``)."""
+    if name not in INIT_SCHEMES:
+        raise ValueError(f"unknown init scheme {name!r}")
+    return name
+
+
+def _trunc001(t: torch.Tensor, gen: torch.Generator):
+    # flax truncated_normal(0.01): a standard normal cut at +-2, times 0.01
+    return nn.init.trunc_normal_(t, 0.0, 0.01, -0.02, 0.02, generator=gen)
+
+
+def _fans(shape: Tuple[int, ...]):
+    """(fan_in, fan_out) of a torch weight, as flax counts them on the
+    flax layout: the receptive field times in/out features."""
+    receptive = math.prod(shape[2:]) if len(shape) > 2 else 1
+    return shape[1] * receptive, shape[0] * receptive
+
+
+def _glorot(t: torch.Tensor, gen: torch.Generator):
+    fan_in, fan_out = _fans(tuple(t.shape))
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return nn.init.uniform_(t, -limit, limit, generator=gen)
+
+
+def _glorot_rank1(t: torch.Tensor, gen: torch.Generator):
+    """TF1 glorot_uniform on a rank-1 shape [n]: limit sqrt(3/n)."""
+    limit = math.sqrt(3.0 / t.shape[0])
+    return nn.init.uniform_(t, -limit, limit, generator=gen)
+
+
+def _kinit(t, gen, scheme):
+    """Kernels that are Glorot-uniform in the reference."""
+    return _trunc001(t, gen) if scheme == "trunc001" else _glorot(t, gen)
+
+
+def _binit(t, gen, scheme):
+    """The h2 combination bias ``b``."""
+    return _glorot_rank1(t, gen) if scheme == "tf1" else nn.init.zeros_(t)
+
+
+def _dense(n_in, feats):
+    return nn.Linear(n_in, feats)
+
+
+def _conv(c_in, feats, kernel):
+    return nn.Conv2d(c_in, feats, tuple(kernel), padding="same")
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, gen: torch.Generator,
+                    scheme: str = "ref"):
+    """Draw every parameter of ``module`` in place (see module doc)."""
+    init_scheme(scheme)
+    for name, p in sorted(module.named_parameters(),
+                          key=lambda kv: flax_path(kv[0])):
+        leaf = name.split(".")[-1]
+        if leaf == "weight":
+            _kinit(p, gen, scheme)
+        elif leaf == "bias":
+            nn.init.zeros_(p)
+        elif leaf == "W_h2":
+            _trunc001(p, gen)
+        elif leaf == "b":
+            _binit(p, gen, scheme)
+        else:
+            raise KeyError(f"no initializer for parameter {name!r}")
+
+
+def _relu_flat_conv(conv: nn.Conv2d, t_nhwc: torch.Tensor) -> torch.Tensor:
+    """conv -> relu -> flatten in (H, W, C) order, NHWC in."""
+    c = F.relu(conv(t_nhwc.permute(0, 3, 1, 2)))
+    return c.permute(0, 2, 3, 1).reshape(c.shape[0], -1)
+
+
+class Branch(nn.Module):
+    """dense -> relu, then a bias-free combination matmul into n_h2
+    (networks.py:103-122): branch outputs are summed pre-activation."""
+
+    def __init__(self, n_in: int, n_h1: int, n_h2: int):
+        super().__init__()
+        self.dense = _dense(n_in, n_h1)
+        self.W_h2 = nn.Parameter(torch.empty(n_h1, n_h2))
+
+    def forward(self, x):
+        return F.relu(self.dense(x)) @ self.W_h2
+
+
+class ConvBranch(nn.Module):
+    """conv -> relu -> flatten -> dense -> relu -> combination matmul
+    (networks.py:494-504); NHWC in."""
+
+    def __init__(self, in_hwc: Tuple[int, int, int], conv_f: int,
+                 conv_k: Tuple[int, int], n_reduced: int, n_h2: int):
+        super().__init__()
+        h, w, c = in_hwc
+        self.conv = _conv(c, conv_f, conv_k)
+        self.reduce = _dense(h * w * conv_f, n_reduced)
+        self.W_h2 = nn.Parameter(torch.empty(n_reduced, n_h2))
+
+    def forward(self, t):
+        c = _relu_flat_conv(self.conv, t)
+        return F.relu(self.reduce(c)) @ self.W_h2
+
+
+# --------------------------------------------------------------------- #
+
+
+class ActorCheckers(nn.Module):
+    """networks.actor_checkers:549-578 (``nets.py:197``)."""
+
+    def __init__(self, spec: Dict[str, int], conv_f: int = 3,
+                 conv_k: Tuple[int, int] = (3, 3), n_h1: int = 64,
+                 n_h2: int = 64, stage: int = 1):
+        super().__init__()
+        n_actions = spec["l_action"]
+        h, w = spec["rows_obs"], spec["columns_obs"]
+        self.stage = stage
+        self.conv = _conv(spec["channels_obs"], conv_f, conv_k)
+        self.conv_linear = _dense(h * w * conv_f, 32)
+        n_x = 32 + spec["l_obs_self"] + n_actions + spec["l_goal"]
+        self.self_branch = Branch(n_x, n_h1, n_h2)
+        if stage > 1:
+            self.stage2 = Branch(spec["l_obs_others"], n_h1, n_h2)
+        self.b = nn.Parameter(torch.empty(n_h2))
+        self.out = _dense(n_h2, n_actions)
+
+    def forward(self, a_prev, t_obs_self, v_obs_self, obs_others, goal):
+        conv = _relu_flat_conv(self.conv, t_obs_self)
+        conv_lin = F.relu(self.conv_linear(conv))
+        x = torch.cat([conv_lin, v_obs_self, a_prev, goal], dim=-1)
+        h2 = self.self_branch(x)
+        if self.stage > 1:
+            h2 = h2 + self.stage2(obs_others)
+        h2 = F.relu(h2 + self.b)
+        return F.softmax(self.out(h2), dim=-1)
+
+
+class _QCheckers(nn.Module):
+    """Shared body of the Checkers critics (networks.py:155-183,
+    244-272): two convs over the global grid and the agent's own
+    observation, a stage-1 branch over their concat, a stage-2 branch
+    over ``n_in2`` more features, relu, and a scalar output."""
+
+    def __init__(self, spec: Dict[str, int], n_in2: int, conv_f1: int,
+                 conv_k1: Tuple[int, int], conv_f2: int,
+                 conv_k2: Tuple[int, int], n_h1_1: int, n_h1_2: int,
+                 n_h2: int, stage: int):
+        super().__init__()
+        self.stage = stage
+        rs, cs = spec["rows_state"], spec["columns_state"]
+        ro, co = spec["rows_obs"], spec["columns_obs"]
+        self.conv = _conv(spec["channels_state"], conv_f1, conv_k1)
+        self.conv_o = _conv(spec["channels_obs"], conv_f2, conv_k2)
+        n_x = (rs * cs * conv_f1 + spec["l_state_one"] + spec["l_goal"]
+               + spec["l_action"] + ro * co * conv_f2 + spec["l_obs_self"])
+        self.branch1 = Branch(n_x, n_h1_1, n_h2)
+        if stage > 1:
+            self.stage2 = Branch(n_in2, n_h1_2, n_h2)
+        self.out = _dense(n_h2, 1)
+
+    def _forward(self, s_grid, s_n, g_n, a, t_obs, v_obs, stage2_in):
+        conv = _relu_flat_conv(self.conv, s_grid)
+        conv_o = _relu_flat_conv(self.conv_o, t_obs)
+        x = torch.cat([conv, s_n, g_n, a, conv_o, v_obs], dim=-1)
+        h2 = self.branch1(x)
+        if self.stage > 1:
+            h2 = h2 + self.stage2(torch.cat(stage2_in, dim=-1))
+        return self.out(F.relu(h2))
+
+
+class QGlobalCheckers(_QCheckers):
+    """networks.Q_global_checkers:155-183 (``nets.py:308``)."""
+
+    def __init__(self, spec: Dict[str, int], conv_f1: int = 4,
+                 conv_k1: Tuple[int, int] = (3, 5), conv_f2: int = 6,
+                 conv_k2: Tuple[int, int] = (3, 3), n_h1_1: int = 128,
+                 n_h1_2: int = 32, n_h2: int = 32, stage: int = 1):
+        n_others = spec["n_agents"] - 1
+        super().__init__(
+            spec, n_others * (spec["l_state_one"] + spec["l_action"]),
+            conv_f1, conv_k1, conv_f2, conv_k2, n_h1_1, n_h1_2, n_h2, stage)
+
+    def forward(self, s_grid, s_n, g_n, a_n, s_others, a_others, t_obs,
+                v_obs):
+        return self._forward(s_grid, s_n, g_n, a_n, t_obs, v_obs,
+                             [s_others, a_others.flatten(-2)])
+
+
+class QCreditCheckers(_QCheckers):
+    """networks.Q_credit_checkers:244-272 (``nets.py:334``)."""
+
+    def __init__(self, spec: Dict[str, int], conv_f1: int = 4,
+                 conv_k1: Tuple[int, int] = (3, 5), conv_f2: int = 6,
+                 conv_k2: Tuple[int, int] = (3, 3), n_h1_1: int = 128,
+                 n_h1_2: int = 32, n_h2: int = 32, stage: int = 2):
+        super().__init__(
+            spec, spec["n_agents"] * spec["l_state_one"],
+            conv_f1, conv_k1, conv_f2, conv_k2, n_h1_1, n_h1_2, n_h2, stage)
+
+    def forward(self, s_grid, s_n, g_n, a_m, s_m, s_others, t_obs, v_obs):
+        return self._forward(s_grid, s_n, g_n, a_m, t_obs, v_obs,
+                             [s_m, s_others])
+
+
+# --------------------------------------------------------------------- #
+# flat parameter buffers
+# --------------------------------------------------------------------- #
+
+
+def flax_path(name: str) -> Tuple[str, ...]:
+    """Torch parameter name -> the flax leaf path under "params"."""
+    parts = name.split(".")
+    return tuple(parts[:-1]) + ({"weight": "kernel"}.get(parts[-1],
+                                                         parts[-1]),)
+
+
+def ordered_parameters(module: nn.Module):
+    """(name, parameter) in ``ravel_pytree`` order of the flax tree."""
+    return sorted(module.named_parameters(), key=lambda kv: flax_path(kv[0]))
+
+
+@torch.no_grad()
+def flatten_parameters(module: nn.Module, with_grad: bool = True):
+    """Move ``module``'s parameters into one flat f32 buffer
+    ``module.flat`` (``ravel_pytree`` order), each parameter a view into
+    it; with ``with_grad`` also preset every ``.grad`` as a view into
+    ``module.flat_grad``, which backward then accumulates into in
+    place.  Without it the parameters stop requiring grad (targets)."""
+    params = ordered_parameters(module)
+    dev = params[0][1].device
+    n = sum(p.numel() for _, p in params)
+    flat = torch.empty(n, dtype=torch.float32, device=dev)
+    grad = torch.zeros(n, dtype=torch.float32, device=dev) if with_grad \
+        else None
+    off = 0
+    for _, p in params:
+        k = p.numel()
+        view = flat[off:off + k].view(p.shape)
+        view.copy_(p)
+        p.data = view
+        if with_grad:
+            p.grad = grad[off:off + k].view(p.shape)
+        else:
+            p.requires_grad_(False)
+        off += k
+    module.flat = flat
+    module.flat_grad = grad
+    return module

@@ -1,0 +1,101 @@
+"""Tests of the port that need the card (marker ``cuda``): the Triton
+kernel against its plain version, and a small training chunk on the
+card against the same chunk on the CPU.  They import neither JAX nor
+``cm3_tpu``, so they run on a machine without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Without a CUDA device they skip."""
+
+import numpy as np
+import pytest
+import torch
+
+from cm3_tpu_torch.algs import common
+from cm3_tpu_torch.ops import fused_opt
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Triton kernel runs only on "
+                    "the card)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 8193, 149645])
+def test_triton_kernel_matches_plain(cuda_device, n):
+    """Triton kernel vs the plain version over 5 steps on the card.
+    Tolerance rtol 1e-6, atol 1e-7: both divide and take square roots
+    in IEEE float32; products may be contracted differently."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    mk = lambda: torch.randn(n, device=cuda_device, generator=gen)
+    p, t = mk(), mk()
+    st = common.adam_init(p)
+    ref_p, ref_t, ref = p.clone(), t.clone(), common.adam_init(p)
+    before = fused_opt.adam_polyak.launches
+    for _ in range(5):
+        g = mk()
+        fused_opt.adam_polyak(st, p, t, g, 1e-3, 0.01)
+        c1, c2 = fused_opt.bias_corrections(ref.count)
+        fused_opt.adam_polyak_plain(ref_p, ref_t, ref.mu, ref.nu, g, c1, c2,
+                                    1e-3, 0.01)
+        ref.count += 1
+    torch.cuda.synchronize()
+    assert fused_opt.adam_polyak.launches == before + 5
+    for got, want in ((p, ref_p), (t, ref_t), (st.mu, ref.mu),
+                      (st.nu, ref.nu)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_small_chunk_on_card_matches_cpu(cuda_device):
+    """A fill and a training chunk at small width on the card and on
+    the CPU with the same fed draws: 3 kernel launches per update, and
+    the same state at rtol 1e-4, atol 1e-5 (float32 sums in other
+    orders through 4 Adam steps)."""
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.core.tree import tree_map
+    from cm3_tpu_torch.envs.checkers import Checkers
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
+
+    e, b, u = 16, 32, 4
+    rng = np.random.default_rng(0)
+    fill = [rng.integers(0, 5, (e, 2)) for _ in range(10)]
+    act = [rng.gumbel(size=(e, 2, 5)).astype(np.float32) for _ in range(10)]
+    idx = [rng.integers(0, 20 * e, b) for _ in range(u)]
+    upd = [rng.gumbel(size=(b, 2, 5)).astype(np.float32) for _ in range(u)]
+    nn = config.NNConfig(Q_conv_f=2, Q_n_h1_1=16, Q_n_h1_2=8, Q_n_h2=16,
+                         A_conv_f=2, A_n_h1=16, A_n_h2=12)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        env = Checkers(config.CheckersEnvConfig(n_agents=2, max_steps=7),
+                       device=dev)
+        alg = CM3("checkers", env.spec(),
+                  config.AlgConfig(n_agents=2, stage=2, fused_opt=True), nn,
+                  device=dev)
+        cfg = config.TrainConfig(n_envs=e, batch_size=b, buffer_size=512,
+                                 updates_per_chunk=u)
+        drv = OffPolicyDriver(make_hooks("checkers", env), alg, cfg)
+        rs = init_rollout(drv.hooks, e)
+        ts = alg.init_state(prng.root_key(0))
+        z = torch.zeros((e, 2), dtype=torch.int64, device=dev)
+        buf = drv._replay_init(tree_map(
+            lambda x: x[0], drv._transition(rs, z,
+                                            env.step(rs.env_state, z)[1])))
+        draws = prng.FedDraws(fill + idx, act + upd, device=dev)
+        before = fused_opt.adam_polyak.launches
+        ts, buf, rs, _ = drv._chunk(ts, buf, rs, 0.2, draws, False, True)
+        ts, buf, rs, _ = drv._chunk(ts, buf, rs, 0.2, draws, True, False)
+        out[dev.type] = (ts, fused_opt.adam_polyak.launches - before)
+    (ts_c, n_c), (ts_h, n_h) = out["cuda"], out["cpu"]
+    assert (n_c, n_h) == (3 * u, 0)
+    for name in ("actor", "actor_tgt", "qg", "qg_tgt", "qc", "qc_tgt"):
+        torch.testing.assert_close(getattr(ts_c, name).flat.cpu(),
+                                   getattr(ts_h, name).flat, rtol=1e-4,
+                                   atol=1e-5)

@@ -1,0 +1,53 @@
+"""The port stands alone: no module of ``cm3_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, flax, optax or ``cm3_tpu``, and
+importing the whole package loads neither JAX nor Triton."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cm3_tpu")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "scripts", "torch_chunk_profile.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "cm3_tpu_torch")):
+        out += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
+    return out
+
+
+def _modules():
+    return sorted(
+        os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".").replace(
+            ".__init__", "")
+        for p in _sources() if "cm3_tpu_torch" in p)
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_importing_the_port_loads_no_jax_and_no_triton():
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('triton',)!r}]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
