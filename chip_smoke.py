@@ -4,10 +4,13 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Three phases, each between progress lines with its elapsed seconds
-and held to a time budget (60 + 60 + 40 s, so that a cold run stays
-under 3 minutes):
+Six phases, each between progress lines with its elapsed seconds and
+held to a time budget (120 + 60 + 60 + 40 + 120 + 30 s):
 
+0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built by one
+   ``nvcc`` call into ``build/cm3_tpu_torch/`` (or found there by their
+   hash): the nvcc path and version, the command, the seconds and
+   ptxas' register report.
 1. kernel vs plain: the Triton ``adam_polyak`` kernel against its plain
    PyTorch version for 5 steps at the three flat-buffer sizes of the
    main path and at ragged sizes, then its time per launch (CUDA events
@@ -23,11 +26,26 @@ under 3 minutes):
 3. card against CPU: one fill and one training chunk from the same
    seeded state with the same fed draws on the card and on the CPU
    (plain versions there), compared at a stated tolerance.
+4. the fused Checkers rollout (CUDA C++): the kernel against its plain
+   version on fed actions at a ragged batch, and with Philox draws on
+   the card and on the CPU; then ``bench.py``'s
+   ``checkers_fused_env_steps_per_s`` program at full size (B = 2^20,
+   T = 8192) through ``cm3_tpu_torch.bench``, with the launch count set
+   to 0 just before and read just after; the kernel's time against its
+   instruction-issue bound (SASS loop body from ``cuobjdump``), the
+   plain version's time, and the grid-engine figure
+   ``checkers_grid_env_steps_per_s``.
+5. Polyak (Triton): the kernel against its plain version at four sizes
+   and three tau values; a soft update of the three networks of the
+   slice's CM3 state, with the launch count set to 0 just before and
+   read just after; its time back to back and in a CUDA graph beside
+   its memory bound, the plain version's and ``Tensor.lerp_``'s.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside it, it
-exits non-zero and prints no result.  Writes nothing into the checkout.
+exits non-zero and prints no result.  Writes nothing into the checkout
+but the kernel library under ``build/``.
 """
 
 import json
@@ -54,6 +72,15 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-6, 1e-7
 # (cuDNN/cuBLAS vs CPU kernels, TF32 off) through 8 Adam steps; atol is
 # 1% of one Adam step at lr_Q = 1e-3
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
+# the fused rollout: bench.py's size, the checks' sizes, and the kernel's
+# issue rate (warp-instructions per clock per SM; 32 threads a warp)
+FUSED_B, FUSED_T, FUSED_REPS = 1 << 20, 8192, 3
+FED_B, FED_T, PRNG_B, PRNG_T, PLAIN_T = (1 << 16) + 37, 300, 1 << 14, 300, 64
+# fed actions: the same float32 adds in the same order (in practice equal)
+ROLLOUT_ATOL = 1e-5
+WARP_INSTS_PER_CLOCK = 4
+POLYAK_SIZES, POLYAK_TAUS = (1, 1000, 8193, 149645), (0.0, 0.01, 1.0)
+POLYAK_BYTES_PER_ELEM = 12      # load t and m, store t
 
 T0 = time.time()
 
@@ -64,7 +91,7 @@ def log(msg):
 
 def run_phase(name, budget_s, fn, *args):
     """Run one phase between two progress lines; fail it if it takes
-    more than its share of the 180 s the whole cold run may take."""
+    more than its share of the time a cold run may take."""
     t0 = time.time()
     log(f"phase {name} (budget {budget_s} s) starts at {t0 - T0:.1f} s")
     out = fn(*args)
@@ -343,6 +370,194 @@ def phase_parity(device):
 
 
 # ------------------------------------------------------------------ #
+# the CUDA C++ build
+# ------------------------------------------------------------------ #
+
+
+def phase_build():
+    from cm3_tpu_torch.ops import _nvcc
+
+    info = _nvcc.library().build_info
+    log(f"  nvcc {info['nvcc']} ({info['nvcc_version']})")
+    log(f"  library {info['library']}: "
+        + ("built" if info["built"] else "found by its hash"))
+    if info["built"]:
+        log(f"  command: {info['command']}")
+        log(f"  build took {info['seconds']:.2f} s")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
+
+
+# ------------------------------------------------------------------ #
+# the fused Checkers rollout
+# ------------------------------------------------------------------ #
+
+
+def _smi_max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def phase_rollout(dev):
+    import torch
+    from cm3_tpu_torch import bench
+    from cm3_tpu_torch.core.config import CheckersEnvConfig
+    from cm3_tpu_torch.envs import checkers_packed as cp
+    from cm3_tpu_torch.ops import _nvcc
+    from cm3_tpu_torch.ops import checkers_rollout as cr
+
+    spec = cp.make_spec(CheckersEnvConfig(
+        n_agents=2, agents_r=(0, 2), agents_c=(8, 8), max_steps=50),
+        (True, False))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    # fed actions at a ragged batch: kernel == plain on the card
+    acts = torch.randint(0, 5, (FED_T, 2, FED_B), device=dev,
+                         dtype=torch.int32, generator=gen)
+    k_rew, k_ep = cr.rollout_actions(spec, acts)
+    p_rew, p_ep = cr.rollout_actions_plain(spec, acts)
+    torch.cuda.synchronize()
+    assert torch.equal(k_ep, p_ep), "fed rollout: episodes differ"
+    torch.testing.assert_close(k_rew, p_rew, rtol=0, atol=ROLLOUT_ATOL)
+    fed_err = float((k_rew - p_rew).abs().max())
+    log(f"  fed B={FED_B} T={FED_T}: episodes equal, reward sums max abs "
+        f"difference {fed_err:.3g} (atol {ROLLOUT_ATOL}); "
+        f"bit-equal: {torch.equal(k_rew, p_rew)}")
+
+    # Philox draws: kernel == plain on the card == plain on the CPU
+    k_rew, k_ep = cr.rollout_prng(spec, PRNG_B, PRNG_T, SEED + 7, device=dev)
+    p_rew, p_ep = cr.rollout_prng_plain(spec, PRNG_B, PRNG_T, SEED + 7, dev)
+    h_rew, h_ep = cr.rollout_prng(spec, PRNG_B, PRNG_T, SEED + 7,
+                                  device="cpu")
+    torch.cuda.synchronize()
+    for name, (a, b) in {"card plain": (p_rew, p_ep),
+                         "CPU plain": (h_rew, h_ep)}.items():
+        assert torch.equal(k_rew.cpu(), a.cpu()), f"PRNG rewards vs {name}"
+        assert torch.equal(k_ep.cpu(), b.cpu()), f"PRNG episodes vs {name}"
+    assert int(k_ep.min()) >= PRNG_T // spec.max_steps
+    log(f"  Philox B={PRNG_B} T={PRNG_T}: kernel == plain on the card == "
+        f"plain on the CPU, exactly; mean reward sum "
+        f"{float(k_rew.mean()):.4f}, mean episodes "
+        f"{float(k_ep.float().mean()):.3f}")
+
+    # bench.py's figure at full size: the main path of this kernel
+    cr.rollout_prng.launches = 0
+    figure = bench.bench_checkers_fused(FUSED_B, FUSED_T, FUSED_REPS)
+    launches = cr.rollout_prng.launches
+    assert launches == 1 + FUSED_REPS, (
+        f"rollout_prng launched {launches} times in the bench, not "
+        f"{1 + FUSED_REPS}")
+
+    out = {}
+    call = lambda: out.update(r=cr.rollout_prng(spec, FUSED_B, FUSED_T, 99,
+                                                device=dev))
+    call_ms = cuda_time_ms(call, 3, warmup=1)
+    rew, ep = out["r"]
+    assert rew.shape == (FUSED_B,) and bool(torch.isfinite(rew).all())
+    assert int(ep.min()) >= FUSED_T // spec.max_steps
+
+    sass = _nvcc.sass(_nvcc.library().build_info["library"])
+    # checkers_rollout_kernel<2, false>: two agents, Philox (the bench's)
+    insts = _nvcc.loop_instructions(sass, "ILi2ELb0E")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _smi_max_sm_clock_hz()
+    bound_ms = (insts * FUSED_B * FUSED_T
+                / (sms * WARP_INSTS_PER_CLOCK * 32 * clock) * 1e3)
+
+    plain = lambda: cr.rollout_prng_plain(spec, FUSED_B, PLAIN_T, 3, dev)
+    plain_step_ms = cuda_time_ms(plain, 1, warmup=1) / PLAIN_T
+    step_ms = call_ms / FUSED_T
+    log(f"  bench_checkers_fused (B={FUSED_B}, T={FUSED_T}, reps "
+        f"{FUSED_REPS}): {figure:.6g} env-steps/s; {launches} launches "
+        f"(warm-up + reps)")
+    log(f"  kernel {call_ms:.3f} ms per call "
+        f"({FUSED_B * FUSED_T / call_ms * 1e3:.6g} env-steps/s) against a "
+        f"bound of {bound_ms:.3f} ms (operations: {insts} SASS instructions "
+        f"per step in the loop body, {sms} SMs x {WARP_INSTS_PER_CLOCK} "
+        f"warp-instructions x 32 at {clock / 1e6:.0f} MHz), "
+        f"{bound_ms / call_ms:.3f} of it")
+    log(f"  per step of {FUSED_B} instances: kernel {step_ms * 1e3:.3f} us, "
+        f"plain {plain_step_ms * 1e3:.1f} us (T={PLAIN_T}), bound "
+        f"{bound_ms / FUSED_T * 1e3:.3f} us; library: no single PyTorch "
+        "call computes it")
+    grid = bench.bench_checkers_throughput()
+    log(f"  bench_checkers_throughput (grid engine, B=8192, T=256, reps 5): "
+        f"{grid:.6g} env-steps/s")
+    # the kernels line gives the rollout's times per env step of FUSED_B
+    # instances: the plain version cannot run T = FUSED_T in the budget
+    return {"launches": launches, "max_abs_err": fed_err, "ms": step_ms,
+            "plain_ms": plain_step_ms, "bound_ms": bound_ms / FUSED_T,
+            "bound_by": "operations", "library_ms": None}
+
+
+# ------------------------------------------------------------------ #
+# Polyak
+# ------------------------------------------------------------------ #
+
+
+def phase_polyak(dev):
+    import torch
+    from cm3_tpu_torch.ops import polyak
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda n: torch.randn(n, device=dev, generator=gen)
+    max_err = 0.0
+    for n in POLYAK_SIZES:
+        for tau in POLYAK_TAUS:
+            t, m = rnd(n), rnd(n)
+            want = polyak.polyak_update_plain(t.clone(), m, tau)
+            polyak.polyak_update(t, m, tau)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(t, want, rtol=KERNEL_RTOL,
+                                       atol=KERNEL_ATOL)
+            max_err = max(max_err, float((t - want).abs().max()))
+    log(f"  polyak: kernel == plain at n in {POLYAK_SIZES} x tau in "
+        f"{POLYAK_TAUS} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); max abs "
+        f"difference {max_err:.3g}")
+
+    # a soft update of the slice's three networks, as a user calls it
+    _, ts, _, _ = build(dev)
+    tau = 0.01
+    pairs = [(getattr(ts, k + "_tgt").flat, getattr(ts, k).flat)
+             for k in ("actor", "qg", "qc")]
+    for tgt, main in pairs:
+        tgt.add_(rnd(tgt.numel()))            # targets apart from mains
+    wants = [polyak.polyak_update_plain(t.clone(), m, tau) for t, m in pairs]
+    polyak.polyak_update.launches = 0
+    for tgt, main in pairs:
+        polyak.polyak_update(tgt, main, tau)
+    launches = polyak.polyak_update.launches
+    torch.cuda.synchronize()
+    assert launches == 3, f"polyak_update launched {launches} times, not 3"
+    for (tgt, _), want in zip(pairs, wants):
+        torch.testing.assert_close(tgt, want, rtol=KERNEL_RTOL,
+                                   atol=KERNEL_ATOL)
+
+    n = max(POLYAK_SIZES)
+    t, m = rnd(n), rnd(n)
+    kern = lambda: polyak.polyak_update(t, m, tau)
+    plain = lambda: polyak.polyak_update_plain(t, m, tau)
+    lib = lambda: t.lerp_(m, tau)
+    k_ms, p_ms, l_ms = (cuda_time_ms(kern, 500), cuda_time_ms(plain, 200),
+                        cuda_time_ms(lib, 500))
+    k_dev, p_dev, l_dev = graph_time_ms(kern), graph_time_ms(plain), \
+        graph_time_ms(lib)
+    bound_ms = POLYAK_BYTES_PER_ELEM * n / HBM_BPS * 1e3
+    log(f"  polyak n={n}: {launches} launches for the three networks; back "
+        f"to back: kernel {k_ms * 1e3:.2f} us/launch, plain "
+        f"{p_ms * 1e3:.2f} us, lerp_ {l_ms * 1e3:.2f} us; in a CUDA graph: "
+        f"kernel {k_dev * 1e3:.2f} us, plain {p_dev * 1e3:.2f} us, lerp_ "
+        f"{l_dev * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us (bytes)")
+    return {"launches": launches, "max_abs_err": max_err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": l_ms}
+
+
+# ------------------------------------------------------------------ #
 
 
 def main():
@@ -365,18 +580,30 @@ def main():
     card = smi_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    run_phase("0 build", 120, phase_build)
     kern = run_phase("1 kernel vs plain", 60, phase_kernel, dev)
     launches = run_phase("2 the slice", 60, phase_slice, dev)
     run_phase("3 card vs CPU", 40, phase_parity, dev)
+    rollout = run_phase("4 fused Checkers rollout", 120, phase_rollout, dev)
+    soft = run_phase("5 polyak", 30, phase_polyak, dev)
     log(f"all phases done at {time.time() - T0:.1f} s")
 
-    log(json.dumps({"kernels": [dict(
-        name="adam_polyak", route="triton",
-        source="cm3_tpu_torch/ops/fused_opt.py",
-        replaces="cm3_tpu/ops/fused_opt.py:100", launches=launches,
-        max_abs_err=kern["max_abs_err"], ms=kern["ms"],
-        plain_ms=kern["plain_ms"], bound_ms=kern["bound_ms"],
-        bound_by=kern["bound_by"], library_ms=kern["library_ms"])]}))
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    log(json.dumps({"kernels": [
+        dict(name="adam_polyak", route="triton",
+             source="cm3_tpu_torch/ops/fused_opt.py",
+             replaces="cm3_tpu/ops/fused_opt.py:100", launches=launches,
+             **{k: kern[k] for k in keys[1:]}),
+        dict(name="checkers_rollout", route="cuda",
+             source="cm3_tpu_torch/csrc/checkers_rollout.cu",
+             replaces="cm3_tpu/ops/checkers_rollout.py:75",
+             **{k: rollout[k] for k in keys}),
+        dict(name="polyak", route="triton",
+             source="cm3_tpu_torch/ops/polyak.py",
+             replaces="cm3_tpu/ops/polyak.py:58",
+             **{k: soft[k] for k in keys}),
+    ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

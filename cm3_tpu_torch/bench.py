@@ -1,0 +1,124 @@
+"""The port's env-throughput figures, as ``bench.py`` defines them.
+
+* ``checkers_fused_env_steps_per_s`` (``bench.py:30-54``): the fused
+  rollout kernel (``ops/checkers_rollout.py``) runs B = 2^20 two-agent
+  Checkers instances (``max_steps`` 50) for T = 8192 steps of a random
+  policy and returns reward sums and episode counts; one warm-up call,
+  then ``reps`` timed calls, each ended by reading its reward sum on
+  the host.  Figure: B x T x reps / seconds.
+* ``checkers_grid_env_steps_per_s`` (``bench.py:57-97``): the grid
+  engine (``envs/checkers.py``) stepped B = 8192 instances for T = 256
+  steps of uniform random actions, with auto-reset to the cached reset
+  state and the observations kept live (summed into the result, as the
+  reference keeps XLA from dropping them).  Same formula.
+
+    python -m cm3_tpu_torch.bench --one checkers_fused_env_steps_per_s
+
+prints ``{NAME: value}`` (the figure rounded to an integer), as
+``bench.py --one`` does.  It needs a CUDA device; the functions take
+``device`` so that the tests can drive them on the CPU at small sizes.
+
+Left out: the headline ``train_env_steps_per_s`` needs seed-batched
+training (ROADMAP A7), which is not ported; the single-seed
+``train_chunk_env_steps_per_s`` of ``bench.py`` runs the non-fused
+optimizer (``fused_opt=False``), which the port refuses; the particle
+and roadway figures wait for those games.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import torch
+
+from cm3_tpu_torch.core.config import CheckersEnvConfig
+
+
+def _cfg():
+    return CheckersEnvConfig(n_agents=2, agents_r=(0, 2), agents_c=(8, 8),
+                             max_steps=50)
+
+
+def bench_checkers_fused(batch: int = 1 << 20, steps: int = 8192,
+                         reps: int = 3, device="cuda"):
+    from cm3_tpu_torch.envs import checkers_packed as cp
+    from cm3_tpu_torch.ops import checkers_rollout as cr
+
+    spec = cp.make_spec(_cfg(), (True, False))
+
+    def run(seed):
+        rew, ep = cr.rollout_prng(spec, batch, steps, seed, device=device)
+        return rew.sum(), ep.sum()
+
+    r, _ = run(0)
+    float(r)                                   # build + sync
+    t0 = time.perf_counter()
+    for i in range(reps):
+        r, _ = run(i + 1)
+        float(r)                               # forces completion
+    dt = time.perf_counter() - t0
+    return batch * steps * reps / dt
+
+
+def bench_checkers_throughput(batch: int = 8192, steps: int = 256,
+                              reps: int = 5, device="cuda"):
+    from cm3_tpu_torch.envs.checkers import Checkers, CheckersState
+    from cm3_tpu_torch.train.offpolicy import _where
+
+    env = Checkers(_cfg(), device=device)
+    gen = torch.Generator(device=env.device).manual_seed(0)
+    goals = torch.eye(2, device=env.device).expand(batch, -1, -1)
+    state, _ = env.reset(goals)
+    # the reset is deterministic given the goals: cache one reset state
+    # and select it where an episode is done
+    reset = env.reset(goals[:1])[0]
+    fields = ("world", "loc", "collected", "goals", "steps")
+
+    def rollout(state):
+        total = torch.zeros((), device=env.device)
+        for _ in range(steps):
+            actions = torch.randint(0, 5, (batch, 2), device=env.device,
+                                    generator=gen)
+            state, ts = env.step(state, actions)
+            state = CheckersState(**{
+                f: _where(ts.done, getattr(reset, f), getattr(state, f))
+                for f in fields})
+            # observations kept live, as in the reference
+            total = total + (ts.reward.sum() + ts.obs["self_t"].sum()
+                             + ts.obs["self_v"].sum()
+                             + ts.obs["others"].sum())
+        return state, total
+
+    state, r = rollout(state)
+    float(r)                                   # warm-up + sync
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        state, r = rollout(state)
+        float(r)
+    dt = time.perf_counter() - t0
+    return batch * steps * reps / dt
+
+
+DETAIL = {
+    "checkers_fused_env_steps_per_s": bench_checkers_fused,
+    "checkers_grid_env_steps_per_s": bench_checkers_throughput,
+}
+
+
+def main(argv):
+    if "--one" not in argv:
+        print(f"usage: python -m cm3_tpu_torch.bench --one "
+              f"{{{','.join(DETAIL)}}}", file=sys.stderr)
+        return 2
+    name = argv[argv.index("--one") + 1]
+    if not torch.cuda.is_available():
+        print("cm3_tpu_torch.bench: no CUDA device", file=sys.stderr)
+        return 1
+    print(json.dumps({name: round(DETAIL[name]())}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -1,6 +1,7 @@
 """Tests of the port that need the card (marker ``cuda``): the Triton
-kernel against its plain version, and a small training chunk on the
-card against the same chunk on the CPU.  They import neither JAX nor
+kernels (``adam_polyak``, ``polyak``) and the CUDA C++ Checkers rollout
+against their plain versions, and a small training chunk on the card
+against the same chunk on the CPU.  They import neither JAX nor
 ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,7 +13,16 @@ import pytest
 import torch
 
 from cm3_tpu_torch.algs import common
-from cm3_tpu_torch.ops import fused_opt
+from cm3_tpu_torch.core.config import CheckersEnvConfig
+from cm3_tpu_torch.envs import checkers_packed as cp
+from cm3_tpu_torch.ops import checkers_rollout as cr
+from cm3_tpu_torch.ops import fused_opt, polyak
+
+ROLLOUT_CASES = {
+    "two_agents": (dict(n_agents=2, agents_r=(0, 2), agents_c=(8, 8)),
+                   (True, False)),
+    "one_agent": (dict(n_agents=1, agents_r=(2,), agents_c=(8,)), (False,)),
+}
 
 
 @pytest.fixture
@@ -99,3 +109,64 @@ def test_small_chunk_on_card_matches_cpu(cuda_device):
         torch.testing.assert_close(getattr(ts_c, name).flat.cpu(),
                                    getattr(ts_h, name).flat, rtol=1e-4,
                                    atol=1e-5)
+
+
+def _spec(case):
+    kw, goal_green = ROLLOUT_CASES[case]
+    return cp.make_spec(CheckersEnvConfig(max_steps=50, **kw), goal_green)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ROLLOUT_CASES))
+@pytest.mark.parametrize("batch", [1, 255, 4096 + 37])
+def test_rollout_kernel_fed_matches_plain(cuda_device, case, batch):
+    """The CUDA rollout on fed actions (ragged batches) against the
+    plain version on the card: episodes exactly, reward sums to atol
+    1e-5 (the same float32 adds in the same order)."""
+    spec = _spec(case)
+    n = len(spec.init_pos)
+    gen = torch.Generator(device=cuda_device).manual_seed(batch)
+    acts = torch.randint(0, 5, (130, n, batch), device=cuda_device,
+                         dtype=torch.int32, generator=gen)
+    before = cr.rollout_actions.launches
+    rew, ep = cr.rollout_actions(spec, acts)
+    p_rew, p_ep = cr.rollout_actions_plain(spec, acts)
+    torch.cuda.synchronize()
+    assert cr.rollout_actions.launches == before + 1
+    assert torch.equal(ep, p_ep)
+    torch.testing.assert_close(rew, p_rew, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ROLLOUT_CASES))
+def test_rollout_kernel_prng_matches_plain(cuda_device, case):
+    """The Philox variant draws the same bits as the plain version: the
+    kernel equals it exactly, on the card and on the CPU."""
+    spec = _spec(case)
+    before = cr.rollout_prng.launches
+    rew, ep = cr.rollout_prng(spec, 3000, 170, seed=11, device=cuda_device)
+    p_rew, p_ep = cr.rollout_prng_plain(spec, 3000, 170, 11, cuda_device)
+    h_rew, h_ep = cr.rollout_prng(spec, 3000, 170, seed=11, device="cpu")
+    torch.cuda.synchronize()
+    assert cr.rollout_prng.launches == before + 1
+    for r, e in ((p_rew, p_ep), (h_rew, h_ep)):
+        assert torch.equal(rew.cpu(), r.cpu())
+        assert torch.equal(ep.cpu(), e.cpu())
+    assert int(ep.min()) >= 3                 # 170 steps, cap 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau", [0.0, 0.01, 1.0])
+@pytest.mark.parametrize("n", [1, 1000, 8193, 149645])
+def test_polyak_kernel_matches_plain(cuda_device, n, tau):
+    """The Triton Polyak kernel against the plain version: rtol 1e-6,
+    atol 1e-7 (both round the two products and the sum in float32)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    t = torch.randn(n, device=cuda_device, generator=gen)
+    m = torch.randn(n, device=cuda_device, generator=gen)
+    want = polyak.polyak_update_plain(t.clone(), m, tau)
+    before = polyak.polyak_update.launches
+    polyak.polyak_update(t, m, tau)
+    torch.cuda.synchronize()
+    assert polyak.polyak_update.launches == before + 1
+    torch.testing.assert_close(t, want, rtol=1e-6, atol=1e-7)
