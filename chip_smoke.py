@@ -5,7 +5,7 @@ check it.
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Six phases, each between progress lines with its elapsed seconds and
-held to a time budget (120 + 60 + 60 + 40 + 120 + 30 s):
+held to a time budget (120 + 60 + 60 + 40 + 240 + 30 s):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built by one
    ``nvcc`` call into ``build/cm3_tpu_torch/`` (or found there by their
@@ -31,8 +31,10 @@ held to a time budget (120 + 60 + 60 + 40 + 120 + 30 s):
    the card and on the CPU; then ``bench.py``'s
    ``checkers_fused_env_steps_per_s`` program at full size (B = 2^20,
    T = 8192) through ``cm3_tpu_torch.bench``, with the launch count set
-   to 0 just before and read just after; the kernel's time against its
-   instruction-issue bound (SASS loop body from ``cuobjdump``), the
+   to 0 just before and read just after; that call timed and held
+   against the plain version at the same size and seed; the kernel's
+   time against its instruction-issue bound (the operations one step
+   needs, counted in ``cm3_tpu_torch/ops/checkers_rollout.py``), the
    plain version's time, and the grid-engine figure
    ``checkers_grid_env_steps_per_s``.
 5. Polyak (Triton): the kernel against its plain version at four sizes
@@ -72,13 +74,18 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-6, 1e-7
 # (cuDNN/cuBLAS vs CPU kernels, TF32 off) through 8 Adam steps; atol is
 # 1% of one Adam step at lr_Q = 1e-3
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
-# the fused rollout: bench.py's size, the checks' sizes, and the kernel's
-# issue rate (warp-instructions per clock per SM; 32 threads a warp)
+# the fused rollout: bench.py's size, the checks' sizes, the operations
+# one step of one instance needs (two agents, Philox; itemized in the note
+# of cm3_tpu_torch/ops/checkers_rollout.py: 33 Philox + 2 x 21 per agent
+# + 13 per step) and the issue rate (warp-instructions per clock per SM;
+# 32 threads a warp)
 FUSED_B, FUSED_T, FUSED_REPS = 1 << 20, 8192, 3
 FED_B, FED_T, PRNG_B, PRNG_T, PLAIN_T = (1 << 16) + 37, 300, 1 << 14, 300, 64
-# fed actions: the same float32 adds in the same order (in practice equal)
-ROLLOUT_ATOL = 1e-5
+ROLLOUT_OPS_PER_STEP = 88
 WARP_INSTS_PER_CLOCK = 4
+# kernel vs plain: the same float32 adds in the same order (in practice
+# equal)
+ROLLOUT_ATOL = 1e-5
 POLYAK_SIZES, POLYAK_TAUS = (1, 1000, 8193, 149645), (0.0, 0.01, 1.0)
 POLYAK_BYTES_PER_ELEM = 12      # load t and m, store t
 
@@ -402,12 +409,27 @@ def _smi_max_sm_clock_hz():
     return float(out[0]) * 1e6
 
 
+def hold_rollout(got, want, what):
+    """Hold the kernel's (reward sums, episodes) against the plain
+    version's: episodes exactly, reward sums to ROLLOUT_ATOL.  Returns
+    the largest reward difference."""
+    import torch
+    (k_rew, k_ep), (p_rew, p_ep) = got, want
+    torch.cuda.synchronize()
+    assert torch.equal(k_ep, p_ep), f"{what}: episodes differ"
+    torch.testing.assert_close(k_rew, p_rew, rtol=0, atol=ROLLOUT_ATOL)
+    err = float((k_rew - p_rew).abs().max())
+    log(f"  {what}: kernel == plain: episodes equal, reward sums max abs "
+        f"difference {err:.3g} (atol {ROLLOUT_ATOL}); bit-equal: "
+        f"{torch.equal(k_rew, p_rew)}")
+    return err
+
+
 def phase_rollout(dev):
     import torch
     from cm3_tpu_torch import bench
     from cm3_tpu_torch.core.config import CheckersEnvConfig
     from cm3_tpu_torch.envs import checkers_packed as cp
-    from cm3_tpu_torch.ops import _nvcc
     from cm3_tpu_torch.ops import checkers_rollout as cr
 
     spec = cp.make_spec(CheckersEnvConfig(
@@ -418,15 +440,9 @@ def phase_rollout(dev):
     # fed actions at a ragged batch: kernel == plain on the card
     acts = torch.randint(0, 5, (FED_T, 2, FED_B), device=dev,
                          dtype=torch.int32, generator=gen)
-    k_rew, k_ep = cr.rollout_actions(spec, acts)
-    p_rew, p_ep = cr.rollout_actions_plain(spec, acts)
-    torch.cuda.synchronize()
-    assert torch.equal(k_ep, p_ep), "fed rollout: episodes differ"
-    torch.testing.assert_close(k_rew, p_rew, rtol=0, atol=ROLLOUT_ATOL)
-    fed_err = float((k_rew - p_rew).abs().max())
-    log(f"  fed B={FED_B} T={FED_T}: episodes equal, reward sums max abs "
-        f"difference {fed_err:.3g} (atol {ROLLOUT_ATOL}); "
-        f"bit-equal: {torch.equal(k_rew, p_rew)}")
+    fed_err = hold_rollout(cr.rollout_actions(spec, acts),
+                           cr.rollout_actions_plain(spec, acts),
+                           f"fed B={FED_B} T={FED_T}")
 
     # Philox draws: kernel == plain on the card == plain on the CPU
     k_rew, k_ep = cr.rollout_prng(spec, PRNG_B, PRNG_T, SEED + 7, device=dev)
@@ -452,45 +468,53 @@ def phase_rollout(dev):
         f"rollout_prng launched {launches} times in the bench, not "
         f"{1 + FUSED_REPS}")
 
+    # the bench's call timed, then held against the plain version at the
+    # same size and seed
     out = {}
-    call = lambda: out.update(r=cr.rollout_prng(spec, FUSED_B, FUSED_T, 99,
+    call = lambda: out.update(k=cr.rollout_prng(spec, FUSED_B, FUSED_T, 99,
                                                 device=dev))
     call_ms = cuda_time_ms(call, 3, warmup=1)
-    rew, ep = out["r"]
+    rew, ep = out["k"]
     assert rew.shape == (FUSED_B,) and bool(torch.isfinite(rew).all())
     assert int(ep.min()) >= FUSED_T // spec.max_steps
+    plain = lambda: out.update(p=cr.rollout_prng_plain(spec, FUSED_B,
+                                                       FUSED_T, 99, dev))
+    plain_ms = cuda_time_ms(plain, 1, warmup=0)
+    full_err = hold_rollout(out["k"], out["p"],
+                            f"Philox B={FUSED_B} T={FUSED_T} seed 99")
+    # the plain version per step over a short run, held against the kernel
+    short = lambda: out.update(p=cr.rollout_prng_plain(spec, FUSED_B,
+                                                       PLAIN_T, 3, dev))
+    plain_step_ms = cuda_time_ms(short, 1, warmup=1) / PLAIN_T
+    short_err = hold_rollout(
+        cr.rollout_prng(spec, FUSED_B, PLAIN_T, 3, device=dev), out["p"],
+        f"Philox B={FUSED_B} T={PLAIN_T} seed 3")
 
-    sass = _nvcc.sass(_nvcc.library().build_info["library"])
-    # checkers_rollout_kernel<2, false>: two agents, Philox (the bench's)
-    insts = _nvcc.loop_instructions(sass, "ILi2ELb0E")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = _smi_max_sm_clock_hz()
-    bound_ms = (insts * FUSED_B * FUSED_T
+    bound_ms = (ROLLOUT_OPS_PER_STEP * FUSED_B * FUSED_T
                 / (sms * WARP_INSTS_PER_CLOCK * 32 * clock) * 1e3)
-
-    plain = lambda: cr.rollout_prng_plain(spec, FUSED_B, PLAIN_T, 3, dev)
-    plain_step_ms = cuda_time_ms(plain, 1, warmup=1) / PLAIN_T
-    step_ms = call_ms / FUSED_T
     log(f"  bench_checkers_fused (B={FUSED_B}, T={FUSED_T}, reps "
         f"{FUSED_REPS}): {figure:.6g} env-steps/s; {launches} launches "
         f"(warm-up + reps)")
     log(f"  kernel {call_ms:.3f} ms per call "
         f"({FUSED_B * FUSED_T / call_ms * 1e3:.6g} env-steps/s) against a "
-        f"bound of {bound_ms:.3f} ms (operations: {insts} SASS instructions "
-        f"per step in the loop body, {sms} SMs x {WARP_INSTS_PER_CLOCK} "
-        f"warp-instructions x 32 at {clock / 1e6:.0f} MHz), "
+        f"bound of {bound_ms:.3f} ms (operations: {ROLLOUT_OPS_PER_STEP} "
+        f"per step x B x T / ({sms} SMs x {WARP_INSTS_PER_CLOCK} "
+        f"warp-instructions x 32 at {clock / 1e6:.0f} MHz)), "
         f"{bound_ms / call_ms:.3f} of it")
-    log(f"  per step of {FUSED_B} instances: kernel {step_ms * 1e3:.3f} us, "
-        f"plain {plain_step_ms * 1e3:.1f} us (T={PLAIN_T}), bound "
-        f"{bound_ms / FUSED_T * 1e3:.3f} us; library: no single PyTorch "
-        "call computes it")
+    log(f"  plain {plain_ms:.1f} ms per call ({plain_ms / call_ms:.0f}x the "
+        f"kernel); per step of {FUSED_B} instances: kernel "
+        f"{call_ms / FUSED_T * 1e3:.3f} us, plain "
+        f"{plain_ms / FUSED_T * 1e3:.1f} us (T={FUSED_T}), "
+        f"{plain_step_ms * 1e3:.1f} us (T={PLAIN_T}); library: no single "
+        "PyTorch call computes it")
     grid = bench.bench_checkers_throughput()
     log(f"  bench_checkers_throughput (grid engine, B=8192, T=256, reps 5): "
         f"{grid:.6g} env-steps/s")
-    # the kernels line gives the rollout's times per env step of FUSED_B
-    # instances: the plain version cannot run T = FUSED_T in the budget
-    return {"launches": launches, "max_abs_err": fed_err, "ms": step_ms,
-            "plain_ms": plain_step_ms, "bound_ms": bound_ms / FUSED_T,
+    return {"launches": launches, "max_abs_err": max(fed_err, full_err,
+                                                     short_err),
+            "ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations", "library_ms": None}
 
 
@@ -584,7 +608,7 @@ def main():
     kern = run_phase("1 kernel vs plain", 60, phase_kernel, dev)
     launches = run_phase("2 the slice", 60, phase_slice, dev)
     run_phase("3 card vs CPU", 40, phase_parity, dev)
-    rollout = run_phase("4 fused Checkers rollout", 120, phase_rollout, dev)
+    rollout = run_phase("4 fused Checkers rollout", 240, phase_rollout, dev)
     soft = run_phase("5 polyak", 30, phase_polyak, dev)
     log(f"all phases done at {time.time() - T0:.1f} s")
 

@@ -18,7 +18,7 @@ namespace {
 // The spec's words, in the order ops/checkers_rollout.py packs them.
 enum SpecWord {
   kWidth, kGreen, kOrange, kFull, kUp, kDown, kLeft, kRight,
-  kInit0, kInit1, kGoalGreen, kMaxSteps, kSpecWords
+  kInit0, kInit1, kGoalGreen, kMaxSteps
 };
 
 struct Spec {
@@ -123,10 +123,11 @@ void launch(const Spec& s, const int32_t* actions, int batch, int n_steps,
 
 }  // namespace
 
-// spec: kSpecWords words (see SpecWord); actions: int32 [n_steps, n_agents,
-// batch] on the device, or null for the Philox variant; rew (float32 [batch])
-// and ep (int32 [batch]) on the device.  Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for arguments the kernel does not take.
+// spec: the words of SpecWord, in its order; actions: int32 [n_steps,
+// n_agents, batch] on the device, or null for the Philox variant; rew
+// (float32 [batch]) and ep (int32 [batch]) on the device.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments the kernel does not take.
 extern "C" int cm3_checkers_rollout(const uint32_t* spec, int n_agents,
                                     const int32_t* actions, int batch,
                                     int n_steps, uint32_t seed, float* rew,
@@ -158,6 +159,3 @@ extern "C" int cm3_checkers_rollout(const uint32_t* spec, int n_agents,
     launch<2>(s, actions, batch, n_steps, seed, rew, ep, st);
   return static_cast<int>(cudaGetLastError());
 }
-
-// The number of spec words the entry above reads; the wrapper checks it.
-extern "C" int cm3_checkers_spec_words() { return kSpecWords; }

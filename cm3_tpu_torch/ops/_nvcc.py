@@ -31,7 +31,6 @@ import functools
 import glob
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import time
@@ -46,7 +45,6 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 SIGNATURES = {
     "cm3_error_string": ([_I], ctypes.c_char_p),
-    "cm3_checkers_spec_words": ([], _I),
     # spec, n_agents, actions, batch, n_steps, seed, rew, ep, stream
     "cm3_checkers_rollout": ([_P, _I, _P, _I, _I, _U32, _P, _P, _P], _I),
 }
@@ -145,50 +143,3 @@ def check(code: int, what: str):
         text = library().cm3_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {text}")
 
-
-def loop_instructions(sass: str, function: str) -> int:
-    """SASS instructions in the longest loop of the kernel whose
-    (mangled) name contains ``function``: the instructions from the
-    target of its longest backward branch to that branch, counted
-    once.  ``sass`` is ``cuobjdump -sass`` output."""
-    blocks = re.split(r"\n\s*Function\s*:\s*", "\n" + sass)
-    body = [b for b in blocks[1:] if function in b.split("\n", 1)[0]]
-    if len(body) != 1:
-        raise ValueError(f"{len(body)} functions match {function!r}")
-    labels, instrs = {}, []
-    pending = []
-    for line in body[0].splitlines():
-        m = re.match(r"\s*(\.L_x_\d+):", line)
-        if m:
-            pending.append(m.group(1))
-            continue
-        m = re.match(r"\s*/\*([0-9a-fA-F]+)\*/\s+([^;]*);", line)
-        if m:
-            addr = int(m.group(1), 16)
-            for name in pending:
-                labels[name] = addr
-            pending = []
-            instrs.append((addr, m.group(2).strip()))
-    best = None
-    for addr, text in instrs:
-        if not re.search(r"(^|\s)BRA(\.\S+)?\s", text + " "):
-            continue
-        m = re.search(r"`\((\.L_x_\d+)\)", text)
-        if m:
-            target = labels.get(m.group(1))
-        else:
-            m = re.findall(r"0x[0-9a-fA-F]+", text.split("BRA", 1)[1])
-            target = int(m[-1], 16) if m else None
-        if target is not None and target < addr:
-            if best is None or addr - target > best[1] - best[0]:
-                best = (target, addr)
-    if best is None:
-        raise ValueError(f"no backward branch in {function!r}")
-    return sum(1 for addr, _ in instrs if best[0] <= addr <= best[1])
-
-
-def sass(path: str) -> str:
-    """``cuobjdump -sass`` of a built library (cuobjdump beside nvcc)."""
-    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
-    return subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, check=True).stdout

@@ -13,23 +13,38 @@ Kernel: ``cm3_tpu_torch/csrc/checkers_rollout.cu``, CUDA C++ for
 
 Bound on an H100.  The outputs are 8 bytes per instance and there are
 no inputs in the Philox variant, so bytes are no limit (8 MB per call
-at B = 2^20).  The work is integer instruction issue: per instance and
-step one Philox4x32-10 draw (ten rounds of two 32-bit multiply-highs,
-two multiply-lows and XORs) and the packed step of two agents (shifts,
-ANDs, compares and selects).  The least time is
+at B = 2^20).  The work is instruction issue.  What one step of one
+instance needs (two agents, Philox draws), counted in single
+instructions of the card, whatever this build makes of it:
 
-    SASS instructions in the loop body per step x B x T
-      / (SMs x 4 warp-instructions per clock x 32 threads x SM clock),
+* Philox4x32-10, counter (t, b, 0, 0), key schedule hoisted: 33.  A
+  full round is 2 wide multiplies (both halves of a 32x32 product) and
+  2 three-input XORs; round 1 is one multiply (the zero words vanish),
+  round 2 three (b's product is the same every step), rounds 3-8 four
+  each, and only output words 0 and 1 are used, so round 9 takes three
+  and round 10 two.
+* per agent, 21, branch-free: the action ``(w >> 7) % 5`` 4 (shift,
+  multiply-high by the reciprocal, shift, multiply-subtract); the move
+  8 (one table load of the action's shift and edge mask, two shifts and
+  a select for the target, the edge and occupied tests, their
+  conjunction, the select of the new position); the pickup 3 (two
+  masked tests, one OR into ``collected``); the reward 6 (the invalid
+  test, three selects, two adds).
+* per step, 13: two reward adds, the step count, the done test (2),
+  the episode count, four reset selects, the loop's increment, compare
+  and branch.
 
-with the instruction count read from the built library
-(``cuobjdump -sass``, ``_nvcc.loop_instructions``) and the clock from
-``nvidia-smi --query-gpu=clocks.max.sm``.  ``chip_smoke.py`` computes
-it in each run.  On an H100 SXM (132 SMs, 1980 MHz, 700 W) the built
-loop body is 143 instructions per step, so a ``bench.py`` call
-(B = 2^20, T = 8192) is bound at 36.7 ms; the kernel took 61.1 ms.
-Philox is about 35 of the 143 (``IMAD.WIDE.U32`` yields both halves of
-a product); the move selection of the two agents compiles to branches
-that a warp walks in full, since its threads' actions differ.
+That is 33 + 2 x 21 + 13 = 88 operations per step, and the least time
+of a call is
+
+    88 x B x T / (SMs x 4 warp-instructions per clock x 32 x SM clock),
+
+the SM clock from ``nvidia-smi --query-gpu=clocks.max.sm``;
+``chip_smoke.py`` computes it in each run.  On an H100 SXM (132 SMs,
+1980 MHz, 700 W) a ``bench.py`` call (B = 2^20, T = 8192) is bound at
+22.6 ms.  The built loop body is longer (143 instructions per step in
+``cuobjdump -sass``): the move selection compiles to branches that a
+warp walks in full, since its threads' actions differ.
 
 Design.  One instance per thread, its whole state in registers: the
 agents' one-hot ``uint32`` positions, the collected mask, the step
@@ -125,10 +140,6 @@ def _launch(wrapper, spec, actions, batch, n_steps, seed, device):
     batch); counts the launch on ``wrapper``."""
     lib = _nvcc.library()
     words = spec_words(spec)
-    if lib.cm3_checkers_spec_words() != len(words):
-        raise RuntimeError("checkers_rollout: the library reads "
-                           f"{lib.cm3_checkers_spec_words()} spec words, "
-                           f"the wrapper packs {len(words)}")
     if not 0 <= batch < 2 ** 31 or not 0 <= n_steps < 2 ** 31:
         raise ValueError(f"checkers_rollout: batch {batch} or n_steps "
                          f"{n_steps} out of range")

@@ -6,6 +6,7 @@ against the plain version on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``)."""
 
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -206,39 +207,26 @@ def test_missing_nvcc_names_the_places_looked(monkeypatch, tmp_path):
         _nvcc.find_nvcc()
 
 
-SASS = """
-	code for sm_90a
-		Function : _Z23checkers_rollout_kernelILi2ELb0EEvN12_GLOBAL__N_14SpecEPKiiijPfS3_
-	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
-        /*0000*/                   LDC R1, c[0x0][0x28] ;
-        /*0010*/                   S2R R0, SR_TID.X ;
-.L_x_1:
-        /*0020*/                   IMAD.HI.U32 R4, R2, -0x2daee0ad, RZ ;
-        /*0030*/                   LOP3.LUT R5, R4, R3, RZ, 0x96, !PT ;
-        /*0040*/              @!P0 BRA `(.L_x_2) ;
-        /*0050*/                   IADD3 R6, R6, 0x1, RZ ;
-.L_x_2:
-        /*0060*/               @P1 BRA `(.L_x_1) ;
-        /*0070*/                   STG.E [R2.64], R7 ;
-        /*0080*/                   EXIT ;
-.L_x_3:
-        /*0090*/                   BRA `(.L_x_3);
-		Function : _Z23checkers_rollout_kernelILi2ELb1EEvN12_GLOBAL__N_14SpecEPKiiijPfS3_
-        /*0000*/                   EXIT ;
-"""
-
-
-@pytest.mark.parametrize("form", ["labels", "addresses"])
-def test_loop_instructions_counts_the_loop_body(form):
-    text = SASS
-    if form == "addresses":
-        text = (text.replace("`(.L_x_2)", "0x60").replace("`(.L_x_1)", "0x20")
-                .replace("`(.L_x_3)", "0x90"))
-    assert _nvcc.loop_instructions(text, "ILi2ELb0E") == 5
-    with pytest.raises(ValueError):
-        _nvcc.loop_instructions(text, "ILi2ELb1E")      # no loop
-    with pytest.raises(ValueError):
-        _nvcc.loop_instructions(text, "checkers")       # two functions
+@pytest.mark.parametrize("goal_green", [(True, False), (False,)])
+def test_spec_words_follow_the_source_enum(goal_green):
+    """The wrapper packs the spec in the order of ``SpecWord`` in
+    ``csrc/checkers_rollout.cu``, which the C entry reads by index."""
+    src = open(os.path.join(_nvcc.CSRC, "checkers_rollout.cu")).read()
+    enum = re.search(r"enum SpecWord \{([^}]*)\}", src).group(1)
+    names = [w.strip() for w in enum.split(",") if w.strip()]
+    n = len(goal_green)
+    kw = dict(KW, n_agents=n, agents_r=KW["agents_r"][:n],
+              agents_c=KW["agents_c"][:n])
+    spec = tcp.make_spec(tcfg.CheckersEnvConfig(**kw), goal_green)
+    init = tuple(spec.init_pos) + (0,) * (2 - n)
+    want = dict(
+        kWidth=spec.width, kGreen=spec.green_mask, kOrange=spec.orange_mask,
+        kFull=spec.full_mask, kUp=spec.up_ok, kDown=spec.down_ok,
+        kLeft=spec.left_ok, kRight=spec.right_ok, kInit0=init[0],
+        kInit1=init[1], kGoalGreen=int(goal_green[0]),
+        kMaxSteps=spec.max_steps)
+    assert tcr.spec_words(spec) == tuple(want[k] for k in names)
+    assert sorted(names) == sorted(want)
 
 
 # ---- the benchmarks' control flow (figures only on the card) ---- #
