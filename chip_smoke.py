@@ -4,13 +4,15 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Six phases, each between progress lines with its elapsed seconds and
-held to a time budget (120 + 60 + 60 + 40 + 240 + 30 s):
+Eight phases, each between progress lines with its elapsed seconds and
+held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 120 + 90 s =
+760 s):
 
-0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built by one
-   ``nvcc`` call into ``build/cm3_tpu_torch/`` (or found there by their
-   hash): the nvcc path and version, the command, the seconds and
-   ptxas' register report.
+0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
+   ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
+   together, and one link (or found there by their hash): the nvcc
+   path and version, the commands, the seconds and ptxas' register
+   report.
 1. kernel vs plain: the Triton ``adam_polyak`` kernel against its plain
    PyTorch version for 5 steps at the three flat-buffer sizes of the
    main path and at ragged sizes, then its time per launch (CUDA events
@@ -42,6 +44,19 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 s):
    slice's CM3 state, with the launch count set to 0 just before and
    read just after; its time back to back and in a CUDA graph beside
    its memory bound, the plain version's and ``Tensor.lerp_``'s.
+6. the fused particle rollout (CUDA C++) and
+7. the fused roadway rollout (CUDA C++), each: the kernel against its
+   plain version on fed actions at a ragged batch over several
+   episodes, and with Philox draws on the card and on the CPU; then
+   ``bench.py``'s ``particle_fused_env_steps_per_s`` /
+   ``roadway_fused_env_steps_per_s`` program at full size (B = 2^20,
+   T = 2048, 3 reps) through ``cm3_tpu_torch.bench``, with the launch
+   count set to 0 just before and read just after; one full-size call
+   timed and held against the plain version at the same size and seed;
+   the kernel's time against its bound (the operations one step needs,
+   counted in ``ops/particle_rollout.py`` and ``ops/roadway_rollout.py``,
+   at the issue rate and at the special-function unit's rate; the
+   larger bounds it) and the plain version's time.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -88,6 +103,20 @@ WARP_INSTS_PER_CLOCK = 4
 ROLLOUT_ATOL = 1e-5
 POLYAK_SIZES, POLYAK_TAUS = (1, 1000, 8193, 149645), (0.0, 0.01, 1.0)
 POLYAK_BYTES_PER_ELEM = 12      # load t and m, store t
+# the fused particle and roadway rollouts: bench.py's size, the checks'
+# sizes, and per step of one instance the operations issued and those of
+# the special-function unit (MUFU, 16 lanes per clock per SM), as itemized
+# in the notes of cm3_tpu_torch/ops/particle_rollout.py (N = 4) and
+# cm3_tpu_torch/ops/roadway_rollout.py (N = 2)
+SOA_B, SOA_T, SOA_REPS = 1 << 20, 2048, 3
+SOA_FED_B, SOA_FED_T, SOA_PRNG_B, SOA_PRNG_T = (1 << 16) + 37, 100, 8192, 200
+PARTICLE_OPS, PARTICLE_MUFU = 735, 34
+ROADWAY_OPS, ROADWAY_MUFU = 315, 6
+MUFU_LANES_PER_CLOCK = 16
+# kernel vs plain: episodes exactly; reward sums at JAX's own tolerance
+# between its particle kernel and its scan (they are expected bit-equal,
+# and the run prints whether they are)
+SOA_TOL = (1e-5, 1e-3)          # rtol, atol
 
 T0 = time.time()
 
@@ -409,19 +438,22 @@ def _smi_max_sm_clock_hz():
     return float(out[0]) * 1e6
 
 
-def hold_rollout(got, want, what):
+def hold_rollout(got, want, what, rtol=0.0, atol=ROLLOUT_ATOL):
     """Hold the kernel's (reward sums, episodes) against the plain
-    version's: episodes exactly, reward sums to ROLLOUT_ATOL.  Returns
-    the largest reward difference."""
+    version's (on the card or the CPU): episodes exactly, reward sums to
+    ``rtol``/``atol``.  Returns the largest reward difference."""
     import torch
-    (k_rew, k_ep), (p_rew, p_ep) = got, want
     torch.cuda.synchronize()
-    assert torch.equal(k_ep, p_ep), f"{what}: episodes differ"
-    torch.testing.assert_close(k_rew, p_rew, rtol=0, atol=ROLLOUT_ATOL)
+    (k_rew, k_ep), (p_rew, p_ep) = ((r.cpu(), e.cpu()) for r, e in (got,
+                                                                     want))
+    assert torch.equal(k_ep, p_ep), (
+        f"{what}: episodes differ on {int((k_ep != p_ep).sum())} instances")
+    torch.testing.assert_close(k_rew, p_rew, rtol=rtol, atol=atol)
     err = float((k_rew - p_rew).abs().max())
     log(f"  {what}: kernel == plain: episodes equal, reward sums max abs "
-        f"difference {err:.3g} (atol {ROLLOUT_ATOL}); bit-equal: "
-        f"{torch.equal(k_rew, p_rew)}")
+        f"difference {err:.3g} (rtol {rtol}, atol {atol}), "
+        f"{int((k_rew != p_rew).sum())} of {k_rew.numel()} differ; "
+        f"bit-equal: {torch.equal(k_rew, p_rew)}")
     return err
 
 
@@ -582,6 +614,108 @@ def phase_polyak(dev):
 
 
 # ------------------------------------------------------------------ #
+# the fused particle and roadway rollouts
+# ------------------------------------------------------------------ #
+
+
+def phase_soa_rollout(dev, name, mod, cfg, bench_fn, ops, mufu):
+    import torch
+
+    n = cfg.n_agents
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    eps = lambda ep: (int(ep.min()), int(ep.max()))
+
+    # fed actions at a ragged batch over several episodes, on the card
+    acts = torch.randint(0, 5, (SOA_FED_T, n, SOA_FED_B), device=dev,
+                         dtype=torch.int32, generator=gen)
+    k = mod.rollout_actions(cfg, acts)
+    fed_err = hold_rollout(k, mod.rollout_actions_plain(cfg, acts),
+                           f"fed B={SOA_FED_B} T={SOA_FED_T}", *SOA_TOL)
+    assert eps(k[1])[0] >= 2, "fewer than two episodes"
+
+    # Philox draws: kernel == plain on the card; plain on the CPU
+    k = mod.rollout_prng(cfg, SOA_PRNG_B, SOA_PRNG_T, SEED + 7, device=dev)
+    prng_err = hold_rollout(
+        k, mod.rollout_prng_plain(cfg, SOA_PRNG_B, SOA_PRNG_T, SEED + 7, dev),
+        f"Philox B={SOA_PRNG_B} T={SOA_PRNG_T} card plain", *SOA_TOL)
+    cpu_err = hold_rollout(
+        k, mod.rollout_prng(cfg, SOA_PRNG_B, SOA_PRNG_T, SEED + 7,
+                            device="cpu"),
+        f"Philox B={SOA_PRNG_B} T={SOA_PRNG_T} CPU plain", *SOA_TOL)
+    log(f"  Philox: mean reward sum {float(k[0].mean()):.4f}, episodes "
+        f"{eps(k[1])} (min, max)")
+
+    # bench.py's figure at full size: the main path of this kernel
+    mod.rollout_prng.launches = 0
+    figure = bench_fn(SOA_B, SOA_T, SOA_REPS)
+    launches = mod.rollout_prng.launches
+    assert launches == 1 + SOA_REPS, (
+        f"{name}: rollout_prng launched {launches} times in the bench, not "
+        f"{1 + SOA_REPS}")
+
+    # one bench-size call timed, then held against the plain version at
+    # the same size and seed
+    out = {}
+    call = lambda: out.update(k=mod.rollout_prng(cfg, SOA_B, SOA_T, 99,
+                                                 device=dev))
+    call_ms = cuda_time_ms(call, 3, warmup=1)
+    rew, ep = out["k"]
+    assert rew.shape == (SOA_B,) and bool(torch.isfinite(rew).all())
+    assert ep.shape == (SOA_B,) and int(ep.min()) >= 1
+    plain = lambda: out.update(p=mod.rollout_prng_plain(cfg, SOA_B, SOA_T,
+                                                        99, dev))
+    plain_ms = cuda_time_ms(plain, 1, warmup=0)
+    full_err = hold_rollout(out["k"], out["p"],
+                            f"Philox B={SOA_B} T={SOA_T} seed 99", *SOA_TOL)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _smi_max_sm_clock_hz()
+    work = SOA_B * SOA_T
+    issue_ms = ops * work / (sms * WARP_INSTS_PER_CLOCK * 32 * clock) * 1e3
+    mufu_ms = mufu * work / (sms * MUFU_LANES_PER_CLOCK * clock) * 1e3
+    bound_ms = max(issue_ms, mufu_ms)
+    log(f"  {bench_fn.__name__} (B={SOA_B}, T={SOA_T}, reps {SOA_REPS}): "
+        f"{figure:.6g} env-steps/s; {launches} launches (warm-up + reps)")
+    log(f"  kernel {call_ms:.3f} ms per call ({work / call_ms * 1e3:.6g} "
+        f"env-steps/s) against a bound of {bound_ms:.3f} ms, by "
+        f"{'issue' if issue_ms >= mufu_ms else 'MUFU'} (issue: {ops} "
+        f"operations per step x B x T / ({sms} SMs x "
+        f"{WARP_INSTS_PER_CLOCK} warp-instructions x 32 at "
+        f"{clock / 1e6:.0f} MHz) = {issue_ms:.3f} ms; MUFU: {mufu} per "
+        f"step / ({sms} SMs x {MUFU_LANES_PER_CLOCK} lanes) = "
+        f"{mufu_ms:.3f} ms), {bound_ms / call_ms:.3f} of it")
+    log(f"  plain {plain_ms:.1f} ms per call ({plain_ms / call_ms:.0f}x the "
+        f"kernel; {plain_ms / SOA_T * 1e3:.1f} us per step of {SOA_B} "
+        "instances); library: no single PyTorch call computes it")
+    return {"launches": launches,
+            "max_abs_err": max(fed_err, prng_err, cpu_err, full_err),
+            "ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "library_ms": None}
+
+
+def phase_particle(dev):
+    from cm3_tpu_torch import bench
+    from cm3_tpu_torch.core.config import ParticleEnvConfig
+    from cm3_tpu_torch.ops import particle_rollout
+
+    cfg = ParticleEnvConfig(prob_random=0.0, initial_std=0.0)
+    return phase_soa_rollout(dev, "particle", particle_rollout, cfg,
+                             bench.bench_particle_fused, PARTICLE_OPS,
+                             PARTICLE_MUFU)
+
+
+def phase_roadway(dev):
+    from cm3_tpu_torch import bench
+    from cm3_tpu_torch.core.config import RoadwayEnvConfig
+    from cm3_tpu_torch.ops import roadway_rollout
+
+    cfg = RoadwayEnvConfig(depart_stdev=0.0)
+    return phase_soa_rollout(dev, "roadway", roadway_rollout, cfg,
+                             bench.bench_roadway_fused, ROADWAY_OPS,
+                             ROADWAY_MUFU)
+
+
+# ------------------------------------------------------------------ #
 
 
 def main():
@@ -610,6 +744,8 @@ def main():
     run_phase("3 card vs CPU", 40, phase_parity, dev)
     rollout = run_phase("4 fused Checkers rollout", 240, phase_rollout, dev)
     soft = run_phase("5 polyak", 30, phase_polyak, dev)
+    particle = run_phase("6 fused particle rollout", 120, phase_particle, dev)
+    roadway = run_phase("7 fused roadway rollout", 90, phase_roadway, dev)
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -627,6 +763,14 @@ def main():
              source="cm3_tpu_torch/ops/polyak.py",
              replaces="cm3_tpu/ops/polyak.py:58",
              **{k: soft[k] for k in keys}),
+        dict(name="particle_rollout", route="cuda",
+             source="cm3_tpu_torch/csrc/particle_rollout.cu",
+             replaces="cm3_tpu/ops/particle_rollout.py:64",
+             **{k: particle[k] for k in keys}),
+        dict(name="roadway_rollout", route="cuda",
+             source="cm3_tpu_torch/csrc/roadway_rollout.cu",
+             replaces="cm3_tpu/ops/roadway_rollout.py:83",
+             **{k: roadway[k] for k in keys}),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -11,6 +11,15 @@
   steps of uniform random actions, with auto-reset to the cached reset
   state and the observations kept live (summed into the result, as the
   reference keeps XLA from dropping them).  Same formula.
+* ``particle_fused_env_steps_per_s`` (``bench.py:202-224``): the fused
+  particle rollout kernel (``ops/particle_rollout.py``) runs B = 2^20
+  four-agent particle instances (``prob_random=0``, ``initial_std=0``)
+  for T = 2048 steps of a random policy; warm-up, then ``reps`` timed
+  calls, each ended by reading its reward sum on the host.
+* ``roadway_fused_env_steps_per_s`` (``bench.py:177-199``): the fused
+  roadway rollout kernel (``ops/roadway_rollout.py``, with its
+  time-to-collision filter) runs B = 2^20 two-car roadway instances
+  (``depart_stdev=0``) for T = 2048 control steps the same way.
 
     python -m cm3_tpu_torch.bench --one checkers_fused_env_steps_per_s
 
@@ -21,8 +30,7 @@ prints ``{NAME: value}`` (the figure rounded to an integer), as
 Left out: the headline ``train_env_steps_per_s`` needs seed-batched
 training (ROADMAP A7), which is not ported; the single-seed
 ``train_chunk_env_steps_per_s`` of ``bench.py`` runs the non-fused
-optimizer (``fused_opt=False``), which the port refuses; the particle
-and roadway figures wait for those games.
+optimizer (``fused_opt=False``), which the port refuses.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import time
 
 import torch
 
-from cm3_tpu_torch.core.config import CheckersEnvConfig
+from cm3_tpu_torch.core.config import (CheckersEnvConfig,
+                                       ParticleEnvConfig, RoadwayEnvConfig)
 
 
 def _cfg():
@@ -41,15 +50,12 @@ def _cfg():
                              max_steps=50)
 
 
-def bench_checkers_fused(batch: int = 1 << 20, steps: int = 8192,
-                         reps: int = 3, device="cuda"):
-    from cm3_tpu_torch.envs import checkers_packed as cp
-    from cm3_tpu_torch.ops import checkers_rollout as cr
-
-    spec = cp.make_spec(_cfg(), (True, False))
-
+def _fused(rollout_prng, cfg, batch, steps, reps, device):
+    """``bench.py``'s fused-rollout program: a warm-up call, then
+    ``reps`` calls, each ended by reading its reward sum on the host;
+    B x T x reps / seconds."""
     def run(seed):
-        rew, ep = cr.rollout_prng(spec, batch, steps, seed, device=device)
+        rew, ep = rollout_prng(cfg, batch, steps, seed, device=device)
         return rew.sum(), ep.sum()
 
     r, _ = run(0)
@@ -60,6 +66,31 @@ def bench_checkers_fused(batch: int = 1 << 20, steps: int = 8192,
         float(r)                               # forces completion
     dt = time.perf_counter() - t0
     return batch * steps * reps / dt
+
+
+def bench_checkers_fused(batch: int = 1 << 20, steps: int = 8192,
+                         reps: int = 3, device="cuda"):
+    from cm3_tpu_torch.envs import checkers_packed as cp
+    from cm3_tpu_torch.ops import checkers_rollout as cr
+
+    spec = cp.make_spec(_cfg(), (True, False))
+    return _fused(cr.rollout_prng, spec, batch, steps, reps, device)
+
+
+def bench_particle_fused(batch: int = 1 << 20, steps: int = 2048,
+                         reps: int = 3, device="cuda"):
+    from cm3_tpu_torch.ops import particle_rollout as pr
+
+    cfg = ParticleEnvConfig(prob_random=0.0, initial_std=0.0)
+    return _fused(pr.rollout_prng, cfg, batch, steps, reps, device)
+
+
+def bench_roadway_fused(batch: int = 1 << 20, steps: int = 2048,
+                        reps: int = 3, device="cuda"):
+    from cm3_tpu_torch.ops import roadway_rollout as rr
+
+    cfg = RoadwayEnvConfig(depart_stdev=0.0)
+    return _fused(rr.rollout_prng, cfg, batch, steps, reps, device)
 
 
 def bench_checkers_throughput(batch: int = 8192, steps: int = 256,
@@ -104,6 +135,8 @@ def bench_checkers_throughput(batch: int = 8192, steps: int = 256,
 DETAIL = {
     "checkers_fused_env_steps_per_s": bench_checkers_fused,
     "checkers_grid_env_steps_per_s": bench_checkers_throughput,
+    "particle_fused_env_steps_per_s": bench_particle_fused,
+    "roadway_fused_env_steps_per_s": bench_roadway_fused,
 }
 
 

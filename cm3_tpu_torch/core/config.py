@@ -1,12 +1,15 @@
 """Typed configuration: the subset of ``cm3_tpu.core.config`` that the
-Checkers stage-2 CM3 training chunk reads.
+ported modules read: the Checkers stage-2 CM3 training chunk and the
+particle and roadway struct-of-arrays engines of the fused rollouts.
 
-Same frozen dataclasses, same field names and defaults.  Fields of the
-JAX schema that no ported code reads yet (the particle and roadway
-configs, the V/QMIX/baseline knobs, the dual and sharded replay, the
-runner's schedule) are left out until the module that reads them is
-ported (ROADMAP.md, queue A).  The JSON experiment files are read in
-place from ``cm3_tpu/configs/`` as data.
+Same frozen dataclasses, same field names and defaults.  The particle
+and roadway configs are whole, their observation and reset fields
+included (read once their engines are ported, ROADMAP.md A10b/A11b).
+Other fields of the JAX schema that no ported code reads yet (the
+V/QMIX/baseline knobs, the dual and sharded replay, the runner's
+schedule) are left out until the module that reads them is ported
+(ROADMAP.md, queue A).  The JSON experiment files are read in place
+from ``cm3_tpu/configs/`` as data.
 """
 
 from __future__ import annotations
@@ -44,6 +47,102 @@ class CheckersEnvConfig:
     @property
     def max_collectible(self) -> int:
         return self.n_rows * self.n_columns
+
+
+@dataclasses.dataclass(frozen=True)
+class ParticleEnvConfig:
+    """Cooperative navigation particle env
+    (reference ``multiagent/core.py`` + ``scenarios/multi-goal_spread.py``)."""
+
+    n_agents: int = 4
+    agents_x: Tuple[float, ...] = (-0.9, 0.9, -0.9, 0.9)
+    agents_y: Tuple[float, ...] = (-0.9, 0.9, 0.9, -0.9)
+    landmarks_x: Tuple[float, ...] = (0.9, -0.9, 0.9, -0.9)
+    landmarks_y: Tuple[float, ...] = (0.9, -0.9, -0.9, 0.9)
+    initial_std: float = 0.0
+    prob_random: float = 0.2
+    max_steps: int = 33
+    # physics constants (reference core.py:94-99)
+    dt: float = 0.1
+    damping: float = 0.25
+    contact_force: float = 100.0
+    contact_margin: float = 1e-3
+    agent_size: float = 0.15
+    accel: float = 5.0  # action force sensitivity (environment.py:211)
+
+
+@dataclasses.dataclass(frozen=True)
+class RoadwayEnvConfig:
+    """Kinematic sublane lane-change roadway (reference ``env_sumo/simple/*``
+    + ``env/egocar_simple.py`` + ``env/multicar_simple.py``).
+
+    Geometry: one straight edge, 4 lanes x 3.2 m, 200 m long, 0.8 m
+    sublane resolution (16 absolute sublanes), 0.2 s control step.
+    """
+
+    n_agents: int = 2
+    goal_lane: Tuple[int, ...] = (3, 0)
+    goal_pos: Tuple[float, ...] = (190.0, 190.0)
+    speed: Tuple[float, ...] = (30.0, 30.0)
+    lane: Tuple[int, ...] = (1, 2)
+    init_position: Tuple[float, ...] = (0.0, 0.0)
+    depart_mean: Tuple[float, ...] = (0.0, 0.0)
+    depart_stdev: float = 0.5
+    total_length: float = 200.0
+    total_width: float = 12.8
+    save_threshold: float = 18.0
+    prob_random: float = 0.2
+    # dynamics (egocar_simple.py:63-92)
+    dt: float = 0.2
+    n_lanes: int = 4
+    sublanes_per_lane: int = 4
+    sublane_res: float = 0.8
+    car_length: float = 5.0
+    car_width: float = 1.8
+    acc_val: float = 2.5
+    dec_val: float = 2.5
+    v_max: float = 50.0  # vType maxSpeed (merge_stage2.rou.xml)
+    v_min: float = 10.0
+    overspeed: float = 35.7
+    ttc_thres: float = 2.0
+    # observation grid (egocar_simple.py:75, observation.py:13-44)
+    obs_front: float = 15.0
+    obs_back: float = 15.0
+    obs_left: int = 4
+    obs_right: int = 4
+    res_forward: float = 2.5
+    # ray-cast shadow occlusion on the egocentric grid (off by default)
+    occlusion: bool = False
+    # traffic metrics (multicar_simple.py:19-20,37-38)
+    follow_threshold: float = 15.0
+    v_threshold: float = 29.05
+
+    @property
+    def n_sublanes(self) -> int:
+        return self.n_lanes * self.sublanes_per_lane
+
+    @property
+    def max_step(self) -> int:
+        # round((total_length/25)/dt) (egocar_simple.py:79)
+        return round((self.total_length / 25.0) / self.dt)
+
+    @property
+    def obs_rows(self) -> int:
+        return int(round(self.obs_front / self.res_forward)) + int(
+            round(self.obs_back / self.res_forward)) + 1
+
+    @property
+    def obs_cols(self) -> int:
+        return self.obs_left + self.obs_right + 1
+
+    # global-tensor grid over the whole road (multicar_simple.py:62-63)
+    @property
+    def n_rows(self) -> int:
+        return int(self.total_length / self.res_forward)
+
+    @property
+    def n_cols(self) -> int:
+        return int(self.total_width / self.sublane_res)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA C++ kernels.
 
 Every ``cm3_tpu_torch/csrc/*.cu`` goes into one shared library with a
-plain C interface, built by one ``nvcc`` call for Hopper (``sm_90a``)
-and loaded with ``ctypes``.  The sources include no PyTorch header, so
-the build takes seconds (PyTorch's own extension builder takes minutes
-for a file that includes its headers) and needs no ``ninja``.
+plain C interface, built for Hopper (``sm_90a``) and loaded with
+``ctypes``: one ``nvcc -c`` per source, all started together, then one
+``nvcc -shared`` link of their objects, so the build takes as long as
+its slowest source.  The sources include no PyTorch header, so the
+build takes seconds (PyTorch's own extension builder takes minutes for
+a file that includes its headers) and needs no ``ninja``.
 
 * The library goes to ``build/cm3_tpu_torch/`` at the root of the
   checkout (``.gitignore`` lists ``build/``), named by a hash of the
@@ -21,7 +23,7 @@ for a file that includes its headers) and needs no ``ninja``.
 
 The loaded library's ``build_info`` holds the nvcc path and version,
 the library path, the build seconds, whether it was built or found by
-its hash, the command and ptxas' register report.
+its hash, the commands and ptxas' register report.
 """
 
 from __future__ import annotations
@@ -38,8 +40,11 @@ import time
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE), "build", "cm3_tpu_torch")
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                        "-Xptxas", "-v")
+LINK_FLAGS = ARCH + ("-shared",)
+FLAGS = COMPILE_FLAGS + LINK_FLAGS      # all of them, for the hash
 
 # the C entries and their ctypes signatures
 _P, _I, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
@@ -47,6 +52,14 @@ SIGNATURES = {
     "cm3_error_string": ([_I], ctypes.c_char_p),
     # spec, n_agents, actions, batch, n_steps, seed, rew, ep, stream
     "cm3_checkers_rollout": ([_P, _I, _P, _I, _I, _U32, _P, _P, _P], _I),
+    # params, n_params, n_agents, max_steps, actions, batch, n_steps, seed,
+    # rew, ep, stream
+    "cm3_particle_rollout": ([_P, _I, _I, _I, _P, _I, _I, _U32, _P, _P, _P],
+                             _I),
+    # floats, n_floats, ints, n_ints, n_agents, actions, batch, n_steps,
+    # seed, rew, ep, stream
+    "cm3_roadway_rollout": ([_P, _I, _P, _I, _I, _P, _I, _I, _U32, _P, _P,
+                             _P], _I),
 }
 
 
@@ -76,8 +89,12 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found; looked in " + ", ".join(looked))
 
 
-def command(nvcc: str, out: str):
-    return [nvcc, *FLAGS, "-o", out, *sources()]
+def compile_command(nvcc: str, src: str, obj: str):
+    return [nvcc, *COMPILE_FLAGS, "-c", "-o", obj, src]
+
+
+def link_command(nvcc: str, objs, out: str):
+    return [nvcc, *LINK_FLAGS, "-o", out, *objs]
 
 
 def digest(files, flags, nvcc_version: str) -> str:
@@ -94,20 +111,52 @@ def digest(files, flags, nvcc_version: str) -> str:
 
 
 def _build(nvcc: str, path: str):
+    """Compile every source at once into objects under a temporary
+    directory, link them, and rename the library into place.  Returns
+    the commands, the seconds and ptxas' report."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = command(nvcc, tmp)
+    objdir = tmp + ".o"
+    os.makedirs(objdir, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    jobs = []
+    try:
+        for src in sources():
+            obj = os.path.join(objdir, os.path.basename(src) + ".o")
+            cmd = compile_command(nvcc, src, obj)
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, cwd=CSRC)))
+        cmds, log, failed = [], [], []
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            cmds.append(" ".join(cmd))
+            log.append(err + out)
+            if proc.returncode != 0:
+                failed.append(f"exit {proc.returncode}: {' '.join(cmd)}\n"
+                              f"{err}{out}")
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed after {time.perf_counter() - t0:.1f} s:\n"
+                + "\n".join(failed))
+        cmd = link_command(nvcc, [obj for _, obj, _ in jobs], tmp)
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+        cmds.append(" ".join(cmd))
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {proc.returncode}) after "
+                f"{time.perf_counter() - t0:.1f} s: {' '.join(cmd)}\n"
+                f"{proc.stderr}{proc.stdout}")
+        os.replace(tmp, path)
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(objdir, ignore_errors=True)
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) after {seconds:.1f} s: "
-            f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, path)
-    return cmd, seconds, proc.stderr
+    return cmds, time.perf_counter() - t0, "".join(log)
 
 
 @functools.cache
@@ -126,8 +175,8 @@ def library() -> ctypes.CDLL:
                 library=path, built=False, seconds=0.0, command=None,
                 ptxas="")
     if not os.path.exists(path):
-        cmd, seconds, log = _build(nvcc, path)
-        info.update(built=True, seconds=seconds, command=" ".join(cmd),
+        cmds, seconds, log = _build(nvcc, path)
+        info.update(built=True, seconds=seconds, command="; ".join(cmds),
                     ptxas=log)
     lib = ctypes.CDLL(path)
     for name, (args, res) in SIGNATURES.items():

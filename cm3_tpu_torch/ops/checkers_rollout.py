@@ -83,7 +83,7 @@ import torch
 
 from cm3_tpu_torch.envs import checkers_packed as cp
 from cm3_tpu_torch.ops import _nvcc
-from cm3_tpu_torch.ops.philox import MASK32, philox4x32_10
+from cm3_tpu_torch.ops.philox import MASK32, random_actions
 
 
 def spec_words(spec: cp.PackedSpec):
@@ -96,14 +96,6 @@ def spec_words(spec: cp.PackedSpec):
     return (spec.width, spec.green_mask, spec.orange_mask, spec.full_mask,
             spec.up_ok, spec.down_ok, spec.left_ok, spec.right_ok,
             init[0], init[1], goal_bits, spec.max_steps)
-
-
-def random_actions(seed: int, t: int, batch: int, n: int, device):
-    """The actions of step ``t``: Philox4x32-10 with key (seed, 0) and
-    counter (t, b, 0, 0); agent i takes ``(word_i >> 7) % 5``."""
-    b = torch.arange(batch, dtype=torch.int64, device=device)
-    words = philox4x32_10((t, b, 0, 0), (seed, 0))
-    return tuple((words[i] >> 7) % 5 for i in range(n))
 
 
 def _rollout_plain(spec, batch, n_steps, device, actions_at):

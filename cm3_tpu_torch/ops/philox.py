@@ -7,8 +7,8 @@ XORs, and come out as four random 32-bit words.  Any element of the
 stream is computed from its counter alone, so a kernel thread and this
 plain version draw the same bits for the same (counter, key).  The
 CUDA twin is ``cm3_tpu_torch/csrc/philox.cuh``; the fused rollouts
-take their random actions from it in place of the TPU's hardware
-generator.
+take their random actions from it (``random_actions``) in place of the
+TPU's hardware generator.
 
 Words are ``int64`` tensors holding values in [0, 2^32): PyTorch has
 no shifts on ``uint32`` on the CPU.  A product of two 32-bit words can
@@ -51,3 +51,13 @@ def philox4x32_10(counter, key):
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
         k0, k1 = (k0 + W0) & MASK32, (k1 + W1) & MASK32
     return c0, c1, c2, c3
+
+
+def random_actions(seed: int, t: int, batch: int, n: int, device):
+    """The random-policy actions of step ``t`` in the fused rollouts:
+    Philox4x32-10 with key (seed, 0) and counter (t, b, 0, 0); agent i
+    (i < 4) takes ``(word_i >> 7) % 5``, as the TPU kernels take
+    ``(bits >> 7) % 5``.  int64 tensors [batch]."""
+    b = torch.arange(batch, dtype=torch.int64, device=device)
+    words = philox4x32_10((t, b, 0, 0), (seed, 0))
+    return tuple((words[i] >> 7) % 5 for i in range(n))

@@ -1,7 +1,7 @@
 """Tests of the port that need the card (marker ``cuda``): the Triton
-kernels (``adam_polyak``, ``polyak``) and the CUDA C++ Checkers rollout
-against their plain versions, and a small training chunk on the card
-against the same chunk on the CPU.  They import neither JAX nor
+kernels (``adam_polyak``, ``polyak``) and the CUDA C++ Checkers,
+particle and roadway rollouts against their plain versions, and a small
+training chunk on the card against the same chunk on the CPU.  They import neither JAX nor
 ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -13,15 +13,31 @@ import pytest
 import torch
 
 from cm3_tpu_torch.algs import common
-from cm3_tpu_torch.core.config import CheckersEnvConfig
+from cm3_tpu_torch.core.config import (CheckersEnvConfig, ParticleEnvConfig,
+                                       RoadwayEnvConfig)
 from cm3_tpu_torch.envs import checkers_packed as cp
 from cm3_tpu_torch.ops import checkers_rollout as cr
 from cm3_tpu_torch.ops import fused_opt, polyak
+from cm3_tpu_torch.ops import particle_rollout as pr
+from cm3_tpu_torch.ops import roadway_rollout as rr
 
 ROLLOUT_CASES = {
     "two_agents": (dict(n_agents=2, agents_r=(0, 2), agents_c=(8, 8)),
                    (True, False)),
     "one_agent": (dict(n_agents=1, agents_r=(2,), agents_c=(8,)), (False,)),
+}
+# the fused particle and roadway rollouts: (wrapper module, config)
+SOA_CASES = {
+    "particle_n2": (pr, ParticleEnvConfig(
+        n_agents=2, agents_x=(-0.9, 0.9), agents_y=(-0.9, 0.9),
+        landmarks_x=(0.9, -0.9), landmarks_y=(0.9, -0.9), prob_random=0.0,
+        initial_std=0.0)),
+    "particle_n4": (pr, ParticleEnvConfig(prob_random=0.0, initial_std=0.0)),
+    "roadway_n1": (rr, RoadwayEnvConfig(
+        n_agents=1, goal_lane=(3,), goal_pos=(190.0,), speed=(30.0,),
+        lane=(1,), init_position=(0.0,), depart_mean=(0.0,),
+        depart_stdev=0.0)),
+    "roadway_n2": (rr, RoadwayEnvConfig(depart_stdev=0.0)),
 }
 
 
@@ -170,3 +186,48 @@ def test_polyak_kernel_matches_plain(cuda_device, n, tau):
     torch.cuda.synchronize()
     assert polyak.polyak_update.launches == before + 1
     torch.testing.assert_close(t, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SOA_CASES))
+@pytest.mark.parametrize("batch", [1, 4096 + 37])
+def test_soa_rollout_kernel_fed_matches_plain(cuda_device, case, batch):
+    """The CUDA particle and roadway rollouts on fed actions (ragged
+    batches, T = 130: more than two episodes) against the plain version
+    on the card: episodes and reward sums equal exactly (the kernel
+    rounds every operation as eager PyTorch does, and takes sqrt, exp
+    and log1p from the same CUDA math library)."""
+    mod, cfg = SOA_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(batch)
+    acts = torch.randint(0, 5, (130, cfg.n_agents, batch),
+                         device=cuda_device, dtype=torch.int32, generator=gen)
+    before = mod.rollout_actions.launches
+    rew, ep = mod.rollout_actions(cfg, acts)
+    p_rew, p_ep = mod.rollout_actions_plain(cfg, acts)
+    torch.cuda.synchronize()
+    assert mod.rollout_actions.launches == before + 1
+    assert torch.equal(ep, p_ep)
+    assert torch.equal(rew, p_rew)
+    assert int(ep.min()) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SOA_CASES))
+def test_soa_rollout_kernel_prng_matches_plain(cuda_device, case):
+    """The Philox variant draws the same bits as the plain version: the
+    kernel equals it exactly on the card; against the plain version on
+    the CPU the episodes are equal and the reward sums agree to rtol
+    1e-5, atol 1e-3 (PyTorch's CPU exp and log1p are other
+    approximations than CUDA's; roadway has none and is equal)."""
+    mod, cfg = SOA_CASES[case]
+    before = mod.rollout_prng.launches
+    rew, ep = mod.rollout_prng(cfg, 3000, 170, seed=11, device=cuda_device)
+    p_rew, p_ep = mod.rollout_prng_plain(cfg, 3000, 170, 11, cuda_device)
+    h_rew, h_ep = mod.rollout_prng(cfg, 3000, 170, seed=11, device="cpu")
+    torch.cuda.synchronize()
+    assert mod.rollout_prng.launches == before + 1
+    assert torch.equal(rew, p_rew) and torch.equal(ep, p_ep)
+    assert torch.equal(ep.cpu(), h_ep)
+    torch.testing.assert_close(rew.cpu(), h_rew, rtol=1e-5, atol=1e-3)
+    if mod is rr:
+        assert torch.equal(rew.cpu(), h_rew)

@@ -168,13 +168,20 @@ def test_spec_words_refuse_three_agents():
 
 
 def test_nvcc_command_names_sm90a_and_every_source():
-    cmd = _nvcc.command("nvcc", "/out/lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and "-O3" in cmd
+    """One compile command per source (all started together), then one
+    link of their objects into the shared library."""
     srcs = _nvcc.sources()
-    assert [os.path.basename(s) for s in srcs] == ["checkers_rollout.cu",
-                                                   "runtime.cu"]
-    assert cmd[-len(srcs):] == srcs
+    assert [os.path.basename(s) for s in srcs] == [
+        "checkers_rollout.cu", "particle_rollout.cu", "roadway_rollout.cu",
+        "runtime.cu"]
+    for src in srcs:
+        cmd = _nvcc.compile_command("nvcc", src, "/out/x.o")
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-O3" in cmd and "-c" in cmd and cmd[-1] == src
+    objs = [f"/out/{i}.o" for i in range(len(srcs))]
+    cmd = _nvcc.link_command("nvcc", objs, "/out/lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    assert cmd[-len(objs):] == objs
 
 
 def test_nvcc_hash_follows_sources_flags_and_version(tmp_path):
