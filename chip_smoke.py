@@ -5,8 +5,8 @@ check it.
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Eight phases, each between progress lines with its elapsed seconds and
-held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 120 + 90 s =
-760 s):
+held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
+900 s):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -53,10 +53,13 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 120 + 90 s =
    T = 2048, 3 reps) through ``cm3_tpu_torch.bench``, with the launch
    count set to 0 just before and read just after; one full-size call
    timed and held against the plain version at the same size and seed;
-   the kernel's time against its bound (the operations one step needs,
-   counted in ``ops/particle_rollout.py`` and ``ops/roadway_rollout.py``,
-   at the issue rate and at the special-function unit's rate; the
-   larger bounds it) and the plain version's time.
+   the plain version run again on those inputs with an observer that
+   counts the work the data decide (pairs in contact, live cars, TTC
+   candidates, ...); the kernel's time against its bound (the
+   operations the call needs, itemized in ``ops/particle_rollout.py``
+   and ``ops/roadway_rollout.py``, at the issue rate and at the
+   special-function unit's rate; the larger bounds it) and the plain
+   version's time.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -104,19 +107,26 @@ ROLLOUT_ATOL = 1e-5
 POLYAK_SIZES, POLYAK_TAUS = (1, 1000, 8193, 149645), (0.0, 0.01, 1.0)
 POLYAK_BYTES_PER_ELEM = 12      # load t and m, store t
 # the fused particle and roadway rollouts: bench.py's size, the checks'
-# sizes, and per step of one instance the operations issued and those of
-# the special-function unit (MUFU, 16 lanes per clock per SM), as itemized
-# in the notes of cm3_tpu_torch/ops/particle_rollout.py (N = 4) and
-# cm3_tpu_torch/ops/roadway_rollout.py (N = 2)
+# sizes, and the work of one call as itemized in the notes of
+# cm3_tpu_torch/ops/particle_rollout.py (N = 4) and
+# cm3_tpu_torch/ops/roadway_rollout.py (N = 2): per occurrence of each
+# item, (operations issued, of them on the special-function unit, MUFU,
+# 16 lanes per clock per SM).  "step" occurs B x T times, "reset" once
+# per episode, the others as often as the plain version's observer counts
+# them at the timed call's inputs.
 SOA_B, SOA_T, SOA_REPS = 1 << 20, 2048, 3
 SOA_FED_B, SOA_FED_T, SOA_PRNG_B, SOA_PRNG_T = (1 << 16) + 37, 100, 8192, 200
-PARTICLE_OPS, PARTICLE_MUFU = 735, 34
-ROADWAY_OPS, ROADWAY_MUFU = 315, 6
+PARTICLE_WORK = {"step": (293, 4), "near_pair": (64, 4), "reset": (17, 0)}
+ROADWAY_WORK = {"step": (50, 0), "live_car": (62, 0), "live_pair": (42, 0),
+                "ttc_candidate": (13, 1), "rejected_draw": (3, 0),
+                "goal_reward": (15, 1), "reset": (10, 0)}
 MUFU_LANES_PER_CLOCK = 16
-# kernel vs plain: episodes exactly; reward sums at JAX's own tolerance
-# between its particle kernel and its scan (they are expected bit-equal,
-# and the run prints whether they are)
-SOA_TOL = (1e-5, 1e-3)          # rtol, atol
+# the kernel against the plain version on the CPU: episodes exactly;
+# reward sums at JAX's own tolerance between its particle kernel and its
+# scan, since PyTorch's CPU exp and log1p are other approximations than
+# CUDA's (the run prints whether they are bit-equal).  On the card the
+# kernel is held to its plain version as in phase 4.
+SOA_CPU_TOL = (1e-5, 1e-3)          # rtol, atol
 
 T0 = time.time()
 
@@ -618,7 +628,61 @@ def phase_polyak(dev):
 # ------------------------------------------------------------------ #
 
 
-def phase_soa_rollout(dev, name, mod, cfg, bench_fn, ops, mufu):
+def particle_counter(cfg, dev):
+    """An ``observe`` for ``particle_rollout.rollout_prng_plain`` that
+    counts the pairs whose contact force is not exactly 0 (``pen`` as
+    ``soa_step`` computes it, on the positions before the move)."""
+    import torch
+    from cm3_tpu_torch.envs import particle_soa as ps
+
+    k = torch.full((), cfg.contact_margin, dtype=torch.float32, device=dev)
+    counts = {"near_pair": torch.zeros((), dtype=torch.int64, device=dev)}
+
+    def observe(s):
+        for i in range(cfg.n_agents):
+            for j in range(i + 1, cfg.n_agents):
+                dx, dy = s.px[i] - s.px[j], s.py[i] - s.py[j]
+                dist = ps.sqrt(dx * dx + dy * dy)
+                pen = ps.logaddexp0(-(dist - 2 * cfg.agent_size) / k) \
+                    * cfg.contact_margin
+                counts["near_pair"] += (pen != 0).sum()
+    return observe, counts
+
+
+def roadway_counter(cfg, dev):
+    """An ``observe`` for ``roadway_rollout.rollout_prng_plain`` that
+    counts the live cars, the pairs of live cars, the TTC candidates
+    (the other car live, ahead, slower and in lateral reach), the drawn
+    actions the filter rejects and the goal rewards read."""
+    import torch
+    from cm3_tpu_torch.envs import roadway_soa as rs
+
+    n = cfg.n_agents
+    counts = {k: torch.zeros((), dtype=torch.int64, device=dev)
+              for k in ("live_car", "live_pair", "ttc_candidate",
+                        "rejected_draw", "goal_reward")}
+
+    def observe(s, drawn, taken, s2):
+        live = [s.rem[i] == 0 for i in range(n)]
+        for i in range(n):
+            counts["live_car"] += live[i].sum()
+            counts["rejected_draw"] += (live[i] & (taken[i] != drawn[i])).sum()
+            # a live car has not collided before: coll is this step's crash
+            counts["goal_reward"] += (live[i] & (s2.x[i] >= cfg.goal_pos[i])
+                                      & (s2.coll[i] == 0)).sum()
+            for j in range(n):
+                if j == i:
+                    continue
+                lateral = (rs._y(cfg, s.sub[j]) - rs._y(cfg, s.sub[i])).abs()
+                counts["ttc_candidate"] += (
+                    live[i] & live[j] & (s.x[j] - s.x[i] > 0)
+                    & (s.vel[j] < s.vel[i]) & (lateral < cfg.car_width)).sum()
+                if j > i:
+                    counts["live_pair"] += (live[i] & live[j]).sum()
+    return observe, counts
+
+
+def phase_soa_rollout(dev, name, mod, cfg, bench_fn, work, counter):
     import torch
 
     n = cfg.n_agents
@@ -630,18 +694,18 @@ def phase_soa_rollout(dev, name, mod, cfg, bench_fn, ops, mufu):
                          dtype=torch.int32, generator=gen)
     k = mod.rollout_actions(cfg, acts)
     fed_err = hold_rollout(k, mod.rollout_actions_plain(cfg, acts),
-                           f"fed B={SOA_FED_B} T={SOA_FED_T}", *SOA_TOL)
+                           f"fed B={SOA_FED_B} T={SOA_FED_T}")
     assert eps(k[1])[0] >= 2, "fewer than two episodes"
 
     # Philox draws: kernel == plain on the card; plain on the CPU
     k = mod.rollout_prng(cfg, SOA_PRNG_B, SOA_PRNG_T, SEED + 7, device=dev)
     prng_err = hold_rollout(
         k, mod.rollout_prng_plain(cfg, SOA_PRNG_B, SOA_PRNG_T, SEED + 7, dev),
-        f"Philox B={SOA_PRNG_B} T={SOA_PRNG_T} card plain", *SOA_TOL)
+        f"Philox B={SOA_PRNG_B} T={SOA_PRNG_T} card plain")
     cpu_err = hold_rollout(
         k, mod.rollout_prng(cfg, SOA_PRNG_B, SOA_PRNG_T, SEED + 7,
                             device="cpu"),
-        f"Philox B={SOA_PRNG_B} T={SOA_PRNG_T} CPU plain", *SOA_TOL)
+        f"Philox B={SOA_PRNG_B} T={SOA_PRNG_T} CPU plain", *SOA_CPU_TOL)
     log(f"  Philox: mean reward sum {float(k[0].mean()):.4f}, episodes "
         f"{eps(k[1])} (min, max)")
 
@@ -666,24 +730,39 @@ def phase_soa_rollout(dev, name, mod, cfg, bench_fn, ops, mufu):
                                                         99, dev))
     plain_ms = cuda_time_ms(plain, 1, warmup=0)
     full_err = hold_rollout(out["k"], out["p"],
-                            f"Philox B={SOA_B} T={SOA_T} seed 99", *SOA_TOL)
+                            f"Philox B={SOA_B} T={SOA_T} seed 99")
+
+    # the work the data decide, counted by the plain version on the same
+    # inputs (its outputs held against the kernel's too); the resets are
+    # the kernel's episodes
+    observe, counted = counter(cfg, dev)
+    hold_rollout(out["k"], mod.rollout_prng_plain(cfg, SOA_B, SOA_T, 99, dev,
+                                                  observe=observe),
+                 f"Philox B={SOA_B} T={SOA_T} seed 99, counted")
+    counts = {k: int(v) for k, v in counted.items()}
+    counts.update(step=SOA_B * SOA_T, reset=int(ep.sum()))
+    ops = sum(work[k][0] * counts[k] for k in work)
+    mufu = sum(work[k][1] * counts[k] for k in work)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = _smi_max_sm_clock_hz()
-    work = SOA_B * SOA_T
-    issue_ms = ops * work / (sms * WARP_INSTS_PER_CLOCK * 32 * clock) * 1e3
-    mufu_ms = mufu * work / (sms * MUFU_LANES_PER_CLOCK * clock) * 1e3
+    issue_ms = ops / (sms * WARP_INSTS_PER_CLOCK * 32 * clock) * 1e3
+    mufu_ms = mufu / (sms * MUFU_LANES_PER_CLOCK * clock) * 1e3
     bound_ms = max(issue_ms, mufu_ms)
+    steps = counts["step"]
     log(f"  {bench_fn.__name__} (B={SOA_B}, T={SOA_T}, reps {SOA_REPS}): "
         f"{figure:.6g} env-steps/s; {launches} launches (warm-up + reps)")
-    log(f"  kernel {call_ms:.3f} ms per call ({work / call_ms * 1e3:.6g} "
+    log("  work per step of one instance (occurrences x operations, MUFU): "
+        + "; ".join(f"{k} {counts[k] / steps:.6g} x {work[k][0]}, "
+                    f"{work[k][1]}" for k in work)
+        + f"; in all {ops / steps:.6g} operations, {mufu / steps:.6g} MUFU")
+    log(f"  kernel {call_ms:.3f} ms per call ({steps / call_ms * 1e3:.6g} "
         f"env-steps/s) against a bound of {bound_ms:.3f} ms, by "
-        f"{'issue' if issue_ms >= mufu_ms else 'MUFU'} (issue: {ops} "
-        f"operations per step x B x T / ({sms} SMs x "
-        f"{WARP_INSTS_PER_CLOCK} warp-instructions x 32 at "
-        f"{clock / 1e6:.0f} MHz) = {issue_ms:.3f} ms; MUFU: {mufu} per "
-        f"step / ({sms} SMs x {MUFU_LANES_PER_CLOCK} lanes) = "
-        f"{mufu_ms:.3f} ms), {bound_ms / call_ms:.3f} of it")
+        f"{'issue' if issue_ms >= mufu_ms else 'MUFU'} (issue: operations "
+        f"/ ({sms} SMs x {WARP_INSTS_PER_CLOCK} warp-instructions x 32 at "
+        f"{clock / 1e6:.0f} MHz) = {issue_ms:.3f} ms; MUFU: / ({sms} SMs x "
+        f"{MUFU_LANES_PER_CLOCK} lanes) = {mufu_ms:.3f} ms), "
+        f"{bound_ms / call_ms:.3f} of it")
     log(f"  plain {plain_ms:.1f} ms per call ({plain_ms / call_ms:.0f}x the "
         f"kernel; {plain_ms / SOA_T * 1e3:.1f} us per step of {SOA_B} "
         "instances); library: no single PyTorch call computes it")
@@ -700,8 +779,8 @@ def phase_particle(dev):
 
     cfg = ParticleEnvConfig(prob_random=0.0, initial_std=0.0)
     return phase_soa_rollout(dev, "particle", particle_rollout, cfg,
-                             bench.bench_particle_fused, PARTICLE_OPS,
-                             PARTICLE_MUFU)
+                             bench.bench_particle_fused, PARTICLE_WORK,
+                             particle_counter)
 
 
 def phase_roadway(dev):
@@ -711,8 +790,8 @@ def phase_roadway(dev):
 
     cfg = RoadwayEnvConfig(depart_stdev=0.0)
     return phase_soa_rollout(dev, "roadway", roadway_rollout, cfg,
-                             bench.bench_roadway_fused, ROADWAY_OPS,
-                             ROADWAY_MUFU)
+                             bench.bench_roadway_fused, ROADWAY_WORK,
+                             roadway_counter)
 
 
 # ------------------------------------------------------------------ #
@@ -744,8 +823,8 @@ def main():
     run_phase("3 card vs CPU", 40, phase_parity, dev)
     rollout = run_phase("4 fused Checkers rollout", 240, phase_rollout, dev)
     soft = run_phase("5 polyak", 30, phase_polyak, dev)
-    particle = run_phase("6 fused particle rollout", 120, phase_particle, dev)
-    roadway = run_phase("7 fused roadway rollout", 90, phase_roadway, dev)
+    particle = run_phase("6 fused particle rollout", 200, phase_particle, dev)
+    roadway = run_phase("7 fused roadway rollout", 150, phase_roadway, dev)
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -17,7 +17,7 @@ a file that includes its headers) and needs no ``ninja``.
   import builds anything.
 * ``nvcc`` is looked up on ``PATH``, then as ``$CUDA_HOME/bin/nvcc``,
   then as ``/usr/local/cuda/bin/nvcc``; a failed lookup or build raises
-  (the build with nvcc's stderr).
+  (the build with nvcc's output).
 * Each C entry returns ``cudaGetLastError()`` after its launch;
   ``check`` raises with the library's ``cudaGetErrorString`` text.
 
@@ -35,6 +35,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -111,52 +112,38 @@ def digest(files, flags, nvcc_version: str) -> str:
 
 
 def _build(nvcc: str, path: str):
-    """Compile every source at once into objects under a temporary
-    directory, link them, and rename the library into place.  Returns
-    the commands, the seconds and ptxas' report."""
+    """Compile every source at once, link the objects into a temporary
+    name and rename it into place.  Returns the commands, the seconds
+    and ptxas' report."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
-    objdir = tmp + ".o"
-    os.makedirs(objdir, exist_ok=True)
     t0 = time.perf_counter()
-    jobs = []
-    try:
-        for src in sources():
-            obj = os.path.join(objdir, os.path.basename(src) + ".o")
-            cmd = compile_command(nvcc, src, obj)
-            jobs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True, cwd=CSRC)))
-        cmds, log, failed = [], [], []
-        for cmd, _, proc in jobs:
-            out, err = proc.communicate()
-            cmds.append(" ".join(cmd))
-            log.append(err + out)
-            if proc.returncode != 0:
-                failed.append(f"exit {proc.returncode}: {' '.join(cmd)}\n"
-                              f"{err}{out}")
-        if failed:
-            raise RuntimeError(
-                f"nvcc failed after {time.perf_counter() - t0:.1f} s:\n"
-                + "\n".join(failed))
-        cmd = link_command(nvcc, [obj for _, obj, _ in jobs], tmp)
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
-        cmds.append(" ".join(cmd))
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc link failed (exit {proc.returncode}) after "
-                f"{time.perf_counter() - t0:.1f} s: {' '.join(cmd)}\n"
-                f"{proc.stderr}{proc.stdout}")
-        os.replace(tmp, path)
-    finally:
-        for _, _, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(objdir, ignore_errors=True)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(path)) as objdir:
+        objs = [os.path.join(objdir, os.path.basename(src) + ".o")
+                for src in sources()]
+        cmds = [compile_command(nvcc, src, obj)
+                for src, obj in zip(sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  cwd=CSRC) for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        if all(proc.returncode == 0 for proc in procs):
+            cmds.append(link_command(nvcc, objs, tmp))
+            procs.append(subprocess.run(cmds[-1], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True,
+                                        cwd=CSRC))
+            logs.append(procs[-1].stdout)
+    failed = [f"exit {proc.returncode}: {' '.join(cmd)}\n{log}"
+              for cmd, proc, log in zip(cmds, procs, logs)
+              if proc.returncode != 0]
+    if failed:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return cmds, time.perf_counter() - t0, "".join(log)
+        raise RuntimeError(f"nvcc failed after {time.perf_counter() - t0:.1f}"
+                           " s:\n" + "\n".join(failed))
+    os.replace(tmp, path)
+    return [" ".join(cmd) for cmd in cmds], time.perf_counter() - t0, \
+        "".join(logs)
 
 
 @functools.cache

@@ -82,8 +82,8 @@ import ctypes
 import torch
 
 from cm3_tpu_torch.envs import checkers_packed as cp
-from cm3_tpu_torch.ops import _nvcc
-from cm3_tpu_torch.ops.philox import MASK32, random_actions
+from cm3_tpu_torch.ops import _rollout
+from cm3_tpu_torch.ops.philox import random_actions
 
 
 def spec_words(spec: cp.PackedSpec):
@@ -127,25 +127,13 @@ def rollout_prng_plain(spec: cp.PackedSpec, batch: int, n_steps: int,
         lambda t: random_actions(seed, t, batch, n, device))
 
 
-def _launch(wrapper, spec, actions, batch, n_steps, seed, device):
-    """Allocate the outputs and launch the kernel (none for an empty
-    batch); counts the launch on ``wrapper``."""
-    lib = _nvcc.library()
-    words = spec_words(spec)
-    if not 0 <= batch < 2 ** 31 or not 0 <= n_steps < 2 ** 31:
-        raise ValueError(f"checkers_rollout: batch {batch} or n_steps "
-                         f"{n_steps} out of range")
-    rew = torch.empty(batch, dtype=torch.float32, device=device)
-    ep = torch.empty(batch, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.cm3_checkers_rollout(
-            (ctypes.c_uint32 * len(words))(*words), len(spec.init_pos),
-            None if actions is None else actions.data_ptr(), batch, n_steps,
-            seed & MASK32, rew.data_ptr(), ep.data_ptr(), stream)
-    _nvcc.check(code, "checkers_rollout")
-    wrapper.launches += batch > 0
-    return rew, ep
+def _call(spec):
+    """The C entry with the spec's leading arguments."""
+    def call(lib, *args):
+        words = spec_words(spec)
+        return lib.cm3_checkers_rollout(
+            (ctypes.c_uint32 * len(words))(*words), len(spec.init_pos), *args)
+    return call
 
 
 def rollout_prng(spec: cp.PackedSpec, batch: int, n_steps: int, seed: int,
@@ -153,33 +141,20 @@ def rollout_prng(spec: cp.PackedSpec, batch: int, n_steps: int, seed: int,
     """Random-policy rollout of ``batch`` instances for ``n_steps`` env
     steps from the start state.  Returns (reward_sum f32 [batch],
     episodes i32 [batch])."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        return rollout_prng_plain(spec, batch, n_steps, seed, device)
-    if device.type != "cuda":
-        raise RuntimeError(f"checkers_rollout: no kernel for device {device}")
-    return _launch(rollout_prng, spec, None, batch, n_steps, seed, device)
+    return _rollout.prng(
+        "checkers_rollout", rollout_prng,
+        lambda dev: rollout_prng_plain(spec, batch, n_steps, seed, dev),
+        _call(spec), batch, n_steps, seed, device)
 
 
 def rollout_actions(spec: cp.PackedSpec, actions):
     """The test variant: ``actions`` int32 [T, N, batch] drive the
     rollout instead of Philox.  Returns (reward_sum f32 [batch],
     episodes i32 [batch])."""
-    if actions.dim() != 3 or actions.shape[1] != len(spec.init_pos):
-        raise ValueError("checkers_rollout: actions must be [T, N, batch] "
-                         f"with N = {len(spec.init_pos)}, got "
-                         f"{tuple(actions.shape)}")
-    if actions.device.type == "cpu":
-        return rollout_actions_plain(spec, actions)
-    if actions.device.type != "cuda":
-        raise RuntimeError(
-            f"checkers_rollout: no kernel for device {actions.device}")
-    if actions.dtype != torch.int32 or not actions.is_contiguous():
-        raise ValueError("checkers_rollout: actions must be contiguous int32, "
-                         f"got {actions.dtype}")
-    t, _, batch = actions.shape
-    return _launch(rollout_actions, spec, actions, batch, t, 0,
-                   actions.device)
+    return _rollout.fed(
+        "checkers_rollout", rollout_actions,
+        lambda a: rollout_actions_plain(spec, a), _call(spec),
+        len(spec.init_pos), actions)
 
 
 rollout_prng.launches = 0

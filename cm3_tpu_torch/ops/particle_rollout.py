@@ -15,45 +15,63 @@ Kernel: ``cm3_tpu_torch/csrc/particle_rollout.cu``, CUDA C++ for
 
 Bound on an H100.  The outputs are 8 bytes per instance and the Philox
 variant reads nothing, so bytes are no limit.  The work is instruction
-issue, and the special-function unit (MUFU) takes part of it.  What
-one step of one instance needs with N = 4 agents and Philox draws,
-counted in single instructions of the card.  An IEEE ``sqrtf`` or
-division is 8 (one MUFU reciprocal or reciprocal square root, the
+issue, and the special-function unit (MUFU) takes part of it.  Counted
+are the operations whose results the outputs need, at the steps where
+they need them, in single instructions of the card.  An IEEE ``sqrtf``
+or division is 8 (one MUFU reciprocal or reciprocal square root, the
 Newton steps, the range test and its branch), ``expf`` 8 (one MUFU
 ``ex2``), ``log1pf`` 20 (a polynomial, no MUFU), their fast paths as
-the CUDA math library writes them:
+the CUDA math library writes them.  With N = 4 agents and Philox draws:
+
+Every step, 293 operations, 4 of them MUFU:
 
 * Philox4x32-10, counter (t, b, 0, 0), key schedule hoisted, all four
   output words used: 36 (round 1 one wide multiply, round 2 three
   since b's product is the same every step, rounds 3-10 four each:
   2 wide multiplies and 2 three-input XORs).
 * the actions ``(w >> 7) % 5``: 4 x 4 = 16.
-* the contact force, per unordered pair (6; the pair (j, i) is the
-  negation of (i, j)): dx, dy 2; dist 3 + sqrt 8; z 1 + division 8;
-  ``logaddexp(0, z)`` 3 + exp 8 + log1p 20; pen 1; scale 1 + division
-  8; the two force terms 2.  65 x 6 = 390.
-* per agent (4): thrust 4 (two compares, two selects per axis: 8
-  for x and y); the contact sums 2 x 3; the damped velocity 2 x 3; the
-  move 2 x 2.  24 x 4 = 96.
+* the contact force's far test, per unordered pair (6; the pair (j, i)
+  is the negation of (i, j)): dx, dy 2, the squared distance 3, its
+  compare with the one beyond which ``pen`` is exactly 0 (``expf``
+  underflows past z = -104: with the default margin, 0.104 beyond
+  dmin) 1: 6 x 6 = 36.
+* per agent (4): thrust 8 (two compares, two selects per axis); the
+  damped velocity 2 x 3; the move 2 x 2: 18 x 4 = 72.
 * the collision test on the new positions, per unordered pair (6):
-  dx, dy 2, dist 3 + sqrt 8, the compare 1.  14 x 6 = 84.
-* per agent reward (4): the landmark distance 5 + sqrt 8; reached
-  2 (compare, AND); the collision count 5 (3 selects, 2 adds); the
-  reward 1; the sum over agents 1.  22 x 4 = 88.
-* per step, 25: the reward sum, the step count, the done test (2),
-  the episode count, 17 reset selects (4 x 4 floats and the count),
-  the loop's increment, compare and branch.
+  dx, dy 2, the squared distance 3, the compare 1: 6 x 6 = 36.  A
+  correctly rounded ``sqrtf`` is monotone, so ``sqrt(d2) < dmin`` is
+  ``d2 < t`` for one float t per config: no root.
+* per agent reward (4): the landmark distance 5 + sqrt 8; reached 2
+  (compare, AND); the collision count 5 (3 selects, 2 adds); the
+  reward 1; the sum over agents 1: 22 x 4 = 88.
+* per step, 9: the reward sum, the step count, the done test (2), the
+  episode count, the reset's branch, the loop's increment, compare and
+  branch.
 
-That is 36 + 16 + 390 + 96 + 84 + 88 + 25 = 735 issued operations
-per step, of them 6 x 4 + 6 + 4 = 34 MUFU.  The two limits of a call:
+Per pair whose contact force is not exactly 0 (``pen != 0``), 64 more,
+4 of them MUFU: the distance's sqrt 8; z 1 + division 8;
+``logaddexp(0, z)`` 3 + exp 8 + log1p 20; pen 1; scale 1 + division 8;
+the two force terms 2; their adds into both agents' sums 4.
 
-    issue:  735 x B x T / (SMs x 4 warp-instructions per clock x 32 x clock)
-    MUFU:    34 x B x T / (SMs x 16 lanes per clock x clock)
+Per reset (done), 17: the 16 floats of the reset state and the step
+count.
 
-with the SM clock from ``nvidia-smi --query-gpu=clocks.max.sm``;
-issue is the larger (735 / 128 > 34 / 16).  ``chip_smoke.py``
-computes both in each run.  On an H100 SXM (132 SMs, 1980 MHz) a
-``bench.py`` call (B = 2^20, T = 2048) is bound at 47.2 ms by issue.
+A call of B instances and T steps with C such pairs and E resets needs
+``293 B T + 64 C + 17 E`` operations, ``4 B T + 4 C`` of them MUFU,
+and its two limits are
+
+    issue:  operations / (SMs x 4 warp-instructions per clock x 32 x clock)
+    MUFU:   MUFU operations / (SMs x 16 lanes per clock x clock)
+
+with the SM clock from ``nvidia-smi --query-gpu=clocks.max.sm``.
+``chip_smoke.py`` counts C with the plain version's ``observe`` at the
+bench call's inputs, E from the kernel's own episode counts, and
+computes both limits in each run.  There the agents start in the
+corners, 1.8 apart where contact begins at 0.3, and a random walk
+seldom brings two of them near: C and E are small beside B T
+(``PERF.md`` has the counts), so the bound is near 293 operations a
+step.  The kernel computes the whole contact term for every pair and
+the reset's selects every step.
 
 Design.  One instance per thread, its whole state in registers:
 position and velocity of each agent, the step counter, the reward sum
@@ -110,8 +128,8 @@ import torch
 
 from cm3_tpu_torch.core.config import ParticleEnvConfig
 from cm3_tpu_torch.envs import particle_soa as ps
-from cm3_tpu_torch.ops import _nvcc
-from cm3_tpu_torch.ops.philox import MASK32, random_actions
+from cm3_tpu_torch.ops import _rollout
+from cm3_tpu_torch.ops.philox import random_actions
 
 AGENTS = (1, 2, 4)          # the agent counts the kernel is built for
 MAX_AGENTS = 4
@@ -139,12 +157,14 @@ def params(cfg: ParticleEnvConfig):
     return tuple(out)
 
 
-def _rollout_plain(cfg, batch, n_steps, device, actions_at):
+def _rollout_plain(cfg, batch, n_steps, device, actions_at, observe=None):
     s0 = ps.soa_init(cfg, (batch,), device=device)
     s = s0
     rew = torch.zeros(batch, dtype=torch.float32, device=device)
     ep = torch.zeros(batch, dtype=torch.int32, device=device)
     for t in range(n_steps):
+        if observe is not None:
+            observe(s)
         s, rs, done = ps.soa_step(cfg, s, actions_at(t))
         total = rs[0]
         for r in rs[1:]:
@@ -163,32 +183,24 @@ def rollout_actions_plain(cfg: ParticleEnvConfig, actions):
 
 
 def rollout_prng_plain(cfg: ParticleEnvConfig, batch: int, n_steps: int,
-                       seed: int, device="cuda"):
+                       seed: int, device="cuda", observe=None):
+    """The kernel's math in plain PyTorch with Philox draws.
+    ``observe(state)``, if given, sees the state before every step
+    (``chip_smoke.py`` counts the work the data decide with it)."""
     return _rollout_plain(
         cfg, batch, n_steps, device,
-        lambda t: random_actions(seed, t, batch, cfg.n_agents, device))
+        lambda t: random_actions(seed, t, batch, cfg.n_agents, device),
+        observe)
 
 
-def _launch(wrapper, cfg, actions, batch, n_steps, seed, device):
-    """Allocate the outputs and launch the kernel (none for an empty
-    batch); counts the launch on ``wrapper``."""
-    words = params(cfg)
-    if not 0 <= batch < 2 ** 31 or not 0 <= n_steps < 2 ** 31:
-        raise ValueError(f"particle_rollout: batch {batch} or n_steps "
-                         f"{n_steps} out of range")
-    lib = _nvcc.library()
-    rew = torch.empty(batch, dtype=torch.float32, device=device)
-    ep = torch.empty(batch, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.cm3_particle_rollout(
+def _call(cfg):
+    """The C entry with the config's leading arguments."""
+    def call(lib, *args):
+        words = params(cfg)
+        return lib.cm3_particle_rollout(
             (ctypes.c_float * len(words))(*words), len(words), cfg.n_agents,
-            cfg.max_steps, None if actions is None else actions.data_ptr(),
-            batch, n_steps, seed & MASK32, rew.data_ptr(), ep.data_ptr(),
-            stream)
-    _nvcc.check(code, "particle_rollout")
-    wrapper.launches += batch > 0
-    return rew, ep
+            cfg.max_steps, *args)
+    return call
 
 
 def rollout_prng(cfg: ParticleEnvConfig, batch: int, n_steps: int,
@@ -197,12 +209,10 @@ def rollout_prng(cfg: ParticleEnvConfig, batch: int, n_steps: int,
     steps from the reset state.  Returns (reward_sum f32 [batch],
     episodes i32 [batch])."""
     _check_agents(cfg.n_agents)
-    device = torch.device(device)
-    if device.type == "cpu":
-        return rollout_prng_plain(cfg, batch, n_steps, seed, device)
-    if device.type != "cuda":
-        raise RuntimeError(f"particle_rollout: no kernel for device {device}")
-    return _launch(rollout_prng, cfg, None, batch, n_steps, seed, device)
+    return _rollout.prng(
+        "particle_rollout", rollout_prng,
+        lambda dev: rollout_prng_plain(cfg, batch, n_steps, seed, dev),
+        _call(cfg), batch, n_steps, seed, device)
 
 
 def rollout_actions(cfg: ParticleEnvConfig, actions):
@@ -210,21 +220,10 @@ def rollout_actions(cfg: ParticleEnvConfig, actions):
     rollout instead of Philox.  Returns (reward_sum f32 [batch],
     episodes i32 [batch])."""
     _check_agents(cfg.n_agents)
-    if actions.dim() != 3 or actions.shape[1] != cfg.n_agents:
-        raise ValueError("particle_rollout: actions must be [T, N, batch] "
-                         f"with N = {cfg.n_agents}, got "
-                         f"{tuple(actions.shape)}")
-    if actions.device.type == "cpu":
-        return rollout_actions_plain(cfg, actions)
-    if actions.device.type != "cuda":
-        raise RuntimeError(
-            f"particle_rollout: no kernel for device {actions.device}")
-    if actions.dtype != torch.int32 or not actions.is_contiguous():
-        raise ValueError("particle_rollout: actions must be contiguous "
-                         f"int32, got {actions.dtype}")
-    t, _, batch = actions.shape
-    return _launch(rollout_actions, cfg, actions, batch, t, 0,
-                   actions.device)
+    return _rollout.fed(
+        "particle_rollout", rollout_actions,
+        lambda a: rollout_actions_plain(cfg, a), _call(cfg), cfg.n_agents,
+        actions)
 
 
 rollout_prng.launches = 0

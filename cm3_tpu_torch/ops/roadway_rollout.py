@@ -15,56 +15,76 @@ Kernel: ``cm3_tpu_torch/csrc/roadway_rollout.cu``, CUDA C++ for
 ``sm_90a``, built by ``ops/_nvcc.py``.
 
 Bound on an H100.  8 bytes out per instance and no input in the Philox
-variant: bytes are no limit.  The work is instruction issue.  What one
-step of one instance needs with N = 2 cars and Philox draws, counted in
-single instructions of the card; an IEEE division is 8 (one MUFU
-reciprocal, the Newton steps, the range test and its branch), its fast
-path as the CUDA math library writes it:
+variant: bytes are no limit.  The work is instruction issue.  Counted
+are the operations whose results the outputs need, at the steps where
+they need them, in single instructions of the card; an IEEE division
+is 8 (one MUFU reciprocal, the Newton steps, the range test and its
+branch), its fast path as the CUDA math library writes it.  With N = 2
+cars and Philox draws:
+
+Every step, 50:
 
 * Philox4x32-10, counter (t, b, 0, 0), key schedule hoisted, output
   words 0 and 1 used: 33 (as in ``ops/checkers_rollout.py``).
-* the actions ``(w >> 7) % 5``: 2 x 4 = 8.
-* the TTC filter: the cars' lateral positions 2 x 3 (convert, multiply,
-  subtract); per ordered pair (2): dx 1, the relative speed 2, ttc 1 +
-  division 8, the five tests 5 (ahead, slower, lateral 2, ttc) and the
-  removed test 1, their conjunction into ``danger`` 5: 23 each; per car
-  (2): the five feasibility bits 5, their mask 4, the test of the drawn
-  action 3 (range, shift, bit), the first feasible action 3 (find
-  first set, subtract, select): 15 each.  6 + 46 + 30 = 82.
-* the controls, per car (2): live 1, the acceleration 4 (two compares,
-  two selects), the new speed 4 (multiply, add, two clamps), the
-  sublane 6 (two compares, subtract, add, two clamps), the live
-  selects of speed and sublane 2, the move 3 (multiply, add, select),
-  the step count 1, the new lateral position 3: 24 each, 48.
-* the pairs on the new state: the overlap test once per unordered pair
-  (1): both live 1, |dx| 2, |dy| 2, conjunction 2 = 7; per ordered
-  pair (2): fwd 1, near 4 (two compares, two ANDs), the sublane
-  difference 1, on-left 3 and on-right 3 (two compares folded into a
-  range test, one AND, one OR each): 12 each; crashed per car (2): two
-  action compares, two ANDs, two ORs: 6 each.  7 + 24 + 12 = 43.
-* the rewards, per car (2): the goal distance 1 + division 8 and its
-  test 1; the time-out test 1; the goal reward 15 (difference to the
-  goal sublane, its test, absolute value, convert, division 8,
-  subtract, multiply, select); the reward select chain 3; the
-  overspeed penalty 3 (compare, select, subtract: the product of 0.1
-  and a 0/1 flag is a select); the live select 1; the car's sum 1;
-  terminal 3; the episode-crash term 2; removed 2: 41 each, 82.
-* per step, 19: the reward add, done (2), the episode count, 10 reset
-  selects (x, sublane, speed, steps, removed for each car), the
-  ``done`` branch's predicate 2, the loop's increment, compare and
-  branch.
+* 10: the cars' rewards into the sum 2, done 2, the episode count, the
+  reset's branch 2, the loop's increment, compare and branch.
+* per car (2): the live test 1, the removed flag's update 2 (OR with
+  the car's terminal and the episode's crash): 3 each; the pair's
+  both-live test 1.
 
-That is 33 + 8 + 82 + 48 + 43 + 82 + 19 = 315 issued operations per
-step, of them 6 MUFU (the ttc, goal-distance and goal-reward
-divisions).  The two limits of a call:
+Per live car (not removed), 62:
 
-    issue:  315 x B x T / (SMs x 4 warp-instructions per clock x 32 x clock)
-    MUFU:     6 x B x T / (SMs x 16 lanes per clock x clock)
+* its action ``(w >> 7) % 5`` 4; its lateral position 3 (convert,
+  multiply, subtract).
+* the TTC filter: against the other car, dx 1, the four tests that
+  need no division 5 (ahead, slower, lateral 2, the other's removed
+  flag), their conjunction 3, the OR into ``danger`` 1: 10; the five
+  feasibility bits 5, their mask 4, the test of the drawn action 3
+  (range, shift, bit): 12.
+* the controls 20: the acceleration 4 (two compares, two selects), the
+  new speed 4 (multiply, add, two clamps), the sublane 6 (two compares,
+  subtract, add, two clamps), the move 2 (multiply, add), the step
+  count 1, the new lateral position 3.
+* the reward 13: at the goal 1 (``(goal_pos - x) / total_length <= 0``
+  with ``total_length > 0`` is ``x >= goal_pos``: no division), timed
+  out 1, the reward's select chain 3, the overspeed penalty 3 (compare,
+  select, subtract: the product of 0.1 and a 0/1 flag is a select),
+  terminal 3, the episode-crash term 2.
 
-with the SM clock from ``nvidia-smi --query-gpu=clocks.max.sm``;
-issue is the larger.  ``chip_smoke.py`` computes both in each run.  On
-an H100 SXM (132 SMs, 1980 MHz) a ``bench.py`` call (B = 2^20,
-T = 2048) is bound at 20.2 ms by issue.
+Per pair of live cars, 42: the overlap test 6 (|dx| 2, |dy| 2,
+conjunction 2); per ordered pair (2) fwd 1, near 4 (two compares, two
+ANDs), the sublane difference 1, on-left 3 and on-right 3 (two compares
+folded into a range test, one AND, one OR each): 12 each; crashed per
+car (2): two action compares, two ANDs, two ORs: 6 each.
+
+Per TTC candidate (a live car with the other live, ahead, slower and
+in lateral reach), 13, 1 of them MUFU: the relative speed 2 (subtract,
+max), the gap 1, the division 8, its test 1, the AND 1.
+
+Per drawn action that the filter rejects, 3: the first feasible action
+(find first set, subtract, select).
+
+Per goal reward read (a live car at its goal, not crashed), 15, 1 of
+them MUFU: the difference to the goal sublane, its test, absolute
+value, convert, division 8, subtract, multiply, select.
+
+Per reset (done), 10: x, sublane, speed, steps and the removed flag of
+each car.
+
+A call of B instances and T steps needs ``50 B T + 62 L + 42 P + 13 D
++ 3 F + 15 G + 10 E`` operations and ``D + G`` MUFU operations, with
+L live cars, P pairs of live cars, D TTC candidates, F rejected draws,
+G goal rewards and E resets counted over the call, and its two limits
+are
+
+    issue:  operations / (SMs x 4 warp-instructions per clock x 32 x clock)
+    MUFU:   MUFU operations / (SMs x 16 lanes per clock x clock)
+
+with the SM clock from ``nvidia-smi --query-gpu=clocks.max.sm``.
+``chip_smoke.py`` counts L, P, D, F and G with the plain version's
+``observe`` at the bench call's inputs, E from the kernel's own episode
+counts, and computes both limits in each run (``PERF.md`` has the
+counts).  The kernel computes every term of both cars every step.
 
 Design.  One instance per thread, its cars in registers: position,
 velocity, sublane, step count and the removed flag of each car, the
@@ -121,8 +141,8 @@ import torch
 
 from cm3_tpu_torch.core.config import RoadwayEnvConfig
 from cm3_tpu_torch.envs import roadway_soa as rs
-from cm3_tpu_torch.ops import _nvcc
-from cm3_tpu_torch.ops.philox import MASK32, random_actions
+from cm3_tpu_torch.ops import _rollout
+from cm3_tpu_torch.ops.philox import random_actions
 
 CARS = (1, 2)           # the car counts the kernel is built for
 MAX_CARS = 2
@@ -157,19 +177,22 @@ def params(cfg: RoadwayEnvConfig):
     return tuple(floats), tuple(ints)
 
 
-def _rollout_plain(cfg, batch, n_steps, device, actions_at):
+def _rollout_plain(cfg, batch, n_steps, device, actions_at, observe=None):
     s0 = rs.soa_init(cfg, (batch,), device=device)
     s = s0
     rew = torch.zeros(batch, dtype=torch.float32, device=device)
     ep = torch.zeros(batch, dtype=torch.int32, device=device)
     for t in range(n_steps):
-        acts = rs.soa_check_actions(cfg, s, actions_at(t))
-        s, rws, done = rs.soa_step(cfg, s, acts)
+        drawn = actions_at(t)
+        acts = rs.soa_check_actions(cfg, s, drawn)
+        s2, rws, done = rs.soa_step(cfg, s, acts)
+        if observe is not None:
+            observe(s, drawn, acts, s2)
         total = rws[0]
         for r in rws[1:]:
             total = total + r
         rew = rew + total
-        s = rs.select(done, s0, s)
+        s = rs.select(done, s0, s2)
         ep = ep + done.int()
     return rew, ep
 
@@ -182,32 +205,27 @@ def rollout_actions_plain(cfg: RoadwayEnvConfig, actions):
 
 
 def rollout_prng_plain(cfg: RoadwayEnvConfig, batch: int, n_steps: int,
-                       seed: int, device="cuda"):
+                       seed: int, device="cuda", observe=None):
+    """The kernel's math in plain PyTorch with Philox draws.
+    ``observe(state, drawn, taken, next_state)``, if given, sees every
+    step: the state before it, the drawn and the filtered actions, and
+    the state after it before the reset (``chip_smoke.py`` counts the
+    work the data decide with it)."""
     return _rollout_plain(
         cfg, batch, n_steps, device,
-        lambda t: random_actions(seed, t, batch, cfg.n_agents, device))
+        lambda t: random_actions(seed, t, batch, cfg.n_agents, device),
+        observe)
 
 
-def _launch(wrapper, cfg, actions, batch, n_steps, seed, device):
-    """Allocate the outputs and launch the kernel (none for an empty
-    batch); counts the launch on ``wrapper``."""
-    floats, ints = params(cfg)
-    if not 0 <= batch < 2 ** 31 or not 0 <= n_steps < 2 ** 31:
-        raise ValueError(f"roadway_rollout: batch {batch} or n_steps "
-                         f"{n_steps} out of range")
-    lib = _nvcc.library()
-    rew = torch.empty(batch, dtype=torch.float32, device=device)
-    ep = torch.empty(batch, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.cm3_roadway_rollout(
+def _call(cfg):
+    """The C entry with the config's leading arguments."""
+    def call(lib, *args):
+        floats, ints = params(cfg)
+        return lib.cm3_roadway_rollout(
             (ctypes.c_float * len(floats))(*floats), len(floats),
             (ctypes.c_int32 * len(ints))(*ints), len(ints), cfg.n_agents,
-            None if actions is None else actions.data_ptr(), batch, n_steps,
-            seed & MASK32, rew.data_ptr(), ep.data_ptr(), stream)
-    _nvcc.check(code, "roadway_rollout")
-    wrapper.launches += batch > 0
-    return rew, ep
+            *args)
+    return call
 
 
 def rollout_prng(cfg: RoadwayEnvConfig, batch: int, n_steps: int, seed: int,
@@ -217,12 +235,10 @@ def rollout_prng(cfg: RoadwayEnvConfig, batch: int, n_steps: int, seed: int,
     auto-reset.  Returns (reward_sum f32 [batch], episodes i32
     [batch])."""
     _check_cars(cfg.n_agents)
-    device = torch.device(device)
-    if device.type == "cpu":
-        return rollout_prng_plain(cfg, batch, n_steps, seed, device)
-    if device.type != "cuda":
-        raise RuntimeError(f"roadway_rollout: no kernel for device {device}")
-    return _launch(rollout_prng, cfg, None, batch, n_steps, seed, device)
+    return _rollout.prng(
+        "roadway_rollout", rollout_prng,
+        lambda dev: rollout_prng_plain(cfg, batch, n_steps, seed, dev),
+        _call(cfg), batch, n_steps, seed, device)
 
 
 def rollout_actions(cfg: RoadwayEnvConfig, actions):
@@ -230,21 +246,10 @@ def rollout_actions(cfg: RoadwayEnvConfig, actions):
     rollout instead of Philox.  Returns (reward_sum f32 [batch],
     episodes i32 [batch])."""
     _check_cars(cfg.n_agents)
-    if actions.dim() != 3 or actions.shape[1] != cfg.n_agents:
-        raise ValueError("roadway_rollout: actions must be [T, N, batch] "
-                         f"with N = {cfg.n_agents}, got "
-                         f"{tuple(actions.shape)}")
-    if actions.device.type == "cpu":
-        return rollout_actions_plain(cfg, actions)
-    if actions.device.type != "cuda":
-        raise RuntimeError(
-            f"roadway_rollout: no kernel for device {actions.device}")
-    if actions.dtype != torch.int32 or not actions.is_contiguous():
-        raise ValueError("roadway_rollout: actions must be contiguous "
-                         f"int32, got {actions.dtype}")
-    t, _, batch = actions.shape
-    return _launch(rollout_actions, cfg, actions, batch, t, 0,
-                   actions.device)
+    return _rollout.fed(
+        "roadway_rollout", rollout_actions,
+        lambda a: rollout_actions_plain(cfg, a), _call(cfg), cfg.n_agents,
+        actions)
 
 
 rollout_prng.launches = 0

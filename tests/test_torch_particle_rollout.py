@@ -169,6 +169,21 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     assert torch.equal(rew, p_rew) and torch.equal(ep, p_ep)
 
 
+def test_observe_sees_every_step_and_changes_nothing():
+    """The plain version's observer sees the state before each step,
+    the reset state first, and leaves the outputs as they were."""
+    _, tc = _cfgs("n4")
+    seen = []
+    rew, ep = tpr.rollout_prng_plain(tc, 50, 40, 3, device="cpu",
+                                     observe=seen.append)
+    p_rew, p_ep = tpr.rollout_prng_plain(tc, 50, 40, 3, device="cpu")
+    assert torch.equal(rew, p_rew) and torch.equal(ep, p_ep)
+    assert len(seen) == 40
+    s0 = tps.soa_init(tc, (50,), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(seen[0].px, s0.px))
+    assert not torch.equal(seen[1].px[0], s0.px[0])
+
+
 def test_meta_device_raises():
     _, tc = _cfgs("n4")
     before = (tpr.rollout_prng.launches, tpr.rollout_actions.launches)

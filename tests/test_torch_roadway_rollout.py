@@ -211,6 +211,25 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     assert torch.equal(rew, p_rew) and torch.equal(ep, p_ep)
 
 
+def test_observe_sees_every_step_and_changes_nothing():
+    """The plain version's observer sees every step: the state before
+    it, the drawn and the filtered actions, and the state after it
+    before the reset; the outputs stay as they were."""
+    _, tc = _cfgs("stagger")
+    seen = []
+    rew, ep = trr.rollout_prng_plain(
+        tc, 50, 90, 3, device="cpu",
+        observe=lambda *args: seen.append(args))
+    p_rew, p_ep = trr.rollout_prng_plain(tc, 50, 90, 3, device="cpu")
+    assert torch.equal(rew, p_rew) and torch.equal(ep, p_ep)
+    assert len(seen) == 90
+    for s, drawn, taken, s2 in seen[:5]:
+        want = trs.soa_check_actions(tc, s, drawn)
+        assert all(torch.equal(a, b) for a, b in zip(taken, want))
+        nxt, _, _ = trs.soa_step(tc, s, taken)
+        assert all(torch.equal(a, b) for a, b in zip(s2.x, nxt.x))
+
+
 def test_meta_device_raises():
     _, tc = _cfgs("flat")
     before = (trr.rollout_prng.launches, trr.rollout_actions.launches)
