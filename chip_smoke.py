@@ -19,12 +19,14 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
    after warm-up; back to back, and inside a CUDA graph for the device
    time alone) beside its memory bound, the plain version's time and
    a library yardstick (``torch.optim.Adam(fused=True).step`` plus
-   ``torch._foreach_lerp_``; the port never calls it).
+   ``torch._foreach_lerp_``, in a graph with ``capturable=True``; the
+   port never calls it), kernel and yardstick timed in turns.
 2. the slice: the Checkers stage-2 CM3 training chunk at full width
    (n_envs 256, 10 env steps, 8 updates on B=128, buffer 20000,
    fused optimizer), as ``bench.py``'s headline program runs it for one
    seed: 2 random-fill chunks, then training chunks, with the kernel's
-   launch count set to 0 just before and read just after.
+   launch count set to 0 just before and read just after; the host
+   cost of the nets' full-float32 scope.
 3. card against CPU: one fill and one training chunk from the same
    seeded state with the same fed draws on the card and on the CPU
    (plain versions there), compared at a stated tolerance.
@@ -37,17 +39,19 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
    against the plain version at the same size and seed; the kernel's
    time against its instruction-issue bound (the operations one step
    needs, counted in ``cm3_tpu_torch/ops/checkers_rollout.py``), the
-   plain version's time, and the grid-engine figure
-   ``checkers_grid_env_steps_per_s``.
+   plain version's time, the kernel's registers and resident blocks
+   per SM, and the grid-engine figure ``checkers_grid_env_steps_per_s``.
 5. Polyak (Triton): the kernel against its plain version at four sizes
    and three tau values; a soft update of the three networks of the
    slice's CM3 state, with the launch count set to 0 just before and
    read just after; its time back to back and in a CUDA graph beside
-   its memory bound, the plain version's and ``Tensor.lerp_``'s.
+   its memory bound, the plain version's and ``Tensor.lerp_``'s (kernel
+   and ``lerp_`` in graphs in turns, with their spread).
 6. the fused particle rollout (CUDA C++) and
 7. the fused roadway rollout (CUDA C++), each: the kernel against its
    plain version on fed actions at a ragged batch over several
-   episodes, and with Philox draws on the card and on the CPU; then
+   episodes (particle: also from a start within contact range), and
+   with Philox draws on the card and on the CPU; then
    ``bench.py``'s ``particle_fused_env_steps_per_s`` /
    ``roadway_fused_env_steps_per_s`` program at full size (B = 2^20,
    T = 2048, 3 reps) through ``cm3_tpu_torch.bench``, with the launch
@@ -55,11 +59,14 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
    timed and held against the plain version at the same size and seed;
    the plain version run again on those inputs with an observer that
    counts the work the data decide (pairs in contact, live cars, TTC
-   candidates, ...); the kernel's time against its bound (the
-   operations the call needs, itemized in ``ops/particle_rollout.py``
-   and ``ops/roadway_rollout.py``, at the issue rate and at the
-   special-function unit's rate; the larger bounds it) and the plain
-   version's time.
+   candidates, ...; particle: also the share of warps, 32
+   consecutive instances, in which a lane takes a pair's contact
+   branch); the kernel's time against its bound (the operations the
+   call needs, itemized in ``ops/particle_rollout.py`` and
+   ``ops/roadway_rollout.py``, at the issue rate and at the
+   special-function unit's rate; the larger bounds it), the plain
+   version's time and (particle) the kernel's registers and resident
+   blocks per SM.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -94,12 +101,12 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-6, 1e-7
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
 # the fused rollout: bench.py's size, the checks' sizes, the operations
 # one step of one instance needs (two agents, Philox; itemized in the note
-# of cm3_tpu_torch/ops/checkers_rollout.py: 33 Philox + 2 x 21 per agent
+# of cm3_tpu_torch/ops/checkers_rollout.py: 33 Philox + 2 x 20 per agent
 # + 13 per step) and the issue rate (warp-instructions per clock per SM;
 # 32 threads a warp)
 FUSED_B, FUSED_T, FUSED_REPS = 1 << 20, 8192, 3
 FED_B, FED_T, PRNG_B, PRNG_T, PLAIN_T = (1 << 16) + 37, 300, 1 << 14, 300, 64
-ROLLOUT_OPS_PER_STEP = 88
+ROLLOUT_OPS_PER_STEP = 86
 WARP_INSTS_PER_CLOCK = 4
 # kernel vs plain: the same float32 adds in the same order (in practice
 # equal)
@@ -127,6 +134,18 @@ MUFU_LANES_PER_CLOCK = 16
 # CUDA's (the run prints whether they are bit-equal).  On the card the
 # kernel is held to its plain version as in phase 4.
 SOA_CPU_TOL = (1e-5, 1e-3)          # rtol, atol
+# a particle start within contact range: adjacent agents 0.29 apart
+# (inside dmin = 0.3), diagonal ones 0.41 apart (at the kernel's far
+# threshold, dmin + 0.11), so that contact terms and pairs at the
+# threshold are common
+PARTICLE_NEAR = dict(agents_x=(-0.145, 0.145, -0.145, 0.145),
+                     agents_y=(-0.145, -0.145, 0.145, 0.145),
+                     prob_random=0.0, initial_std=0.0)
+WARP = 32
+# graph timings taken in turns: kernel, yardstick, yardstick, kernel, so
+# many times over
+TURNS = 3
+FLOAT32_SCOPE_ENTRIES = 20000
 
 T0 = time.time()
 
@@ -199,6 +218,23 @@ def graph_time_ms(fn, per_graph=50, replays=20):
     return start.elapsed_time(end) / (replays * per_graph)
 
 
+def graph_turns(kernel, yardstick):
+    """Device times per call in CUDA graphs, taken in turns (kernel,
+    yardstick, yardstick, kernel) ``TURNS`` times: two lists of ms."""
+    ks, ys = [], []
+    for _ in range(TURNS):
+        ks.append(graph_time_ms(kernel))
+        ys += [graph_time_ms(yardstick), graph_time_ms(yardstick)]
+        ks.append(graph_time_ms(kernel))
+    return ks, ys
+
+
+def us_spread(ms):
+    """Median and range of times in ms, printed in us."""
+    return (f"{statistics.median(ms) * 1e3:.2f} us ({min(ms) * 1e3:.2f}-"
+            f"{max(ms) * 1e3:.2f})")
+
+
 # ------------------------------------------------------------------ #
 # phase 1
 # ------------------------------------------------------------------ #
@@ -250,10 +286,22 @@ def phase_kernel(dev):
             opt.step()
             torch._foreach_lerp_([lt], [lp.detach()], 0.01)
 
+        # the same yardstick with its step count on the device, so that a
+        # CUDA graph can hold it
+        gp = torch.nn.Parameter(p.clone())
+        gp.grad = g.clone()
+        gt = t.clone()
+        gopt = torch.optim.Adam([gp], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                fused=True, capturable=True)
+
+        def library_graph():
+            gopt.step()
+            torch._foreach_lerp_([gt], [gp.detach()], 0.01)
+
         k_ms = cuda_time_ms(kern, 500)
         p_ms = cuda_time_ms(plain, 200)
         l_ms = cuda_time_ms(library, 200)
-        k_dev = graph_time_ms(kern)
+        k_devs, l_devs = graph_turns(kern, library_graph)
         p_dev = graph_time_ms(plain)
         bytes_ms = BYTES_PER_ELEM * n / HBM_BPS * 1e3
         ops_ms = OPS_PER_ELEM * n / F32_FLOPS * 1e3
@@ -262,8 +310,10 @@ def phase_kernel(dev):
         rows.append((k_ms, p_ms, l_ms, b_ms))
         log(f"  adam_polyak {name} n={n}: back to back: kernel "
             f"{k_ms * 1e3:.2f} us/launch, plain {p_ms * 1e3:.2f} us, library "
-            f"Adam(fused)+lerp {l_ms * 1e3:.2f} us; in a CUDA graph: kernel "
-            f"{k_dev * 1e3:.2f} us, plain {p_dev * 1e3:.2f} us; bound "
+            f"Adam(fused)+lerp {l_ms * 1e3:.2f} us; in a CUDA graph "
+            f"(median and range of {2 * TURNS}, in turns): kernel "
+            f"{us_spread(k_devs)}, library Adam(fused, capturable)+lerp "
+            f"{us_spread(l_devs)}; plain {p_dev * 1e3:.2f} us; bound "
             f"{b_ms * 1e3:.2f} us ({bound_by})")
     mean = lambda i: sum(r[i] for r in rows) / len(rows)
     return {"max_abs_err": max_err, "ms": mean(0), "plain_ms": mean(1),
@@ -347,6 +397,17 @@ def phase_slice(device):
     episodes = int(rs.episodes)
     assert episodes > 0
     steady = statistics.median(times[1:])
+    from cm3_tpu_torch.models import nets
+    t0 = time.perf_counter()
+    for _ in range(FLOAT32_SCOPE_ENTRIES):
+        with nets.full_float32():
+            pass
+    scope_ms = (time.perf_counter() - t0) / FLOAT32_SCOPE_ENTRIES * 1e3
+    log(f"  full-float32 scope of the nets: {scope_ms * 1e3:.2f} us per entry "
+        f"on the host; {STEPS + UPDATES} entries per training chunk = "
+        f"{(STEPS + UPDATES) * scope_ms:.4f} ms, "
+        f"{(STEPS + UPDATES) * scope_ms / (steady * 1e3):.5f} of the median "
+        "chunk")
     log(f"  {TRAIN_CHUNKS} training chunks: first {times[0] * 1e3:.1f} ms, "
         f"median of the rest {steady * 1e3:.2f} ms "
         f"(min {min(times[1:]) * 1e3:.2f}, max {max(times[1:]) * 1e3:.2f}); "
@@ -446,6 +507,19 @@ def _smi_max_sm_clock_hz():
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60, check=True).stdout.split()
     return float(out[0]) * 1e6
+
+
+def log_occupancy(mod, n_agents):
+    """The built rollout kernel's registers and resident blocks per SM,
+    Philox and fed variants (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    for fed in (False, True):
+        o = mod.occupancy(n_agents, fed)
+        log(f"  {mod.__name__.rsplit('.', 1)[-1]} kernel, N = {n_agents}, "
+            f"{'fed' if fed else 'Philox'}: {o['registers']} registers per "
+            f"thread, {o['blocks_per_sm']} resident blocks of "
+            f"{o['threads']} threads per SM, {o['local_bytes']} bytes of "
+            "local memory per thread")
 
 
 def hold_rollout(got, want, what, rtol=0.0, atol=ROLLOUT_ATOL):
@@ -551,6 +625,7 @@ def phase_rollout(dev):
         f"{plain_ms / FUSED_T * 1e3:.1f} us (T={FUSED_T}), "
         f"{plain_step_ms * 1e3:.1f} us (T={PLAIN_T}); library: no single "
         "PyTorch call computes it")
+    log_occupancy(cr, 2)
     grid = bench.bench_checkers_throughput()
     log(f"  bench_checkers_throughput (grid engine, B=8192, T=256, reps 5): "
         f"{grid:.6g} env-steps/s")
@@ -610,14 +685,15 @@ def phase_polyak(dev):
     lib = lambda: t.lerp_(m, tau)
     k_ms, p_ms, l_ms = (cuda_time_ms(kern, 500), cuda_time_ms(plain, 200),
                         cuda_time_ms(lib, 500))
-    k_dev, p_dev, l_dev = graph_time_ms(kern), graph_time_ms(plain), \
-        graph_time_ms(lib)
+    k_devs, l_devs = graph_turns(kern, lib)
+    p_dev = graph_time_ms(plain)
     bound_ms = POLYAK_BYTES_PER_ELEM * n / HBM_BPS * 1e3
     log(f"  polyak n={n}: {launches} launches for the three networks; back "
         f"to back: kernel {k_ms * 1e3:.2f} us/launch, plain "
-        f"{p_ms * 1e3:.2f} us, lerp_ {l_ms * 1e3:.2f} us; in a CUDA graph: "
-        f"kernel {k_dev * 1e3:.2f} us, plain {p_dev * 1e3:.2f} us, lerp_ "
-        f"{l_dev * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us (bytes)")
+        f"{p_ms * 1e3:.2f} us, lerp_ {l_ms * 1e3:.2f} us; in a CUDA graph "
+        f"(median and range of {2 * TURNS}, in turns): kernel "
+        f"{us_spread(k_devs)}, lerp_ {us_spread(l_devs)}; plain "
+        f"{p_dev * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us (bytes)")
     return {"launches": launches, "max_abs_err": max_err, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": l_ms}
@@ -631,22 +707,46 @@ def phase_polyak(dev):
 def particle_counter(cfg, dev):
     """An ``observe`` for ``particle_rollout.rollout_prng_plain`` that
     counts the pairs whose contact force is not exactly 0 (``pen`` as
-    ``soa_step`` computes it, on the positions before the move)."""
+    ``soa_step`` computes it, on the positions before the move), and per
+    pair the instances and the warps (``WARP`` consecutive instances) in
+    which a lane takes the kernel's contact branch (``d2 < far_d2``).
+    Returns it, the counts and a description of the branch's shares."""
     import torch
     from cm3_tpu_torch.envs import particle_soa as ps
+    from cm3_tpu_torch.ops import particle_rollout as pr
 
     k = torch.full((), cfg.contact_margin, dtype=torch.float32, device=dev)
-    counts = {"near_pair": torch.zeros((), dtype=torch.int64, device=dev)}
+    far = float(pr.far_d2(cfg))
+    pairs = [(i, j) for i in range(cfg.n_agents)
+             for j in range(i + 1, cfg.n_agents)]
+    zero = lambda: torch.zeros((), dtype=torch.int64, device=dev)
+    counts = {"near_pair": zero()}
+    branch = {p: [zero(), zero()] for p in pairs}   # instances, warps
+    seen = [0, 0]                                    # instance-, warp-steps
 
     def observe(s):
-        for i in range(cfg.n_agents):
-            for j in range(i + 1, cfg.n_agents):
-                dx, dy = s.px[i] - s.px[j], s.py[i] - s.py[j]
-                dist = ps.sqrt(dx * dx + dy * dy)
-                pen = ps.logaddexp0(-(dist - 2 * cfg.agent_size) / k) \
-                    * cfg.contact_margin
-                counts["near_pair"] += (pen != 0).sum()
-    return observe, counts
+        b = s.px[0].shape[0]
+        seen[0] += b
+        seen[1] += -(-b // WARP)
+        for i, j in pairs:
+            dx, dy = s.px[i] - s.px[j], s.py[i] - s.py[j]
+            d2 = dx * dx + dy * dy
+            dist = ps.sqrt(d2)
+            pen = ps.logaddexp0(-(dist - 2 * cfg.agent_size) / k) \
+                * cfg.contact_margin
+            counts["near_pair"] += (pen != 0).sum()
+            taken = d2 < far
+            branch[i, j][0] += taken.sum()
+            pad = torch.nn.functional.pad(taken, (0, -b % WARP))
+            branch[i, j][1] += pad.view(-1, WARP).any(1).sum()
+
+    def describe():
+        return ("contact branch (d2 < far_d2 = " + repr(far) + ") taken, "
+                "per pair, by a share of instance-steps / of warp-steps: "
+                + "; ".join(f"{i}{j} {int(n) / seen[0]:.6g} / "
+                            f"{int(w) / seen[1]:.6g}"
+                            for (i, j), (n, w) in branch.items()))
+    return observe, counts, describe
 
 
 def roadway_counter(cfg, dev):
@@ -679,23 +779,28 @@ def roadway_counter(cfg, dev):
                     & (s.vel[j] < s.vel[i]) & (lateral < cfg.car_width)).sum()
                 if j > i:
                     counts["live_pair"] += (live[i] & live[j]).sum()
-    return observe, counts
+    return observe, counts, None
 
 
-def phase_soa_rollout(dev, name, mod, cfg, bench_fn, work, counter):
+def phase_soa_rollout(dev, name, mod, cfg, bench_fn, work, counter,
+                      fed_cfgs=()):
     import torch
 
     n = cfg.n_agents
     gen = torch.Generator(device=dev).manual_seed(SEED)
     eps = lambda ep: (int(ep.min()), int(ep.max()))
 
-    # fed actions at a ragged batch over several episodes, on the card
-    acts = torch.randint(0, 5, (SOA_FED_T, n, SOA_FED_B), device=dev,
-                         dtype=torch.int32, generator=gen)
-    k = mod.rollout_actions(cfg, acts)
-    fed_err = hold_rollout(k, mod.rollout_actions_plain(cfg, acts),
-                           f"fed B={SOA_FED_B} T={SOA_FED_T}")
-    assert eps(k[1])[0] >= 2, "fewer than two episodes"
+    # fed actions at a ragged batch over several episodes, on the card,
+    # from the bench's start and from any other start given
+    fed_err = 0.0
+    for what, c in [("", cfg)] + list(fed_cfgs):
+        acts = torch.randint(0, 5, (SOA_FED_T, n, SOA_FED_B), device=dev,
+                             dtype=torch.int32, generator=gen)
+        k = mod.rollout_actions(c, acts)
+        fed_err = max(fed_err, hold_rollout(
+            k, mod.rollout_actions_plain(c, acts),
+            f"fed B={SOA_FED_B} T={SOA_FED_T}{what}"))
+        assert eps(k[1])[0] >= 2, "fewer than two episodes"
 
     # Philox draws: kernel == plain on the card; plain on the CPU
     k = mod.rollout_prng(cfg, SOA_PRNG_B, SOA_PRNG_T, SEED + 7, device=dev)
@@ -735,7 +840,7 @@ def phase_soa_rollout(dev, name, mod, cfg, bench_fn, work, counter):
     # the work the data decide, counted by the plain version on the same
     # inputs (its outputs held against the kernel's too); the resets are
     # the kernel's episodes
-    observe, counted = counter(cfg, dev)
+    observe, counted, describe = counter(cfg, dev)
     hold_rollout(out["k"], mod.rollout_prng_plain(cfg, SOA_B, SOA_T, 99, dev,
                                                   observe=observe),
                  f"Philox B={SOA_B} T={SOA_T} seed 99, counted")
@@ -756,6 +861,8 @@ def phase_soa_rollout(dev, name, mod, cfg, bench_fn, work, counter):
         + "; ".join(f"{k} {counts[k] / steps:.6g} x {work[k][0]}, "
                     f"{work[k][1]}" for k in work)
         + f"; in all {ops / steps:.6g} operations, {mufu / steps:.6g} MUFU")
+    if describe is not None:
+        log("  " + describe())
     log(f"  kernel {call_ms:.3f} ms per call ({steps / call_ms * 1e3:.6g} "
         f"env-steps/s) against a bound of {bound_ms:.3f} ms, by "
         f"{'issue' if issue_ms >= mufu_ms else 'MUFU'} (issue: operations "
@@ -766,6 +873,7 @@ def phase_soa_rollout(dev, name, mod, cfg, bench_fn, work, counter):
     log(f"  plain {plain_ms:.1f} ms per call ({plain_ms / call_ms:.0f}x the "
         f"kernel; {plain_ms / SOA_T * 1e3:.1f} us per step of {SOA_B} "
         "instances); library: no single PyTorch call computes it")
+    log_occupancy(mod, n)
     return {"launches": launches,
             "max_abs_err": max(fed_err, prng_err, cpu_err, full_err),
             "ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -778,9 +886,11 @@ def phase_particle(dev):
     from cm3_tpu_torch.ops import particle_rollout
 
     cfg = ParticleEnvConfig(prob_random=0.0, initial_std=0.0)
+    near = ParticleEnvConfig(**PARTICLE_NEAR)
     return phase_soa_rollout(dev, "particle", particle_rollout, cfg,
                              bench.bench_particle_fused, PARTICLE_WORK,
-                             particle_counter)
+                             particle_counter,
+                             [(", start within contact range", near)])
 
 
 def phase_roadway(dev):

@@ -160,6 +160,7 @@ class CM3:
         return common.epsilon_probs(probs, epsilon, self.n_actions)
 
     @torch.no_grad()
+    @nets.full_float32()
     def act(self, ts: CM3State, obs, goals, a_prev, epsilon, gumbel):
         """Sample actions for all agents as one batch, [B, N];
         ``gumbel`` is [B, N, A] standard Gumbel noise."""
@@ -219,6 +220,7 @@ class CM3:
         fused_opt.adam_polyak(opt_state, net.flat, tgt.flat, net.flat_grad,
                               lr, self.cfg.tau)
 
+    @nets.full_float32()
     def update(self, ts: CM3State, batch: Dict[str, Any], epsilon,
                gumbel) -> tuple:
         """One CM3 learning step, in place on ``ts``'s buffers.

@@ -18,6 +18,7 @@
 
 #include <cuda_runtime.h>
 
+#include "occupancy.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -217,6 +218,12 @@ roadway_rollout_kernel(const Params p, const int32_t* __restrict__ actions,
 }
 
 template <int N>
+const void* kernel_of(bool fed) {
+  return fed ? reinterpret_cast<const void*>(roadway_rollout_kernel<N, true>)
+             : reinterpret_cast<const void*>(roadway_rollout_kernel<N, false>);
+}
+
+template <int N>
 void launch(const Params& p, const int32_t* actions, int batch, int n_steps,
             uint32_t seed, float* rew, int32_t* ep, cudaStream_t stream) {
   const dim3 grid((batch + kThreads - 1) / kThreads);
@@ -278,4 +285,15 @@ extern "C" int cm3_roadway_rollout(const float* floats, int n_floats,
   else
     launch<2>(p, actions, batch, n_steps, seed, rew, ep, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The occupancy (occupancy.cuh) of the kernel that cm3_roadway_rollout
+// launches for n_agents; fed != 0: the fed variant.
+extern "C" int cm3_roadway_rollout_occupancy(int n_agents, int fed,
+                                             int* out) {
+  if (n_agents < 1 || n_agents > kMaxCars)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return kernel_occupancy(n_agents == 1 ? kernel_of<1>(fed != 0)
+                                        : kernel_of<2>(fed != 0),
+                          kThreads, out);
 }

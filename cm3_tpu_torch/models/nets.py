@@ -25,10 +25,28 @@ Glorot-uniform, biases zero, the branch-combination matrices ``W_h2``
 truncated-normal with sigma 0.01, and the h2 bias ``b`` follows the init
 scheme: zeros under "ref" and "trunc001", TF1's rank-1 Glorot under
 "tf1"; "trunc001" also draws every kernel truncated-normal 0.01.
+
+Precision.  On the card a float32 convolution goes through cuDNN in
+TF32 unless ``torch.backends.cudnn.allow_tf32`` is False, and that is
+PyTorch's default; a matrix product does when
+``torch.backends.cuda.matmul.allow_tf32`` is True (or
+``torch.set_float32_matmul_precision`` is not "highest").  The JAX
+package pins full float32 (``cm3_tpu/train/runner.py:302,480``), and
+reduced precision is measured to trap Checkers stage 1.  So every
+entry of the port that runs these nets (``CM3.act`` and
+``CM3.update``, forward and backward: a backward reads the flags when
+it runs) does so inside ``full_float32()``, which turns both flags off
+and gives the caller's values back on exit, whatever they were.  The
+scope is entered once per ``act`` and once per ``update`` (18 times per
+training chunk of 10 steps and 8 updates, against ~6,400 kernel
+launches) and costs the host a few microseconds each: four flag reads
+and four writes (``chip_smoke.py`` phase 2 prints the time on the
+card's host).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Tuple
 
@@ -44,6 +62,21 @@ def init_scheme(name: str = "ref") -> str:
     if name not in INIT_SCHEMES:
         raise ValueError(f"unknown init scheme {name!r}")
     return name
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Convolutions and matrix products in full float32 (no TF32) inside
+    the scope, the caller's flags restored on exit; also a decorator."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def _trunc001(t: torch.Tensor, gen: torch.Generator):

@@ -51,8 +51,10 @@ FLAGS = COMPILE_FLAGS + LINK_FLAGS      # all of them, for the hash
 _P, _I, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 SIGNATURES = {
     "cm3_error_string": ([_I], ctypes.c_char_p),
-    # spec, n_agents, actions, batch, n_steps, seed, rew, ep, stream
-    "cm3_checkers_rollout": ([_P, _I, _P, _I, _I, _U32, _P, _P, _P], _I),
+    # spec, n_words, n_agents, actions, batch, n_steps, seed, rew, ep,
+    # stream
+    "cm3_checkers_rollout": ([_P, _I, _I, _P, _I, _I, _U32, _P, _P, _P],
+                             _I),
     # params, n_params, n_agents, max_steps, actions, batch, n_steps, seed,
     # rew, ep, stream
     "cm3_particle_rollout": ([_P, _I, _I, _I, _P, _I, _I, _U32, _P, _P, _P],
@@ -61,6 +63,10 @@ SIGNATURES = {
     # seed, rew, ep, stream
     "cm3_roadway_rollout": ([_P, _I, _P, _I, _I, _P, _I, _I, _U32, _P, _P,
                              _P], _I),
+    # n_agents, fed, out: registers, blocks per SM, threads, local bytes
+    "cm3_checkers_rollout_occupancy": ([_I, _I, _P], _I),
+    "cm3_particle_rollout_occupancy": ([_I, _I, _P], _I),
+    "cm3_roadway_rollout_occupancy": ([_I, _I, _P], _I),
 }
 
 

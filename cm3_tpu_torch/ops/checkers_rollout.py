@@ -23,10 +23,10 @@ instructions of the card, whatever this build makes of it:
   round 2 three (b's product is the same every step), rounds 3-8 four
   each, and only output words 0 and 1 are used, so round 9 takes three
   and round 10 two.
-* per agent, 21, branch-free: the action ``(w >> 7) % 5`` 4 (shift,
+* per agent, 20, branch-free: the action ``(w >> 7) % 5`` 4 (shift,
   multiply-high by the reciprocal, shift, multiply-subtract); the move
-  8 (one table load of the action's shift and edge mask, two shifts and
-  a select for the target, the edge and occupied tests, their
+  7 (one table load of the action's shift counts and edge mask, two
+  shifts for the target, the edge and occupied tests, their
   conjunction, the select of the new position); the pickup 3 (two
   masked tests, one OR into ``collected``); the reward 6 (the invalid
   test, three selects, two adds).
@@ -34,17 +34,16 @@ instructions of the card, whatever this build makes of it:
   the episode count, four reset selects, the loop's increment, compare
   and branch.
 
-That is 33 + 2 x 21 + 13 = 88 operations per step, and the least time
+That is 33 + 2 x 20 + 13 = 86 operations per step, and the least time
 of a call is
 
-    88 x B x T / (SMs x 4 warp-instructions per clock x 32 x SM clock),
+    86 x B x T / (SMs x 4 warp-instructions per clock x 32 x SM clock),
 
 the SM clock from ``nvidia-smi --query-gpu=clocks.max.sm``;
 ``chip_smoke.py`` computes it in each run.  On an H100 SXM (132 SMs,
 1980 MHz, 700 W) a ``bench.py`` call (B = 2^20, T = 8192) is bound at
-22.6 ms.  The built loop body is longer (143 instructions per step in
-``cuobjdump -sass``): the move selection compiles to branches that a
-warp walks in full, since its threads' actions differ.
+22.1 ms.  Nearly all of the work is integer operations, which an H100
+runs at half the issue rate (``PERF.md`` has the SASS mix).
 
 Design.  One instance per thread, its whole state in registers: the
 agents' one-hot ``uint32`` positions, the collected mask, the step
@@ -54,11 +53,24 @@ takes the place of the TPU kernel's ``fori_loop``.  256 threads per
 block; a ragged last block is masked.  Nothing is read or written in
 the loop except the fed actions of the test variant
 (``actions[t, i, b]``, int32 [T, N, B] as JAX takes them, coalesced
-over b).  The spec's masks and start positions are runtime arguments,
-so one build serves every spec; the kernel is templated on N in
-{1, 2}.  The reward of each step is summed as the JAX kernel sums it
-(per agent green + orange + invalid, then ``rew + (r0 + r1)``), so the
-fed variant matches the JAX kernel exactly.
+over b).  The move is branch-free, since a warp's lanes draw different
+actions and a chain of ``a == k ? ... :`` compiles to branches that
+every warp walks in full: the four moves are one shift each
+(up ``>> width``, down ``<< width``, left ``>> 1``, right ``<< 1``),
+so ``move_table`` gives each action (stay included) its edge mask and
+its left and right shift counts, the target of p is
+``(p << shl) >> shr``, and stay, whose edge mask is 0, never moves.
+Each block copies the five entries into shared memory once (16 bytes
+each, in distinct banks); a lane reads its action's entry, and lanes
+with the same action read the same word, a broadcast.  A per-thread
+array indexed by the action would live in local memory, and a
+``__constant__`` table read at addresses that differ across a warp
+serialises.  The pickup and the reset are selects.  The spec's masks,
+start positions and move table are runtime arguments, so one build
+serves every spec; the kernel is templated on N in {1, 2}.  The reward
+of each step is summed as the JAX kernel sums it (per agent green +
+orange + invalid, then ``rew + (r0 + r1)``), so the fed variant
+matches the JAX kernel exactly.
 
 Random numbers.  The TPU kernel seeds its hardware generator with
 ``seed + program_id * 7919``; no CPU or GPU can reproduce that stream.
@@ -86,16 +98,29 @@ from cm3_tpu_torch.ops import _rollout
 from cm3_tpu_torch.ops.philox import random_actions
 
 
+def move_table(spec: cp.PackedSpec):
+    """The kernel's move per action (stay, up, down, left, right): its
+    edge mask (the positions from which it may move) and the counts of
+    its left and right shifts; the target of position p is
+    ``(p << shl) >> shr`` (up ``>> width``, down ``<< width``, left
+    ``>> 1``, right ``<< 1``; stay never moves: its edge mask is 0)."""
+    w = spec.width
+    return ((0, 0, 0), (spec.up_ok, 0, w), (spec.down_ok, w, 0),
+            (spec.left_ok, 0, 1), (spec.right_ok, 1, 0))
+
+
 def spec_words(spec: cp.PackedSpec):
-    """The spec as the C entry reads it (``SpecWord`` in the source)."""
+    """The spec as the C entry reads it (``SpecWord`` in the source):
+    masks, start positions, goal bits, step cap, then the move table's
+    edge masks, left shifts and right shifts, five words each."""
     n = len(spec.init_pos)
     if n not in (1, 2):
         raise ValueError(f"the rollout kernel takes 1 or 2 agents, not {n}")
     init = tuple(spec.init_pos) + (0,) * (2 - n)
     goal_bits = sum(1 << i for i, g in enumerate(spec.goal_green) if g)
-    return (spec.width, spec.green_mask, spec.orange_mask, spec.full_mask,
-            spec.up_ok, spec.down_ok, spec.left_ok, spec.right_ok,
-            init[0], init[1], goal_bits, spec.max_steps)
+    edge, shl, shr = zip(*move_table(spec))
+    return (spec.green_mask, spec.orange_mask, spec.full_mask, init[0],
+            init[1], goal_bits, spec.max_steps) + edge + shl + shr
 
 
 def _rollout_plain(spec, batch, n_steps, device, actions_at):
@@ -132,7 +157,8 @@ def _call(spec):
     def call(lib, *args):
         words = spec_words(spec)
         return lib.cm3_checkers_rollout(
-            (ctypes.c_uint32 * len(words))(*words), len(spec.init_pos), *args)
+            (ctypes.c_uint32 * len(words))(*words), len(words),
+            len(spec.init_pos), *args)
     return call
 
 
@@ -155,6 +181,13 @@ def rollout_actions(spec: cp.PackedSpec, actions):
         "checkers_rollout", rollout_actions,
         lambda a: rollout_actions_plain(spec, a), _call(spec),
         len(spec.init_pos), actions)
+
+
+def occupancy(n_agents: int, fed: bool = False):
+    """Registers, blocks per SM, threads per block and spill bytes of
+    the kernel built for ``n_agents`` (the Philox variant, or the fed
+    one); needs the card."""
+    return _rollout.occupancy("cm3_checkers_rollout_occupancy", n_agents, fed)
 
 
 rollout_prng.launches = 0

@@ -70,8 +70,7 @@ computes both limits in each run.  There the agents start in the
 corners, 1.8 apart where contact begins at 0.3, and a random walk
 seldom brings two of them near: C and E are small beside B T
 (``PERF.md`` has the counts), so the bound is near 293 operations a
-step.  The kernel computes the whole contact term for every pair and
-the reset's selects every step.
+step.
 
 Design.  One instance per thread, its whole state in registers:
 position and velocity of each agent, the step counter, the reward sum
@@ -80,13 +79,40 @@ arguments, the same for every instance (the collision counter of the
 state never reaches an output and is not carried).  A loop over T
 inside the thread (``#pragma unroll 1``) takes the place of the TPU
 kernel's ``fori_loop``; the agent and pair loops unroll over a
-compile-time N in {1, 2, 4}.  256 threads per block; a ragged last
-block is masked.  Nothing is read or written in the loop except the
-fed actions of the test variant (``actions[t, i, b]``, int32 [T, N, B]
-as JAX takes them, coalesced over b).  Each unordered pair's contact
-force and collision test are computed once and used for both agents,
-which gives the same float32 values as the per-ordered-pair source
-(negation is exact).
+compile-time N in {1, 2, 4}.  A ragged last block is masked.  Nothing
+is read or written in the loop except the fed actions of the test
+variant (``actions[t, i, b]``, int32 [T, N, B] as JAX takes them,
+coalesced over b).  Each step does the work the bound counts:
+
+* The contact term only for pairs in reach.  Each unordered pair
+  (lexicographic order, so that every agent adds its contacts in index
+  order as the plain version does) computes dx, dy and the squared
+  distance d2, rounded as the plain version rounds them, and branches
+  into the term (a square root, two IEEE divisions, ``expf``,
+  ``log1pf``) only where ``d2 < far_d2``.  ``far_d2`` (``far_d2()``,
+  once per config on the host) is the least float from which the
+  plain version's z is at most ``FAR_Z`` = -110, six units beyond
+  where ``expf(z)`` is 0 in float32: from there ``pen`` and the force
+  terms are exactly +-0, and adding +-0 leaves a force sum unchanged
+  (it starts at +0 or +-accel and a rounded sum that cancels is +0,
+  never -0).  The force of (j, i) is the negation of (i, j), exact, so
+  a near pair adds into both agents' sums in registers.
+* The collision test without a square root: ``sqrt(d2) < dmin`` is
+  ``d2 < hit_d2`` for the least float ``hit_d2`` (``hit_d2()``: a
+  correctly rounded root is monotone, so a bisection over the float
+  bit patterns finds it).  The landmark distance keeps its root: the
+  reward reads it.
+* The reset state is loaded only on done (0.03 instances a step).
+
+A warp pays for a branch any of its lanes takes: with the bench's
+start (every instance in the same corners, in lockstep) the share of
+warps that take a pair's contact branch is what ``chip_smoke.py``
+phase 6 counts, beside the share of instances.  Both thresholds reach
+the kernel in ``params`` with the constants.  256 threads per block;
+the block size and ``__launch_bounds__``'s least resident blocks per
+SM are compile-time settings (``CM3_PARTICLE_THREADS``,
+``CM3_PARTICLE_MIN_BLOCKS``) that ``scripts/torch_particle_variants.py``
+times against each other; ``occupancy()`` reads what the build gives.
 
 The reset state is computed once by the port's own
 ``particle_soa.soa_init`` and passed as scalars with the config's
@@ -124,6 +150,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from cm3_tpu_torch.core.config import ParticleEnvConfig
@@ -133,12 +160,56 @@ from cm3_tpu_torch.ops.philox import random_actions
 
 AGENTS = (1, 2, 4)          # the agent counts the kernel is built for
 MAX_AGENTS = 4
+# expf(z) is exactly 0 in float32 below z = ln(2^-150) = -103.97; the
+# kernel skips a pair's contact term where z <= FAR_Z, six units beyond
+FAR_Z = -110.0
+_INF_BITS = 0x7F800000
 
 
 def _check_agents(n):
     if n not in AGENTS:
         raise ValueError(f"particle_rollout: the kernel takes {AGENTS} "
                          f"agents, not {n}")
+
+
+def _f32(bits: int):
+    return np.array(bits, np.uint32).view(np.float32)[()]
+
+
+def _least(pred):
+    """The least non-negative float32 at which ``pred`` holds, for a
+    ``pred`` that is monotone in the value and holds at +inf: bisection
+    over the bit patterns, which order the non-negative floats."""
+    lo, hi = 0, _INF_BITS
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if pred(_f32(mid)):
+            hi = mid
+        else:
+            lo = mid + 1
+    return _f32(lo)
+
+
+def _sqrt(d2):
+    return ps.sqrt(torch.tensor(d2, dtype=torch.float32))
+
+
+def hit_d2(dmin: float):
+    """The least float32 t with ``sqrt(d2) < dmin`` <=> ``d2 < t`` for
+    every non-negative float32 ``d2`` (a correctly rounded square root is
+    monotone): the collision test without its root."""
+    dmin = np.float32(dmin)
+    return _least(lambda d2: not bool(_sqrt(d2) < float(dmin)))
+
+
+def far_d2(cfg: ParticleEnvConfig):
+    """The least float32 squared distance from which ``z = -(dist - dmin)
+    / margin``, rounded as ``soa_step`` rounds it, is at most ``FAR_Z``:
+    at every ``d2 >= far_d2`` the contact term's ``exp`` is 0, so ``pen``
+    and the force terms are exactly +-0 (z falls as d2 grows)."""
+    k = torch.full((), cfg.contact_margin, dtype=torch.float32)
+    dmin = 2 * cfg.agent_size
+    return _least(lambda d2: bool(-(_sqrt(d2) - dmin) / k <= FAR_Z))
 
 
 @functools.cache
@@ -151,7 +222,8 @@ def params(cfg: ParticleEnvConfig):
     s0 = ps.soa_init(cfg, (), device="cpu")
     pad = lambda xs: [float(x) for x in xs] + [0.0] * (MAX_AGENTS - len(xs))
     out = [cfg.dt, 1.0 - cfg.damping, cfg.accel, cfg.contact_force,
-           cfg.contact_margin, 2 * cfg.agent_size, ps.REACH]
+           cfg.contact_margin, 2 * cfg.agent_size, ps.REACH,
+           float(far_d2(cfg)), float(hit_d2(2 * cfg.agent_size))]
     for field in (s0.px, s0.py, s0.vx, s0.vy, s0.lx, s0.ly):
         out += pad(field)
     return tuple(out)
@@ -224,6 +296,13 @@ def rollout_actions(cfg: ParticleEnvConfig, actions):
         "particle_rollout", rollout_actions,
         lambda a: rollout_actions_plain(cfg, a), _call(cfg), cfg.n_agents,
         actions)
+
+
+def occupancy(n_agents: int, fed: bool = False):
+    """Registers, blocks per SM, threads per block and spill bytes of
+    the kernel built for ``n_agents`` (the Philox variant, or the fed
+    one); needs the card."""
+    return _rollout.occupancy("cm3_particle_rollout_occupancy", n_agents, fed)
 
 
 rollout_prng.launches = 0

@@ -252,5 +252,13 @@ def rollout_actions(cfg: RoadwayEnvConfig, actions):
         actions)
 
 
+def occupancy(n_agents: int, fed: bool = False):
+    """Registers, blocks per SM, threads per block and spill bytes of
+    the kernel built for ``n_agents`` (the Philox variant, or the fed
+    one); needs the card."""
+    return _rollout.occupancy("cm3_roadway_rollout_occupancy", n_agents,
+                              fed)
+
+
 rollout_prng.launches = 0
 rollout_actions.launches = 0

@@ -73,6 +73,49 @@ def test_update_matches_jax(target_clip):
     assert tts.step == int(jts2.step) == 1
 
 
+def test_nets_run_in_full_float32_whatever_the_caller_set():
+    """``act`` and ``update`` run every convolution, forward and
+    backward, with cuDNN's and cuBLAS's TF32 off, though the caller left
+    both on; the caller's flags are back afterwards, also after a
+    raise."""
+    b = 8
+    je, _ = tp.envs()
+    ja, ta = tp.algs(je.spec())
+    batch = _batch(je, b, np.random.default_rng(1))
+    tts = convert.state_from_jax(ta, jax.device_get(ja.init_state(
+        jax.random.PRNGKey(1), batch["obs"], batch["state"],
+        batch["goals"])))
+    tb = tp.to_torch(jax.device_get(batch))
+    flags = lambda: (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+    seen = []
+    convs = [m for name in ("actor", "qg", "qc")
+             for m in getattr(tts, name).modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    hooks = [h for m in convs for h in (
+        m.register_forward_hook(lambda *_: seen.append(("fwd", flags()))),
+        m.weight.register_hook(lambda _: seen.append(("bwd", flags()))))]
+    saved = flags()
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        ta.update(tts, tb, 0.2, torch.zeros(b, 2, 5))
+        ta.act(tts, tb["obs"], tb["goals"], tb["a_prev"], 0.2,
+               torch.zeros(b, 2, 5))
+        assert flags() == (True, True)
+        with pytest.raises(RuntimeError):
+            ta.act(tts, tb["obs"], tb["goals"][:, :1], tb["a_prev"], 0.2,
+                   torch.zeros(b, 2, 5))
+        assert flags() == (True, True)
+    finally:
+        for h in hooks:
+            h.remove()
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    assert {kind for kind, _ in seen} == {"fwd", "bwd"}
+    assert all(f == (False, False) for _, f in seen), seen
+
+
 def test_init_state():
     """Targets start equal to the mains, Adam at zero, parameters a
     function of the key alone, and gradients land in the flat buffer."""

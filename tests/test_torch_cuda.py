@@ -1,8 +1,10 @@
 """Tests of the port that need the card (marker ``cuda``): the Triton
 kernels (``adam_polyak``, ``polyak``) and the CUDA C++ Checkers,
-particle and roadway rollouts against their plain versions, and a small
-training chunk on the card against the same chunk on the CPU.  They import neither JAX nor
-``cm3_tpu``, so they run on a machine without them:
+particle and roadway rollouts against their plain versions, the
+particle kernel's squared-distance thresholds under CUDA's math, the
+kernels' builds, and a small training chunk on the card against the same
+chunk on the CPU, also under PyTorch's default TF32 flags.  They import
+neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -38,6 +40,18 @@ SOA_CASES = {
         lane=(1,), init_position=(0.0,), depart_mean=(0.0,),
         depart_stdev=0.0)),
     "roadway_n2": (rr, RoadwayEnvConfig(depart_stdev=0.0)),
+}
+# four agents starting within contact range: adjacent ones 0.29 apart
+# (inside dmin = 0.3), diagonal ones 0.41 apart (at the kernel's far
+# threshold, dmin + 0.11)
+PARTICLE_NEAR = ParticleEnvConfig(agents_x=(-0.145, 0.145, -0.145, 0.145),
+                                  agents_y=(-0.145, -0.145, 0.145, 0.145),
+                                  prob_random=0.0, initial_std=0.0)
+THRESHOLD_CFGS = {
+    "default": {}, "small_agents": dict(agent_size=0.05),
+    "large_agents": dict(agent_size=0.3),
+    "sharp_contact": dict(contact_margin=1e-4),
+    "soft_contact": dict(contact_margin=1e-2),
 }
 
 
@@ -77,12 +91,10 @@ def test_triton_kernel_matches_plain(cuda_device, n):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.cuda
-def test_small_chunk_on_card_matches_cpu(cuda_device):
+def _small_chunks(cuda_device):
     """A fill and a training chunk at small width on the card and on
-    the CPU with the same fed draws: 3 kernel launches per update, and
-    the same state at rtol 1e-4, atol 1e-5 (float32 sums in other
-    orders through 4 Adam steps)."""
+    the CPU with the same fed draws: the CM3 states and the kernel's
+    launches on each."""
     from cm3_tpu_torch.algs.cm3 import CM3
     from cm3_tpu_torch.core import config, prng
     from cm3_tpu_torch.core.tree import tree_map
@@ -119,12 +131,46 @@ def test_small_chunk_on_card_matches_cpu(cuda_device):
         ts, buf, rs, _ = drv._chunk(ts, buf, rs, 0.2, draws, False, True)
         ts, buf, rs, _ = drv._chunk(ts, buf, rs, 0.2, draws, True, False)
         out[dev.type] = (ts, fused_opt.adam_polyak.launches - before)
+    return out, u
+
+
+def _hold_chunks(out, u):
     (ts_c, n_c), (ts_h, n_h) = out["cuda"], out["cpu"]
     assert (n_c, n_h) == (3 * u, 0)
     for name in ("actor", "actor_tgt", "qg", "qg_tgt", "qc", "qc_tgt"):
         torch.testing.assert_close(getattr(ts_c, name).flat.cpu(),
                                    getattr(ts_h, name).flat, rtol=1e-4,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_small_chunk_on_card_matches_cpu(cuda_device):
+    """A fill and a training chunk at small width on the card and on
+    the CPU with the same fed draws: 3 kernel launches per update, and
+    the same state at rtol 1e-4, atol 1e-5 (float32 sums in other
+    orders through 4 Adam steps)."""
+    _hold_chunks(*_small_chunks(cuda_device))
+
+
+@pytest.mark.cuda
+def test_small_chunk_in_full_float32_under_default_flags(cuda_device):
+    """The same chunk with PyTorch's default flags (cuDNN convolutions
+    in TF32, matrix products not): the port runs its nets in full
+    float32 whatever the caller set, so the card still equals the CPU
+    at rtol 1e-4, atol 1e-5; the flags are as the caller left them
+    afterwards."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out = _small_chunks(cuda_device)
+        assert (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) == (True, False)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    _hold_chunks(*out)
 
 
 def _spec(case):
@@ -231,3 +277,67 @@ def test_soa_rollout_kernel_prng_matches_plain(cuda_device, case):
     torch.testing.assert_close(rew.cpu(), h_rew, rtol=1e-5, atol=1e-3)
     if mod is rr:
         assert torch.equal(rew.cpu(), h_rew)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fed", [True, False])
+def test_particle_kernel_from_contact_range_matches_plain(cuda_device, fed):
+    """Four agents starting within contact range, so that contact terms
+    and pairs at the far threshold are common: the kernel equals the
+    plain version on the card bit for bit (B = 4096 + 37, T = 130), fed
+    and with Philox draws."""
+    cfg, b, t = PARTICLE_NEAR, 4096 + 37, 130
+    if fed:
+        gen = torch.Generator(device=cuda_device).manual_seed(7)
+        acts = torch.randint(0, 5, (t, 4, b), device=cuda_device,
+                             dtype=torch.int32, generator=gen)
+        got, want = pr.rollout_actions(cfg, acts), \
+            pr.rollout_actions_plain(cfg, acts)
+    else:
+        got = pr.rollout_prng(cfg, b, t, seed=13, device=cuda_device)
+        want = pr.rollout_prng_plain(cfg, b, t, 13, cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert int(got[1].min()) >= 3                 # 130 steps, cap 33
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(THRESHOLD_CFGS))
+def test_particle_thresholds_hold_under_cuda_math(cuda_device, name):
+    """On the 2 x 4096 floats around each threshold, with the card's
+    sqrt, exp and log1p: ``d2 < hit_d2`` is the plain collision test,
+    and from ``far_d2`` on the plain contact formula gives ``pen == 0``
+    and force terms of exactly 0."""
+    from cm3_tpu_torch.envs import particle_soa as ps
+
+    cfg = ParticleEnvConfig(**THRESHOLD_CFGS[name])
+    dmin = 2 * cfg.agent_size
+
+    def walk(threshold):
+        bits = int(np.float32(threshold).view(np.int32))
+        return torch.arange(bits - 4096, bits + 4096, dtype=torch.int32,
+                            device=cuda_device).view(torch.float32)
+
+    hit = pr.hit_d2(dmin)
+    d2 = walk(hit)
+    assert torch.equal(d2 < float(hit), ps.sqrt(d2) < dmin)
+    far = walk(pr.far_d2(cfg))[4096:]
+    k = torch.full((), cfg.contact_margin, dtype=torch.float32,
+                   device=cuda_device)
+    dist = ps.sqrt(far)
+    pen = ps.logaddexp0(-(dist - dmin) / k) * cfg.contact_margin
+    scale = cfg.contact_force * pen / dist
+    assert bool((pen == 0).all()) and bool((dist * scale == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod,n_agents", [(cr, 2), (cr, 1), (pr, 4),
+                                          (pr, 2), (pr, 1), (rr, 2),
+                                          (rr, 1)])
+def test_rollout_kernels_build_without_spills(cuda_device, mod, n_agents):
+    """Each rollout kernel as built: registers within the SM's budget,
+    at least one resident block per SM, no local memory (spills)."""
+    for fed in (False, True):
+        o = mod.occupancy(n_agents, fed)
+        assert 0 < o["registers"] <= 255 and o["blocks_per_sm"] >= 1
+        assert o["local_bytes"] == 0, o

@@ -42,6 +42,15 @@ CFGS = {
 }
 SOA_ATOL = 2e-5
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-3
+# configs for the kernel's squared-distance thresholds: the default and
+# the extremes of agent size and contact margin
+THRESHOLD_CFGS = {
+    "default": {}, "small_agents": dict(agent_size=0.05),
+    "large_agents": dict(agent_size=0.3),
+    "sharp_contact": dict(contact_margin=1e-4),
+    "soft_contact": dict(contact_margin=1e-2),
+}
+WALK = 4096         # neighbouring float32 values on each side of a threshold
 
 
 @pytest.fixture(autouse=True)
@@ -221,7 +230,9 @@ def test_params_follow_the_source_enum(name):
     scalars = names[:names.index("kInitPx")]
     want = dict(kDt=tc.dt, kKeep=1.0 - tc.damping, kAccel=tc.accel,
                 kContactForce=tc.contact_force, kMargin=tc.contact_margin,
-                kDmin=2 * tc.agent_size, kReach=tps.REACH)
+                kDmin=2 * tc.agent_size, kReach=tps.REACH,
+                kFarD2=float(tpr.far_d2(tc)),
+                kHitD2=float(tpr.hit_d2(2 * tc.agent_size)))
     assert list(got[:len(scalars)]) == [want[k] for k in scalars]
     fields = names[len(scalars):-1]
     assert fields == ["kInitPx", "kInitPy", "kInitVx", "kInitVy", "kLx",
@@ -241,3 +252,49 @@ def test_bench_function_runs_small_on_cpu():
     assert bench.bench_particle_fused(batch=64, steps=40, reps=1,
                                       device="cpu") > 0
 
+
+
+def _walk(threshold):
+    """The 2 x WALK float32 values around ``threshold`` (WALK below it,
+    the threshold and WALK - 1 above), through their bit patterns."""
+    bits = int(np.float32(threshold).view(np.int32))
+    return torch.arange(bits - WALK, bits + WALK,
+                        dtype=torch.int32).view(torch.float32)
+
+
+@pytest.mark.parametrize("name", sorted(THRESHOLD_CFGS))
+def test_hit_d2_is_the_collision_test_without_its_root(name):
+    """``d2 < hit_d2`` <=> ``sqrt(d2) < dmin`` (the plain version's
+    test) on the floats around the threshold, and at 0 and +inf."""
+    tc = tcfg.ParticleEnvConfig(**THRESHOLD_CFGS[name])
+    dmin = 2 * tc.agent_size
+    t = tpr.hit_d2(dmin)
+    d2 = torch.cat([_walk(t), torch.tensor([0.0, float("inf")])])
+    assert torch.equal(d2 < float(t), tps.sqrt(d2) < dmin)
+    assert bool((d2[:WALK] < float(t)).all())
+    assert not bool((d2[WALK:2 * WALK] < float(t)).any())
+
+
+@pytest.mark.parametrize("name", sorted(THRESHOLD_CFGS))
+def test_far_d2_leaves_no_contact_force(name):
+    """From ``far_d2`` on, the plain contact formula (``soa_step``'s,
+    with ``particle_soa.logaddexp0``) gives ``pen == 0`` and force terms
+    ``dx * scale == 0`` exactly, for dx up to the distance itself: on the
+    floats above the threshold and on a sweep to d2 = 1e4.  Just below
+    it, z is still above ``FAR_Z``: the threshold is the least such."""
+    tc = tcfg.ParticleEnvConfig(**THRESHOLD_CFGS[name])
+    k = torch.full((), tc.contact_margin, dtype=torch.float32)
+    dmin = 2 * tc.agent_size
+    t = tpr.far_d2(tc)
+    walk = _walk(t)
+    far = torch.cat([walk[WALK:], torch.logspace(
+        np.log10(float(t)), 4, 2000, dtype=torch.float32)])
+    far = far[far >= float(t)]
+    dist = tps.sqrt(far)
+    pen = tps.logaddexp0(-(dist - dmin) / k) * tc.contact_margin
+    scale = tc.contact_force * pen / dist
+    assert bool((pen == 0).all())
+    for dx in (dist, -dist, 0.5 * dist):
+        assert bool((dx * scale == 0).all())
+    near = walk[:WALK]
+    assert bool((-(tps.sqrt(near) - dmin) / k > tpr.FAR_Z).all())

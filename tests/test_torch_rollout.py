@@ -217,23 +217,52 @@ def test_missing_nvcc_names_the_places_looked(monkeypatch, tmp_path):
 @pytest.mark.parametrize("goal_green", [(True, False), (False,)])
 def test_spec_words_follow_the_source_enum(goal_green):
     """The wrapper packs the spec in the order of ``SpecWord`` in
-    ``csrc/checkers_rollout.cu``, which the C entry reads by index."""
+    ``csrc/checkers_rollout.cu``, which the C entry reads by index: the
+    masks, start positions, goal bits and step cap, then the move table
+    per action (stay, up, down, left, right): edge masks, left shifts,
+    right shifts, ``kActions`` words each."""
     src = open(os.path.join(_nvcc.CSRC, "checkers_rollout.cu")).read()
     enum = re.search(r"enum SpecWord \{([^}]*)\}", src).group(1)
-    names = [w.strip() for w in enum.split(",") if w.strip()]
+    names = [w.split("=")[0].strip() for w in enum.split(",") if w.strip()]
+    actions = int(re.search(r"constexpr int kActions = (\d+);",
+                            src).group(1))
+    assert actions == 5 and names[-1] == "kNumWords"
     n = len(goal_green)
     kw = dict(KW, n_agents=n, agents_r=KW["agents_r"][:n],
               agents_c=KW["agents_c"][:n])
     spec = tcp.make_spec(tcfg.CheckersEnvConfig(**kw), goal_green)
     init = tuple(spec.init_pos) + (0,) * (2 - n)
+    w = spec.width
     want = dict(
-        kWidth=spec.width, kGreen=spec.green_mask, kOrange=spec.orange_mask,
-        kFull=spec.full_mask, kUp=spec.up_ok, kDown=spec.down_ok,
-        kLeft=spec.left_ok, kRight=spec.right_ok, kInit0=init[0],
-        kInit1=init[1], kGoalGreen=int(goal_green[0]),
-        kMaxSteps=spec.max_steps)
-    assert tcr.spec_words(spec) == tuple(want[k] for k in names)
-    assert sorted(names) == sorted(want)
+        kGreen=(spec.green_mask,), kOrange=(spec.orange_mask,),
+        kFull=(spec.full_mask,), kInit0=(init[0],), kInit1=(init[1],),
+        kGoalGreen=(int(goal_green[0]),), kMaxSteps=(spec.max_steps,),
+        kEdge=(0, spec.up_ok, spec.down_ok, spec.left_ok, spec.right_ok),
+        kShl=(0, 0, w, 0, 1), kShr=(0, w, 0, 1, 0))
+    assert names[:-1] == list(want)
+    assert tcr.spec_words(spec) == sum((want[k] for k in names[:-1]), ())
+
+
+@pytest.mark.parametrize("n_columns", [8, 4])
+def test_move_table_moves_as_the_packed_engine(n_columns):
+    """From every cell of the area, each action's table entry moves one
+    agent where the packed engine's step does: target
+    ``(p << shl) >> shr`` (in 32 bits), taken only where ``p & edge``."""
+    cfg = tcfg.CheckersEnvConfig(n_agents=1, n_columns=n_columns,
+                                 agents_r=(2,), agents_c=(n_columns,),
+                                 max_steps=50)
+    spec = tcp.make_spec(cfg, (True,))
+    cells = spec.width * spec.height
+    p = torch.tensor([1 << k for k in range(cells)]).repeat_interleave(5)
+    a = torch.arange(5).repeat(cells)
+    s = tcp.PackedState(pos=(p,), collected=torch.zeros_like(p),
+                        steps=torch.zeros_like(p))
+    s2, _, _ = tcp.packed_step(spec, s, (a,))
+    table = torch.tensor(tcr.move_table(spec))[a]
+    edge, shl, shr = table.unbind(1)
+    tgt = ((p << shl) & 0xFFFFFFFF) >> shr
+    assert torch.equal(s2.pos[0], torch.where((p & edge) != 0, tgt, p))
+    assert bool((s2.pos[0] != p).any())
 
 
 # ---- the benchmarks' control flow (figures only on the card) ---- #
