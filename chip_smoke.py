@@ -13,14 +13,24 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
    together, and one link (or found there by their hash): the nvcc
    path and version, the commands, the seconds and ptxas' register
    report.
-1. kernel vs plain: the Triton ``adam_polyak`` kernel against its plain
-   PyTorch version for 5 steps at the three flat-buffer sizes of the
-   main path and at ragged sizes, then its time per launch (CUDA events
-   after warm-up; back to back, and inside a CUDA graph for the device
-   time alone) beside its memory bound, the plain version's time and
-   a library yardstick (``torch.optim.Adam(fused=True).step`` plus
-   ``torch._foreach_lerp_``, in a graph with ``capturable=True``; the
-   port never calls it), kernel and yardstick timed in turns.
+1. Adam + Polyak (CUDA C++, ``csrc/flat_update.cu``): the kernel against
+   its plain PyTorch version bit for bit (rtol 0, atol 0) for 5 steps at
+   the three flat-buffer sizes of the main path and at ragged sizes, on
+   views offset by 1-3 floats, for two networks in one launch (also
+   against one launch each) and for four ragged networks; then, for the
+   main path's two launches (the actor; both critics in one), its time
+   per launch back to back and in CUDA graphs (the device time alone):
+   after a PyTorch kernel (as on the main path, where a backward pass
+   comes before it: the time a launch adds to a PyTorch kernel's), warm
+   (launches back to back on the same buffers), cold (rotating over 128
+   MB of buffer sets, so that every launch misses the L2) and at n = 0
+   (the launch floor), beside its memory bound and the share of it, the
+   plain version's time and a library yardstick over the same networks
+   (``torch.optim.Adam(fused=True, capturable=True).step`` plus
+   ``torch._foreach_lerp_``; the port never calls it), kernel and
+   yardstick timed in turns; one CM3 update's tail as two launches
+   against three, warm and cold, in turns; the kernel's registers and
+   resident blocks per SM.
 2. the slice: the Checkers stage-2 CM3 training chunk at full width
    (n_envs 256, 10 env steps, 8 updates on B=128, buffer 20000,
    fused optimizer), as ``bench.py``'s headline program runs it for one
@@ -41,12 +51,15 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
    needs, counted in ``cm3_tpu_torch/ops/checkers_rollout.py``), the
    plain version's time, the kernel's registers and resident blocks
    per SM, and the grid-engine figure ``checkers_grid_env_steps_per_s``.
-5. Polyak (Triton): the kernel against its plain version at four sizes
-   and three tau values; a soft update of the three networks of the
-   slice's CM3 state, with the launch count set to 0 just before and
-   read just after; its time back to back and in a CUDA graph beside
-   its memory bound, the plain version's and ``Tensor.lerp_``'s (kernel
-   and ``lerp_`` in graphs in turns, with their spread).
+5. Polyak (CUDA C++, ``csrc/flat_update.cu``): the kernel against its
+   plain version bit for bit at five sizes and three tau values and on
+   views offset by 1-3 floats; a soft update of the three networks of
+   the slice's CM3 state, with the launch count set to 0 just before and
+   read just after; its time back to back and in CUDA graphs, after a
+   PyTorch kernel, warm, cold and at n = 0, beside its memory bound, the
+   plain version's and ``Tensor.lerp_``'s (kernel and ``lerp_`` in graphs
+   in turns, after a PyTorch kernel, warm and cold, with their spread);
+   registers and blocks per SM.
 6. the fused particle rollout (CUDA C++) and
 7. the fused roadway rollout (CUDA C++), each: the kernel against its
    plain version on fed actions at a ragged batch over several
@@ -68,8 +81,10 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
    version's time and (particle) the kernel's registers and resident
    blocks per SM.
 
-Prints a ``kernels`` JSON line, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
+and ``library_ms`` are device times after a PyTorch kernel; B1's the
+mean of the main path's two launches), the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside it, it
 exits non-zero and prints no result.  Writes nothing into the checkout
 but the kernel library under ``build/``.
@@ -89,12 +104,16 @@ N_ENVS, BATCH, BUFFER, STEPS, UPDATES = 256, 128, 20000, 10, 8
 TRAIN_CHUNKS = 10
 EPSILON = 0.2
 MAIN_SIZES = {"actor": 149645, "Q_global": 144741, "Q_credit": 144709}
-RAGGED = (1, 1000, 8193)
+RAGGED = (1, 3, 1000, 8193)
+LR, TAU = 1e-3, 0.01
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
-# per element: 5 float32 loads + 4 stores; ~16 float32 operations
+# Adam + Polyak per element: 5 float32 loads + 4 stores; 16 float32
+# operations (mu' 3, nu' 4, the update 4 with a quotient or a root as one,
+# p' 2, tgt' 3)
 BYTES_PER_ELEM, OPS_PER_ELEM = 36, 16
-KERNEL_RTOL, KERNEL_ATOL = 1e-6, 1e-7
+# the buffer sets a cold-cache graph rotates over: > 2.5x the 50 MB L2
+COLD_BYTES = 128 << 20
 # card vs CPU after one training chunk: float32 sums in other orders
 # (cuDNN/cuBLAS vs CPU kernels, TF32 off) through 8 Adam steps; atol is
 # 1% of one Adam step at lr_Q = 1e-3
@@ -111,8 +130,9 @@ WARP_INSTS_PER_CLOCK = 4
 # kernel vs plain: the same float32 adds in the same order (in practice
 # equal)
 ROLLOUT_ATOL = 1e-5
-POLYAK_SIZES, POLYAK_TAUS = (1, 1000, 8193, 149645), (0.0, 0.01, 1.0)
-POLYAK_BYTES_PER_ELEM = 12      # load t and m, store t
+POLYAK_SIZES, POLYAK_TAUS = (1, 3, 1000, 8193, 149645), (0.0, 0.01, 1.0)
+# Polyak per element: load t and m, store t; 2 products and a sum
+POLYAK_BYTES_PER_ELEM, POLYAK_OPS_PER_ELEM = 12, 3
 # the fused particle and roadway rollouts: bench.py's size, the checks'
 # sizes, and the work of one call as itemized in the notes of
 # cm3_tpu_torch/ops/particle_rollout.py (N = 4) and
@@ -145,6 +165,8 @@ WARP = 32
 # graph timings taken in turns: kernel, yardstick, yardstick, kernel, so
 # many times over
 TURNS = 3
+# the PyTorch kernel that an "after" graph puts before every timed call
+FOREIGN_N = 1 << 16
 FLOAT32_SCOPE_ENTRIES = 20000
 
 T0 = time.time()
@@ -218,15 +240,33 @@ def graph_time_ms(fn, per_graph=50, replays=20):
     return start.elapsed_time(end) / (replays * per_graph)
 
 
-def graph_turns(kernel, yardstick):
-    """Device times per call in CUDA graphs, taken in turns (kernel,
-    yardstick, yardstick, kernel) ``TURNS`` times: two lists of ms."""
-    ks, ys = [], []
+def rotation(make, set_bytes):
+    """A call for a cold-cache graph: it rotates over ``COLD_BYTES`` /
+    ``set_bytes`` independent buffer sets (``make()`` returns a call on a
+    fresh set), so every set is touched again only after more than twice
+    the L2's bytes have passed; and the calls per graph, a multiple of
+    the sets, so that the rotation runs on unbroken across replays.
+    Returns (call, per_graph)."""
+    k = -(-COLD_BYTES // set_bytes)
+    calls = [make() for _ in range(k)]
+    turn = [0]
+
+    def call():
+        calls[turn[0] % k]()
+        turn[0] += 1
+    return call, k * -(-50 // k)
+
+
+def graph_turns(*fns):
+    """Device times per call in CUDA graphs, taken in turns (forward,
+    then backward: A, B, B, A) ``TURNS`` times; each fn is a call or
+    (call, calls per graph).  A list of ms per fn."""
+    fns = [f if isinstance(f, tuple) else (f, 50) for f in fns]
+    out = [[] for _ in fns]
     for _ in range(TURNS):
-        ks.append(graph_time_ms(kernel))
-        ys += [graph_time_ms(yardstick), graph_time_ms(yardstick)]
-        ks.append(graph_time_ms(kernel))
-    return ks, ys
+        for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+            out[i].append(graph_time_ms(fns[i][0], per_graph=fns[i][1]))
+    return out
 
 
 def us_spread(ms):
@@ -235,89 +275,250 @@ def us_spread(ms):
             f"{max(ms) * 1e3:.2f})")
 
 
+def log_flat_occupancy(mod):
+    o = mod.occupancy()
+    log(f"  {mod.__name__.rsplit('.', 1)[-1]} kernel: {o['registers']} "
+        f"registers per thread, {o['blocks_per_sm']} resident blocks of "
+        f"{o['threads']} threads per SM, {o['local_bytes']} bytes of local "
+        "memory per thread")
+
+
+def flat_bound(n, bytes_per, ops_per):
+    """The least time of a stream over n floats: (ms, "bytes" or
+    "operations"), the larger of its bytes at the HBM rate and its
+    operations at the float32 rate."""
+    by_bytes = bytes_per * n / HBM_BPS * 1e3
+    by_ops = ops_per * n / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def assert_bit_equal(pairs, what):
+    """Holds each (kernel, plain) pair equal bit for bit; returns the
+    largest absolute difference over all pairs (0.0 when they hold)."""
+    import torch
+    torch.cuda.synchronize()
+    err = 0.0
+    for got, want in pairs:
+        diff = float((got - want).abs().max()) if got.numel() else 0.0
+        assert torch.equal(got, want), (
+            f"{what}: kernel != plain on {int((got != want).sum())} of "
+            f"{got.numel()} floats, max abs difference {diff:.3g}")
+        err = max(err, diff)
+    return err
+
+
+def after_pytorch(dev):
+    """(foreign, after): ``foreign`` launches one PyTorch kernel (an add
+    over ``FOREIGN_N`` floats of its own), and ``after(fn)`` is a call of
+    ``foreign`` then ``fn``, so that in a CUDA graph every launch of
+    ``fn`` follows a PyTorch kernel, as a flat update follows the
+    backward pass on the main path."""
+    import torch
+    x = torch.zeros(FOREIGN_N, device=dev)
+    foreign = lambda: x.add_(1.0)
+
+    def after(fn):
+        return lambda: (foreign(), fn())
+    return foreign, after
+
+
 # ------------------------------------------------------------------ #
 # phase 1
 # ------------------------------------------------------------------ #
 
 
-def phase_kernel(dev):
+def adam_net(dev, gen, n, count=0, off=0):
+    """(opt_state, params, tgt, grads) over n floats on the card, each
+    buffer ``off`` floats into its allocation; moments as after some
+    steps."""
     import torch
+    from cm3_tpu_torch.algs import common
+
+    def mk(scale=1.0):
+        x = torch.zeros(n + off, device=dev)
+        x[off:] = scale * torch.randn(n, device=dev, generator=gen)
+        return x[off:]
+    st = common.AdamState(mu=mk(1e-3), nu=mk(1e-3).square_(), count=count)
+    return st, mk(), mk(), mk(1e-3)
+
+
+def hold_adam(dev, gen, spec, steps=5):
+    """``adam_polyak_many`` over the networks of ``spec`` ((n, step
+    count, lr, offset) each) in one launch per step, against the plain
+    version per network on the same inputs, fresh gradients each step:
+    bit for bit (rtol 0, atol 0)."""
     from cm3_tpu_torch.algs import common
     from cm3_tpu_torch.ops import fused_opt
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    rnd = lambda n: torch.randn(n, device=dev, generator=gen)
-    max_err = 0.0
-    for n in list(MAIN_SIZES.values()) + list(RAGGED):
-        p, t = rnd(n), rnd(n)
-        st = common.adam_init(p)
-        rp, rt, rst = p.clone(), t.clone(), common.adam_init(p)
-        for _ in range(5):
-            g = rnd(n)
-            fused_opt.adam_polyak(st, p, t, g, 1e-3, 0.01)
-            c1, c2 = fused_opt.bias_corrections(rst.count)
-            fused_opt.adam_polyak_plain(rp, rt, rst.mu, rst.nu, g, c1, c2,
-                                        1e-3, 0.01)
+    nets = [adam_net(dev, gen, n, count, off) for n, count, _, off in spec]
+    ref = [(common.AdamState(st.mu.clone(), st.nu.clone(), st.count),
+            p.clone(), t.clone()) for st, p, t, _ in nets]
+    lrs = [lr for _, _, lr, _ in spec]
+    for _ in range(steps):
+        for _, _, _, g in nets:
+            g.normal_(generator=gen).mul_(1e-3)
+        fused_opt.adam_polyak_many([(st, p, t, g, lr) for (st, p, t, g), lr
+                                    in zip(nets, lrs)], TAU)
+        for (rst, rp, rt), (*_, g), lr in zip(ref, nets, lrs):
+            fused_opt.adam_polyak_plain(rp, rt, rst.mu, rst.nu, g,
+                                        *fused_opt.bias_corrections(rst.count),
+                                        lr, TAU)
             rst.count += 1
-        torch.cuda.synchronize()
-        for got, want in ((p, rp), (t, rt), (st.mu, rst.mu),
-                          (st.nu, rst.nu)):
-            torch.testing.assert_close(got, want, rtol=KERNEL_RTOL,
-                                       atol=KERNEL_ATOL)
-            max_err = max(max_err, float((got - want).abs().max()))
-        log(f"  adam_polyak n={n}: kernel == plain over 5 steps "
-            f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
+    err = assert_bit_equal([(a, b) for (st, p, t, _), (rst, rp, rt) in
+                            zip(nets, ref) for a, b in ((p, rp), (t, rt),
+                                                        (st.mu, rst.mu),
+                                                        (st.nu, rst.nu))],
+                           f"adam_polyak {spec}")
+    assert all(st.count == rst.count == count + steps for (st, *_), (rst, *_),
+               (_, count, _, _) in zip(nets, ref, spec))
+    return err
 
-    rows = []
-    for name, n in MAIN_SIZES.items():
-        p, t, g = rnd(n), rnd(n), 1e-3 * rnd(n)
-        st = common.adam_init(p)
-        kern = lambda: fused_opt.adam_polyak(st, p, t, g, 1e-3, 0.01)
-        c1, c2 = fused_opt.bias_corrections(0)
-        plain = lambda: fused_opt.adam_polyak_plain(p, t, st.mu, st.nu, g,
-                                                    c1, c2, 1e-3, 0.01)
-        lp = torch.nn.Parameter(p.clone())
-        lp.grad = g.clone()
-        lt = t.clone()
-        opt = torch.optim.Adam([lp], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                               fused=True)
 
-        def library():
-            opt.step()
-            torch._foreach_lerp_([lt], [lp.detach()], 0.01)
+def adam_call(nets):
+    """A call of ``adam_polyak_many`` over ``nets`` (from ``adam_net``):
+    one launch."""
+    from cm3_tpu_torch.ops import fused_opt
+    items = [(st, p, t, g, LR) for st, p, t, g in nets]
+    return lambda: fused_opt.adam_polyak_many(items, TAU)
 
-        # the same yardstick with its step count on the device, so that a
-        # CUDA graph can hold it
-        gp = torch.nn.Parameter(p.clone())
-        gp.grad = g.clone()
-        gt = t.clone()
-        gopt = torch.optim.Adam([gp], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                                fused=True, capturable=True)
 
-        def library_graph():
-            gopt.step()
-            torch._foreach_lerp_([gt], [gp.detach()], 0.01)
+def after_ms(pairs, alone):
+    """The device time a call adds after a PyTorch kernel: the median of
+    (PyTorch kernel, call) pairs less the median of the PyTorch kernel
+    alone, both in CUDA graphs."""
+    return statistics.median(pairs) - statistics.median(alone)
 
-        k_ms = cuda_time_ms(kern, 500)
-        p_ms = cuda_time_ms(plain, 200)
-        l_ms = cuda_time_ms(library, 200)
-        k_devs, l_devs = graph_turns(kern, library_graph)
-        p_dev = graph_time_ms(plain)
-        bytes_ms = BYTES_PER_ELEM * n / HBM_BPS * 1e3
-        ops_ms = OPS_PER_ELEM * n / F32_FLOPS * 1e3
-        b_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        rows.append((k_ms, p_ms, l_ms, b_ms))
-        log(f"  adam_polyak {name} n={n}: back to back: kernel "
-            f"{k_ms * 1e3:.2f} us/launch, plain {p_ms * 1e3:.2f} us, library "
-            f"Adam(fused)+lerp {l_ms * 1e3:.2f} us; in a CUDA graph "
-            f"(median and range of {2 * TURNS}, in turns): kernel "
-            f"{us_spread(k_devs)}, library Adam(fused, capturable)+lerp "
-            f"{us_spread(l_devs)}; plain {p_dev * 1e3:.2f} us; bound "
-            f"{b_ms * 1e3:.2f} us ({bound_by})")
-    mean = lambda i: sum(r[i] for r in rows) / len(rows)
-    return {"max_abs_err": max_err, "ms": mean(0), "plain_ms": mean(1),
-            "library_ms": mean(2), "bound_ms": mean(3), "bound_by": bound_by}
+
+def adam_times(dev, gen, name, sizes):
+    """One launch over the networks of ``sizes`` at the main path's
+    sizes: back to back; in CUDA graphs warm (in turns with the
+    yardstick, ``Adam(fused=True, capturable=True).step`` +
+    ``_foreach_lerp_`` over the same networks), each of the two also
+    after a PyTorch kernel (``after_pytorch``), cold (rotating buffer
+    sets) and at n = 0 (the launch floor); the plain version after a
+    PyTorch kernel; the bound.  The returned times are those after a
+    PyTorch kernel."""
+    import torch
+    from cm3_tpu_torch.ops import fused_opt
+
+    nets = [adam_net(dev, gen, n) for n in sizes]
+    kern = adam_call(nets)
+    plain = lambda: [fused_opt.adam_polyak_plain(
+        p, t, st.mu, st.nu, g, *fused_opt.bias_corrections(st.count), LR,
+        TAU) for st, p, t, g in nets]
+    lp = [torch.nn.Parameter(p.clone()) for _, p, _, _ in nets]
+    for x, (*_, g) in zip(lp, nets):
+        x.grad = g.clone()
+    lt = [t.clone() for _, _, t, _ in nets]
+    opt = torch.optim.Adam(lp, lr=LR, betas=(0.9, 0.999), eps=1e-8,
+                           fused=True, capturable=True)
+
+    def library():
+        opt.step()
+        torch._foreach_lerp_(lt, [x.detach() for x in lp], TAU)
+
+    cold, per_graph = rotation(
+        lambda: adam_call([adam_net(dev, gen, n) for n in sizes]),
+        BYTES_PER_ELEM * sum(sizes))
+    floor = adam_call([adam_net(dev, gen, 0) for _ in sizes])
+    foreign, after = after_pytorch(dev)
+    b2b = cuda_time_ms(kern, 500)
+    warm, lib, alone, a_kern, a_lib = graph_turns(
+        kern, library, foreign, after(kern), after(library))
+    colds, floors = graph_turns((cold, per_graph), floor)
+    a_plain, alone_p = graph_turns(after(plain), foreign)
+    kern_ms, lib_ms = after_ms(a_kern, alone), after_ms(a_lib, alone)
+    plain_ms = after_ms(a_plain, alone_p)
+    bound, bound_by = flat_bound(sum(sizes), BYTES_PER_ELEM, OPS_PER_ELEM)
+    med = statistics.median
+    log(f"  adam_polyak {name} (n = {' + '.join(map(str, sizes))}, one "
+        f"launch): back to back {b2b * 1e3:.2f} us; in CUDA graphs (median "
+        f"and range of {2 * TURNS}, in turns): warm {us_spread(warm)}, "
+        f"library Adam(fused, capturable)+_foreach_lerp_ {us_spread(lib)}; "
+        f"after a PyTorch kernel ({us_spread(alone)} alone): kernel "
+        f"{kern_ms * 1e3:.2f} us more (pair {us_spread(a_kern)}), library "
+        f"{lib_ms * 1e3:.2f} us more (pair {us_spread(a_lib)}), plain "
+        f"{plain_ms * 1e3:.2f} us more; cold {us_spread(colds)}, floor "
+        f"(n = 0) {us_spread(floors)}; bound {bound * 1e3:.3f} us "
+        f"({bound_by}: {BYTES_PER_ELEM} B and {OPS_PER_ELEM} operations x "
+        f"{sum(sizes)} at {HBM_BPS / 1e12} TB/s and {F32_FLOPS / 1e12} "
+        f"TFLOP/s), share warm {bound / med(warm):.3f}, after a PyTorch "
+        f"kernel {bound / kern_ms:.3f}, cold {bound / med(colds):.3f}")
+    return {"ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def phase_kernel(dev):
+    import torch
+    from cm3_tpu_torch.ops import fused_opt
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err = max(hold_adam(dev, gen, [(n, 0, LR, 0)])
+              for n in list(MAIN_SIZES.values()) + list(RAGGED))
+    for off in (1, 2, 3):
+        err = max(err, hold_adam(dev, gen, [(MAIN_SIZES["actor"], 0, LR,
+                                             off)]),
+                  hold_adam(dev, gen, [(8193, 7, LR, off)]))
+    # two segments in one launch == two one-segment launches == plain
+    spec = [(MAIN_SIZES["Q_global"], 3, LR, 0), (MAIN_SIZES["Q_credit"], 0,
+                                                  1e-4, 0)]
+    one = [adam_net(dev, gen, n, count) for n, count, _, _ in spec]
+    two = [adam_net(dev, gen, n, count) for n, count, _, _ in spec]
+    for (st, p, t, g), (st2, p2, t2, g2) in zip(one, two):
+        for a, b in ((st.mu, st2.mu), (st.nu, st2.nu), (p, p2), (t, t2),
+                     (g, g2)):
+            b.copy_(a)
+    for _ in range(5):
+        fused_opt.adam_polyak_many([(st, p, t, g, lr) for (st, p, t, g),
+                                    (_, _, lr, _) in zip(one, spec)], TAU)
+        for (st, p, t, g), (_, _, lr, _) in zip(two, spec):
+            fused_opt.adam_polyak(st, p, t, g, lr, TAU)
+    err = max(err, assert_bit_equal(
+        [(a, b) for x, y in zip(one, two) for a, b in
+         zip((x[0].mu, x[0].nu, *x[1:3]), (y[0].mu, y[0].nu, *y[1:3]))],
+        "two segments in one launch vs one launch each"))
+    err = max(err, hold_adam(dev, gen, spec),
+              hold_adam(dev, gen, [(8193, 0, LR, 0), (1, 5, 1e-4, 1),
+                                   (1000, 17, 3e-3, 2), (3, 999, 1e-2, 3)]))
+    log(f"  adam_polyak: kernel == plain bit for bit (rtol 0, atol 0) over 5 "
+        f"steps at n in {tuple(MAIN_SIZES.values()) + RAGGED}, on views "
+        "offset by 1-3 floats, for two segments in one launch (== two "
+        "launches) and for four ragged segments")
+
+    actor = adam_times(dev, gen, "actor", [MAIN_SIZES["actor"]])
+    critics = adam_times(dev, gen, "critics",
+                         [MAIN_SIZES["Q_global"], MAIN_SIZES["Q_credit"]])
+    # one CM3 update's optimizer tail: two launches (the main path) against
+    # three one-network launches, warm and cold
+    def update(launches):
+        """A CM3 update's optimizer tail on fresh networks of the main
+        sizes: two launches (actor; both critics) or three."""
+        nets = {k: adam_net(dev, gen, n) for k, n in MAIN_SIZES.items()}
+        if launches == 2:
+            calls = [adam_call([nets["actor"]]),
+                     adam_call([nets["Q_global"], nets["Q_credit"]])]
+        else:
+            calls = [adam_call([net]) for net in nets.values()]
+        return lambda: [call() for call in calls]
+
+    update_bytes = BYTES_PER_ELEM * sum(MAIN_SIZES.values())
+    w2, w3 = graph_turns(update(2), update(3))
+    c2, c3 = graph_turns(rotation(lambda: update(2), update_bytes),
+                         rotation(lambda: update(3), update_bytes))
+    bound, bound_by = flat_bound(sum(MAIN_SIZES.values()), BYTES_PER_ELEM,
+                                 OPS_PER_ELEM)
+    log(f"  adam_polyak per CM3 update, in CUDA graphs in turns: two launches "
+        f"(actor; both critics) warm {us_spread(w2)}, cold {us_spread(c2)}; "
+        f"three one-network launches warm {us_spread(w3)}, cold "
+        f"{us_spread(c3)}; bound {bound * 1e3:.3f} us ({bound_by}), share of "
+        f"the two launches warm {bound / statistics.median(w2):.3f}, cold "
+        f"{bound / statistics.median(c2):.3f}")
+    log_flat_occupancy(fused_opt)
+    mean = lambda k: (actor[k] + critics[k]) / 2
+    return {"max_abs_err": err, "bound_by": bound_by,
+            **{k: mean(k) for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms")}}
 
 
 # ------------------------------------------------------------------ #
@@ -389,7 +590,7 @@ def phase_slice(device):
         times.append(time.perf_counter() - t0)
         per_chunk.append(fused_opt.adam_polyak.launches - before)
     launches = fused_opt.adam_polyak.launches
-    assert per_chunk == [3 * UPDATES] * TRAIN_CHUNKS, (
+    assert per_chunk == [2 * UPDATES] * TRAIN_CHUNKS, (
         f"adam_polyak launches per training chunk: {per_chunk}")
     _finite(ts, buf, metrics)
     assert buf.size == min((2 + TRAIN_CHUNKS) * STEPS * N_ENVS, BUFFER)
@@ -645,58 +846,86 @@ def phase_polyak(dev):
     from cm3_tpu_torch.ops import polyak
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    rnd = lambda n: torch.randn(n, device=dev, generator=gen)
-    max_err = 0.0
-    for n in POLYAK_SIZES:
+
+    def view(n, off=0):
+        x = torch.zeros(n + off, device=dev)
+        x[off:] = torch.randn(n, device=dev, generator=gen)
+        return x[off:]
+
+    cases = [(n, (0, 0)) for n in POLYAK_SIZES] + [
+        (n, offs) for n in (8193, max(POLYAK_SIZES))
+        for offs in ((1, 1), (2, 0), (0, 3))]
+    err = 0.0
+    for n, (t_off, m_off) in cases:
         for tau in POLYAK_TAUS:
-            t, m = rnd(n), rnd(n)
+            t, m = view(n, t_off), view(n, m_off)
             want = polyak.polyak_update_plain(t.clone(), m, tau)
             polyak.polyak_update(t, m, tau)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(t, want, rtol=KERNEL_RTOL,
-                                       atol=KERNEL_ATOL)
-            max_err = max(max_err, float((t - want).abs().max()))
-    log(f"  polyak: kernel == plain at n in {POLYAK_SIZES} x tau in "
-        f"{POLYAK_TAUS} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); max abs "
-        f"difference {max_err:.3g}")
+            err = max(err, assert_bit_equal(
+                [(t, want)], f"polyak n={n} offsets {(t_off, m_off)} tau "
+                f"{tau}"))
+    log(f"  polyak: kernel == plain bit for bit (rtol 0, atol 0) at n in "
+        f"{POLYAK_SIZES} x tau in {POLYAK_TAUS}, and on views offset by 1-3 "
+        "floats")
 
     # a soft update of the slice's three networks, as a user calls it
     _, ts, _, _ = build(dev)
-    tau = 0.01
     pairs = [(getattr(ts, k + "_tgt").flat, getattr(ts, k).flat)
              for k in ("actor", "qg", "qc")]
     for tgt, main in pairs:
-        tgt.add_(rnd(tgt.numel()))            # targets apart from mains
-    wants = [polyak.polyak_update_plain(t.clone(), m, tau) for t, m in pairs]
+        tgt.add_(torch.randn(tgt.numel(), device=dev, generator=gen))
+    wants = [polyak.polyak_update_plain(t.clone(), m, TAU) for t, m in pairs]
     polyak.polyak_update.launches = 0
     for tgt, main in pairs:
-        polyak.polyak_update(tgt, main, tau)
+        polyak.polyak_update(tgt, main, TAU)
     launches = polyak.polyak_update.launches
-    torch.cuda.synchronize()
     assert launches == 3, f"polyak_update launched {launches} times, not 3"
-    for (tgt, _), want in zip(pairs, wants):
-        torch.testing.assert_close(tgt, want, rtol=KERNEL_RTOL,
-                                   atol=KERNEL_ATOL)
+    err = max(err, assert_bit_equal(
+        [(t, w) for (t, _), w in zip(pairs, wants)],
+        "polyak soft update of the three networks"))
 
-    n = max(POLYAK_SIZES)
-    t, m = rnd(n), rnd(n)
-    kern = lambda: polyak.polyak_update(t, m, tau)
-    plain = lambda: polyak.polyak_update_plain(t, m, tau)
-    lib = lambda: t.lerp_(m, tau)
-    k_ms, p_ms, l_ms = (cuda_time_ms(kern, 500), cuda_time_ms(plain, 200),
-                        cuda_time_ms(lib, 500))
-    k_devs, l_devs = graph_turns(kern, lib)
-    p_dev = graph_time_ms(plain)
-    bound_ms = POLYAK_BYTES_PER_ELEM * n / HBM_BPS * 1e3
+    n = MAIN_SIZES["actor"]
+    t, m = view(n), view(n)
+    kern = lambda: polyak.polyak_update(t, m, TAU)
+    plain = lambda: polyak.polyak_update_plain(t, m, TAU)
+    lib = lambda: t.lerp_(m, TAU)
+
+    def cold(op):
+        def make():
+            t, m = view(n), view(n)
+            return lambda: op(t, m)
+        return rotation(make, POLYAK_BYTES_PER_ELEM * n)
+    e = view(0)
+    floor = lambda: polyak.polyak_update(e, e, TAU)
+    foreign, after = after_pytorch(dev)
+    b2b = cuda_time_ms(kern, 500)
+    alone, a_kern, a_lerp = graph_turns(foreign, after(kern), after(lib))
+    warm, lerp = graph_turns(kern, lib)
+    colds, lerp_colds = graph_turns(
+        cold(lambda t, m: polyak.polyak_update(t, m, TAU)),
+        cold(lambda t, m: t.lerp_(m, TAU)))
+    floors, a_plain, alone_p = graph_turns(floor, after(plain), foreign)
+    kern_ms, lerp_ms = after_ms(a_kern, alone), after_ms(a_lerp, alone)
+    plain_ms = after_ms(a_plain, alone_p)
+    bound, bound_by = flat_bound(n, POLYAK_BYTES_PER_ELEM,
+                                 POLYAK_OPS_PER_ELEM)
+    med = statistics.median
     log(f"  polyak n={n}: {launches} launches for the three networks; back "
-        f"to back: kernel {k_ms * 1e3:.2f} us/launch, plain "
-        f"{p_ms * 1e3:.2f} us, lerp_ {l_ms * 1e3:.2f} us; in a CUDA graph "
-        f"(median and range of {2 * TURNS}, in turns): kernel "
-        f"{us_spread(k_devs)}, lerp_ {us_spread(l_devs)}; plain "
-        f"{p_dev * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us (bytes)")
-    return {"launches": launches, "max_abs_err": max_err, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": l_ms}
+        f"to back {b2b * 1e3:.2f} us/launch; in CUDA graphs (median and range "
+        f"of {2 * TURNS}, in turns with lerp_): after a PyTorch kernel "
+        f"({us_spread(alone)} alone) kernel {kern_ms * 1e3:.2f} us more "
+        f"(pair {us_spread(a_kern)}), lerp_ {lerp_ms * 1e3:.2f} us more "
+        f"(pair {us_spread(a_lerp)}); warm {us_spread(warm)}, lerp_ "
+        f"{us_spread(lerp)}; cold {us_spread(colds)}, lerp_ "
+        f"{us_spread(lerp_colds)}; floor (n = 0) {us_spread(floors)}; plain "
+        f"after a PyTorch kernel {plain_ms * 1e3:.2f} us more; bound "
+        f"{bound * 1e3:.3f} us ({bound_by}), share after a PyTorch kernel "
+        f"{bound / kern_ms:.3f}, warm {bound / med(warm):.3f}, cold "
+        f"{bound / med(colds):.3f}")
+    log_flat_occupancy(polyak)
+    return {"launches": launches, "max_abs_err": err, "ms": kern_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lerp_ms}
 
 
 # ------------------------------------------------------------------ #
@@ -940,16 +1169,16 @@ def main():
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     log(json.dumps({"kernels": [
-        dict(name="adam_polyak", route="triton",
-             source="cm3_tpu_torch/ops/fused_opt.py",
+        dict(name="adam_polyak", route="cuda",
+             source="cm3_tpu_torch/csrc/flat_update.cu",
              replaces="cm3_tpu/ops/fused_opt.py:100", launches=launches,
              **{k: kern[k] for k in keys[1:]}),
         dict(name="checkers_rollout", route="cuda",
              source="cm3_tpu_torch/csrc/checkers_rollout.cu",
              replaces="cm3_tpu/ops/checkers_rollout.py:75",
              **{k: rollout[k] for k in keys}),
-        dict(name="polyak", route="triton",
-             source="cm3_tpu_torch/ops/polyak.py",
+        dict(name="polyak", route="cuda",
+             source="cm3_tpu_torch/csrc/flat_update.cu",
              replaces="cm3_tpu/ops/polyak.py:58",
              **{k: soft[k] for k in keys}),
         dict(name="particle_rollout", route="cuda",

@@ -14,8 +14,10 @@ The update keeps the JAX package's order:
     forward; the counterfactual baseline uses the POST-update Q_credit
     (alg_credit.py:720,750); advantages are constants of the policy
     loss;
-  * each network's Adam step and soft target update is one
-    ``ops.fused_opt.adam_polyak`` launch over its flat buffers.
+  * each network's Adam step and soft target update run fused over its
+    flat buffers (``ops.fused_opt``): the two critics, adjacent and at
+    one lr, in one launch, the actor in another; two launches per
+    update (the JAX package makes three calls, ``cm3.py:132-136``).
 
 The update's one random draw, a' (``cm3.py:465``), comes in as Gumbel
 noise, so a test can feed JAX's.  Not ported yet (ROADMAP.md): the
@@ -214,11 +216,13 @@ class CM3:
 
     # ---- the learning update ---- #
 
-    def _opt_step(self, lr, opt_state, net, tgt):
-        """Adam apply + soft target update for one network: one fused
-        kernel launch over its flat buffers (``ops/fused_opt.py``)."""
-        fused_opt.adam_polyak(opt_state, net.flat, tgt.flat, net.flat_grad,
-                              lr, self.cfg.tau)
+    def _opt_step(self, lr, *steps):
+        """Adam apply + soft target update for the networks of ``steps``,
+        each (opt_state, net, tgt), at one lr: one fused kernel launch
+        over all their flat buffers (``ops/fused_opt.py``)."""
+        fused_opt.adam_polyak_many(
+            [(opt, net.flat, tgt.flat, net.flat_grad, lr)
+             for opt, net, tgt in steps], self.cfg.tau)
 
     @nets.full_float32()
     def update(self, ts: CM3State, batch: Dict[str, Any], epsilon,
@@ -266,8 +270,8 @@ class CM3:
         (loss_qg + loss_qc).backward()
         q_actual = q.detach()                                 # [B, N]
         with torch.no_grad():
-            self._opt_step(cfg.lr_Q, ts.opt_qg, ts.qg, ts.qg_tgt)
-            self._opt_step(cfg.lr_Q, ts.opt_qc, ts.qc, ts.qc_tgt)
+            self._opt_step(cfg.lr_Q, (ts.opt_qg, ts.qg, ts.qg_tgt),
+                           (ts.opt_qc, ts.qc, ts.qc_tgt))
 
         # ---- policy gradient (:699-773) ----
         # the current policy's probs, with grad for the policy loss and
@@ -285,8 +289,8 @@ class CM3:
         loss_pi = -torch.mean(torch.sum(log_pi * sum_a, dim=1))
         loss_pi.backward()
         with torch.no_grad():
-            self._opt_step(cfg.lr_actor, ts.opt_actor, ts.actor,
-                           ts.actor_tgt)
+            self._opt_step(cfg.lr_actor, (ts.opt_actor, ts.actor,
+                                          ts.actor_tgt))
         ts.step += 1
         metrics = {"loss_Q_global": loss_qg.detach(),
                    "loss_Q_credit": loss_qc.detach(),

@@ -49,6 +49,7 @@ FLAGS = COMPILE_FLAGS + LINK_FLAGS      # all of them, for the hash
 
 # the C entries and their ctypes signatures
 _P, _I, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_LL, _F = ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "cm3_error_string": ([_I], ctypes.c_char_p),
     # spec, n_words, n_agents, actions, batch, n_steps, seed, rew, ep,
@@ -67,6 +68,14 @@ SIGNATURES = {
     "cm3_checkers_rollout_occupancy": ([_I, _I, _P], _I),
     "cm3_particle_rollout_occupancy": ([_I, _I, _P], _I),
     "cm3_roadway_rollout_occupancy": ([_I, _I, _P], _I),
+    # count, (p, t, mu, nu, g) pointers per segment, sizes, (c1, c2, lr)
+    # per segment, tau, 1 - tau, stream
+    "cm3_adam_polyak": ([_I, _P, _P, _P, _F, _F, _P], _I),
+    # t, m, n, tau, 1 - tau, stream
+    "cm3_polyak": ([_P, _P, _LL, _F, _F, _P], _I),
+    # out: registers, blocks per SM, threads, local bytes
+    "cm3_adam_polyak_occupancy": ([_P], _I),
+    "cm3_polyak_occupancy": ([_P], _I),
 }
 
 
@@ -177,6 +186,18 @@ def library() -> ctypes.CDLL:
         fn.argtypes, fn.restype = args, res
     lib.build_info = info
     return lib
+
+
+def occupancy(entry: str, *args):
+    """A built kernel's registers per thread, resident blocks per SM,
+    threads per block and local (spill) bytes per thread, from the
+    library's ``entry`` called with ``args`` and the output array
+    (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_int * 4)()
+    check(getattr(library(), entry)(*args, out), entry)
+    return dict(zip(("registers", "blocks_per_sm", "threads",
+                     "local_bytes"), out))
 
 
 def check(code: int, what: str):

@@ -9,12 +9,9 @@ launch allocates the outputs (reward sums float32 [B], episodes int32
 the wrapper's ``launches`` (none for an empty batch).  A module passes
 its plain version and ``call(lib, actions, batch, n_steps, seed, rew,
 ep, stream)``, which calls its C entry with its own leading arguments.
-``occupancy`` reads a built kernel's registers and resident blocks.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -68,14 +65,3 @@ def fed(name, wrapper, plain, call, n_agents, actions):
     t, _, batch = actions.shape
     return _launch(name, wrapper, call, actions, batch, t, 0, actions.device)
 
-
-def occupancy(entry, n_agents, fed=False):
-    """The built kernel's registers per thread, resident blocks per SM,
-    threads per block and local (spill) bytes per thread, from the
-    library's ``entry`` (``cudaFuncGetAttributes``,
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    out = (ctypes.c_int * 4)()
-    _nvcc.check(getattr(_nvcc.library(), entry)(n_agents, int(fed), out),
-                entry)
-    return dict(zip(("registers", "blocks_per_sm", "threads",
-                     "local_bytes"), out))

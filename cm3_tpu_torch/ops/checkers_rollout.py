@@ -94,7 +94,7 @@ import ctypes
 import torch
 
 from cm3_tpu_torch.envs import checkers_packed as cp
-from cm3_tpu_torch.ops import _rollout
+from cm3_tpu_torch.ops import _nvcc, _rollout
 from cm3_tpu_torch.ops.philox import random_actions
 
 
@@ -187,7 +187,8 @@ def occupancy(n_agents: int, fed: bool = False):
     """Registers, blocks per SM, threads per block and spill bytes of
     the kernel built for ``n_agents`` (the Philox variant, or the fed
     one); needs the card."""
-    return _rollout.occupancy("cm3_checkers_rollout_occupancy", n_agents, fed)
+    return _nvcc.occupancy("cm3_checkers_rollout_occupancy", n_agents,
+                           int(fed))
 
 
 rollout_prng.launches = 0

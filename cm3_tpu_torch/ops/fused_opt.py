@@ -1,4 +1,5 @@
-"""Fused Adam + parameter apply + Polyak target: one pass per network.
+"""Fused Adam + parameter apply + Polyak target: one pass per network, and
+one launch for several networks.
 
 Replaces the Pallas kernel ``_adam_polyak_flat`` of
 ``cm3_tpu/ops/fused_opt.py`` (``pl.pallas_call`` at line 100; wrapper
@@ -7,7 +8,7 @@ once per network, when ``AlgConfig.fused_opt`` is on.  Over one
 network's flat f32 parameters it computes
 
     mu'  = b1*mu + (1-b1)*g
-    nu'  = b2*nu + (1-b2)*g^2
+    nu'  = b2*nu + ((1-b2)*g)*g
     p'   = p - lr * (mu'/c1) / (sqrt(nu'/c2) + eps)
     tgt' = tau*p' + (1-tau)*tgt
 
@@ -17,42 +18,58 @@ and the bias corrections c1 = 1-b1^(count+1), c2 = 1-b2^(count+1).
 Bound on an H100.  Per element the pass loads p, tgt, mu, nu, g and
 stores p, tgt, mu, nu: 36 bytes against ~16 float32 operations, so it
 is bound by memory traffic.  On the main path n is 149,645 (actor),
-144,741 (Q_global) and 144,709 (Q_credit): 36 B x n = 5.2-5.4 MB, which
-is 1.6 us at 3.35 TB/s.  A kernel launch costs several microseconds,
-so on the main path (3 launches per update, 24 per training chunk) the
-kernel is launch-bound, not bandwidth-bound.
+144,741 (Q_global) and 144,709 (Q_credit): 5,387,220 B for the actor
+and 10,420,200 B for both critics, 1.61 + 3.11 = 4.72 us per CM3
+update at 3.35 TB/s.  At these sizes a launch's fixed cost (launch,
+the first loads' latency, the tail) is as large as the traffic.
 
-Design.  A Triton kernel: one masked block of 1024 elements per
-program, 4 warps, so each thread moves 8 contiguous floats of each
-operand (two 16-byte vector loads); no data reuse, no shared memory,
-no tensor cores - the loads and stores hand-written CUDA would do.  It
-updates p, tgt, mu and nu in place (the JAX kernel returns new arrays):
-each element is read and written by the same thread, so there is no
-hazard.  b1, b2 and eps are compile-time constants; lr, 1-tau, tau and
-the bias corrections are float32 scalars.  The corrections are computed
-on the host in float32 from the host-side step count, as the TPU kernel
-computes them on the device from its count: no ``.item()``, no device
-round trip.  Triton is imported, and the kernel built, at the first
-launch, so importing this module needs no Triton.
+Design (CUDA C++, ``csrc/flat_update.cu``, entry ``cm3_adam_polyak``).
+Against the fixed cost: the CM3 update's two critics (adjacent, same
+lr) take ONE launch, so an update pays two fixed costs, not three
+(``adam_polyak_many``); each thread of a 128-thread block issues the
+five 16-byte loads of its four elements before it uses one, with a
+block for every 128 such groups (one wave at the main path's sizes,
+several blocks on each SM), so the whole working set is in flight at
+once and one warp's IEEE divisions overlap another's loads; and the
+kernel is lean (32-bit indices, no grid-stride loop, no second path
+inside it), which cut 0.05-0.2 us a launch against the first design
+(PERF.md).  A launch takes a table of up to ``MAX_SEGMENTS`` segments
+by value, each with its pointers, size and own c1, c2 and lr (tau
+shared); blocks map to segments through a prefix of block counts.
+When any of the pointers is not 16-byte aligned (a view at an odd
+offset) the C entry launches a second kernel that takes one float a
+thread instead; the aligned kernel's first threads take the n % 4
+floats after a segment's last 16-byte group.  A segment holds fewer
+than 2^31 floats.  The kernel rounds every product, sum, quotient and
+root on its own (``__fmul_rn`` ...  ``__fsqrt_rn``) in the plain
+version's order, with the same float32 constants, so it equals
+``adam_polyak_plain`` bit for bit, on the card and on the CPU (see the
+plain version's docstring).  It updates p, tgt, mu and nu in place
+(the JAX kernel returns new arrays): each element is read and written
+by the same thread.  The bias corrections are computed on the host in
+float32 from the host-side step count, as the TPU kernel computes them
+on the device from its count: no ``.item()``, no device round trip.
+The design variants measured against this one and their times are in
+PERF.md.
 
-``adam_polyak`` takes ``adam_polyak_plain`` (the same math in plain
-PyTorch) for tensors on the CPU, launches the kernel for CUDA tensors,
-and raises for any other device.  ``adam_polyak.launches`` counts the
-kernel launches.
+``adam_polyak`` (one network) and ``adam_polyak_many`` (several) take
+``adam_polyak_plain`` (the same math in plain PyTorch) for tensors on
+the CPU, launch the kernel for CUDA tensors, and raise for any other
+device.  ``adam_polyak.launches`` counts the kernel's launches from
+either.
 """
 
-import functools
+from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from cm3_tpu_torch.algs.common import B1, B2, EPS, AdamState
+from cm3_tpu_torch.ops import _nvcc
 
-BLOCK = 1024
-NUM_WARPS = 4
-
-# triton.language, bound by _kernel() at the first launch
-tl = None
+MAX_SEGMENTS = 4        # networks in one launch (kMaxSegments in the source)
 
 
 def bias_corrections(count: int):
@@ -64,46 +81,34 @@ def bias_corrections(count: int):
             float(one - np.power(np.float32(B2), c)))
 
 
+def ieee_sqrt(x):
+    """The correctly rounded float32 square root.  On the card that is
+    ``torch.sqrt``; on the CPU PyTorch's vectorized ``sqrt`` misses it
+    on ~0.7% of inputs, so there it is the float64 root rounded to
+    float32 (53 >= 2 x 24 + 2 bits, so the double rounding is exact)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def adam_polyak_plain(p, t, mu, nu, g, c1: float, c2: float, lr: float,
                       tau: float):
-    """The kernel's math in plain PyTorch, in place on flat f32 tensors."""
+    """The kernel's math in plain PyTorch, in place on flat f32 tensors.
+    It divides by 0-dim tensors on the buffers' device (PyTorch's CUDA
+    division by a Python scalar multiplies by the reciprocal) and takes
+    ``ieee_sqrt``: IEEE divisions and roots on the CPU and on the card
+    alike."""
+    c1, c2 = (torch.full((), c, dtype=torch.float32, device=p.device)
+              for c in (c1, c2))
     m2 = B1 * mu + (1.0 - B1) * g
     v2 = B2 * nu + (1.0 - B2) * g * g
-    upd = (m2 / c1) / (torch.sqrt(v2 / c2) + EPS)
+    upd = (m2 / c1) / (ieee_sqrt(v2 / c2) + EPS)
     p2 = p - lr * upd
     t2 = tau * p2 + (1.0 - tau) * t
     p.copy_(p2)
     t.copy_(t2)
     mu.copy_(m2)
     nu.copy_(v2)
-
-
-@functools.cache
-def _kernel():
-    # no ``from __future__ import annotations`` in this module: Triton
-    # reads the ``tl.constexpr`` annotations as objects
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def adam_polyak_kernel(p_ptr, t_ptr, m_ptr, v_ptr, g_ptr, n, c1, c2, lr,
-                           tau, keep, B1: tl.constexpr, B2: tl.constexpr,
-                           EPS: tl.constexpr, BLOCK: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        g = tl.load(g_ptr + offs, mask=mask)
-        m = B1 * tl.load(m_ptr + offs, mask=mask) + (1.0 - B1) * g
-        v = B2 * tl.load(v_ptr + offs, mask=mask) + (1.0 - B2) * g * g
-        upd = tl.div_rn(tl.div_rn(m, c1), tl.sqrt_rn(tl.div_rn(v, c2)) + EPS)
-        p = tl.load(p_ptr + offs, mask=mask) - lr * upd
-        t = tau * p + keep * tl.load(t_ptr + offs, mask=mask)
-        tl.store(p_ptr + offs, p, mask=mask)
-        tl.store(t_ptr + offs, t, mask=mask)
-        tl.store(m_ptr + offs, m, mask=mask)
-        tl.store(v_ptr + offs, v, mask=mask)
-
-    return adam_polyak_kernel
 
 
 def _check(p, t, mu, nu, g):
@@ -118,6 +123,55 @@ def _check(p, t, mu, nu, g):
                              "size or device")
 
 
+def c_args(items, tau: float):
+    """``cm3_adam_polyak``'s arguments but the stream: the segment count,
+    the (p, t, mu, nu, g) pointers, the sizes, each segment's (c1, c2,
+    lr) from its own step count, tau and 1 - tau."""
+    k = len(items)
+    ptrs = [x.data_ptr() for st, p, t, g, _ in items
+            for x in (p, t, st.mu, st.nu, g)]
+    hyper = [v for st, *_, lr in items
+             for v in (*bias_corrections(st.count), float(lr))]
+    return (k, (ctypes.c_void_p * (5 * k))(*ptrs),
+            (ctypes.c_longlong * k)(*[p.numel() for _, p, *_ in items]),
+            (ctypes.c_float * (3 * k))(*hyper), tau, 1.0 - tau)
+
+
+def adam_polyak_many(items, tau: float):
+    """One Adam step and Polyak blend for each of several networks, in
+    place: ``items`` is a sequence of (opt_state, params, tgt, grads,
+    lr), all on one device.  On the card it is ONE kernel launch over
+    all of them (at most ``MAX_SEGMENTS``), each with the bias
+    corrections of its own ``opt_state.count``; on the CPU the plain
+    version per network.  Advances every count."""
+    items = list(items)
+    if not 1 <= len(items) <= MAX_SEGMENTS:
+        raise ValueError(f"adam_polyak_many: 1 to {MAX_SEGMENTS} networks, "
+                         f"got {len(items)}")
+    for st, p, t, g, _ in items:
+        _check(p, t, st.mu, st.nu, g)
+    device = items[0][1].device
+    if any(p.device != device for _, p, *_ in items):
+        raise ValueError("adam_polyak_many: networks on different devices")
+    tau = float(tau)
+    if device.type == "cpu":
+        for st, p, t, g, lr in items:
+            adam_polyak_plain(p, t, st.mu, st.nu, g,
+                              *bias_corrections(st.count), float(lr), tau)
+    elif device.type == "cuda":
+        lib = _nvcc.library()
+        with torch.cuda.device(device):
+            code = lib.cm3_adam_polyak(
+                *c_args(items, tau),
+                torch.cuda.current_stream(device).cuda_stream)
+        _nvcc.check(code, "adam_polyak")
+        adam_polyak.launches += 1
+    else:
+        raise RuntimeError(f"adam_polyak: no kernel for device {device}")
+    for st, *_ in items:
+        st.count += 1
+
+
 def adam_polyak(opt_state: AdamState, params, tgt, grads, lr: float,
                 tau: float):
     """One Adam step on the flat ``params`` and the Polyak blend of the
@@ -125,24 +179,14 @@ def adam_polyak(opt_state: AdamState, params, tgt, grads, lr: float,
     ``opt_state`` (in place too).  The port's counterpart of
     ``cm3_tpu.ops.fused_opt.adam_polyak``.  Returns
     (params, tgt, opt_state)."""
-    mu, nu = opt_state.mu, opt_state.nu
-    _check(params, tgt, mu, nu, grads)
-    c1, c2 = bias_corrections(opt_state.count)
-    lr, tau = float(lr), float(tau)
-    if params.device.type == "cpu":
-        adam_polyak_plain(params, tgt, mu, nu, grads, c1, c2, lr, tau)
-    elif params.device.type == "cuda":
-        n = params.numel()
-        with torch.cuda.device(params.device):
-            _kernel()[((n + BLOCK - 1) // BLOCK,)](
-                params, tgt, mu, nu, grads, n, c1, c2, lr, tau, 1.0 - tau,
-                B1=B1, B2=B2, EPS=EPS, BLOCK=BLOCK, num_warps=NUM_WARPS)
-        adam_polyak.launches += 1
-    else:
-        raise RuntimeError(
-            f"adam_polyak: no kernel for device {params.device}")
-    opt_state.count += 1
+    adam_polyak_many([(opt_state, params, tgt, grads, lr)], tau)
     return params, tgt, opt_state
+
+
+def occupancy():
+    """The built kernel's registers, resident blocks per SM, threads per
+    block and spill bytes; needs the card."""
+    return _nvcc.occupancy("cm3_adam_polyak_occupancy")
 
 
 adam_polyak.launches = 0

@@ -155,7 +155,7 @@ import torch
 
 from cm3_tpu_torch.core.config import ParticleEnvConfig
 from cm3_tpu_torch.envs import particle_soa as ps
-from cm3_tpu_torch.ops import _rollout
+from cm3_tpu_torch.ops import _nvcc, _rollout
 from cm3_tpu_torch.ops.philox import random_actions
 
 AGENTS = (1, 2, 4)          # the agent counts the kernel is built for
@@ -302,7 +302,8 @@ def occupancy(n_agents: int, fed: bool = False):
     """Registers, blocks per SM, threads per block and spill bytes of
     the kernel built for ``n_agents`` (the Philox variant, or the fed
     one); needs the card."""
-    return _rollout.occupancy("cm3_particle_rollout_occupancy", n_agents, fed)
+    return _nvcc.occupancy("cm3_particle_rollout_occupancy", n_agents,
+                           int(fed))
 
 
 rollout_prng.launches = 0

@@ -14,57 +14,38 @@ update of a network is one call on ``net.flat``.
 Bound on an H100.  Per element it loads t and m and stores t: 12 bytes
 against 3 float32 operations, so it is bound by memory traffic: 12 B x
 n at 3.35 TB/s, 0.54 us for the actor's n = 149,645.  At that size a
-launch costs more than the traffic.
+launch's fixed cost (launch, the first loads' latency, the tail) costs
+more than the traffic.
 
-Design.  A Triton kernel, as ``ops/fused_opt.py``: one masked block of
-1024 elements per program, 4 warps, so each thread moves 8 contiguous
-floats of each operand; no reuse, no shared memory.  tau and 1 - tau
-are float32 scalars (1 - tau rounded once on the host, as the JAX code
-rounds it).  Floating-point contraction is off, so the kernel rounds
-each product and the sum as the plain version does and agrees with it
-exactly.  Triton is imported, and the kernel built, at the first
-launch.  Its yardstick is ``torch.Tensor.lerp_``, which computes the
-same function; the port never calls it.
+Design (CUDA C++, ``csrc/flat_update.cu``, entry ``cm3_polyak``): as
+``ops/fused_opt.py``'s kernel, lean 128-thread blocks whose threads
+issue both 16-byte loads of their four elements before using them, a
+block for every 128 groups, so the whole buffer is in flight at once;
+a buffer whose pointers are not both 16-byte aligned takes a second
+kernel, one float a thread, and the first threads take the n % 4
+floats after the last 16-byte group.  tau and 1 - tau are float32
+scalars (1 - tau rounded once on the host, as the plain version rounds
+it), and each product and the sum round on their own (``__fmul_rn``,
+``__fadd_rn``), so the kernel equals the plain version bit for bit.
+Its yardstick is ``torch.Tensor.lerp_``, which computes the same
+function (with its own rounding); the port never calls it.
 
 ``polyak_update`` takes ``polyak_update_plain`` for tensors on the
 CPU, launches the kernel for CUDA tensors, and raises for any other
 device.  ``polyak_update.launches`` counts kernel launches.
 """
 
-import functools
+from __future__ import annotations
 
 import torch
 
-BLOCK = 1024
-NUM_WARPS = 4
-
-# triton.language, bound by _kernel() at the first launch
-tl = None
+from cm3_tpu_torch.ops import _nvcc
 
 
 def polyak_update_plain(tgt, main, tau: float):
     """The kernel's math in plain PyTorch, in place on ``tgt``."""
     tgt.copy_(tau * main + (1.0 - tau) * tgt)
     return tgt
-
-
-@functools.cache
-def _kernel():
-    # no ``from __future__ import annotations`` in this module: Triton
-    # reads the ``tl.constexpr`` annotations as objects
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def polyak_kernel(t_ptr, m_ptr, n, tau, keep, BLOCK: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        m = tl.load(m_ptr + offs, mask=mask)
-        t = tl.load(t_ptr + offs, mask=mask)
-        tl.store(t_ptr + offs, tau * m + keep * t, mask=mask)
-
-    return polyak_kernel
 
 
 def polyak_update(tgt, main, tau: float):
@@ -84,13 +65,20 @@ def polyak_update(tgt, main, tau: float):
         return polyak_update_plain(tgt, main, tau)
     if tgt.device.type != "cuda":
         raise RuntimeError(f"polyak_update: no kernel for device {tgt.device}")
-    n = tgt.numel()
+    lib = _nvcc.library()
     with torch.cuda.device(tgt.device):
-        _kernel()[((n + BLOCK - 1) // BLOCK,)](
-            tgt, main, n, tau, 1.0 - tau, BLOCK=BLOCK, num_warps=NUM_WARPS,
-            enable_fp_fusion=False)
+        stream = torch.cuda.current_stream(tgt.device).cuda_stream
+        code = lib.cm3_polyak(tgt.data_ptr(), main.data_ptr(), tgt.numel(),
+                              tau, 1.0 - tau, stream)
+    _nvcc.check(code, "polyak_update")
     polyak_update.launches += 1
     return tgt
+
+
+def occupancy():
+    """The built kernel's registers, resident blocks per SM, threads per
+    block and spill bytes; needs the card."""
+    return _nvcc.occupancy("cm3_polyak_occupancy")
 
 
 polyak_update.launches = 0

@@ -141,7 +141,7 @@ import torch
 
 from cm3_tpu_torch.core.config import RoadwayEnvConfig
 from cm3_tpu_torch.envs import roadway_soa as rs
-from cm3_tpu_torch.ops import _rollout
+from cm3_tpu_torch.ops import _nvcc, _rollout
 from cm3_tpu_torch.ops.philox import random_actions
 
 CARS = (1, 2)           # the car counts the kernel is built for
@@ -256,8 +256,8 @@ def occupancy(n_agents: int, fed: bool = False):
     """Registers, blocks per SM, threads per block and spill bytes of
     the kernel built for ``n_agents`` (the Philox variant, or the fed
     one); needs the card."""
-    return _rollout.occupancy("cm3_roadway_rollout_occupancy", n_agents,
-                              fed)
+    return _nvcc.occupancy("cm3_roadway_rollout_occupancy", n_agents,
+                           int(fed))
 
 
 rollout_prng.launches = 0

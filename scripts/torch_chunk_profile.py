@@ -10,7 +10,10 @@ and reports:
     median over ``--chunks`` chunks;
   * a ``torch.profiler`` trace of ``--traced`` chunks: device time of
     the CUDA kernels against wall time (the device's busy share),
-    kernel launches per chunk, and the kernels that take most time.
+    kernel launches per chunk, the kernels that take most time, and
+    the Adam + Polyak kernel's (B1) launches per chunk and device time
+    per launch as the chunk calls it, with whatever the L2 holds after
+    the backward pass.
 
 Run from the root of a checkout on a machine with a CUDA device:
 
@@ -95,6 +98,8 @@ def main():
     dev_us = sum(k[2] for k in kernels)
     launches = sum(k[1] for k in kernels)
 
+    b1 = [k for k in kernels if "adam_polyak" in k[0]]
+    b1_launches = sum(k[1] for k in b1)
     med = statistics.median
     res = {
         "card": card,
@@ -107,6 +112,9 @@ def main():
         "device_ms_per_chunk": dev_us * 1e-3 / args.traced,
         "device_busy_share": (dev_us * 1e-6 / wall) if wall else None,
         "kernel_launches_per_chunk": launches / args.traced,
+        "adam_polyak_launches_per_chunk": b1_launches / args.traced,
+        "adam_polyak_us_per_launch": (sum(k[2] for k in b1) / b1_launches
+                                      if b1_launches else None),
         "top_kernels": [{"name": k[0][:90], "launches_per_chunk":
                          k[1] / args.traced, "device_us_per_chunk":
                          k[2] / args.traced} for k in kernels[:12]],
@@ -120,6 +128,9 @@ def main():
           f"{res['device_ms_per_chunk']:.3f} ms device, busy share "
           f"{res['device_busy_share']}, "
           f"{res['kernel_launches_per_chunk']:.0f} kernel launches per chunk")
+    print(f"adam_polyak: {res['adam_polyak_launches_per_chunk']:.0f} "
+          f"launches per chunk, {res['adam_polyak_us_per_launch']} us of "
+          "device time per launch")
     for k in res["top_kernels"]:
         print(f"  {k['device_us_per_chunk']:9.1f} us "
               f"{k['launches_per_chunk']:6.1f}x  {k['name']}")

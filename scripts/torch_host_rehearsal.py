@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Run the port's CUDA C++ rollout kernels on the host, without a GPU or
+"""Run the port's CUDA C++ kernels on the host, without a GPU or
 ``nvcc``, and hold them against their plain versions on the CPU.
 
     python3 scripts/torch_host_rehearsal.py [--batch 300] [--steps 130]
 
-Each ``cm3_tpu_torch/csrc/*_rollout.cu`` is compiled by ``g++`` as C++20
-into its own shared library:
+Each ``cm3_tpu_torch/csrc/*_rollout.cu`` and ``flat_update.cu`` is
+compiled by ``g++`` as C++20 into its own shared library:
 
 * CUDA's qualifiers (``__global__``, ``__device__``,
   ``__launch_bounds__``) are empty macros and ``__shared__`` is
@@ -14,18 +14,22 @@ into its own shared library:
   one after another, one ``std::thread`` per CUDA thread, so
   ``__syncthreads`` is a ``std::barrier`` and a block's threads share its
   ``__shared__`` memory;
-* ``__fmul_rn``/``__fadd_rn``/``__fsub_rn``/``__fdiv_rn`` round through a
-  ``volatile`` float and ``-ffp-contract=off`` forbids fused
-  multiply-adds, so every operation rounds as on the card; ``sqrtf`` is
-  glibc's, correctly rounded like CUDA's; ``expf``/``log1pf`` are glibc's,
-  other approximations than CUDA's (and PyTorch's CPU ones).
+* ``__fmul_rn``/``__fadd_rn``/``__fsub_rn``/``__fdiv_rn``/``__fsqrt_rn``
+  round through a ``volatile`` float and ``-ffp-contract=off`` forbids
+  fused multiply-adds, so every operation rounds as on the card;
+  ``sqrtf`` is glibc's, correctly rounded like CUDA's; ``expf``/``log1pf``
+  are glibc's, other approximations than CUDA's (and PyTorch's CPU ones).
 
-The C entries then run on host buffers, fed and with Philox draws, and
-the results are held against the plain versions on the CPU: episodes
-exactly; reward sums bit for bit for Checkers and roadway, and for the
-particle game to the tolerance of ``chip_smoke.py``'s CPU comparison
-where a contact term's ``exp``/``log1p`` differ.  Exits non-zero on a
-mismatch.  Builds under a temporary directory and writes nothing else.
+The rollout entries then run on host buffers, fed and with Philox draws,
+and the results are held against the plain versions on the CPU:
+episodes exactly; reward sums bit for bit for Checkers and roadway, and
+for the particle game to the tolerance of ``chip_smoke.py``'s CPU
+comparison where a contact term's ``exp``/``log1p`` differ.  The flat
+updates' entries (``cm3_adam_polyak``, ``cm3_polyak``) run over ragged
+sizes, views at offsets of 1-3 floats and several segments in one
+launch, and are held against the plain versions bit for bit.  Exits
+non-zero on a mismatch.  Builds under a temporary directory and writes
+nothing else.
 """
 
 import argparse
@@ -45,8 +49,9 @@ sys.path.insert(0, ROOT)
 from chip_smoke import PARTICLE_NEAR  # noqa: E402
 from cm3_tpu_torch.core.config import (CheckersEnvConfig,  # noqa: E402
                                        ParticleEnvConfig, RoadwayEnvConfig)
+from cm3_tpu_torch.algs import common  # noqa: E402
 from cm3_tpu_torch.envs import checkers_packed as cp  # noqa: E402
-from cm3_tpu_torch.ops import _nvcc  # noqa: E402
+from cm3_tpu_torch.ops import _nvcc, fused_opt, polyak  # noqa: E402
 from cm3_tpu_torch.ops import checkers_rollout as cr  # noqa: E402
 from cm3_tpu_torch.ops import particle_rollout as pr  # noqa: E402
 from cm3_tpu_torch.ops import roadway_rollout as rr  # noqa: E402
@@ -70,6 +75,7 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct uint4 { unsigned x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return {x, y, z, w};
 }
@@ -84,7 +90,7 @@ inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a,
 }
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     int* n, const void*, int, size_t) {
-  *n = 0;
+  *n = 1;
   return cudaSuccess;
 }
 
@@ -94,7 +100,7 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
 #define __launch_bounds__(...)
 #define __shared__ static
 
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline std::barrier<>* host_block_barrier = nullptr;
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 
@@ -107,6 +113,7 @@ void host_launch(dim3 grid, unsigned threads, F body) {
     for (unsigned tx = 0; tx < threads; ++tx)
       pool.emplace_back([&, bx, tx] {
         blockIdx = dim3(bx);
+        gridDim = grid;
         threadIdx = dim3(tx);
         body();
       });
@@ -118,6 +125,7 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __fsqrt_rn(float a) { volatile float r = sqrtf(a); return r; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
   return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
 }
@@ -127,8 +135,8 @@ using std::min;
 """
 
 # kernel<...><<<grid, threads, 0, stream>>>(args);
-LAUNCH = re.compile(r"(\w+<[^;<>]*>)<<<([^,]+),([^,]+),[^>]*>>>\((.*?)\);",
-                    re.S)
+LAUNCH = re.compile(
+    r"(\w+(?:<[^;<>]*>)?)<<<([^,]+),([^,]+),[^>]*>>>\((.*?)\);", re.S)
 
 
 def host_source(path):
@@ -185,6 +193,85 @@ def hold(what, got, want, tol=None):
     return ok
 
 
+def view(gen, n, off):
+    """n standard normal floats, ``off`` floats past a 64-byte aligned
+    allocation (a view at an offset when ``off`` > 0)."""
+    x = torch.empty(n + off)
+    x[off:] = torch.from_numpy(gen.standard_normal(n).astype(np.float32))
+    return x[off:]
+
+
+def hold_flat(what, got, want):
+    ok = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max((float((a - b).abs().max()) for a, b in zip(got, want)
+               if a.numel()), default=0.0)
+    print(f"  {what}: bit-equal {ok}, max abs difference {err:.3g}; "
+          f"{'ok' if ok else 'MISMATCH'}")
+    return ok
+
+
+def adam_case(lib, gen, segments, tau=0.01, steps=5):
+    """``cm3_adam_polyak`` over ``segments`` (n, offsets of p, t, mu, nu
+    and g, step count, lr) in one launch per step, against the plain
+    version per segment; fresh gradients each step."""
+    items, ref = [], []
+    for n, offs, count, lr in segments:
+        p, t, mu, nu, g = (view(gen, n, off) for off in offs)
+        nu.abs_().mul_(0.01)
+        items.append((common.AdamState(mu, nu, count), p, t, g, lr))
+        ref.append((common.AdamState(mu.clone(), nu.clone(), count),
+                    p.clone(), t.clone(), g, lr))
+    for _ in range(steps):
+        for (_, _, _, g, _) in items:
+            g.copy_(torch.from_numpy(
+                gen.standard_normal(g.numel()).astype(np.float32)))
+        code = lib.cm3_adam_polyak(*fused_opt.c_args(items, tau), None)
+        if code != 0:
+            raise RuntimeError(f"cm3_adam_polyak returned {code}")
+        for st, *_ in items:
+            st.count += 1
+        fused_opt.adam_polyak_many(ref, tau)
+    flat = lambda its: [x for st, p, t, _, _ in its
+                        for x in (p, t, st.mu, st.nu)]
+    return hold_flat(
+        f"adam_polyak, {len(segments)} segment(s) (n, offsets, count, lr) "
+        f"{segments}, {steps} steps", flat(items), flat(ref))
+
+
+def polyak_case(lib, gen, n, offs, tau):
+    t, m = (view(gen, n, off) for off in offs)
+    want = polyak.polyak_update_plain(t.clone(), m, tau)
+    code = lib.cm3_polyak(t.data_ptr(), m.data_ptr(), n, tau, 1.0 - tau,
+                          None)
+    if code != 0:
+        raise RuntimeError(f"cm3_polyak returned {code}")
+    return hold_flat(f"polyak n={n} offsets {offs} tau {tau}", [t], [want])
+
+
+def flat_cases(lib, gen):
+    aligned = (0,) * 5
+    ok = True
+    for n in (0, 1, 3, 1000, 8193):
+        ok &= adam_case(lib, gen, [(n, aligned, 0, 1e-3)])
+    for n, offs in ((8193, (1,) * 5), (8193, (0, 0, 0, 0, 3)),
+                    (8193, (2, 0, 0, 0, 0)), (1000, (3,) * 5)):
+        ok &= adam_case(lib, gen, [(n, offs, 3, 1e-3)])
+    ok &= adam_case(lib, gen, [(8193, aligned, 0, 1e-3),
+                               (1, (0, 1, 0, 0, 0), 5, 1e-4)])
+    ok &= adam_case(lib, gen, [(8193, aligned, 0, 1e-3),
+                               (1003, aligned, 5, 1e-4),
+                               (3, aligned, 999, 1e-2)])
+    ok &= adam_case(lib, gen, [(8193, aligned, 0, 1e-3),
+                               (1000, (0, 0, 2, 0, 0), 17, 3e-3),
+                               (3, aligned, 999, 1e-2),
+                               (4099, aligned, 1, 1e-3)])
+    for n in (0, 1, 3, 1000, 8193):
+        for offs in ((0, 0), (1, 0), (0, 3)):
+            for tau in (0.0, 0.01, 1.0):
+                ok &= polyak_case(lib, gen, n, offs, tau)
+    return ok
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=300)
@@ -236,6 +323,7 @@ def main():
             ok &= hold(f"{what}, Philox B={b} T={t} seed {seed}",
                        run(lib, call, None, b, t, seed),
                        mod.rollout_prng_plain(cfg, b, t, seed, "cpu"), tol)
+        ok &= flat_cases(build(tmp, "flat_update"), gen)
     print("host rehearsal:", "all held" if ok else "MISMATCH")
     return 0 if ok else 1
 

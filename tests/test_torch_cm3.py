@@ -39,10 +39,18 @@ def _batch(env, b, rng):
 
 
 @pytest.mark.parametrize("target_clip", [0.0, 0.5])
-def test_update_matches_jax(target_clip):
+def test_update_matches_jax(target_clip, monkeypatch):
     """Losses at rtol 1e-5; params, targets and Adam moments at
     rtol 1e-5 / atol 1e-6 (float32 sums in another order through the
-    forward and backward passes; measured differences are ~1e-7)."""
+    forward and backward passes; measured differences are ~1e-7).  The
+    port takes the two critics' steps in one ``adam_polyak_many`` call
+    (one launch on the card) and the actor's in another, where the JAX
+    package makes three calls."""
+    from cm3_tpu_torch.ops import fused_opt
+    calls = []
+    many = fused_opt.adam_polyak_many
+    monkeypatch.setattr(fused_opt, "adam_polyak_many", lambda items, tau: (
+        calls.append([p.numel() for _, p, *_ in items]), many(items, tau)))
     b = 16
     je, _ = tp.envs()
     ja, ta = tp.algs(je.spec(), target_clip=target_clip)
@@ -71,6 +79,8 @@ def test_update_matches_jax(target_clip):
         np.testing.assert_allclose(got.nu.numpy(), want.nu.numpy(),
                                    rtol=1e-5, atol=1e-9, err_msg=name)
     assert tts.step == int(jts2.step) == 1
+    assert calls == [[tts.qg.flat.numel(), tts.qc.flat.numel()],
+                     [tts.actor.flat.numel()]]
 
 
 def test_nets_run_in_full_float32_whatever_the_caller_set():

@@ -1,6 +1,6 @@
-"""Tests of the port that need the card (marker ``cuda``): the Triton
-kernels (``adam_polyak``, ``polyak``) and the CUDA C++ Checkers,
-particle and roadway rollouts against their plain versions, the
+"""Tests of the port that need the card (marker ``cuda``): the CUDA C++
+kernels (``adam_polyak``, ``polyak``, the Checkers, particle and roadway
+rollouts) against their plain versions, the
 particle kernel's squared-distance thresholds under CUDA's math, the
 kernels' builds, and a small training chunk on the card against the same
 chunk on the CPU, also under PyTorch's default TF32 flags.  They import
@@ -10,6 +10,8 @@ neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
 Without a CUDA device they skip."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from cm3_tpu_torch.algs import common
 from cm3_tpu_torch.core.config import (CheckersEnvConfig, ParticleEnvConfig,
                                        RoadwayEnvConfig)
 from cm3_tpu_torch.envs import checkers_packed as cp
+from cm3_tpu_torch.ops import _nvcc
 from cm3_tpu_torch.ops import checkers_rollout as cr
 from cm3_tpu_torch.ops import fused_opt, polyak
 from cm3_tpu_torch.ops import particle_rollout as pr
@@ -58,37 +61,118 @@ THRESHOLD_CFGS = {
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Triton kernel runs only on "
+        pytest.skip("needs a CUDA device (the CUDA C++ kernels run only on "
                     "the card)")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 1000, 8193, 149645])
-def test_triton_kernel_matches_plain(cuda_device, n):
-    """Triton kernel vs the plain version over 5 steps on the card.
-    Tolerance rtol 1e-6, atol 1e-7: both divide and take square roots
-    in IEEE float32; products may be contracted differently."""
-    gen = torch.Generator(device=cuda_device).manual_seed(n)
-    mk = lambda: torch.randn(n, device=cuda_device, generator=gen)
-    p, t = mk(), mk()
-    st = common.adam_init(p)
-    ref_p, ref_t, ref = p.clone(), t.clone(), common.adam_init(p)
+def _view(n, off, gen, device):
+    """n standard normal floats ``off`` floats into their allocation."""
+    x = torch.zeros(n + off, device=device)
+    x[off:] = torch.randn(n, device=device, generator=gen)
+    return x[off:]
+
+
+def _hold_adam(cuda_device, spec, seed):
+    """The kernel over the networks of ``spec`` ((n, step count, lr,
+    offset) each), one launch per step for 5 steps, against the plain
+    version per network: equal bit for bit (rtol 0, atol 0: the kernel
+    rounds every operation as the plain version does, in its order).
+    Returns the launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    nets, refs = [], []
+    for n, count, lr, off in spec:
+        p, t, mu, nu = (_view(n, off, gen, cuda_device) for _ in range(4))
+        nu.square_().mul_(1e-3)
+        nets.append((common.AdamState(mu, nu, count), p, t, lr))
+        refs.append((common.AdamState(mu.clone(), nu.clone(), count),
+                     p.clone(), t.clone(), lr))
     before = fused_opt.adam_polyak.launches
     for _ in range(5):
-        g = mk()
-        fused_opt.adam_polyak(st, p, t, g, 1e-3, 0.01)
-        c1, c2 = fused_opt.bias_corrections(ref.count)
-        fused_opt.adam_polyak_plain(ref_p, ref_t, ref.mu, ref.nu, g, c1, c2,
-                                    1e-3, 0.01)
-        ref.count += 1
+        gs = [_view(n, off, gen, cuda_device) for n, _, _, off in spec]
+        fused_opt.adam_polyak_many([(st, p, t, g, lr) for (st, p, t, lr), g
+                                    in zip(nets, gs)], 0.01)
+        for (st, p, t, lr), g in zip(refs, gs):
+            fused_opt.adam_polyak_plain(p, t, st.mu, st.nu, g,
+                                        *fused_opt.bias_corrections(st.count),
+                                        lr, 0.01)
+            st.count += 1
     torch.cuda.synchronize()
-    assert fused_opt.adam_polyak.launches == before + 5
-    for got, want in ((p, ref_p), (t, ref_t), (st.mu, ref.mu),
-                      (st.nu, ref.nu)):
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    for (st, p, t, _), (rst, rp, rt, _) in zip(nets, refs):
+        assert st.count == rst.count
+        for got, want in ((p, rp), (t, rt), (st.mu, rst.mu),
+                          (st.nu, rst.nu)):
+            assert torch.equal(got, want)
+    return fused_opt.adam_polyak.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 1000, 8193, 149645])
+def test_adam_polyak_kernel_matches_plain(cuda_device, n):
+    """The CUDA C++ kernel vs the plain version over 5 steps on the
+    card, bit for bit (rtol 0, atol 0), one launch a step."""
+    assert _hold_adam(cuda_device, [(n, 0, 1e-3, 0)], n) == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("n", [8193, 149645])
+def test_adam_polyak_kernel_on_offset_views(cuda_device, n, off):
+    """Views ``off`` floats into their allocations (not 16-byte
+    aligned: the kernel's one-float-a-thread path), alone and beside an
+    aligned network in one launch: bit for bit."""
+    assert _hold_adam(cuda_device, [(n, 2, 1e-3, off)], off) == 5
+    assert _hold_adam(cuda_device, [(n, 0, 1e-3, 0), (1000, 7, 1e-4, off)],
+                      off) == 5
+
+
+@pytest.mark.cuda
+def test_adam_polyak_two_segments_equal_two_launches(cuda_device):
+    """Both critics of the main path in one launch, with different step
+    counts and lr, equal one launch each and the plain version, bit for
+    bit; four ragged segments too, aligned (the float4 kernel) and with
+    views at offsets (the one-float-a-thread kernel)."""
+    spec = [(144741, 3, 1e-3, 0), (144709, 0, 1e-4, 0)]
+    assert _hold_adam(cuda_device, spec, 1) == 5
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    nets = [[_view(n, 0, gen, cuda_device) for _ in range(5)]
+            for n, *_ in spec]
+    for x in nets:
+        x[3].square_().mul_(1e-3)
+    twin = [[b.clone() for b in x] for x in nets]
+    one = [(common.AdamState(mu, nu, c), p, t, g, lr)
+           for (p, t, mu, nu, g), (_, c, lr, _) in zip(nets, spec)]
+    two = [(common.AdamState(mu, nu, c), p, t, g, lr)
+           for (p, t, mu, nu, g), (_, c, lr, _) in zip(twin, spec)]
+    for _ in range(5):
+        fused_opt.adam_polyak_many(one, 0.01)
+        for item in two:
+            fused_opt.adam_polyak(*item, 0.01)
+    torch.cuda.synchronize()
+    for x, y in zip(nets, twin):
+        for a, b in zip(x, y):
+            assert torch.equal(a, b)
+    assert _hold_adam(cuda_device, [(8193, 0, 1e-3, 0), (1, 5, 1e-4, 1),
+                                    (1000, 17, 3e-3, 2), (3, 999, 1e-2, 3)],
+                      3) == 5
+    assert _hold_adam(cuda_device, [(8193, 0, 1e-3, 0), (1, 5, 1e-4, 0),
+                                    (1003, 17, 3e-3, 0), (3, 999, 1e-2, 0)],
+                      4) == 5
+
+
+@pytest.mark.cuda
+def test_flat_update_entries_refuse_sizes_past_int32(cuda_device):
+    """The kernels index in 32 bits: the C entries refuse a segment of
+    2^31 floats or more (cudaErrorInvalidValue) before any launch."""
+    lib = _nvcc.library()
+    n = ctypes.c_longlong(2 ** 31)
+    ptrs = (ctypes.c_void_p * 5)()
+    hyper = (ctypes.c_float * 3)(1.0, 1.0, 1e-3)
+    assert lib.cm3_adam_polyak(1, ptrs, ctypes.byref(n), hyper, 0.01, 0.99,
+                               None) == 1
+    assert lib.cm3_polyak(None, None, 2 ** 31, 0.01, 0.99, None) == 1
 
 
 def _small_chunks(cuda_device):
@@ -136,7 +220,7 @@ def _small_chunks(cuda_device):
 
 def _hold_chunks(out, u):
     (ts_c, n_c), (ts_h, n_h) = out["cuda"], out["cpu"]
-    assert (n_c, n_h) == (3 * u, 0)
+    assert (n_c, n_h) == (2 * u, 0)
     for name in ("actor", "actor_tgt", "qg", "qg_tgt", "qc", "qc_tgt"):
         torch.testing.assert_close(getattr(ts_c, name).flat.cpu(),
                                    getattr(ts_h, name).flat, rtol=1e-4,
@@ -146,7 +230,8 @@ def _hold_chunks(out, u):
 @pytest.mark.cuda
 def test_small_chunk_on_card_matches_cpu(cuda_device):
     """A fill and a training chunk at small width on the card and on
-    the CPU with the same fed draws: 3 kernel launches per update, and
+    the CPU with the same fed draws: 2 kernel launches per update (the
+    actor; both critics in one), and
     the same state at rtol 1e-4, atol 1e-5 (float32 sums in other
     orders through 4 Adam steps)."""
     _hold_chunks(*_small_chunks(cuda_device))
@@ -219,10 +304,11 @@ def test_rollout_kernel_prng_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tau", [0.0, 0.01, 1.0])
-@pytest.mark.parametrize("n", [1, 1000, 8193, 149645])
+@pytest.mark.parametrize("n", [1, 3, 1000, 8193, 149645])
 def test_polyak_kernel_matches_plain(cuda_device, n, tau):
-    """The Triton Polyak kernel against the plain version: rtol 1e-6,
-    atol 1e-7 (both round the two products and the sum in float32)."""
+    """The CUDA C++ Polyak kernel against the plain version, bit for bit
+    (rtol 0, atol 0: both round the two products and the sum once each
+    in float32)."""
     gen = torch.Generator(device=cuda_device).manual_seed(n)
     t = torch.randn(n, device=cuda_device, generator=gen)
     m = torch.randn(n, device=cuda_device, generator=gen)
@@ -231,7 +317,19 @@ def test_polyak_kernel_matches_plain(cuda_device, n, tau):
     polyak.polyak_update(t, m, tau)
     torch.cuda.synchronize()
     assert polyak.polyak_update.launches == before + 1
-    torch.testing.assert_close(t, want, rtol=1e-6, atol=1e-7)
+    assert torch.equal(t, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs", [(1, 0), (0, 3), (2, 2)])
+def test_polyak_kernel_on_offset_views(cuda_device, offs):
+    """Views 1-3 floats into their allocations: bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(offs))
+    t, m = (_view(8193, off, gen, cuda_device) for off in offs)
+    want = polyak.polyak_update_plain(t.clone(), m, 0.01)
+    polyak.polyak_update(t, m, 0.01)
+    torch.cuda.synchronize()
+    assert torch.equal(t, want)
 
 
 @pytest.mark.cuda
@@ -341,3 +439,14 @@ def test_rollout_kernels_build_without_spills(cuda_device, mod, n_agents):
         o = mod.occupancy(n_agents, fed)
         assert 0 < o["registers"] <= 255 and o["blocks_per_sm"] >= 1
         assert o["local_bytes"] == 0, o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", [fused_opt, polyak])
+def test_flat_update_kernels_fill_the_card_without_spills(cuda_device, mod):
+    """The flat-update kernels as built: 128 threads a block, at least
+    8 warps resident per SM, no local memory (the segment table is read
+    at constant indices)."""
+    o = mod.occupancy()
+    assert o["threads"] == 128 and o["blocks_per_sm"] * 128 // 32 >= 8, o
+    assert 0 < o["registers"] <= 255 and o["local_bytes"] == 0, o

@@ -1,8 +1,9 @@
 """The port's fused Adam+Polyak (``cm3_tpu_torch.ops.fused_opt``)
 against the JAX Pallas kernel, which runs in interpret mode on the CPU
-as in tests/test_fused_opt.py.  On the CPU the port's wrapper runs the
-kernel's plain PyTorch version; the Triton kernel itself is held
-against that plain version on the card (tests/test_torch_cuda.py)."""
+as in tests/test_fused_opt.py.  On the CPU the port's wrappers run the
+kernel's plain PyTorch version; the CUDA C++ kernel itself is held
+against that plain version on the card (tests/test_torch_cuda.py) and,
+built for the host, on the CPU (scripts/torch_host_rehearsal.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -111,3 +112,117 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(RuntimeError):
         fused_opt.adam_polyak(common.adam_init(m), m, m, m, 1e-3, 0.01)
     assert st.count == 0
+
+
+def _network(rng, n, count, off=0):
+    """(opt_state, params, tgt, grads) over n floats, each buffer a view
+    ``off`` floats into its allocation."""
+    mk = lambda scale=1.0: torch.from_numpy(np.concatenate(
+        [np.zeros(off, np.float32),
+         (scale * rng.standard_normal(n)).astype(np.float32)]))[off:]
+    st = common.AdamState(mu=mk(0.1), nu=mk(0.1).abs_(), count=count)
+    return st, mk(), mk(), mk()
+
+
+def _clone(net):
+    st, p, t, g = net
+    return (common.AdamState(st.mu.clone(), st.nu.clone(), st.count),
+            p.clone(), t.clone(), g)
+
+
+# networks of one call: (n, step count, lr, offset in floats)
+MANY_CASES = {
+    "two_critics": [(1000, 0, 1e-3, 0), (1003, 0, 1e-3, 0)],
+    "ragged": [(1, 4, 1e-3, 0), (8193, 0, 1e-4, 0), (3, 99, 3e-3, 2)],
+    "four": [(8193, 7, 1e-3, 1), (1, 0, 1e-2, 0), (1000, 1000, 1e-4, 0),
+             (17, 3, 1e-3, 3)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(MANY_CASES))
+def test_many_equals_one_call_per_network(case):
+    """``adam_polyak_many`` over networks of different sizes, step counts
+    and lr equals one ``adam_polyak`` call per network, bit for bit
+    (rtol 0, atol 0), over 3 steps, and advances every count."""
+    rng = np.random.default_rng(len(case))
+    spec = MANY_CASES[case]
+    nets = [_network(rng, n, count, off) for n, count, _, off in spec]
+    ref = [_clone(net) for net in nets]
+    for _ in range(3):
+        fused_opt.adam_polyak_many(
+            [(st, p, t, g, lr) for (st, p, t, g), (*_, lr, _) in
+             zip(nets, spec)], 0.01)
+        for (st, p, t, g), (*_, lr, _) in zip(ref, spec):
+            fused_opt.adam_polyak(st, p, t, g, lr, 0.01)
+    for (st, p, t, _), (rst, rp, rt, _), (_, count, _, _) in zip(nets, ref,
+                                                               spec):
+        assert st.count == rst.count == count + 3
+        for got, want in ((p, rp), (t, rt), (st.mu, rst.mu),
+                          (st.nu, rst.nu)):
+            assert torch.equal(got, want)
+    assert fused_opt.adam_polyak.launches == 0   # no kernel on the CPU
+
+
+def _numpy_update(st, p, t, g, count, lr=1e-3, tau=0.01):
+    """One step in numpy's float32 arithmetic, each operation rounded once
+    in the kernel's order: (p', t', mu', nu')."""
+    f = np.float32
+    mu, nu, pn, tn, gn = (x.numpy().copy() for x in (st.mu, st.nu, p, t, g))
+    c1, c2 = (f(c) for c in fused_opt.bias_corrections(count))
+    m2 = f(0.9) * mu + f(1.0 - 0.9) * gn
+    v2 = f(0.999) * nu + (f(1.0 - 0.999) * gn) * gn
+    p2 = pn - f(lr) * ((m2 / c1) / (np.sqrt(v2 / c2) + f(1e-8)))
+    t2 = f(tau) * p2 + f(1.0 - tau) * tn
+    return p2, t2, m2, v2
+
+
+@pytest.mark.parametrize("n", [1, 3, 8193])
+def test_plain_rounds_every_operation_as_ieee_float32(n):
+    """The plain version, the kernel's reference, rounds each product,
+    sum, quotient and root once in float32 in the kernel's order
+    (``((1-b2)*g)*g``; IEEE divisions by c1 and c2; a correctly rounded
+    root), as numpy's float32 arithmetic does: equal bit for bit."""
+    rng = np.random.default_rng(n)
+    st, p, t, g = _network(rng, n, 6)
+    want = _numpy_update(st, p, t, g, 6)
+    fused_opt.adam_polyak(st, p, t, g, 1e-3, 0.01)
+    for got, w in zip((p, t, st.mu, st.nu), want):
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
+def test_cpu_root_is_correctly_rounded_where_torch_sqrt_is_not():
+    """The miss ``ieee_sqrt`` exists for: over the 100,000 values of
+    ``nu'/c2`` of one update, PyTorch's vectorized CPU ``sqrt`` differs
+    from the correctly rounded root (numpy's float32 ``sqrt``) on some;
+    ``ieee_sqrt`` and the plain version's whole update on none."""
+    rng = np.random.default_rng(0)
+    st, p, t, g = _network(rng, 100_000, 6)
+    want = _numpy_update(st, p, t, g, 6)
+    x = want[3] / np.float32(fused_opt.bias_corrections(6)[1])
+    assert (torch.sqrt(torch.from_numpy(x)).numpy() != np.sqrt(x)).sum() > 0
+    np.testing.assert_array_equal(
+        fused_opt.ieee_sqrt(torch.from_numpy(x)).numpy(), np.sqrt(x))
+    fused_opt.adam_polyak(st, p, t, g, 1e-3, 0.01)
+    for got, w in zip((p, t, st.mu, st.nu), want):
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
+def test_many_checks_its_inputs():
+    rng = np.random.default_rng(0)
+    nets = [_network(rng, 8, 0) for _ in range(5)]
+    items = [(st, p, t, g, 1e-3) for st, p, t, g in nets]
+    with pytest.raises(ValueError):
+        fused_opt.adam_polyak_many([], 0.01)
+    with pytest.raises(ValueError):
+        fused_opt.adam_polyak_many(items, 0.01)      # more than 4
+    st, p, t, g = nets[0]
+    with pytest.raises(ValueError):
+        fused_opt.adam_polyak_many([items[1], (st, p, t, g[:7], 1e-3)], 0.01)
+    m = torch.zeros(8, device="meta")
+    meta = (common.adam_init(m), m, m, m, 1e-3)
+    with pytest.raises(ValueError, match="different devices"):
+        fused_opt.adam_polyak_many([items[0], meta], 0.01)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused_opt.adam_polyak_many([meta, meta], 0.01)
+    assert all(st.count == 0 for st, *_ in items)
+    assert meta[0].count == 0

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of ``cm3_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax, optax or ``cm3_tpu``, and
-importing the whole package loads neither JAX nor Triton."""
+"""The port stands alone: no module of ``cm3_tpu_torch``, not
+``chip_smoke.py`` and not the port's scripts import JAX, flax, optax or
+``cm3_tpu``, none of them imports Triton (every kernel is CUDA C++,
+built by ``nvcc``), and importing the whole package loads neither JAX
+nor Triton."""
 
 import ast
 import os
@@ -14,8 +16,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cm3_tpu")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "torch_chunk_profile.py")]
+    scripts = os.path.join(ROOT, "scripts")
+    out = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
+        if f.startswith("torch_") and f.endswith(".py")]
     for d, _, files in os.walk(os.path.join(ROOT, "cm3_tpu_torch")):
         out += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
     return out
@@ -28,19 +32,27 @@ def _modules():
         for p in _sources() if "cm3_tpu_torch" in p)
 
 
-@pytest.mark.parametrize("path", _sources(),
-                         ids=lambda p: os.path.relpath(p, ROOT))
-def test_no_jax_imports(path):
+def _imports(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
+            yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""]
-        else:
-            continue
-        for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    for name in _imports(path):
+        assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_triton_imports(path):
+    for name in _imports(path):
+        assert name.split(".")[0] != "triton", (path, name)
 
 
 def test_importing_the_port_loads_no_jax_and_no_triton():

@@ -1,8 +1,9 @@
 """The port's Polyak soft update (plain version on the CPU) against
 ``cm3_tpu.ops.polyak.polyak_update`` (Pallas, interpret mode), at the
-sizes and tau values of ``tests/test_ops.py``.  The Triton kernel is
+sizes and tau values of ``tests/test_ops.py``.  The CUDA C++ kernel is
 held against the plain version on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``)."""
+``chip_smoke.py``) and, built for the host, on the CPU
+(``scripts/torch_host_rehearsal.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -74,3 +75,20 @@ def test_checks_and_no_fallback():
     with pytest.raises(RuntimeError, match="no kernel"):
         polyak.polyak_update(meta(), meta(), 0.1)
     assert polyak.polyak_update.launches == before
+
+
+@pytest.mark.parametrize("tau", [0.0, 0.01, 1.0])
+def test_plain_rounds_as_the_kernel(tau):
+    """The plain version rounds tau*m, (1-tau)*t (1 - tau rounded once
+    from the double) and their sum once each in float32, as the kernel
+    does: equal to numpy's float32 arithmetic bit for bit, on a view at
+    an offset of 3 floats too."""
+    rng = np.random.default_rng(int(tau * 100))
+    t = rng.standard_normal(1003).astype(np.float32)
+    m = rng.standard_normal(1003).astype(np.float32)
+    want = np.float32(tau) * m + np.float32(1.0 - tau) * t
+    for off in (0, 3):
+        buf = torch.zeros(1003 + off)
+        buf[off:] = torch.from_numpy(t)
+        got = polyak.polyak_update(buf[off:], torch.from_numpy(m), tau)
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -172,8 +172,8 @@ def test_nvcc_command_names_sm90a_and_every_source():
     link of their objects into the shared library."""
     srcs = _nvcc.sources()
     assert [os.path.basename(s) for s in srcs] == [
-        "checkers_rollout.cu", "particle_rollout.cu", "roadway_rollout.cu",
-        "runtime.cu"]
+        "checkers_rollout.cu", "flat_update.cu", "particle_rollout.cu",
+        "roadway_rollout.cu", "runtime.cu"]
     for src in srcs:
         cmd = _nvcc.compile_command("nvcc", src, "/out/x.o")
         assert "arch=compute_90a,code=sm_90a" in cmd
@@ -182,6 +182,29 @@ def test_nvcc_command_names_sm90a_and_every_source():
     cmd = _nvcc.link_command("nvcc", objs, "/out/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert cmd[-len(objs):] == objs
+
+
+def _c_entries():
+    """Every ``extern "C"`` entry of the sources: name -> its number of
+    parameters."""
+    out = {}
+    for path in _nvcc.sources():
+        for name, params in re.findall(
+                r'extern "C" [\w\s*]+?\b(\w+)\(([^)]*)\)', open(path).read()):
+            out[name] = params.count(",") + 1 if params.strip() else 0
+    return out
+
+
+@pytest.mark.parametrize("entry", sorted(_nvcc.SIGNATURES))
+def test_signatures_match_the_c_entries(entry):
+    """Each ctypes signature has as many arguments as its C entry (a
+    missing one would be read from garbage), and every entry has a
+    signature; the flat updates' entries are among them."""
+    entries = _c_entries()
+    assert set(entries) == set(_nvcc.SIGNATURES)
+    assert {"cm3_adam_polyak", "cm3_polyak", "cm3_adam_polyak_occupancy",
+            "cm3_polyak_occupancy"} <= set(entries)
+    assert len(_nvcc.SIGNATURES[entry][0]) == entries[entry]
 
 
 def test_nvcc_hash_follows_sources_flags_and_version(tmp_path):
