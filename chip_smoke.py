@@ -4,9 +4,9 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Eight phases, each between progress lines with its elapsed seconds and
-held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
-900 s):
+Nine phases, each between progress lines with its elapsed seconds and
+held to a time budget (120 + 60 + 60 + 80 + 240 + 30 + 200 + 150 + 150 s
+= 1090 s):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -28,9 +28,10 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
    plain version's time and a library yardstick over the same networks
    (``torch.optim.Adam(fused=True, capturable=True).step`` plus
    ``torch._foreach_lerp_``; the port never calls it), kernel and
-   yardstick timed in turns; one CM3 update's tail as two launches
-   against three, warm and cold, in turns; the kernel's registers and
-   resident blocks per SM.
+   yardstick timed in turns; the same at the seed-batched path's sizes
+   (16 seeds: segments of 16 x n floats); one CM3 update's tail as two
+   launches against three, warm and cold, in turns; the kernel's
+   registers and resident blocks per SM.
 2. the slice: the Checkers stage-2 CM3 training chunk at full width
    (n_envs 256, 10 env steps, 8 updates on B=128, buffer 20000,
    fused optimizer), as ``bench.py``'s headline program runs it for one
@@ -39,7 +40,10 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
    cost of the nets' full-float32 scope.
 3. card against CPU: one fill and one training chunk from the same
    seeded state with the same fed draws on the card and on the CPU
-   (plain versions there), compared at a stated tolerance.
+   (plain versions there), compared at a stated tolerance; then the
+   same for three seeds in lockstep (n_envs 8, the nets at full width)
+   for stage 2 and for stage 1 (one agent, random goals) on the optax
+   path.
 4. the fused Checkers rollout (CUDA C++): the kernel against its plain
    version on fed actions at a ragged batch, and with Philox draws on
    the card and on the CPU; then ``bench.py``'s
@@ -80,6 +84,17 @@ held to a time budget (120 + 60 + 60 + 40 + 240 + 30 + 200 + 150 s =
    special-function unit's rate; the larger bounds it), the plain
    version's time and (particle) the kernel's registers and resident
    blocks per SM.
+
+8. seed-batched training: ``cm3_tpu_torch.bench``'s
+   ``train_env_steps_per_s`` program (``bench.py:264-335``: 16 seeds x
+   256 envs, 10 env steps then 8 optax updates on B = 128 per seed a
+   chunk) at full size, its blocks of 10 chunks taken in turns with
+   the one-seed program's at 256 envs, printing the figure (median,
+   lo, hi) beside the one-seed figure; the same 16-seed program on the
+   fused path, with the kernel's launch count set to 0 just before and
+   read just after (2 per update, 16 per chunk, for all 16 seeds); and
+   ``train_vmapped_seeds`` on stage 1 (one agent, 3 seeds x 256 envs)
+   through two period rows, with finite evaluation returns.
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
@@ -168,6 +183,14 @@ TURNS = 3
 # the PyTorch kernel that an "after" graph puts before every timed call
 FOREIGN_N = 1 << 16
 FLOAT32_SCOPE_ENTRIES = 20000
+# three seeds in lockstep, card against CPU (phase 3)
+PAR_SEEDS, PAR_ENVS, PAR_BATCH, PAR_UPDATES = 3, 8, 32, 4
+# seed-batched training (phase 8): bench.py's headline sizes; blocks of
+# chunks taken in turns with the one-seed program
+SEEDS, BLOCKS, BLOCK_CHUNKS = 16, 5, 10
+# stage 1 through train_vmapped_seeds: 3 seeds x 256 envs, episodes of
+# at most 33 steps, a period row at 100 episodes and every 100 after
+STAGE1_SEEDS, STAGE1_EPISODES = 3, 500
 
 T0 = time.time()
 
@@ -489,6 +512,13 @@ def phase_kernel(dev):
     actor = adam_times(dev, gen, "actor", [MAIN_SIZES["actor"]])
     critics = adam_times(dev, gen, "critics",
                          [MAIN_SIZES["Q_global"], MAIN_SIZES["Q_credit"]])
+    # the fused seed-batched update hands each [S, n] buffer to the
+    # kernel as one segment of S x n floats
+    for name, sizes in (("actor", [MAIN_SIZES["actor"]]),
+                        ("critics", [MAIN_SIZES["Q_global"],
+                                     MAIN_SIZES["Q_credit"]])):
+        adam_times(dev, gen, f"{name} x {SEEDS} seeds",
+                   [SEEDS * n for n in sizes])
     # one CM3 update's optimizer tail: two launches (the main path) against
     # three one-network launches, warm and cold
     def update(launches):
@@ -527,29 +557,11 @@ def phase_kernel(dev):
 
 
 def build(device):
-    from cm3_tpu_torch.algs.cm3 import CM3
-    from cm3_tpu_torch.core import config, prng
-    from cm3_tpu_torch.core.tree import tree_map
-    from cm3_tpu_torch.envs.checkers import Checkers
-    from cm3_tpu_torch.train.experiments import make_hooks
-    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
-
-    env = Checkers(config.checkers_env_config(2, max_steps=50), device=device)
-    alg = CM3("checkers", env.spec(),
-              config.AlgConfig(n_agents=2, stage=2, fused_opt=True,
-                               grad_clip=0.0),
-              config.checkers_nn_config(2), device=device)
-    cfg = config.TrainConfig(n_envs=N_ENVS, batch_size=BATCH,
-                             buffer_size=BUFFER, steps_per_train=STEPS,
-                             updates_per_chunk=UPDATES)
-    driver = OffPolicyDriver(make_hooks("checkers", env), alg, cfg)
-    rs = init_rollout(driver.hooks, N_ENVS)
-    ts = alg.init_state(prng.root_key(SEED))
-    import torch
-    zeros = torch.zeros((N_ENVS, 2), dtype=torch.int64, device=device)
-    tr = driver._transition(rs, zeros, env.step(rs.env_state, zeros)[1])
-    buf = driver._replay_init(tree_map(lambda x: x[0], tr))
-    return driver, ts, buf, rs
+    """The one-seed training program at full width on the fused path
+    (``cm3_tpu_torch.bench.train_program``): (driver, CM3 state, replay,
+    rollout state)."""
+    from cm3_tpu_torch import bench
+    return bench.train_program(None, N_ENVS, True, device, seed=SEED)[:4]
 
 
 def _finite(ts, buf, metrics):
@@ -675,6 +687,171 @@ def phase_parity(device):
     log("  card == CPU after a fill and a training chunk (rtol "
         f"{PARITY_RTOL}, atol {PARITY_ATOL}); max abs differences: "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    for n_agents in (2, 1):
+        seeded_parity(device, n_agents)
+
+
+def seeded_parity(device, n_agents):
+    """Three seeds in lockstep, one fill and one training chunk (optax
+    path, the nets at full width) on the card and on the CPU from the
+    same parameters with the same fed draws; the largest differences."""
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.core.tree import tree_leaves
+    from cm3_tpu_torch.envs.checkers import Checkers
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
+
+    s, e, b, u = PAR_SEEDS, PAR_ENVS, PAR_BATCH, PAR_UPDATES
+    rng = np.random.default_rng(SEED + n_agents)
+    goals = lambda: [rng.integers(0, 2, (s, e))] if n_agents == 1 else []
+    start = goals()
+    fill, act = [], []
+    for _ in range(STEPS):
+        fill += [rng.integers(0, 5, (s, e, n_agents))] + goals()
+        act.append(rng.gumbel(size=(s, e, n_agents, 5)).astype(np.float32))
+    train = sum((goals() for _ in range(STEPS)), [])
+    idx = [rng.integers(0, 2 * STEPS * e, (s, b)) for _ in range(u)]
+    upd = [rng.gumbel(size=(s, b, n_agents, 5)).astype(np.float32)
+           for _ in range(u)]
+    eps = torch.tensor([0.1, 0.2, 0.3])
+    out = {}
+    for dev in (device, "cpu"):
+        env = Checkers(config.checkers_env_config(n_agents, max_steps=7),
+                       device=dev)
+        alg = CM3("checkers", env.spec(),
+                  config.AlgConfig(n_agents=n_agents, stage=n_agents),
+                  config.checkers_nn_config(n_agents), device=dev,
+                  n_seeds=s)
+        cfg = config.TrainConfig(n_envs=e, batch_size=b, buffer_size=512,
+                                 steps_per_train=STEPS,
+                                 updates_per_chunk=u, episode_log=16)
+        driver = OffPolicyDriver(make_hooks("checkers", env), alg, cfg)
+        rs = init_rollout(driver.hooks, e, prng.FedDraws(start, device=dev),
+                          16, n_seeds=s)
+        ts = alg.init_state([prng.root_key(SEED + i) for i in range(s)])
+        buf = driver._replay_init(driver.example_transition(rs))
+        draws = prng.FedDraws(fill + train + idx, act + upd, device=dev)
+        ts, buf, rs, _ = driver._chunk(ts, buf, rs, eps, draws, False, True)
+        ts, buf, rs, m = driver._chunk(ts, buf, rs, eps, draws, True, False)
+        assert draws.remaining() == {"randint": 0, "gumbel": 0}
+        out[str(dev)] = (ts, buf, rs, m)
+    (ts_c, buf_c, rs_c, m_c), (ts_h, buf_h, rs_h, m_h) = out[str(device)], \
+        out["cpu"]
+    names = ["actor", "actor_tgt", "qg", "qg_tgt"] + (
+        ["qc", "qc_tgt"] if n_agents > 1 else [])
+    pairs = [(getattr(ts_c, k).flat, getattr(ts_h, k).flat) for k in names]
+    pairs += [(getattr(ts_c, "opt_" + k).mu, getattr(ts_h, "opt_" + k).mu)
+              for k in names[::2]]
+    pairs += [(x, y) for (_, x), (_, y) in zip(tree_leaves(buf_c.data),
+                                               tree_leaves(buf_h.data))]
+    pairs += [(getattr(rs_c, k), getattr(rs_h, k))
+              for k in ("episodes", "eplog", "eplog_ep", "acc_ret_local")]
+    pairs += [(m_c[k], m_h[k]) for k in m_h]
+    worst = 0.0
+    for got, want in pairs:
+        torch.testing.assert_close(got.cpu(), want, rtol=PARITY_RTOL,
+                                   atol=PARITY_ATOL)
+        if got.numel():
+            worst = max(worst, float((got.cpu().double()
+                                      - want.double()).abs().max()))
+    assert ts_c.actor.flat.shape[0] == s and int(rs_h.episodes.min()) > 0
+    log(f"  {s} seeds in lockstep, stage {n_agents} ({n_agents} "
+        f"agent{'s' if n_agents > 1 else ''}), optax: card == "
+        f"CPU after a fill and a training chunk (rtol {PARITY_RTOL}, atol "
+        f"{PARITY_ATOL}); max abs difference {worst:.3g}; losses "
+        + ", ".join(f"{k} {m_c[k].tolist()}" for k in m_c))
+
+
+# ------------------------------------------------------------------ #
+# seed-batched training
+# ------------------------------------------------------------------ #
+
+
+def phase_seeded(dev):
+    import numpy as np
+    import torch
+    from cm3_tpu_torch import bench
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.envs.checkers import Checkers
+    from cm3_tpu_torch.ops import fused_opt
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.multiseed import train_vmapped_seeds
+
+    # the headline program and the one-seed program, blocks in turns
+    multi = list(bench.train_program(SEEDS, N_ENVS, False, dev, seed=SEED))
+    single = list(bench.train_program(None, N_ENVS, False, dev, seed=SEED))
+    bench.train_blocks(multi, 0, 0)
+    bench.train_blocks(single, 0, 0)
+    rates = {id(multi): [], id(single): []}
+    for b in range(BLOCKS):
+        for prog in ((multi, single) if b % 2 == 0 else (single, multi)):
+            rates[id(prog)] += bench.train_blocks(prog, BLOCK_CHUNKS, 1, 0)
+    med = statistics.median
+    m_rates, s_rates = rates[id(multi)], rates[id(single)]
+    ts = multi[1]
+    for name in ("actor", "qg", "qc"):
+        assert torch.isfinite(getattr(ts, name).flat).all(), name
+    assert ts.actor.flat.shape[0] == SEEDS
+    assert ts.step == UPDATES * (3 + BLOCKS * BLOCK_CHUNKS)
+    headline = {"train_env_steps_per_s": med(m_rates), "lo": min(m_rates),
+                "hi": max(m_rates)}
+    log(f"  {SEEDS} seeds x {N_ENVS} envs, optax, {BLOCKS} blocks of "
+        f"{BLOCK_CHUNKS} chunks in turns with one seed: "
+        + json.dumps(headline))
+    log(f"  one seed x {N_ENVS} envs, the same program: median "
+        f"{med(s_rates):.0f} env-steps/s (lo {min(s_rates):.0f}, hi "
+        f"{max(s_rates):.0f}); the seeds' gain "
+        f"{med(m_rates) / med(s_rates):.2f}x; chunk medians "
+        f"{SEEDS * N_ENVS * STEPS / med(m_rates) * 1e3:.2f} ms and "
+        f"{N_ENVS * STEPS / med(s_rates) * 1e3:.2f} ms")
+    del multi, single
+
+    # the fused path at 16 seeds: the kernel twice per update
+    fused = list(bench.train_program(SEEDS, N_ENVS, True, dev, seed=SEED))
+    bench.train_blocks(fused, 0, 0, warmup=1)
+    per_chunk = []
+    torch.cuda.synchronize()
+    fused_opt.adam_polyak.launches = 0
+    for _ in range(3):
+        before = fused_opt.adam_polyak.launches
+        rate = bench.train_blocks(fused, 1, 1, 0)[0]
+        per_chunk.append(fused_opt.adam_polyak.launches - before)
+    assert per_chunk == [2 * UPDATES] * 3, per_chunk
+    log(f"  {SEEDS} seeds x {N_ENVS} envs, fused optimizer: "
+        f"{per_chunk[0]} adam_polyak launches per chunk (segments of "
+        f"{SEEDS} x {fused[1].actor.flat.shape[1]} and {SEEDS} x "
+        f"{fused[1].qg.flat.shape[1]} + {SEEDS} x "
+        f"{fused[1].qc.flat.shape[1]} floats); last chunk {rate:.0f} "
+        "env-steps/s")
+    del fused
+
+    # stage 1 (one agent) through train_vmapped_seeds
+    env = Checkers(config.checkers_env_config(1, max_steps=33), device=dev)
+    alg = CM3("checkers", env.spec(), config.AlgConfig(n_agents=1, stage=1),
+              config.checkers_nn_config(1), device=dev)
+    cfg = config.TrainConfig(n_envs=N_ENVS, updates_per_chunk=UPDATES,
+                             N_train=STAGE1_EPISODES, max_steps=33)
+    t0 = time.time()
+    ts, history = train_vmapped_seeds(make_hooks("checkers", env), alg, cfg,
+                                      STAGE1_SEEDS, SEED)
+    assert history, "no period row"
+    for row in history:
+        for k in ("r_eval_local", "r_eval_global", "r_train_local"):
+            assert np.isfinite(row[k]).all(), (k, row[k])
+        log(f"  stage 1, {STAGE1_SEEDS} seeds x {N_ENVS} envs: episode "
+            f"{row['episode'].tolist()}, epsilon "
+            f"{np.round(row['epsilon'], 4).tolist()}, r_eval_global "
+            f"{np.round(row['r_eval_global'], 3).tolist()}, r_train_global "
+            f"{np.round(row['r_train_global'], 3).tolist()}"
+            + (f", loss_Q_global {np.round(row['loss_Q_global'], 4).tolist()}"
+               if "loss_Q_global" in row else ""))
+    log(f"  stage 1 run: {len(history)} period rows in "
+        f"{time.time() - t0:.1f} s")
+    return headline
 
 
 # ------------------------------------------------------------------ #
@@ -1159,11 +1336,12 @@ def main():
     run_phase("0 build", 120, phase_build)
     kern = run_phase("1 kernel vs plain", 60, phase_kernel, dev)
     launches = run_phase("2 the slice", 60, phase_slice, dev)
-    run_phase("3 card vs CPU", 40, phase_parity, dev)
+    run_phase("3 card vs CPU", 80, phase_parity, dev)
     rollout = run_phase("4 fused Checkers rollout", 240, phase_rollout, dev)
     soft = run_phase("5 polyak", 30, phase_polyak, dev)
     particle = run_phase("6 fused particle rollout", 200, phase_particle, dev)
     roadway = run_phase("7 fused roadway rollout", 150, phase_roadway, dev)
+    run_phase("8 seed-batched training", 150, phase_seeded, dev)
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

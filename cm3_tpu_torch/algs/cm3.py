@@ -1,37 +1,73 @@
 """CM3: multi-goal actor-critic with a counterfactual credit function.
 
-Port of ``cm3_tpu.algs.cm3`` for Checkers with the Q_credit critic
-(n_agents > 1), on the fused optimizer path (``AlgConfig.fused_opt``).
-The update keeps the JAX package's order:
+Port of ``cm3_tpu.algs.cm3`` for Checkers: stage 2 (n_agents > 1) with
+the Q_credit critic, and stage 1 (n_agents == 1) with the Q_global
+counterfactual.  The update keeps the JAX package's order:
 
   * target-policy actions a' from the slow target actor with the
     eps-mixed policy, conditioned on the taken action as previous
     action (alg_credit.py:579-583);
-  * the Q_global and Q_credit TD targets from the target critics; one
-    backward pass over the sum of both TD losses (disjoint parameters,
-    so the gradients are those of two passes);
+  * the Q_global and (n > 1) Q_credit TD targets from the target
+    critics; one backward pass over the sum of both TD losses (disjoint
+    parameters, so the gradients are those of two passes);
   * Q_actual for the policy gradient is the PRE-update Q_global
-    forward; the counterfactual baseline uses the POST-update Q_credit
-    (alg_credit.py:720,750); advantages are constants of the policy
-    loss;
-  * each network's Adam step and soft target update run fused over its
-    flat buffers (``ops.fused_opt``): the two critics, adjacent and at
-    one lr, in one launch, the actor in another; two launches per
-    update (the JAX package makes three calls, ``cm3.py:132-136``).
+    forward; the counterfactual baseline uses the POST-update Q_credit,
+    or for n == 1 the POST-update Q_global over every action
+    (alg_credit.py:720,750; ``cm3.py:538-549``); advantages are
+    constants of the policy loss;
+  * each network's Adam step and soft target update.
+
+Two optimizer paths, as in the JAX package (``_opt_step``,
+``cm3.py:120-143``):
+
+  * ``AlgConfig.fused_opt=False`` (the default, and what the
+    reference's headline program runs): ``common.adam_apply``, optax's
+    Adam in plain PyTorch ops over each network's flat buffer, with the
+    optional global-norm clip (``grad_clip``) and the actor's lr anneal
+    (``actor_lr_anneal_updates``), then the soft update; one call per
+    network, as JAX makes one optax update per network;
+  * ``fused_opt=True``: the fused Adam + Polyak kernel
+    (``ops.fused_opt``), the critics (adjacent, one lr) in one launch
+    and the actor in another: two launches per update for n = 2 and
+    for n = 1 alike (the JAX package makes three or two calls).  Like
+    JAX's, it refuses ``grad_clip`` and the anneal.
+
+Seeds in lockstep (``n_seeds=S``).  Each network is a
+``nets.SeedStack``: one flat [S, n] buffer.  Every step of the update
+is written for one seed and mapped over the seed axis with
+``torch.func.vmap`` (``_map``); the backward passes run on the sum of
+the S seeds' losses, which leaves each seed's gradient in its row of
+the flat gradient buffer, and the optimizer works on the [S, n] buffers
+at once (per-seed global norms; on the fused path one kernel segment of
+S x n floats per network, since the count and the lr are the same for
+every seed).  Batches, observations and draws then carry a leading [S]
+axis, the epsilon is [S] (each seed its own), and the metrics are [S].
+
+``n_seeds`` selects the parameter layout.  The single-seed API
+(``n_seeds=None``) runs the same per-seed functions on plain flattened
+modules, called directly, without the map.  That layout is kept beside
+the seed stacks because it is the faster one for one seed: the chunk is
+host-bound, and through an S = 1 stack it runs at 0.65-0.69 of the
+modules' rate on an H100 (``vmap`` and ``functional_call`` cost host
+time per operation, and the map adds 7% launches;
+``scripts/torch_seed_layout_times.py``).
 
 The update's one random draw, a' (``cm3.py:465``), comes in as Gumbel
 noise, so a test can feed JAX's.  Not ported yet (ROADMAP.md): the
-particle and roadway nets, the V critic, the n=1 counterfactual, and
-the opt-in knobs ``pg_is_clip``, ``pg_ent_coef``, ``adv_norm`` and
+particle and roadway nets, the V critic, and the opt-in knobs
+``pg_is_clip``, ``pg_ent_coef``, ``adv_norm`` and
 ``actor_freeze_updates``; their absence is their default.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+import warnings
+from typing import Any, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
+from torch.func import functional_call, vmap
 
 from cm3_tpu_torch.algs import common
 from cm3_tpu_torch.core import prng
@@ -43,7 +79,9 @@ from cm3_tpu_torch.ops import fused_opt
 @dataclasses.dataclass
 class CM3State:
     """Each network is an ``nn.Module`` whose parameters are views into
-    its flat buffer ``module.flat`` (``nets.flatten_parameters``)."""
+    its flat buffer ``module.flat`` (``nets.flatten_parameters``), or
+    with seeds a ``nets.SeedStack``.  ``qc``, ``qc_tgt`` and ``opt_qc``
+    are None for n_agents == 1 (no Q_credit)."""
 
     actor: Any
     actor_tgt: Any
@@ -53,21 +91,22 @@ class CM3State:
     qc_tgt: Any
     opt_actor: common.AdamState
     opt_qg: common.AdamState
-    opt_qc: common.AdamState
+    opt_qc: Optional[common.AdamState]
     step: int = 0
 
 
 class CM3:
-    """CM3 on Checkers.  Runs on ``device`` (``cuda`` unless told)."""
+    """CM3 on Checkers.  Runs on ``device`` (``cuda`` unless told); with
+    ``n_seeds`` (1 included) it trains that many independent seeds in
+    lockstep in seed stacks, and without it one seed in flattened
+    modules."""
 
     def __init__(self, experiment: str, spec: Dict[str, int], alg: AlgConfig,
-                 nn_cfg: NNConfig = NNConfig(), device="cuda"):
+                 nn_cfg: NNConfig = NNConfig(), device="cuda",
+                 n_seeds: Optional[int] = None):
         if experiment != "checkers":
             raise NotImplementedError(
                 f"only Checkers is ported, not {experiment!r}")
-        if alg.n_agents < 2:
-            raise NotImplementedError(
-                "the n_agents == 1 counterfactual is not ported yet")
         if alg.fused_opt and alg.grad_clip:
             raise ValueError(
                 "fused_opt requires grad_clip == 0 (the global-norm clip "
@@ -75,11 +114,7 @@ class CM3:
         if alg.fused_opt and alg.actor_lr_anneal_updates:
             raise ValueError(
                 "fused_opt is incompatible with actor_lr_anneal_updates "
-                "(the fused kernel's lr is static)")
-        if not alg.fused_opt:
-            raise NotImplementedError(
-                "the port implements the fused optimizer path: set "
-                "AlgConfig.fused_opt=True")
+                "(the fused kernel's lr is static; use the optax path)")
         nets.init_scheme(alg.init_scheme)
         self.experiment = experiment
         self.spec = dict(spec, n_agents=alg.n_agents)
@@ -88,7 +123,16 @@ class CM3:
         self.n_agents = alg.n_agents
         self.n_actions = spec["l_action"]
         self.stage = alg.stage
+        self.use_credit = alg.n_agents > 1
         self.device = torch.device(device)
+        self.n_seeds = n_seeds
+        # forward templates for the seed-stacked networks
+        self._tmpl = {}
+
+    def for_seeds(self, n_seeds: int) -> "CM3":
+        """The same algorithm for ``n_seeds`` seeds in lockstep."""
+        return CM3(self.experiment, self.spec, self.cfg, self.nn_cfg,
+                   self.device, n_seeds)
 
     # ---- networks ---- #
 
@@ -112,62 +156,122 @@ class CM3:
             n_h1_1=c.Q_n_h1_1, n_h1_2=c.Q_n_h1_2, n_h2=c.Q_n_h2,
             stage=self.stage)
 
-    def _pair(self, make, gen=None):
-        """(main, target) modules on the device, each flattened; the
-        target starts equal to the main.  Parameters are drawn on the
-        CPU from ``gen`` (so a seed gives the same weights on every
-        device), or left to be loaded when ``gen`` is None."""
-        main = make()
-        if gen is not None:
-            nets.init_parameters(main, gen, self.cfg.init_scheme)
-        main = nets.flatten_parameters(main.to(self.device))
-        tgt = nets.flatten_parameters(make().to(self.device),
-                                      with_grad=False)
+    def _template(self, make):
+        if make not in self._tmpl:
+            self._tmpl[make] = make().to(self.device)
+        return self._tmpl[make]
+
+    def _pair(self, make, gens=None):
+        """(main, target) on the device, each flattened; the target
+        starts equal to the main.  Parameters are drawn on the CPU from
+        ``gens`` (one generator per seed, so a seed gives the same
+        weights on every device and for any number of seeds), or left to
+        be loaded when ``gens`` is None."""
+        def drawn(gen):
+            m = make()
+            if gen is not None:
+                nets.init_parameters(m, gen, self.cfg.init_scheme)
+            return m
+
+        if self.n_seeds is None:
+            main = nets.flatten_parameters(
+                drawn(gens and gens[0]).to(self.device))
+            tgt = nets.flatten_parameters(make().to(self.device),
+                                          with_grad=False)
+        else:
+            tmpl = self._template(make)
+            main = nets.SeedStack(tmpl, self.n_seeds)
+            tgt = nets.SeedStack(tmpl, self.n_seeds, with_grad=False)
+            for s, gen in enumerate(gens or ()):
+                main.flat[s] = nets.flatten_parameters(drawn(gen)).flat
         tgt.flat.copy_(main.flat)
         return main, tgt
 
-    def init_state(self, key: int) -> CM3State:
-        """Fresh parameters from ``key`` (a ``core.prng`` key)."""
-        k = prng.for_purpose(key, prng.PARAMS)
-        gen = lambda i: prng.generator(prng.fold_in(k, i), "cpu")
-        return self._state(self._pair(self._actor_module, gen(0)),
-                           self._pair(self._qg_module, gen(1)),
-                           self._pair(self._qc_module, gen(2)))
+    def init_state(self, key: Union[int, Sequence[int]]) -> CM3State:
+        """Fresh parameters from ``key`` (a ``core.prng`` key), or with
+        seeds from ``key``, a sequence of one key per seed."""
+        keys = [key] if self.n_seeds is None else list(key)
+        if len(keys) != (self.n_seeds or 1):
+            raise ValueError(f"init_state wants {self.n_seeds} keys, got "
+                             f"{len(keys)}")
+
+        def gens(i):
+            return [prng.generator(prng.fold_in(
+                prng.for_purpose(k, prng.PARAMS), i), "cpu") for k in keys]
+        return self._state(
+            self._pair(self._actor_module, gens(0)),
+            self._pair(self._qg_module, gens(1)),
+            self._pair(self._qc_module, gens(2)) if self.use_credit
+            else None)
 
     def empty_state(self) -> CM3State:
         """A state of the right shapes whose values are to be loaded
         (``convert.state_from_jax``)."""
         return self._state(self._pair(self._actor_module),
                            self._pair(self._qg_module),
-                           self._pair(self._qc_module))
+                           self._pair(self._qc_module) if self.use_credit
+                           else None)
 
     def _state(self, actor, qg, qc) -> CM3State:
         return CM3State(
             actor=actor[0], actor_tgt=actor[1], qg=qg[0], qg_tgt=qg[1],
-            qc=qc[0], qc_tgt=qc[1],
+            qc=qc and qc[0], qc_tgt=qc and qc[1],
             opt_actor=common.adam_init(actor[0].flat),
             opt_qg=common.adam_init(qg[0].flat),
-            opt_qc=common.adam_init(qc[0].flat))
+            opt_qc=qc and common.adam_init(qc[0].flat))
 
-    # ---- forward helpers (all take [B, N, ...] and return [B, N, ...]) ---- #
+    # ---- one seed's forward helpers ([B, N, ...] in, [B, N, ...] out).
+    # A network argument is a flattened module (single seed) or one
+    # seed's parameter dict (inside ``_map``) ---- #
+
+    def _call(self, make, net, *args):
+        if isinstance(net, torch.nn.Module):
+            return net(*args)
+        return functional_call(self._template(make), net, args)
+
+    def _map(self, fn, *args):
+        """``fn`` (written for one seed) over the seed axis of ``args``,
+        or on them as they are without seeds."""
+        if self.n_seeds is None:
+            return fn(*args)
+        return vmap(fn)(*args)
+
+    @staticmethod
+    def _handle(net):
+        """What ``_map`` passes for a network: the module itself, the
+        stacked parameter dict, or {} for an absent network."""
+        if net is None:
+            return {}
+        return net if isinstance(net, torch.nn.Module) else net.params
+
+    def _epsilon(self, epsilon):
+        """A Python float without seeds; an [S] float32 tensor with."""
+        if self.n_seeds is None:
+            return epsilon
+        return torch.as_tensor(epsilon, dtype=torch.float32,
+                               device=self.device).expand(self.n_seeds)
 
     def actor_probs(self, actor, obs, goals, a_prev, epsilon):
         """eps-mixed policy probabilities, [B, N, A]."""
         b, n = goals.shape[0], goals.shape[1]
         f = common.flatten_bn
-        probs = actor(f(common.one_hot(a_prev, self.n_actions)),
-                      f(obs["self_t"]), f(obs["self_v"]), f(obs["others"]),
-                      f(goals))
+        probs = self._call(
+            self._actor_module, actor,
+            f(common.one_hot(a_prev, self.n_actions)), f(obs["self_t"]),
+            f(obs["self_v"]), f(obs["others"]), f(goals))
         probs = probs.reshape(b, n, self.n_actions)
         return common.epsilon_probs(probs, epsilon, self.n_actions)
 
     @torch.no_grad()
     @nets.full_float32()
     def act(self, ts: CM3State, obs, goals, a_prev, epsilon, gumbel):
-        """Sample actions for all agents as one batch, [B, N];
-        ``gumbel`` is [B, N, A] standard Gumbel noise."""
-        probs = self.actor_probs(ts.actor, obs, goals, a_prev, epsilon)
-        return common.sample_actions(probs, gumbel)
+        """Sample actions for all agents as one batch, [B, N] ([S, B, N]
+        with seeds); ``gumbel`` is [B, N, A] standard Gumbel noise."""
+        def one(actor, obs, goals, a_prev, eps, gumbel):
+            probs = self.actor_probs(actor, obs, goals, a_prev, eps)
+            return common.sample_actions(probs, gumbel)
+        return self._map(one, self._handle(ts.actor), obs, goals, a_prev,
+                         self._epsilon(epsilon), gumbel)
 
     def _q_global(self, qg, state, obs, goals, a_1h):
         """Q_n(s, a_all) for every agent, [B, N]."""
@@ -175,10 +279,27 @@ class CM3:
         f = common.flatten_bn
         vec = state["vec"]
         grid = state["grid"][:, None].expand((b, n) + state["grid"].shape[1:])
-        q = qg(f(grid), f(vec), f(goals), f(a_1h),
-               f(common.others_concat(vec)), f(common.others_stack(a_1h)),
-               f(obs["self_t"]), f(obs["self_v"]))
+        q = self._call(self._qg_module, qg, f(grid), f(vec), f(goals),
+                       f(a_1h), f(common.others_concat(vec)),
+                       f(common.others_stack(a_1h)), f(obs["self_t"]),
+                       f(obs["self_v"]))
         return q.reshape(b, n)
+
+    def _q_global_cf(self, qg, state, obs, goals):
+        """n_agents == 1 counterfactual: Q(s, a) for every action, [B, A]
+        (``cm3.py:208-235``); the others' inputs are empty."""
+        b = goals.shape[0]
+        a_dim = self.n_actions
+        bc = lambda x: x[:, None].expand((b, a_dim) + x.shape[1:])
+        flat = lambda x: x.reshape((b * a_dim,) + x.shape[2:])
+        eye = torch.eye(a_dim, device=goals.device).expand(b, a_dim, a_dim)
+        vec = state["vec"][:, 0]
+        q = self._call(
+            self._qg_module, qg, flat(bc(state["grid"])), flat(bc(vec)),
+            flat(bc(goals[:, 0])), flat(eye), vec.new_zeros(b * a_dim, 0),
+            vec.new_zeros(b * a_dim, 0, a_dim),
+            flat(bc(obs["self_t"][:, 0])), flat(bc(obs["self_v"][:, 0])))
+        return q.reshape(b, a_dim)
 
     def _q_credit_pairs(self, qc, state, obs, goals, a_m_1h):
         """Q_n(s, a^m) for all (m, n) pairs, [B, M, N]; m is the outer
@@ -191,9 +312,10 @@ class CM3:
         flat = lambda x: x.reshape((b * n * n,) + x.shape[3:])
         grid = state["grid"]
         grid_p = grid[:, None, None].expand((b, n, n) + grid.shape[1:])
-        q = qc(flat(grid_p), flat(pn(vec)), flat(pn(goals)), flat(pm(a_m_1h)),
-               flat(pm(vec)), flat(pn(s_others)), flat(pm(obs["self_t"])),
-               flat(pm(obs["self_v"])))
+        q = self._call(self._qc_module, qc, flat(grid_p), flat(pn(vec)),
+                       flat(pn(goals)), flat(pm(a_m_1h)), flat(pm(vec)),
+                       flat(pn(s_others)), flat(pm(obs["self_t"])),
+                       flat(pm(obs["self_v"])))
         return q.reshape(b, n, n)
 
     def _q_credit_cf(self, qc, state, obs, goals):
@@ -209,90 +331,160 @@ class CM3:
         eye = torch.eye(a_dim, device=vec.device).expand(shape4 + (a_dim,))
         grid = state["grid"]
         grid_p = grid[:, None, None, None].expand(shape4 + grid.shape[1:])
-        q = qc(flat(grid_p), flat(pn(vec)), flat(pn(goals)), flat(eye),
-               flat(pm(vec)), flat(pn(s_others)), flat(pm(obs["self_t"])),
-               flat(pm(obs["self_v"])))
+        q = self._call(self._qc_module, qc, flat(grid_p), flat(pn(vec)),
+                       flat(pn(goals)), flat(eye), flat(pm(vec)),
+                       flat(pn(s_others)), flat(pm(obs["self_t"])),
+                       flat(pm(obs["self_v"])))
         return q.reshape(shape4)
+
+    # ---- one seed's steps of the update ---- #
+
+    def _td_targets(self, actor_tgt, qg_tgt, qc_tgt, batch, eps, gumbel):
+        """The TD targets y_g [B, N] and (n > 1) y_c [B, M, N] from the
+        target nets and the target policy's a' (:579-596, :619-658)."""
+        cfg = self.cfg
+        obs_next, state_next = batch["obs_next"], batch["state_next"]
+        goals = batch["goals"]
+        tclip = ((lambda y: y.clamp(-cfg.target_clip, cfg.target_clip))
+                 if cfg.target_clip else (lambda y: y))
+        done_mult = 1.0 - batch["done"].float()
+        rl = batch["rl"]
+        probs_tgt = self.actor_probs(actor_tgt, obs_next, goals, batch["a"],
+                                     eps)
+        a_next_1h = common.one_hot(common.sample_actions(probs_tgt, gumbel),
+                                   self.n_actions)
+        q_next = self._q_global(qg_tgt, state_next, obs_next, goals,
+                                a_next_1h)
+        y_g = tclip(rl + cfg.gamma * q_next * done_mult[:, None])
+        if not self.use_credit:
+            return y_g, rl.new_zeros(())
+        qc_next = self._q_credit_pairs(qc_tgt, state_next, obs_next, goals,
+                                       a_next_1h)
+        y_c = tclip(rl[:, None, :] + cfg.gamma * qc_next
+                    * done_mult[:, None, None])
+        return y_g, y_c
+
+    def _critic_losses(self, qg, qc, batch, y_g, y_c):
+        """(loss_qg, loss_qc, Q_actual [B, N]); loss_qc is 0 for n = 1."""
+        obs, state, goals = batch["obs"], batch["state"], batch["goals"]
+        a_1h = common.one_hot(batch["a"], self.n_actions)
+        q = self._q_global(qg, state, obs, goals, a_1h)
+        loss_qg = torch.mean(torch.square(y_g - q))
+        if not self.use_credit:
+            return loss_qg, loss_qg.new_zeros(()), q
+        qcv = self._q_credit_pairs(qc, state, obs, goals, a_1h)
+        return loss_qg, torch.mean(torch.square(y_c - qcv)), q
+
+    def _policy_loss(self, actor, q_cf_net, batch, q_actual, eps):
+        """The policy-gradient loss (:699-773) with the counterfactual
+        baseline from the POST-update ``q_cf_net`` (Q_credit, or Q_global
+        for n = 1).  The current policy's probs are differentiated for
+        the loss and are a constant inside the counterfactual sum (a
+        placeholder feed in the reference); the actor is still
+        pre-update here."""
+        obs, state, goals = batch["obs"], batch["state"], batch["goals"]
+        a_1h = common.one_hot(batch["a"], self.n_actions)
+        probs = self.actor_probs(actor, obs, goals, batch["a_prev"], eps)
+        with torch.no_grad():
+            p = probs.detach()
+            if self.use_credit:
+                q_cf = self._q_credit_cf(q_cf_net, state, obs, goals)
+                cf = torch.einsum("bma,bmna->bmn", p, q_cf)
+                sum_a = torch.sum(q_actual[:, None, :] - cf, dim=2)  # [B, M]
+            else:
+                q_cf = self._q_global_cf(q_cf_net, state, obs, goals)
+                baseline = torch.sum(p[:, 0] * q_cf, dim=-1)         # [B]
+                sum_a = (q_actual[:, 0] - baseline)[:, None]         # [B, 1]
+        taken = torch.sum(probs * a_1h, dim=-1)
+        log_pi = torch.log(taken + 1e-15)                            # [B, N]
+        if not self.use_credit:
+            return -torch.mean(log_pi[:, 0] * sum_a[:, 0])
+        return -torch.mean(torch.sum(log_pi * sum_a, dim=1))
 
     # ---- the learning update ---- #
 
-    def _opt_step(self, lr, *steps):
+    def _actor_lr_scale(self, step: int):
+        """clip(1 - step / N, 0, 1) in float32 for the actor's lr anneal
+        (``cm3.py:611-619``), or None when it is off."""
+        n = self.cfg.actor_lr_anneal_updates
+        if not n:
+            return None
+        return float(np.clip(np.float32(1.0) - np.float32(step)
+                             / np.float32(n), np.float32(0.0),
+                             np.float32(1.0)))
+
+    def _opt_step(self, lr, *steps, lr_scale=None):
         """Adam apply + soft target update for the networks of ``steps``,
         each (opt_state, net, tgt), at one lr: one fused kernel launch
-        over all their flat buffers (``ops/fused_opt.py``)."""
-        fused_opt.adam_polyak_many(
-            [(opt, net.flat, tgt.flat, net.flat_grad, lr)
-             for opt, net, tgt in steps], self.cfg.tau)
+        over all their flat buffers (``ops/fused_opt.py``), or the
+        optax-order update per network (``common.adam_apply``)."""
+        cfg = self.cfg
+        if cfg.fused_opt:
+            fused_opt.adam_polyak_many(
+                [(opt, net.flat, tgt.flat, net.flat_grad, lr)
+                 for opt, net, tgt in steps], cfg.tau)
+            return
+        for opt, net, tgt in steps:
+            common.adam_apply(opt, net.flat, net.flat_grad, lr,
+                              cfg.grad_clip, lr_scale)
+            common.soft_update(tgt.flat, net.flat, cfg.tau)
+
+    @staticmethod
+    def _backward(loss):
+        """Backward into the flat gradient buffers.  The seed stacks'
+        gradient views are strided (a row of [S, n] each), which autograd
+        notes as a layout it would not have chosen; it accumulates into
+        them in place all the same."""
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", message="grad and param do not obey")
+            loss.backward()
 
     @nets.full_float32()
     def update(self, ts: CM3State, batch: Dict[str, Any], epsilon,
                gumbel) -> tuple:
         """One CM3 learning step, in place on ``ts``'s buffers.
 
-        batch fields are [B, ...]: state/obs (dicts), a [B,N] int,
-        rl [B,N], state_next, obs_next, done [B], goals [B,N,G] and
-        a_prev [B,N].  ``gumbel`` is the [B, N, A] noise that samples the
-        target-policy actions a'.  Returns (ts, metrics); the metrics
-        are device scalars (reading them syncs)."""
+        batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
+        (dicts), a [B,N] int, rl [B,N], state_next, obs_next, done [B],
+        goals [B,N,G] and a_prev [B,N].  ``gumbel`` is the [B, N, A]
+        noise that samples the target-policy actions a'.  Returns (ts,
+        metrics); the metrics are device scalars ([S] with seeds;
+        reading them syncs)."""
         cfg = self.cfg
-        a_dim = self.n_actions
-        gamma = cfg.gamma
-        obs, obs_next = batch["obs"], batch["obs_next"]
-        state, state_next = batch["state"], batch["state_next"]
-        goals = batch["goals"]
-        a_1h = common.one_hot(batch["a"], a_dim)
-        done_mult = 1.0 - batch["done"].float()
-        rl = batch["rl"]
-        tclip = ((lambda y: y.clamp(-cfg.target_clip, cfg.target_clip))
-                 if cfg.target_clip else (lambda y: y))
-
-        # ---- TD targets from the target nets (:579-596, :619-658) ----
+        h = self._handle
+        eps = self._epsilon(epsilon)
         with torch.no_grad():
-            probs_tgt = self.actor_probs(ts.actor_tgt, obs_next, goals,
-                                         batch["a"], epsilon)
-            a_next_1h = common.one_hot(
-                common.sample_actions(probs_tgt, gumbel), a_dim)
-            q_tgt_next = self._q_global(ts.qg_tgt, state_next, obs_next,
-                                        goals, a_next_1h)
-            y_g = tclip(rl + gamma * q_tgt_next * done_mult[:, None])
-            qc_tgt_next = self._q_credit_pairs(ts.qc_tgt, state_next,
-                                               obs_next, goals, a_next_1h)
-            y_c = tclip(rl[:, None, :] + gamma * qc_tgt_next
-                        * done_mult[:, None, None])
+            y_g, y_c = self._map(self._td_targets, h(ts.actor_tgt),
+                                 h(ts.qg_tgt), h(ts.qc_tgt), batch, eps,
+                                 gumbel)
 
         # ---- Q_global + Q_credit critic updates, one backward ----
-        ts.qg.flat_grad.zero_()
-        ts.qc.flat_grad.zero_()
-        q = self._q_global(ts.qg, state, obs, goals, a_1h)
-        loss_qg = torch.mean(torch.square(y_g - q))
-        qc = self._q_credit_pairs(ts.qc, state, obs, goals, a_1h)
-        loss_qc = torch.mean(torch.square(y_c - qc))
-        (loss_qg + loss_qc).backward()
-        q_actual = q.detach()                                 # [B, N]
+        critics = [(ts.opt_qg, ts.qg, ts.qg_tgt)]
+        if self.use_credit:
+            critics.append((ts.opt_qc, ts.qc, ts.qc_tgt))
+        for _, net, _ in critics:
+            net.flat_grad.zero_()
+        loss_qg, loss_qc, q = self._map(self._critic_losses, h(ts.qg),
+                                        h(ts.qc), batch, y_g, y_c)
+        self._backward(loss_qg.sum() + loss_qc.sum())
+        q_actual = q.detach()
         with torch.no_grad():
-            self._opt_step(cfg.lr_Q, (ts.opt_qg, ts.qg, ts.qg_tgt),
-                           (ts.opt_qc, ts.qc, ts.qc_tgt))
+            self._opt_step(cfg.lr_Q, *critics)
 
         # ---- policy gradient (:699-773) ----
-        # the current policy's probs, with grad for the policy loss and
-        # as a constant inside the counterfactual sum (a placeholder
-        # feed in the reference); the actor is still pre-update here
         ts.actor.flat_grad.zero_()
-        probs = self.actor_probs(ts.actor, obs, goals, batch["a_prev"],
-                                 epsilon)
+        loss_pi = self._map(self._policy_loss, h(ts.actor),
+                            h(ts.qc if self.use_credit else ts.qg), batch,
+                            q_actual, eps)
+        self._backward(loss_pi.sum())
         with torch.no_grad():
-            q_cf = self._q_credit_cf(ts.qc, state, obs, goals)  # post-update
-            cf = torch.einsum("bma,bmna->bmn", probs.detach(), q_cf)
-            sum_a = torch.sum(q_actual[:, None, :] - cf, dim=2)  # [B, M]
-        taken = torch.sum(probs * a_1h, dim=-1)
-        log_pi = torch.log(taken + 1e-15)                        # [B, N]
-        loss_pi = -torch.mean(torch.sum(log_pi * sum_a, dim=1))
-        loss_pi.backward()
-        with torch.no_grad():
-            self._opt_step(cfg.lr_actor, (ts.opt_actor, ts.actor,
-                                          ts.actor_tgt))
+            self._opt_step(cfg.lr_actor,
+                           (ts.opt_actor, ts.actor, ts.actor_tgt),
+                           lr_scale=self._actor_lr_scale(ts.step))
         ts.step += 1
-        metrics = {"loss_Q_global": loss_qg.detach(),
-                   "loss_Q_credit": loss_qc.detach(),
-                   "policy_loss": loss_pi.detach()}
+        metrics = {"loss_Q_global": loss_qg.detach()}
+        if self.use_credit:
+            metrics["loss_Q_credit"] = loss_qc.detach()
+        metrics["policy_loss"] = loss_pi.detach()
         return ts, metrics

@@ -1,11 +1,17 @@
-"""Shared algorithm utilities (``cm3_tpu.algs.common``)."""
+"""Shared algorithm utilities (``cm3_tpu.algs.common``).
+
+Every function here works on one seed's tensors and, unchanged, on
+tensors with a leading seed axis [S, ...]: the optimizer reduces over
+the last axis only, and the other helpers are elementwise or index the
+trailing axes.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 
 # TF1 AdamOptimizer defaults (reference; ``common.adam``): beta1, beta2, eps
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -15,8 +21,9 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 class AdamState:
     """One network's Adam state over its flat parameter vector: the
     ``optax.flatten(optax.adam)`` state of the JAX package, with flat
-    ``mu``/``nu`` in ``ravel_pytree`` order and ``count`` the number of
-    steps taken.  ``count`` is a host integer: the host knows it, so the
+    ``mu``/``nu`` in ``ravel_pytree`` order ([n], or [S, n] for S seeds
+    in lockstep) and ``count`` the number of steps taken.  ``count`` is
+    a host integer, the same for every seed: the host knows it, so the
     bias corrections cost no device round trip."""
 
     mu: torch.Tensor
@@ -25,12 +32,71 @@ class AdamState:
 
 
 def adam_init(flat: torch.Tensor) -> AdamState:
-    """Zero moments for a flat f32 parameter vector.  One flat buffer
-    per network is also what keeps the tree dtype-uniform, which the
-    JAX ``common.adam`` asserts."""
-    if flat.dtype != torch.float32 or flat.dim() != 1:
-        raise TypeError("adam_init wants one flat float32 vector")
+    """Zero moments for a flat f32 parameter buffer, [n] or [S, n].  One
+    flat buffer per network is also what keeps the tree dtype-uniform,
+    which the JAX ``common.adam`` asserts."""
+    if flat.dtype != torch.float32 or flat.dim() not in (1, 2):
+        raise TypeError("adam_init wants a flat float32 buffer, [n] or "
+                        "[S, n]")
     return AdamState(mu=torch.zeros_like(flat), nu=torch.zeros_like(flat))
+
+
+def bias_corrections(count: int):
+    """(1 - b1^t, 1 - b2^t) in float32 for the step after ``count``
+    steps (t = count + 1), as optax computes them from its incremented
+    count."""
+    t = np.float32(count + 1)
+    one = np.float32(1.0)
+    return (float(one - np.power(np.float32(B1), t)),
+            float(one - np.power(np.float32(B2), t)))
+
+
+def ieee_sqrt(x):
+    """The correctly rounded float32 square root.  On the card that is
+    ``torch.sqrt``; on the CPU PyTorch's vectorized ``sqrt`` misses it
+    on ~0.7% of inputs, so there it is the float64 root rounded to
+    float32 (53 >= 2 x 24 + 2 bits, so the double rounding is exact)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
+def clip_by_global_norm(g: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm`` over one network's flat gradient:
+    g where its norm is below ``max_norm``, else g / norm * max_norm.
+    With a seed axis [S, n] each seed has its own norm."""
+    norm = torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True))
+    return torch.where(norm < max_norm, g, (g / norm) * max_norm)
+
+
+def adam_apply(st: AdamState, params: torch.Tensor, grads: torch.Tensor,
+               lr: float, clip: float = 0.0, lr_scale=None):
+    """One ``common.adam(lr, clip)`` step (optax's order and rounding)
+    applied to the flat ``params`` in place, advancing ``st`` in place:
+
+        g   <- clip_by_global_norm(g, clip)          (clip > 0 only)
+        mu  <- (1-b1)*g + b1*mu ;  nu <- (1-b2)*g**2 + b2*nu
+        u   <- -lr * (mu/c1) / (sqrt(nu/c2) + eps) [* lr_scale]
+        p   <- p + u
+
+    with c1 = 1-b1^t, c2 = 1-b2^t after the count is incremented.
+    ``lr_scale`` (a float32 value, optional) scales the step as the
+    JAX update does for the actor's lr anneal.  Plain PyTorch ops; the
+    JAX package runs this as plain XLA, not as a kernel."""
+    if clip and clip > 0.0:
+        grads = clip_by_global_norm(grads, clip)
+    mu = (1.0 - B1) * grads + B1 * st.mu
+    nu = (1.0 - B2) * (grads * grads) + B2 * st.nu
+    c1, c2 = (torch.full((), c, dtype=torch.float32, device=params.device)
+              for c in bias_corrections(st.count))
+    upd = (mu / c1) / (ieee_sqrt(nu / c2) + EPS)
+    upd = (-lr) * upd
+    if lr_scale is not None:
+        upd = upd * lr_scale
+    params.add_(upd)
+    st.mu.copy_(mu)
+    st.nu.copy_(nu)
+    st.count += 1
 
 
 def soft_update(target: torch.Tensor, main: torch.Tensor, tau: float):
@@ -41,13 +107,19 @@ def soft_update(target: torch.Tensor, main: torch.Tensor, tau: float):
 
 
 def one_hot(x, n):
-    return F.one_hot(x.long(), n).float()
+    """float32 one-hot over a new trailing axis of n classes (a compare
+    against ``arange``: no range check, so no device sync, and usable
+    inside ``torch.func.vmap``)."""
+    return (x.long()[..., None]
+            == torch.arange(n, device=x.device)).float()
 
 
 def others_concat(x):
     """[B, N, D] -> [B, N, (N-1)*D]: row n is the concat of all m != n in
-    index order (alg_credit.py:501-557); N > 1."""
+    index order (alg_credit.py:501-557); [B, 1, 0] for N = 1."""
     n = x.shape[1]
+    if n == 1:
+        return x.new_zeros(x.shape[:1] + (1, 0))
     return torch.stack(
         [torch.cat([x[:, m] for m in range(n) if m != i], dim=-1)
          for i in range(n)], dim=1)
@@ -55,8 +127,10 @@ def others_concat(x):
 
 def others_stack(x):
     """[B, N, ...] -> [B, N, N-1, ...]: per-agent view of the others'
-    rows (alg_credit.py:406-443); N > 1."""
+    rows (alg_credit.py:406-443); [B, 1, 0, ...] for N = 1."""
     n = x.shape[1]
+    if n == 1:
+        return x.new_zeros(x.shape[:1] + (1, 0) + x.shape[2:])
     return torch.stack(
         [torch.stack([x[:, m] for m in range(n) if m != i], dim=1)
          for i in range(n)], dim=1)

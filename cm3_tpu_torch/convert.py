@@ -13,6 +13,10 @@ The port keeps each network in one flat f32 buffer whose leaves follow
 leaf in torch layout.  The JAX Adam moments are flat vectors in
 ``ravel_pytree`` order with leaves in flax layout, so they are cut into
 leaves, transposed the same way, and joined again.
+
+A JAX state of seeds in lockstep (``jax.vmap(alg.init_state)``, every
+leaf with a leading seed axis) loads into the port's seed-stacked
+state (``CM3(..., n_seeds=S)``), row by row.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ def flat_to_torch(module, vec) -> torch.Tensor:
     if off != vec.size:
         raise ValueError(f"flat vector has {vec.size} values, the network "
                          f"{off}")
-    return torch.from_numpy(np.concatenate(parts)).to(module.flat.device)
+    dev = next(module.parameters()).device
+    return torch.from_numpy(np.concatenate(parts)).to(dev)
 
 
 def params_to_flat(module, variables: Dict) -> torch.Tensor:
@@ -80,18 +85,55 @@ def load_params(module, variables: Dict):
     return module
 
 
+def _adam(opt_state):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside a network's optax
+    state, wherever the chain (clip, scale) put it."""
+    if hasattr(opt_state, "mu"):
+        return opt_state
+    for part in opt_state if isinstance(opt_state, tuple) else ():
+        found = _adam(part)
+        if found is not None:
+            return found
+    return None
+
+
+def _seed_slice(tree, s):
+    if isinstance(tree, dict):
+        return {k: _seed_slice(v, s) for k, v in tree.items()}
+    return np.asarray(tree)[s]
+
+
 def state_from_jax(alg, jts):
     """A port ``CM3State`` holding the values of the JAX ``jts`` (host
-    arrays): parameters, targets, and each network's Adam state."""
+    arrays): parameters, targets, and each network's Adam state.  For an
+    algorithm with ``n_seeds`` the JAX state carries a leading seed axis
+    on every leaf."""
     st = alg.empty_state()
-    for name in ("actor", "qg", "qc"):
+    seeds = alg.n_seeds
+    names = ("actor", "qg", "qc") if alg.use_credit else ("actor", "qg")
+    for name in names:
         main, tgt = getattr(st, name), getattr(st, name + "_tgt")
-        load_params(main, getattr(jts, name))
-        load_params(tgt, getattr(jts, name + "_tgt"))
-        adam = getattr(jts, "opt_" + name)[0]
+        adam = _adam(getattr(jts, "opt_" + name))
         opt = getattr(st, "opt_" + name)
-        opt.mu.copy_(flat_to_torch(main, adam.mu))
-        opt.nu.copy_(flat_to_torch(main, adam.nu))
-        opt.count = int(adam.count)
-    st.step = int(jts.step)
+        if seeds is None:
+            load_params(main, getattr(jts, name))
+            load_params(tgt, getattr(jts, name + "_tgt"))
+            opt.mu.copy_(flat_to_torch(main, adam.mu))
+            opt.nu.copy_(flat_to_torch(main, adam.nu))
+            opt.count = int(adam.count)
+            continue
+        tmpl = main.module
+        for s in range(seeds):
+            for net, tree in ((main, getattr(jts, name)),
+                              (tgt, getattr(jts, name + "_tgt"))):
+                net.flat[s].copy_(params_to_flat(tmpl, _seed_slice(tree, s)))
+            opt.mu[s].copy_(flat_to_torch(tmpl, np.asarray(adam.mu)[s]))
+            opt.nu[s].copy_(flat_to_torch(tmpl, np.asarray(adam.nu)[s]))
+        counts = np.asarray(adam.count).reshape(-1)
+        if (counts != counts[0]).any():
+            raise ValueError(f"{name}: seeds in lockstep share one step "
+                             f"count, got {counts}")
+        opt.count = int(counts[0])
+    steps = np.asarray(jts.step).reshape(-1)
+    st.step = int(steps[0])
     return st

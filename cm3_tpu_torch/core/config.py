@@ -1,6 +1,7 @@
 """Typed configuration: the subset of ``cm3_tpu.core.config`` that the
-ported modules read: the Checkers stage-2 CM3 training chunk and the
-particle and roadway struct-of-arrays engines of the fused rollouts.
+ported modules read: Checkers CM3 training (stage 1 and stage 2, one
+seed or seeds in lockstep) and the particle and roadway
+struct-of-arrays engines of the fused rollouts.
 
 Same frozen dataclasses, same field names and defaults.  The particle
 and roadway configs are whole, their observation and reset fields
@@ -171,29 +172,62 @@ class AlgConfig:
     gamma: float = 0.99
     lr_Q: float = 1e-3
     lr_actor: float = 1e-4
-    # global-norm gradient clip, 0 = off; the fused update rejects it
+    # global-norm gradient clip, 0 = off (optax path; the fused update
+    # rejects it)
     grad_clip: float = 0.0
     # parameter-init scheme: "ref" | "tf1" | "trunc001" (models/nets.py)
     init_scheme: str = "ref"
     # clamp TD targets to [-target_clip, +target_clip] (0 = off)
     target_clip: float = 0.0
-    # one fused Adam + apply + Polyak pass per network (ops/fused_opt.py)
+    # fused Adam + apply + Polyak kernel launches (ops/fused_opt.py)
+    # instead of the optax-order plain update (algs/common.adam_apply)
     fused_opt: bool = False
-    # actor lr anneal; the fused update rejects it (static lr)
+    # actor lr anneal to 0 over this many updates (optax path; the fused
+    # update rejects it: its lr is static)
     actor_lr_anneal_updates: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Off-policy chunk schedule (reference ``alg/config.json``)."""
+    """Driver schedule (reference ``alg/config.json`` + trainers): the
+    fields the off-policy driver and ``train_vmapped_seeds`` read.
 
+    ``dual_buffer``, ``replay_shards > 1``, ``chunks_per_sync > 1`` and
+    ``summarize`` are the JAX package's options that the port does not
+    run yet; the driver refuses them (ROADMAP.md names the item of
+    each)."""
+
+    N_train: int = 50000
+    period: int = 100
+    N_eval: int = 10
+    epsilon_start: float = 0.5
+    epsilon_end: float = 0.05
+    epsilon_div: float = 1000.0
+    dual_buffer: bool = False
     buffer_size: int = 20000
     batch_size: int = 128
+    pretrain_episodes: int = 50
     steps_per_train: int = 10
+    # greedy-eval rollout length (the env's own cap is its config's)
+    max_steps: int = 33
     # env instances stepped in lockstep (the reference steps one)
     n_envs: int = 1
     # learning updates per chunk; 0 = auto (= n_envs)
     updates_per_chunk: int = 0
+    # TensorBoard gradient summaries (not ported: ROADMAP A15)
+    summarize: bool = False
+    # training chunks per host sync (only 1 is ported: ROADMAP A6b)
+    chunks_per_sync: int = 1
+    # per-device replay shards (only 1 is ported: ROADMAP A14)
+    replay_shards: int = 1
+    # rows of the sampled per-episode return ring flushed per period
+    # (the reference's log.csv stream); 0 disables
+    episode_log: int = 1024
+
+    @property
+    def epsilon_step(self) -> float:
+        return (self.epsilon_start - self.epsilon_end) / float(
+            self.epsilon_div)
 
 
 def load_json(name_or_path: str) -> dict:

@@ -16,9 +16,13 @@ earlier one just left or entered.
 World channels: 0=green (-1 present, +1 collected), 1=orange,
 2=invalid (1 border, -1 agent-occupied, 0 free).
 
-Only the multi-agent game is ported (stage 2): with n > 1 the reset is
-deterministic (``checkers.py:102-128``); the single-agent stage-1 game
-draws its start row from the goal and waits for the stage-1 slice.
+Both games are ported.  With n > 1 (stage 2) the reset is
+deterministic and an episode ends once every cell is collected; the
+single agent of stage 1 starts on row 0 when its goal is green and on
+row 2 when it is orange (``checkers.py:110-114``), its episode ends
+once every cell of its goal colour is collected (``:180-184``), and
+its ``others`` observation is its own normalized location, a
+placeholder (``:232``).
 """
 
 from __future__ import annotations
@@ -43,17 +47,20 @@ class CheckersState:
 class Checkers(base.Env):
 
     def __init__(self, cfg: CheckersEnvConfig, device="cuda"):
-        if cfg.n_agents < 2:
-            raise NotImplementedError(
-                "single-agent (stage-1) Checkers is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         c = cfg
-        loc = torch.tensor([[r + c.n_obs, col + c.n_obs]
-                            for r, col in zip(c.agents_r, c.agents_c)],
-                           dtype=torch.int64)
-        self._loc0 = loc.to(self.device)
-        self._world0 = self._initial_world(loc).to(self.device)
+        if c.n_agents == 1:
+            # the start row follows the goal: [green start, orange start]
+            starts = [[(r, c.agents_c[0])] for r in (0, 2)]
+        else:
+            starts = [list(zip(c.agents_r, c.agents_c))]
+        locs = torch.tensor([[[r + c.n_obs, col + c.n_obs]
+                              for r, col in start] for start in starts],
+                            dtype=torch.int64)          # [K, N, 2]
+        self._loc0 = locs.to(self.device)
+        self._world0 = torch.stack(
+            [self._initial_world(loc) for loc in locs]).to(self.device)
 
     # ------------------------------------------------------------------ #
 
@@ -92,13 +99,19 @@ class Checkers(base.Env):
 
     def reset(self, goals):
         """checkers.py:265-291 for E instances at once; ``goals`` is
-        [E, N, l_goal].  Deterministic for n > 1."""
+        [E, N, l_goal].  Deterministic given the goals."""
         c = self.cfg
         goals = goals.to(self.device, torch.float32)
         e = goals.shape[0]
+        if c.n_agents == 1:
+            # row 0 when the goal is green, row 2 otherwise
+            k = (goals[:, 0, 0] != 1.0).long()
+            world, loc = self._world0[k], self._loc0[k]
+        else:
+            world = self._world0[0].expand(e, -1, -1, -1).clone()
+            loc = self._loc0[0].expand(e, -1, -1).clone()
         state = CheckersState(
-            world=self._world0.expand(e, -1, -1, -1).clone(),
-            loc=self._loc0.expand(e, -1, -1).clone(),
+            world=world, loc=loc,
             collected=torch.zeros((e, c.n_agents, 2), device=self.device),
             goals=goals,
             steps=torch.zeros(e, dtype=torch.int64, device=self.device))
@@ -160,9 +173,17 @@ class Checkers(base.Env):
         world = torch.stack([ch_g, ch_o, ch_i], dim=-1)
 
         steps = state.steps + 1
-        # n > 1: done once every cell is collected (step:246-260)
-        done_collect = world[..., 0:2].sum(dim=(1, 2, 3)) == float(
-            c.max_collectible)
+        if c.n_agents == 1:
+            # done once every cell of the goal colour is collected
+            half = c.max_collectible / 2.0
+            green = state.goals[:, 0, 0] == 1.0
+            done_collect = torch.where(
+                green, world[..., 0].sum(dim=(1, 2)) == half,
+                world[..., 1].sum(dim=(1, 2)) == half)
+        else:
+            # done once every cell is collected (step:246-260)
+            done_collect = world[..., 0:2].sum(dim=(1, 2, 3)) == float(
+                c.max_collectible)
         done = (steps == c.max_steps) | done_collect
 
         new_state = CheckersState(world=world, loc=loc, collected=collected,
@@ -200,9 +221,12 @@ class Checkers(base.Env):
         norm = self._normalize(state.loc)                  # [E, N, 2]
         vecs = torch.cat(
             [norm, state.collected / (c.max_collectible / 2.0)], dim=-1)
-        others = torch.stack(
-            [torch.cat([norm[:, m] for m in range(n) if m != i], dim=-1)
-             for i in range(n)], dim=1)                    # [E, N, 2(N-1)]
+        if n == 1:
+            others = norm                                  # own location
+        else:
+            others = torch.stack(
+                [torch.cat([norm[:, m] for m in range(n) if m != i], dim=-1)
+                 for i in range(n)], dim=1)                # [E, N, 2(N-1)]
         return dict(others=others, self_t=grids, self_v=vecs)
 
     def _global_state(self, state: CheckersState):

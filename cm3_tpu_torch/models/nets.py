@@ -20,6 +20,17 @@ a flat gradient buffer the same way.  The fused optimizer kernel then
 updates a whole network in one launch, as ``ops/fused_opt.py`` does in
 the JAX package (``fused_opt.py:112-133``).
 
+Seeds in lockstep.  ``SeedStack`` holds S independent copies of one
+network's parameters in one flat [S, n] buffer (each row in the order
+above), each parameter an [S, *shape] view into it, and a flat [S, n]
+gradient buffer the same way.  The module's forward code is unchanged:
+``torch.func.functional_call`` runs it with a given parameter dict, and
+a caller maps that over the seed axis with ``torch.func.vmap``, so a
+convolution becomes one grouped convolution and a dense layer one
+batched product over all seeds.
+Seeds share no parameter, so one backward pass of the sum of the S
+seeds' losses leaves each seed's gradient in its row of ``flat_grad``.
+
 Initialization (``nets.py:47-92``): dense and conv kernels are
 Glorot-uniform, biases zero, the branch-combination matrices ``W_h2``
 truncated-normal with sigma 0.01, and the h2 bias ``b`` follows the init
@@ -321,3 +332,39 @@ def flatten_parameters(module: nn.Module, with_grad: bool = True):
     module.flat = flat
     module.flat_grad = grad
     return module
+
+
+class SeedStack:
+    """S copies of ``module``'s parameters for seeds in lockstep.
+
+    ``flat`` is [S, n] (row s: seed s's parameters in ``ravel_pytree``
+    order, as ``flatten_parameters`` lays out one seed), ``params`` maps
+    each parameter name to an [S, *shape] view of it, a leaf tensor that
+    requires grad when ``with_grad``, whose ``.grad`` is preset as a
+    view into ``flat_grad`` [S, n], so that backward accumulates into
+    the flat buffer in place.  ``module`` is the template whose forward
+    code runs (``functional_call``); its own parameter values are not
+    used."""
+
+    def __init__(self, module: nn.Module, n_seeds: int,
+                 with_grad: bool = True):
+        named = ordered_parameters(module)
+        dev = named[0][1].device
+        n = sum(p.numel() for _, p in named)
+        self.module = module
+        self.flat = torch.zeros((n_seeds, n), device=dev)
+        self.flat_grad = (torch.zeros((n_seeds, n), device=dev)
+                          if with_grad else None)
+        self.params = {}
+        off = 0
+        for name, p in named:
+            k = p.numel()
+            view = self.flat[:, off:off + k].unflatten(1, p.shape)
+            leaf = view.detach().requires_grad_(with_grad)
+            if with_grad:
+                leaf.grad = self.flat_grad[:, off:off + k].unflatten(
+                    1, p.shape)
+            self.params[name] = leaf
+            off += k
+
+

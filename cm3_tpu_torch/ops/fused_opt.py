@@ -63,32 +63,13 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
-from cm3_tpu_torch.algs.common import B1, B2, EPS, AdamState
+from cm3_tpu_torch.algs.common import (B1, B2, EPS, AdamState,  # noqa: F401
+                                       bias_corrections, ieee_sqrt)
 from cm3_tpu_torch.ops import _nvcc
 
 MAX_SEGMENTS = 4        # networks in one launch (kMaxSegments in the source)
-
-
-def bias_corrections(count: int):
-    """(c1, c2) for the step after ``count`` steps, in float32 as the
-    TPU kernel computes them (``fused_opt.py:86-88``)."""
-    c = np.float32(count + 1)
-    one = np.float32(1.0)
-    return (float(one - np.power(np.float32(B1), c)),
-            float(one - np.power(np.float32(B2), c)))
-
-
-def ieee_sqrt(x):
-    """The correctly rounded float32 square root.  On the card that is
-    ``torch.sqrt``; on the CPU PyTorch's vectorized ``sqrt`` misses it
-    on ~0.7% of inputs, so there it is the float64 root rounded to
-    float32 (53 >= 2 x 24 + 2 bits, so the double rounding is exact)."""
-    if x.device.type == "cpu":
-        return torch.sqrt(x.double()).float()
-    return torch.sqrt(x)
 
 
 def adam_polyak_plain(p, t, mu, nu, g, c1: float, c2: float, lr: float,
@@ -112,15 +93,19 @@ def adam_polyak_plain(p, t, mu, nu, g, c1: float, c2: float, lr: float,
 
 
 def _check(p, t, mu, nu, g):
+    """Each buffer a contiguous float32 tensor of the params' shape: [n],
+    or [S, n] for S seeds in lockstep, which is one segment of S x n
+    floats (every seed shares the count and lr)."""
     for name, x in (("params", p), ("tgt", t), ("mu", mu), ("nu", nu),
                     ("grads", g)):
-        if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
+        if x.dtype != torch.float32 or x.dim() not in (1, 2) \
+                or not x.is_contiguous():
             raise ValueError(f"adam_polyak: {name} must be a contiguous "
-                             f"1-D float32 tensor, got {x.dtype} "
+                             f"float32 tensor [n] or [S, n], got {x.dtype} "
                              f"{tuple(x.shape)}")
-        if x.numel() != p.numel() or x.device != p.device:
+        if x.shape != p.shape or x.device != p.device:
             raise ValueError(f"adam_polyak: {name} differs from params in "
-                             "size or device")
+                             "shape or device")
 
 
 def c_args(items, tau: float):

@@ -1,0 +1,138 @@
+"""Seeds in lockstep: S independent training runs in one program
+(``cm3_tpu.train.multiseed``).
+
+The JAX package maps its whole training chunk over a seed axis with
+``jax.vmap``.  The port keeps the seed axis explicit: the S x E env
+instances step as one batch, the replay keeps one ring per seed, and
+the learner keeps each network's S copies in one [S, n] buffer whose
+forward and backward passes run for all seeds at once
+(``algs/cm3.py``, ``models/nets.SeedStack``).  So one chunk of S seeds
+costs about as many kernel launches as one seed's, each doing S times
+the work.
+
+Schedule (``multiseed.py:72-266``): each seed keeps its own epsilon,
+from its own completed-episode count (``_eps_schedule``), while the
+switch from random fill to training and the periodic evaluation fire
+when the slowest seed crosses the threshold.
+
+Draws.  One draw source serves every seed (one [S, ...] draw a call,
+not S calls), keyed by the first seed's key and the seed count; so a
+seed's stream depends on S.  Parameters are drawn per seed from its own
+key, ``root_key(base_seed + i)``, as for one seed.
+
+Not ported (ROADMAP.md): the mesh placement (A14), the on-policy
+regime (A13), resuming from an autosave (A8) and the gradient
+summaries (A15); each is refused.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from cm3_tpu_torch.core import prng
+from cm3_tpu_torch.train.offpolicy import (OffPolicyDriver, flush_eplog,
+                                           init_rollout)
+
+
+def _eps_schedule(cfg, episodes):
+    e = np.maximum(0, episodes - cfg.pretrain_episodes)
+    return np.maximum(cfg.epsilon_end,
+                      cfg.epsilon_start - e * cfg.epsilon_step)
+
+
+def _host(x):
+    return x.detach().cpu().numpy()
+
+
+def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
+                        n_episodes: Optional[int] = None,
+                        log_fn: Optional[Callable[[Dict], None]] = None,
+                        mesh=None, onpolicy: bool = False,
+                        resume: Optional[Tuple[Any, np.ndarray]] = None,
+                        draws=None, eval_draws=None):
+    """Train ``n_seeds`` independent replicas in lockstep, off-policy.
+    Returns (the seed-stacked CM3 state, per-period history).
+
+    ``alg`` is the algorithm for one seed or for ``n_seeds`` seeds
+    (``CM3.for_seeds``).  ``log_fn`` receives each period row, with
+    per-seed arrays, plus the state under ``_ts``.  ``draws`` and
+    ``eval_draws`` (draw sources) replace the ones made from the seeds'
+    keys.  ``mesh``, ``onpolicy`` and ``resume`` are the JAX package's
+    and are refused."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "placing the seed axis over a mesh is not ported (ROADMAP A14)")
+    if onpolicy:
+        raise NotImplementedError(
+            "the on-policy regime is not ported (ROADMAP A13)")
+    if resume is not None:
+        raise NotImplementedError(
+            "resuming from an autosave is not ported (ROADMAP A8)")
+    if alg.n_seeds != n_seeds:
+        alg = alg.for_seeds(n_seeds)
+    driver = OffPolicyDriver(hooks, alg, cfg)
+    n_episodes = n_episodes or cfg.N_train
+    s = n_seeds
+    dev = hooks.env.device
+
+    keys = [prng.root_key(base_seed + i) for i in range(s)]
+    source = lambda purpose: prng.GeneratorDraws(prng.generator(
+        prng.for_purpose(prng.fold_in(keys[0], s), purpose), dev))
+    draws = draws or source(prng.ROLLOUT)
+    eval_draws = eval_draws or source(prng.EVAL)
+    rs = init_rollout(hooks, cfg.n_envs, draws, cfg.episode_log, n_seeds=s)
+    ts = alg.init_state(keys)
+    buf = driver._replay_init(driver.example_transition(rs))
+
+    history = []
+    last_ep_flushed = np.zeros(s, np.int64)
+    last_period = 0
+    t0 = time.time()
+    episodes = np.zeros(s, np.int64)
+    while episodes.min() < n_episodes:
+        fill = episodes.min() < cfg.pretrain_episodes
+        eps = torch.as_tensor(_eps_schedule(cfg, episodes), dtype=torch.float32,
+                              device=dev)
+        ts, buf, rs, metrics = driver._chunk(ts, buf, rs, eps, draws,
+                                             not fill, fill)
+        episodes = _host(rs.episodes)    # one sync per chunk
+
+        period_idx = int(episodes.min()) // cfg.period
+        if period_idx > last_period:
+            last_period = period_idx
+            r_local, r_global, aux = driver.evaluate(ts, eval_draws,
+                                                     cfg.N_eval)
+            row = {
+                "episode": episodes.copy(),                         # [S]
+                "epsilon": _eps_schedule(cfg, episodes),            # [S]
+                "r_eval_local": _host(r_local),                     # [S, N]
+                "r_eval_global": _host(r_global),                   # [S]
+                "eval_action_dist": _host(aux["act_dist"]).reshape(s, -1),
+                "r_train_local": _host(rs.acc_ret_local)
+                / max(cfg.period, 1),                               # [S, N]
+                "r_train_global": _host(rs.acc_ret_global)
+                / max(cfg.period, 1),                               # [S]
+                "duration_s": time.time() - t0,
+            }
+            row.update({k: _host(v) for k, v in aux.items()
+                        if k != "act_dist"})
+            row.update({k: _host(v) for k, v in metrics.items()})
+            if cfg.episode_log:
+                eplog, eplog_ep = _host(rs.eplog), _host(rs.eplog_ep)
+                row["_episodes"] = [
+                    flush_eplog(eplog[i], eplog_ep[i],
+                                int(last_ep_flushed[i]), int(episodes[i]))
+                    for i in range(s)]
+                last_ep_flushed = episodes.copy()
+            history.append(row)
+            if log_fn is not None:
+                log_fn(dict(row, _ts=ts))
+            rs.acc_ret_local = torch.zeros_like(rs.acc_ret_local)
+            rs.acc_ret_global = torch.zeros_like(rs.acc_ret_global)
+            t0 = time.time()
+
+    return ts, history

@@ -1,4 +1,5 @@
-"""Off-policy trainer: the training chunk (``cm3_tpu.train.offpolicy``).
+"""Off-policy trainer (``cm3_tpu.train.offpolicy``): the training chunk,
+the greedy evaluation and the single-seed host loop.
 
 The driver steps ``n_envs`` instances in lockstep.  One chunk
 (``OffPolicyDriver._chunk``, ``offpolicy.py:345-385``) runs
@@ -6,84 +7,178 @@ The driver steps ``n_envs`` instances in lockstep.  One chunk
 auto-reset of finished instances, then ``updates_per_chunk`` learning
 updates on replay minibatches.  The order is the JAX package's: the
 chunk's transitions go into replay before the updates sample it.
+``evaluate`` (``:389-432``) rolls the policy out with epsilon 0 for
+``max_steps`` steps over ``N_eval`` fresh episodes; ``run``
+(``:434-542``) is the host loop: random-fill chunks until
+``pretrain_episodes`` episodes are done (policy rollouts without
+updates after a resume), training chunks after, epsilon decayed per
+completed episode, and one evaluation and one history row per
+``period`` episodes.
+
+Seeds in lockstep.  With an algorithm built for S seeds
+(``CM3(..., n_seeds=S)``) every per-instance tensor carries a leading
+[S, E] (the engine steps the S x E instances as one batch), the
+per-seed values (completed episodes, return sums, the episode-log
+ring, epsilon) a leading [S], and the replay one ring per seed.  The
+same code runs one seed with [E] and scalars.  ``train/multiseed.py``
+drives it.
 
 Where the JAX chunk splits a key, this one asks a draw source
 (``core.prng``) in a fixed order: per env step, random actions or the
-[E, N, A] Gumbel noise of the policy's sample; per update, the replay
-indices and the Gumbel noise of a'.  Feeding JAX's draws through
+[E, N, A] Gumbel noise of the policy's sample, then (single-agent
+Checkers) the goals of the auto-reset; per update, the replay indices
+and the Gumbel noise of a'.  Feeding JAX's draws through
 ``prng.FedDraws`` replays a JAX chunk exactly.
 
-Not ported yet (ROADMAP.md): the K-chunk on-device schedule, the dual
-and shard-local replay, the episode-log ring, evaluation and ``run``.
+Not ported yet (ROADMAP.md): the K-chunk on-device schedule
+(``chunks_per_sync > 1``, A6b), the gradient summaries (``summarize``,
+A15), and the dual and shard-local replay (A13, A14); each is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import time
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
+from cm3_tpu_torch.algs import common
+from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.core.config import TrainConfig
 from cm3_tpu_torch.core.tree import tree_map
 from cm3_tpu_torch.replay import buffer as replay
-from cm3_tpu_torch.train.experiments import Hooks
+from cm3_tpu_torch.train.experiments import Hooks, flat_call
 
 
 @dataclasses.dataclass
 class RolloutState:
+    """Instances on a leading L = [E] (one seed) or [S, E] (seeds); the
+    per-seed running values on P = [] or [S]."""
+
     env_state: Any
     obs: Any
     state: Any
-    goals: torch.Tensor          # [E, N, G]
-    a_prev: torch.Tensor         # [E, N]
-    ep_ret_local: torch.Tensor   # [E, N]
-    ep_ret_global: torch.Tensor  # [E]
-    # running accumulators over completed episodes
-    acc_ret_local: torch.Tensor  # [N]
-    acc_ret_global: torch.Tensor  # scalar
-    episodes: torch.Tensor       # scalar i64, completed episodes
+    goals: torch.Tensor          # [*L, N, G]
+    a_prev: torch.Tensor         # [*L, N]
+    ep_ret_local: torch.Tensor   # [*L, N]
+    ep_ret_global: torch.Tensor  # [*L]
+    # running accumulators over completed episodes (reset each period)
+    acc_ret_local: torch.Tensor  # [*P, N]
+    acc_ret_global: torch.Tensor  # [*P]
+    episodes: torch.Tensor       # [*P] i64, completed episodes
+    # sampled per-episode return ring: eplog [*P, K, N+1] holds
+    # (r_local..., r_global) of recently completed episodes, eplog_ep
+    # [*P, K] the matching episode numbers (the reference's log.csv
+    # stream, train_offpolicy.py:208-218,399-403); None when off
+    eplog: Optional[torch.Tensor] = None
+    eplog_ep: Optional[torch.Tensor] = None
 
 
-def init_rollout(hooks: Hooks, n_envs: int) -> RolloutState:
-    """Fresh episodes in ``n_envs`` instances, on the env's device."""
-    env_state, ts, goals = hooks.episode_init(n_envs)
+def init_rollout(hooks: Hooks, n_envs: int, draws=None,
+                 episode_log: int = 0,
+                 n_seeds: Optional[int] = None) -> RolloutState:
+    """Fresh episodes in ``n_envs`` instances (per seed), on the env's
+    device; ``draws`` gives the goals where they are random."""
+    lead = (n_envs,) if n_seeds is None else (n_seeds, n_envs)
+    env_state, ts, goals = hooks.episode_init(lead, draws)
     n = hooks.n_agents
+    per_seed = lead[:-1]
     dev = hooks.env.device
+    zeros = lambda shape, **kw: torch.zeros(shape, device=dev, **kw)
     return RolloutState(
         env_state=env_state, obs=ts.obs, state=ts.state, goals=goals,
-        a_prev=torch.zeros((n_envs, n), dtype=torch.int64, device=dev),
-        ep_ret_local=torch.zeros((n_envs, n), device=dev),
-        ep_ret_global=torch.zeros(n_envs, device=dev),
-        acc_ret_local=torch.zeros(n, device=dev),
-        acc_ret_global=torch.zeros((), device=dev),
-        episodes=torch.zeros((), dtype=torch.int64, device=dev))
+        a_prev=zeros(lead + (n,), dtype=torch.int64),
+        ep_ret_local=zeros(lead + (n,)), ep_ret_global=zeros(lead),
+        acc_ret_local=zeros(per_seed + (n,)), acc_ret_global=zeros(per_seed),
+        episodes=zeros(per_seed, dtype=torch.int64),
+        eplog=(zeros(per_seed + (episode_log, n + 1)) if episode_log
+               else None),
+        eplog_ep=(zeros(per_seed + (episode_log,), dtype=torch.int64)
+                  if episode_log else None))
+
+
+def flush_eplog(eplog, eplog_ep, last_flushed: int, episodes_done: int):
+    """One seed's completed-episode rows newer than ``last_flushed``
+    from the ring (host arrays), sorted by episode number: -> (ids [M] i64, returns
+    [M, N+1] = r_local..., r_global).  Episodes overwritten by the ring
+    before a flush are lost: a documented sampling cap."""
+    arr = np.asarray(eplog)
+    ep_no = np.asarray(eplog_ep, np.int64)
+    keep = (ep_no > last_flushed) & (ep_no <= episodes_done)
+    order = np.argsort(ep_no[keep])
+    return ep_no[keep][order], arr[keep][order]
 
 
 def _where(done: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
-    """Per-instance select: rows of ``new`` where ``done`` [E]."""
-    return torch.where(done.view((-1,) + (1,) * (old.dim() - 1)), new, old)
+    """Per-instance select: ``new`` where ``done`` (the instance shape's
+    leading dims of both)."""
+    return torch.where(done.view(done.shape + (1,) * (old.dim()
+                                                      - done.dim())),
+                       new, old)
+
+
+def _eplog_write(eplog, eplog_ep, episodes, done, rows):
+    """Each completed episode's returns ``rows`` [*L, N+1] into the ring
+    at (episode number - 1) mod K (``offpolicy.py:318-330``); the other
+    instances write into a bin row past the ring, with episode number 0,
+    which is then dropped."""
+    k = eplog.shape[-2]
+    rank = torch.cumsum(done.long(), dim=-1) - 1
+    ep_no = episodes[..., None] + 1 + rank
+    idx = torch.where(done, (ep_no - 1) % k, k)
+    log = F.pad(eplog, (0, 0, 0, 1)).scatter(
+        -2, idx[..., None].expand(rows.shape), rows)
+    ep = F.pad(eplog_ep, (0, 1)).scatter(-1, idx,
+                                         torch.where(done, ep_no, 0))
+    return log[..., :k, :], ep[..., :k]
 
 
 class OffPolicyDriver:
 
     def __init__(self, hooks: Hooks, alg, cfg: TrainConfig):
+        if cfg.dual_buffer:
+            raise NotImplementedError(
+                "the dual replay buffer is not ported (ROADMAP A13)")
+        if cfg.replay_shards > 1:
+            raise NotImplementedError(
+                "shard-local replay is not ported (ROADMAP A14)")
+        if cfg.summarize:
+            raise NotImplementedError(
+                "gradient summaries are not ported (ROADMAP A15)")
         self.hooks = hooks
         self.alg = alg
         self.cfg = cfg
         self.n_envs = cfg.n_envs
+        self.n_seeds = getattr(alg, "n_seeds", None)
+        self.lead = ((cfg.n_envs,) if self.n_seeds is None
+                     else (self.n_seeds, cfg.n_envs))
 
     # ---- replay ---- #
 
     def _replay_init(self, example):
-        return replay.init(example, self.cfg.buffer_size)
+        return replay.init(example, self.cfg.buffer_size, self.n_seeds)
 
     def _replay_add(self, buf, tr):
         return replay.add_batch(buf, tr)
 
     def _replay_sample(self, buf, draws):
-        idx = draws.randint((self.cfg.batch_size,), max(buf.size, 1))
+        idx = draws.randint(self.lead[:-1] + (self.cfg.batch_size,),
+                            max(buf.size, 1))
         return replay.sample(buf, idx)
+
+    def example_transition(self, rs: RolloutState):
+        """One instance's transition (leaves without the instance dims),
+        the template of the replay ring."""
+        zeros = torch.zeros(self.lead + (self.hooks.n_agents,),
+                            dtype=torch.int64, device=self.hooks.env.device)
+        ts = flat_call(self.hooks.env.step, self.lead, rs.env_state,
+                       zeros)[1]
+        k = len(self.lead)
+        return tree_map(lambda x: x[(0,) * k],
+                        self._transition(rs, zeros, ts))
 
     # -------------------------------------------------------------- #
 
@@ -105,57 +200,197 @@ class OffPolicyDriver:
         """One lockstep env transition for all instances + buffer add +
         auto-reset."""
         hooks, env = self.hooks, self.hooks.env
-        e = self.n_envs
+        lead = self.lead
         n = hooks.n_agents
         n_act = self.alg.n_actions
         if random_actions:
-            actions = draws.randint((e, n), n_act)
+            actions = draws.randint(lead + (n,), n_act)
         else:
             actions = self.alg.act(ts_alg, rs.obs, rs.goals, rs.a_prev,
-                                   epsilon, draws.gumbel((e, n, n_act)))
-        env_state2, ts2 = env.step(rs.env_state, actions)
+                                   epsilon, draws.gumbel(lead + (n, n_act)))
+        env_state2, ts2 = flat_call(env.step, lead, rs.env_state, actions)
         buf = self._replay_add(buf, self._transition(rs, actions, ts2))
         done = ts2.done
         ep_ret_local = rs.ep_ret_local + ts2.reward_local
         ep_ret_global = rs.ep_ret_global + ts2.reward
 
         # auto-reset finished instances with fresh goals
-        new_state, new_ts, new_goals = hooks.episode_init(e)
+        new_state, new_ts, new_goals = hooks.episode_init(lead, draws)
         sel = lambda a, b: _where(done, a, b)
-        env_state3 = type(env_state2)(**{
-            f.name: sel(getattr(new_state, f.name),
-                        getattr(env_state2, f.name))
-            for f in dataclasses.fields(env_state2)})
+        eplog, eplog_ep = rs.eplog, rs.eplog_ep
+        if eplog is not None:
+            eplog, eplog_ep = _eplog_write(
+                eplog, eplog_ep, rs.episodes, done,
+                torch.cat([ep_ret_local, ep_ret_global[..., None]], dim=-1))
         d = done.float()
         rs2 = RolloutState(
-            env_state=env_state3,
+            env_state=tree_map(sel, new_state, env_state2),
             obs=tree_map(sel, new_ts.obs, ts2.obs),
             state=tree_map(sel, new_ts.state, ts2.state),
             goals=sel(new_goals, rs.goals),
-            a_prev=torch.where(done[:, None], 0, actions),
-            ep_ret_local=ep_ret_local * (1.0 - d[:, None]),
+            a_prev=torch.where(done[..., None], 0, actions),
+            ep_ret_local=ep_ret_local * (1.0 - d[..., None]),
             ep_ret_global=ep_ret_global * (1.0 - d),
             acc_ret_local=rs.acc_ret_local
-            + torch.sum(ep_ret_local * d[:, None], dim=0),
-            acc_ret_global=rs.acc_ret_global + torch.sum(ep_ret_global * d),
-            episodes=rs.episodes + done.sum())
+            + torch.sum(ep_ret_local * d[..., None], dim=-2),
+            acc_ret_global=rs.acc_ret_global
+            + torch.sum(ep_ret_global * d, dim=-1),
+            episodes=rs.episodes + done.sum(dim=-1),
+            eplog=eplog, eplog_ep=eplog_ep)
         return rs2, buf
 
     def _chunk(self, ts_alg, buf, rs, epsilon, draws, do_train: bool,
                random_actions: bool):
         """steps_per_train lockstep env steps, then (``do_train``)
-        updates_per_chunk learning updates.  Returns
-        (ts_alg, buf, rs, metrics of the last update)."""
+        updates_per_chunk learning updates.  ``epsilon`` is a float, or
+        [S] with seeds.  Returns (ts_alg, buf, rs, metrics of the last
+        update)."""
+        if self.n_seeds is not None:
+            # once per chunk, not at every act and update
+            epsilon = torch.as_tensor(
+                epsilon, dtype=torch.float32,
+                device=self.hooks.env.device).expand(self.n_seeds)
         for _ in range(self.cfg.steps_per_train):
             rs, buf = self._step_once(ts_alg, rs, buf, epsilon, draws,
                                       random_actions)
         metrics = {}
         if do_train:
             n_upd = self.cfg.updates_per_chunk or self.n_envs
-            shape = (self.cfg.batch_size, self.hooks.n_agents,
-                     self.alg.n_actions)
+            shape = self.lead[:-1] + (self.cfg.batch_size,
+                                      self.hooks.n_agents,
+                                      self.alg.n_actions)
             for _ in range(n_upd):
                 batch = self._replay_sample(buf, draws)
                 ts_alg, metrics = self.alg.update(ts_alg, batch, epsilon,
                                                   draws.gumbel(shape))
         return ts_alg, buf, rs, metrics
+
+    # -------------------------------------------------------------- #
+
+    @torch.no_grad()
+    def evaluate(self, ts_alg, draws, n_eval: int):
+        """Policy rollouts at epsilon 0 (alg/evaluate.py) of ``n_eval``
+        fresh episodes (per seed) for ``cfg.max_steps`` steps, each
+        instance's returns counted until its episode ends: returns (mean
+        per-agent return [N], mean global return, aux), each with a
+        leading [S] with seeds.  aux carries "act_dist", the per-agent
+        action distribution [N, A] (evaluate.py:193-200), and the hooks'
+        eval metrics.  ``draws`` gives the goals where they are random,
+        then per step the [n_eval, N, A] Gumbel noise of the sample."""
+        hooks = self.hooks
+        env = hooks.env
+        n = hooks.n_agents
+        n_act = self.alg.n_actions
+        lead = self.lead[:-1] + (n_eval,)
+        env_state, ts, goals = hooks.episode_init(lead, draws)
+        obs = ts.obs
+        dev = env.device
+        a_prev = torch.zeros(lead + (n,), dtype=torch.int64, device=dev)
+        alive = torch.ones(lead, dtype=torch.bool, device=dev)
+        ret_l = torch.zeros(lead + (n,), device=dev)
+        ret_g = torch.zeros(lead, device=dev)
+        acts = torch.zeros(lead[:-1] + (n, n_act), device=dev)
+        acc = hooks.eval_metrics_init(lead[:-1])
+        for _ in range(self.cfg.max_steps):
+            actions = self.alg.act(ts_alg, obs, goals, a_prev, 0.0,
+                                   draws.gumbel(lead + (n, n_act)))
+            env_state, ts2 = flat_call(env.step, lead, env_state, actions)
+            m = alive.float()
+            ret_l = ret_l + ts2.reward_local * m[..., None]
+            ret_g = ret_g + ts2.reward * m
+            acts = acts + torch.sum(common.one_hot(actions, n_act)
+                                    * m[..., None, None], dim=-3)
+            acc = hooks.eval_metrics_step(acc, env_state, ts2, alive)
+            alive = alive & ~ts2.done
+            obs, a_prev = ts2.obs, actions
+        act_dist = acts / torch.clamp_min(acts.sum(-1, keepdim=True), 1.0)
+        aux = dict(hooks.eval_metrics_final(acc, n_eval), act_dist=act_dist)
+        return ret_l.mean(dim=-2), ret_g.mean(dim=-1), aux
+
+    # -------------------------------------------------------------- #
+
+    def run(self, ts_alg, key: int = 0, n_episodes: Optional[int] = None,
+            log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
+            initial_episodes: int = 0, draws=None, eval_draws=None):
+        """Host training loop of one seed until ``n_episodes`` completed
+        episodes.  ``initial_episodes`` resumes the episode/epsilon
+        schedule (the replay ring restarts empty and is warmed with
+        policy rollouts for pretrain_episodes first).  The draws come
+        from ``key`` (rollouts and evaluations from their own purposes),
+        or from the draw sources ``draws`` and ``eval_draws``.  Returns
+        (ts_alg, final stats dict)."""
+        cfg = self.cfg
+        if self.n_seeds is not None:
+            raise ValueError("run trains one seed; seeds in lockstep train "
+                             "through multiseed.train_vmapped_seeds")
+        if cfg.chunks_per_sync != 1:
+            raise NotImplementedError(
+                "the K-chunk schedule (chunks_per_sync > 1) is not ported "
+                "(ROADMAP A6b)")
+        n_episodes = n_episodes or cfg.N_train
+        dev = self.hooks.env.device
+        source = lambda purpose: prng.GeneratorDraws(prng.generator(
+            prng.for_purpose(key, purpose), dev))
+        draws = draws or source(prng.ROLLOUT)
+        eval_draws = eval_draws or source(prng.EVAL)
+        rs = init_rollout(self.hooks, self.n_envs, draws, cfg.episode_log)
+        if initial_episodes:
+            rs.episodes = torch.full_like(rs.episodes, initial_episodes)
+        buf = self._replay_init(self.example_transition(rs))
+
+        epsilon = max(cfg.epsilon_end, cfg.epsilon_start
+                      - max(0, initial_episodes - cfg.pretrain_episodes)
+                      * cfg.epsilon_step)
+        last_logged_period = initial_episodes // cfg.period
+        last_ep_flushed = initial_episodes
+        history = []
+        t0 = time.time()
+        episodes_done = initial_episodes
+        while episodes_done < n_episodes:
+            if episodes_done < cfg.pretrain_episodes:
+                pretrain, train, rand = True, False, True      # random fill
+            elif episodes_done < initial_episodes + cfg.pretrain_episodes:
+                pretrain, train, rand = True, False, False     # warm-up
+            else:
+                pretrain, train, rand = False, True, False
+            ts_alg, buf, rs, metrics = self._chunk(ts_alg, buf, rs, epsilon,
+                                                   draws, train, rand)
+            episodes_done = int(rs.episodes)  # one host sync per chunk
+            if not pretrain:
+                epsilon = max(cfg.epsilon_end, cfg.epsilon_start
+                              - (episodes_done - cfg.pretrain_episodes)
+                              * cfg.epsilon_step)
+
+            period_idx = episodes_done // cfg.period
+            if period_idx > last_logged_period:
+                last_logged_period = period_idx
+                r_l, r_g, aux = self.evaluate(ts_alg, eval_draws, cfg.N_eval)
+                row = {
+                    "episode": episodes_done,
+                    "epsilon": epsilon,
+                    "r_eval_local": r_l.cpu().numpy(),
+                    "r_eval_global": float(r_g),
+                    "eval_action_dist": aux["act_dist"].cpu().numpy().ravel(),
+                    "r_train_local": rs.acc_ret_local.cpu().numpy()
+                    / max(cfg.period, 1),
+                    "r_train_global": float(rs.acc_ret_global)
+                    / max(cfg.period, 1),
+                    "duration_s": time.time() - t0,
+                }
+                if cfg.episode_log:
+                    row["_episodes"] = flush_eplog(
+                        rs.eplog.cpu().numpy(), rs.eplog_ep.cpu().numpy(),
+                        last_ep_flushed, episodes_done)
+                    last_ep_flushed = episodes_done
+                row.update({k: float(v) for k, v in aux.items()
+                            if k != "act_dist"})
+                row.update({k: float(v) for k, v in metrics.items()})
+                history.append(row)
+                if log_fn is not None:
+                    log_fn(dict(row, _ts=ts_alg))
+                rs.acc_ret_local = torch.zeros_like(rs.acc_ret_local)
+                rs.acc_ret_global = torch.zeros_like(rs.acc_ret_global)
+                t0 = time.time()
+
+        return ts_alg, dict(episodes=episodes_done, history=history,
+                            buffer=buf, rollout=rs, epsilon=epsilon)

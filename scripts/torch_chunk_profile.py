@@ -3,7 +3,10 @@
 
 Builds the full-width Checkers stage-2 CM3 chunk as ``chip_smoke.py``
 does (n_envs 256, 10 env steps, 8 updates on B=128, fused optimizer)
-and reports:
+or, with ``--seeds S``, the chunk of S seeds in lockstep of
+``cm3_tpu_torch.bench.train_program`` (``train_env_steps_per_s``'s
+program at S = 16: 256 envs per seed, the optax optimizer unless
+``--fused``), and reports:
 
   * host-clock split of a chunk into its env steps (with replay adds
     and auto-resets) and its updates, each ended by a synchronize,
@@ -18,7 +21,7 @@ and reports:
 Run from the root of a checkout on a machine with a CUDA device:
 
     python3 scripts/torch_chunk_profile.py [--chunks 10] [--traced 3]
-        [--out PATH.json]
+        [--seeds S [--fused]] [--out PATH.json]
 """
 
 import argparse
@@ -37,6 +40,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--chunks", type=int, default=10)
     ap.add_argument("--traced", type=int, default=3)
+    ap.add_argument("--seeds", type=int, default=None)
+    ap.add_argument("--fused", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -50,16 +55,23 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = chip_smoke.smi_line()
-    driver, ts, buf, rs = chip_smoke.build(dev)
-    draws = prng.GeneratorDraws(prng.generator(1, dev))
-    eps = chip_smoke.EPSILON
+    if args.seeds is None:
+        driver, ts, buf, rs = chip_smoke.build(dev)
+        draws = prng.GeneratorDraws(prng.generator(1, dev))
+        eps = chip_smoke.EPSILON
+    else:
+        from cm3_tpu_torch import bench
+        driver, ts, buf, rs, draws = bench.train_program(
+            args.seeds, chip_smoke.N_ENVS, args.fused, dev)
+        eps = torch.full((args.seeds,), chip_smoke.EPSILON, device=dev)
     for _ in range(2):
         ts, buf, rs, _ = driver._chunk(ts, buf, rs, eps, draws, False, True)
     ts, buf, rs, _ = driver._chunk(ts, buf, rs, eps, draws, True, False)
     torch.cuda.synchronize()
 
     cfg = driver.cfg
-    shape = (cfg.batch_size, 2, driver.alg.n_actions)
+    shape = driver.lead[:-1] + (cfg.batch_size, 2, driver.alg.n_actions)
+    instances = cfg.n_envs * (args.seeds or 1)
     env_s, upd_s, chunk_s = [], [], []
     for _ in range(args.chunks):
         t0 = time.perf_counter()
@@ -103,10 +115,12 @@ def main():
     med = statistics.median
     res = {
         "card": card,
+        "seeds": args.seeds,
+        "optimizer": "fused" if driver.alg.cfg.fused_opt else "optax",
         "chunk_ms": med(chunk_s) * 1e3,
         "env_steps_ms": med(env_s) * 1e3,
         "updates_ms": med(upd_s) * 1e3,
-        "env_steps_per_s": cfg.n_envs * cfg.steps_per_train / med(chunk_s),
+        "env_steps_per_s": instances * cfg.steps_per_train / med(chunk_s),
         "traced_chunks": args.traced,
         "traced_wall_ms_per_chunk": wall * 1e3 / args.traced,
         "device_ms_per_chunk": dev_us * 1e-3 / args.traced,
@@ -119,7 +133,8 @@ def main():
                          k[1] / args.traced, "device_us_per_chunk":
                          k[2] / args.traced} for k in kernels[:12]],
     }
-    print(f"card: {card}")
+    print(f"card: {card}; {args.seeds or 1} seed(s) x {cfg.n_envs} envs, "
+          f"{res['optimizer']} optimizer")
     print(f"chunk {res['chunk_ms']:.2f} ms = env steps "
           f"{res['env_steps_ms']:.2f} ms + updates {res['updates_ms']:.2f} ms "
           f"(medians of {args.chunks}); {res['env_steps_per_s']:.0f} "

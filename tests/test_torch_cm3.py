@@ -144,8 +144,7 @@ def test_init_state():
 
 
 @pytest.mark.parametrize("bad", [dict(grad_clip=10.0),
-                                 dict(actor_lr_anneal_updates=100),
-                                 dict(fused_opt=False)])
+                                 dict(actor_lr_anneal_updates=100)])
 def test_rejects_what_the_fused_path_cannot_do(bad):
     kw = dict(n_agents=2, stage=2, fused_opt=True)
     kw.update(bad)

@@ -1,9 +1,13 @@
 """Tests of the port that need the card (marker ``cuda``): the CUDA C++
-kernels (``adam_polyak``, ``polyak``, the Checkers, particle and roadway
-rollouts) against their plain versions, the
+kernels (``adam_polyak``, also over seed-stacked [S, n] buffers,
+``polyak``, the Checkers, particle and roadway rollouts) against their
+plain versions, the
 particle kernel's squared-distance thresholds under CUDA's math, the
-kernels' builds, and a small training chunk on the card against the same
-chunk on the CPU, also under PyTorch's default TF32 flags.  They import
+kernels' builds, a small training chunk on the card against the same
+chunk on the CPU, also under PyTorch's default TF32 flags, and the
+seed-batched chunk (three seeds, stage 2 and stage 1, optax and fused)
+on the card against the CPU, with the fused update's two launches per
+update at 16 seeds.  They import
 neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,7 +21,8 @@ import pytest
 import torch
 
 from cm3_tpu_torch.algs import common
-from cm3_tpu_torch.core.config import (CheckersEnvConfig, ParticleEnvConfig,
+from cm3_tpu_torch.core.config import (CheckersEnvConfig, NNConfig,
+                                       ParticleEnvConfig,
                                        RoadwayEnvConfig)
 from cm3_tpu_torch.envs import checkers_packed as cp
 from cm3_tpu_torch.ops import _nvcc
@@ -256,6 +261,130 @@ def test_small_chunk_in_full_float32_under_default_flags(cuda_device):
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
     _hold_chunks(*out)
+
+
+def _seeded_chunks(cuda_device, n_agents, fused, s=3, e=8, b=16, u=3):
+    """A fill and a training chunk of ``s`` seeds in lockstep at small
+    width on the card and on the CPU, from the same parameters with the
+    same fed draws: each device's CM3 state, replay and rollout, and the
+    kernel's launches on each."""
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.envs.checkers import Checkers
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
+
+    rng = np.random.default_rng(n_agents)
+    goals = lambda: [rng.integers(0, 2, (s, e))] if n_agents == 1 else []
+    fill, act = [], []
+    start = goals()
+    for _ in range(10):
+        fill += [rng.integers(0, 5, (s, e, n_agents))] + goals()
+        act.append(rng.gumbel(size=(s, e, n_agents, 5)).astype(np.float32))
+    train = sum((goals() for _ in range(10)), [])
+    idx = [rng.integers(0, 20 * e, (s, b)) for _ in range(u)]
+    upd = [rng.gumbel(size=(s, b, n_agents, 5)).astype(np.float32)
+           for _ in range(u)]
+    nn = config.NNConfig(Q_conv_f=2, Q_n_h1_1=16, Q_n_h1_2=8, Q_n_h2=16,
+                         A_conv_f=2, A_n_h1=16, A_n_h2=12)
+    eps = torch.tensor([0.1, 0.2, 0.3] * s)[:s]
+    kw = dict(n_agents=1, agents_r=(0,), agents_c=(8,)) if n_agents == 1 \
+        else dict(n_agents=2)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        env = Checkers(config.CheckersEnvConfig(max_steps=7, **kw),
+                       device=dev)
+        alg = CM3("checkers", env.spec(),
+                  config.AlgConfig(n_agents=n_agents, stage=min(n_agents, 2),
+                                   fused_opt=fused), nn, device=dev,
+                  n_seeds=s)
+        cfg = config.TrainConfig(n_envs=e, batch_size=b, buffer_size=512,
+                                 updates_per_chunk=u, episode_log=16)
+        drv = OffPolicyDriver(make_hooks("checkers", env), alg, cfg)
+        rs = init_rollout(drv.hooks, e, prng.FedDraws(start, device=dev), 16,
+                          n_seeds=s)
+        ts = alg.init_state(list(range(s)))
+        buf = drv._replay_init(drv.example_transition(rs))
+        draws = prng.FedDraws(fill + train + idx, act + upd, device=dev)
+        before = fused_opt.adam_polyak.launches
+        ts, buf, rs, _ = drv._chunk(ts, buf, rs, eps, draws, False, True)
+        ts, buf, rs, m = drv._chunk(ts, buf, rs, eps, draws, True, False)
+        assert draws.remaining() == {"randint": 0, "gumbel": 0}
+        out[dev.type] = (ts, buf, rs, m,
+                         fused_opt.adam_polyak.launches - before)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_agents,fused", [(2, False), (1, False), (2, True),
+                                            (1, True)])
+def test_seed_batched_chunk_on_card_matches_cpu(cuda_device, n_agents, fused):
+    """Three seeds in lockstep, stage 2 and stage 1, optax and fused: the
+    card equals the CPU after a fill and a training chunk at rtol 1e-4,
+    atol 1e-5 (float32 sums in other orders through 3 Adam steps); the
+    fused path launches the kernel twice per update on the card, for
+    any number of seeds, and never on the CPU."""
+    from cm3_tpu_torch.core.tree import tree_leaves
+    out = _seeded_chunks(cuda_device, n_agents, fused)
+    (ts_c, buf_c, rs_c, m_c, n_c), (ts_h, buf_h, rs_h, m_h, n_h) = \
+        out["cuda"], out["cpu"]
+    assert (n_c, n_h) == ((2 * 3, 0) if fused else (0, 0))
+    names = ("actor", "actor_tgt", "qg", "qg_tgt") + (
+        ("qc", "qc_tgt") if n_agents > 1 else ())
+    for name in names:
+        torch.testing.assert_close(getattr(ts_c, name).flat.cpu(),
+                                   getattr(ts_h, name).flat, rtol=1e-4,
+                                   atol=1e-5)
+    for (path, x), (_, y) in zip(tree_leaves(buf_c.data),
+                                 tree_leaves(buf_h.data)):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-5)
+    for name in ("episodes", "eplog", "eplog_ep", "acc_ret_local"):
+        torch.testing.assert_close(getattr(rs_c, name).cpu(),
+                                   getattr(rs_h, name), rtol=1e-4, atol=1e-5)
+    for k in m_h:
+        torch.testing.assert_close(m_c[k].cpu(), m_h[k], rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n", [(3, 1000), (16, 149645), (16, 289450)])
+def test_adam_polyak_over_seed_segments_matches_plain(cuda_device, s, n):
+    """B1 over [S, n] buffers (one segment of S x n floats, as the fused
+    seed-batched update hands it each network) against the plain version
+    over the same buffers, 5 steps, bit for bit (rtol 0, atol 0)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+    mk = lambda: torch.randn((s, n), device=cuda_device, generator=gen)
+    p, t, mu, nu = mk(), mk(), mk() * 1e-3, mk().square() * 1e-3
+    st = common.AdamState(mu, nu, count=3)
+    rp, rt, rst = p.clone(), t.clone(), common.AdamState(mu.clone(),
+                                                         nu.clone(), 3)
+    before = fused_opt.adam_polyak.launches
+    for _ in range(5):
+        g = mk() * 1e-3
+        fused_opt.adam_polyak_many([(st, p, t, g, 1e-3)], 0.01)
+        fused_opt.adam_polyak_plain(rp, rt, rst.mu, rst.nu, g,
+                                    *fused_opt.bias_corrections(rst.count),
+                                    1e-3, 0.01)
+        rst.count += 1
+    torch.cuda.synchronize()
+    assert fused_opt.adam_polyak.launches - before == 5
+    for got, want in ((p, rp), (t, rt), (st.mu, rst.mu), (st.nu, rst.nu)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_two_launches_per_update_at_16_seeds(cuda_device):
+    """The fused update of 16 seeds in lockstep launches the kernel twice
+    (the actor; both critics as one segment each), like one seed's."""
+    from cm3_tpu_torch import bench
+    nn = NNConfig(Q_conv_f=2, Q_n_h1_1=16, Q_n_h1_2=8, Q_n_h2=16,
+                  A_conv_f=2, A_n_h1=16, A_n_h2=12)
+    program = list(bench.train_program(16, 8, True, cuda_device, nn))
+    bench.train_blocks(program, 0, 0, warmup=1)
+    before = fused_opt.adam_polyak.launches
+    bench.train_blocks(program, 2, 1, warmup=0)
+    assert fused_opt.adam_polyak.launches - before == 2 * 2 * 8
+    assert program[1].actor.flat.shape[0] == 16
 
 
 def _spec(case):

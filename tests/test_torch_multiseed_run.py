@@ -1,0 +1,130 @@
+"""Seeds in lockstep, the run: ``train_vmapped_seeds``' period rows
+against the JAX package's on a tiny stage-1 run, ``convert.state_from_jax``
+of a seed-stacked JAX state, and the ``train_env_steps_per_s`` bench's
+control flow (its figure only on the card)."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from cm3_tpu.core import config as jcfg
+from cm3_tpu.train import multiseed as jmultiseed
+from cm3_tpu.train.experiments import make_hooks as jax_hooks
+from cm3_tpu.train.offpolicy import init_rollout as jax_init_rollout
+from cm3_tpu_torch import bench, convert
+from cm3_tpu_torch.core import config as tcfg
+from cm3_tpu_torch.train import multiseed
+from cm3_tpu_torch.train.experiments import make_hooks
+from tests import torch_parity as tp
+
+tp.set_torch_cpu()
+
+S = 3
+NETS = ("actor", "actor_tgt", "qg", "qg_tgt", "qc", "qc_tgt")
+
+
+def test_state_from_jax_loads_seed_stacks():
+    """A JAX state of S seeds (every leaf with a leading seed axis) lands
+    row by row in the port's [S, n] buffers: seed s's row equals the
+    one-seed conversion of JAX's seed s."""
+    je, _ = tp.envs()
+    ja, ta = tp.algs(je.spec(), n_seeds=S, fused_opt=False, grad_clip=1.0)
+    _, ta1 = tp.algs(je.spec(), fused_opt=False, grad_clip=1.0)
+    rs = jax_init_rollout(jax_hooks("checkers", je), jax.random.PRNGKey(0),
+                          2)
+    jts = jax.tree_util.tree_map(lambda *xs: np.stack(xs), *[
+        jax.device_get(ja.init_state(k, rs.obs, rs.state, rs.goals))
+        for k in jax.random.split(jax.random.PRNGKey(3), S)])
+    st = convert.state_from_jax(ta, jts)
+    for s in range(S):
+        one = convert.state_from_jax(
+            ta1, jax.tree_util.tree_map(lambda x: x[s], jts))
+        for name in NETS:
+            assert torch.equal(getattr(st, name).flat[s],
+                               getattr(one, name).flat)
+        assert not torch.equal(st.actor.flat[s], st.actor.flat[(s + 1) % S])
+
+
+def test_train_vmapped_seeds_rows_match_jax():
+    """A tiny stage-1 run of ``train_vmapped_seeds`` in both packages:
+    the same period rows (keys, shapes, episode counts, epsilons); the
+    port's returns are finite."""
+    je, te = tp.envs(max_steps=5, n_agents=1)
+    ja, ta = tp.algs(je.spec(), fused_opt=False)
+    kw = dict(n_envs=4, buffer_size=64, batch_size=8, steps_per_train=5,
+              updates_per_chunk=2, pretrain_episodes=4, period=8,
+              N_train=16, N_eval=3, max_steps=5, episode_log=8)
+    _, jh = jmultiseed.train_vmapped_seeds(
+        jax_hooks("checkers", je), ja, jcfg.TrainConfig(**kw), 2, 7)
+    ts, th = multiseed.train_vmapped_seeds(
+        make_hooks("checkers", te), ta, tcfg.TrainConfig(**kw), 2, 7)
+    assert ts.actor.flat.shape[0] == 2 and ts.qc is None
+    assert len(th) == len(jh) == 2
+    for j, t in zip(jh, th):
+        assert set(t) == set(j)
+        for k in j:
+            if k in ("duration_s", "_episodes"):
+                continue
+            assert np.shape(t[k]) == np.shape(j[k]), k
+            assert np.isfinite(t[k]).all(), k
+        np.testing.assert_array_equal(t["episode"], j["episode"])
+        np.testing.assert_allclose(t["epsilon"], j["epsilon"])
+        assert len(t["_episodes"]) == len(j["_episodes"]) == 2
+        for (ti, tr), (ji, jr) in zip(t["_episodes"], j["_episodes"]):
+            np.testing.assert_array_equal(ti, ji)
+            assert tr.shape == jr.shape
+
+
+
+SMALL = tcfg.NNConfig(Q_conv_f=2, Q_n_h1_1=8, Q_n_h1_2=4, Q_n_h2=8,
+                      A_conv_f=2, A_n_h1=8, A_n_h2=8)
+
+
+def test_train_bench_runs_small_on_cpu():
+    """The headline program's blocks at a tiny size: (median, lo, hi) of
+    the blocks' env-steps/s, and the one-seed program through
+    ``train_blocks``."""
+    med, lo, hi = bench.bench_train_multiseed(
+        n_seeds=2, n_envs=4, reps=1, blocks=3, device="cpu", nn_cfg=SMALL)
+    assert 0 < lo <= med <= hi
+    one = list(bench.train_program(None, 4, True, "cpu", SMALL))
+    assert len(bench.train_blocks(one, 1, 2, warmup=1)) == 2
+    assert one[1].step == 3 * 8
+
+
+def test_train_bench_cli_refuses_without_cuda(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench.main(["--one", "train_env_steps_per_s"]) == 1
+    assert capsys.readouterr().out == ""
+
+
+def _small_stage1():
+    _, te = tp.envs(max_steps=5, n_agents=1)
+    _, ta = tp.algs(te.spec(), fused_opt=False)
+    return make_hooks("checkers", te), ta
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("dual_buffer", True, "A13"), ("replay_shards", 2, "A14"),
+    ("summarize", True, "A15")])
+def test_driver_refuses_what_is_not_ported(field, value, item):
+    """The JAX options the port does not run yet are refused, naming
+    their ROADMAP item; so is the K-chunk schedule in ``run``."""
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
+    hooks, ta = _small_stage1()
+    with pytest.raises(NotImplementedError, match=item):
+        OffPolicyDriver(hooks, ta, tcfg.TrainConfig(**{field: value}))
+    driver = OffPolicyDriver(hooks, ta, tcfg.TrainConfig(chunks_per_sync=4))
+    with pytest.raises(NotImplementedError, match="A6b"):
+        driver.run(ta.init_state(0))
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(mesh=object()), "A14"), (dict(onpolicy=True), "A13"),
+    (dict(resume=(None, np.zeros(2))), "A8")])
+def test_train_vmapped_seeds_refuses_what_is_not_ported(kw, item):
+    hooks, ta = _small_stage1()
+    with pytest.raises(NotImplementedError, match=item):
+        multiseed.train_vmapped_seeds(hooks, ta, tcfg.TrainConfig(), 2, 0,
+                                      **kw)

@@ -25,20 +25,38 @@ def set_torch_cpu():
     torch.set_num_threads(1)
 
 
-def envs(max_steps=50):
-    j = JaxCheckers(jcfg.CheckersEnvConfig(n_agents=2, max_steps=max_steps))
-    t = TorchCheckers(tcfg.CheckersEnvConfig(n_agents=2, max_steps=max_steps),
-                      device="cpu")
+def envs(max_steps=50, n_agents=2):
+    """The JAX and the port's Checkers engines; stage 2 (two agents at
+    the stage-2 start cells) or stage 1 (one agent, start row by
+    goal)."""
+    kw = dict(n_agents=n_agents, max_steps=max_steps)
+    if n_agents == 1:
+        kw.update(agents_r=(0,), agents_c=(8,))
+    j = JaxCheckers(jcfg.CheckersEnvConfig(**kw))
+    t = TorchCheckers(tcfg.CheckersEnvConfig(**kw), device="cpu")
     return j, t
 
 
-def algs(spec, **alg):
-    kw = dict(n_agents=2, stage=2, fused_opt=True, **alg)
+def algs(spec, n_seeds=None, **alg):
+    """The JAX and the port's CM3 for the engines' spec, at SMALL_NN
+    widths; stage 2 for two agents, stage 1 for one."""
+    n = spec["n_agents"]
+    kw = dict(n_agents=n, stage=2 if n > 1 else 1, fused_opt=True)
+    kw.update(alg)
     j = JaxCM3("checkers", spec, jcfg.AlgConfig(**kw),
                jcfg.NNConfig(**SMALL_NN))
     t = TorchCM3("checkers", spec, tcfg.AlgConfig(**kw),
-                 tcfg.NNConfig(**SMALL_NN), device="cpu")
+                 tcfg.NNConfig(**SMALL_NN), device="cpu", n_seeds=n_seeds)
     return j, t
+
+
+def goal_draws(key, n):
+    """The goal indices that ``CheckersHooks.episode_init`` draws for n
+    single-agent instances from ``key`` (``prng.split_batch``, then the
+    first half of each instance key's split), [n] in [0, 2)."""
+    keys = jax.vmap(lambda i: jax.random.fold_in(key, i))(jnp.arange(n))
+    return np.asarray(jax.vmap(lambda k: jax.random.randint(
+        jax.random.split(k)[0], (), 0, 2))(keys))
 
 
 def to_torch(tree):
@@ -56,17 +74,20 @@ def chunk_draws(key, n_envs, n_agents, n_actions, steps, random_actions,
                 n_updates=0, batch=0, sizes=()):
     """The draws ``OffPolicyDriver._chunk`` makes from ``key``
     (offpolicy.py:242-248,369-371), as (randints, gumbels) in the order
-    the port's driver asks for them.  ``sizes`` is the replay fill seen
-    by each update (jax.random.randint's bound)."""
+    the port's driver asks for them; for one agent, each step's
+    auto-reset goals too.  ``sizes`` is the replay fill seen by each
+    update (jax.random.randint's bound)."""
     randints, gumbels = [], []
     for k in jax.random.split(key, steps):
-        k_act, k_rand, _ = jax.random.split(k, 3)
+        k_act, k_rand, k_reset = jax.random.split(k, 3)
         if random_actions:
             randints.append(np.asarray(jax.random.randint(
                 k_rand, (n_envs, n_agents), 0, n_actions)))
         else:
             gumbels.append(np.asarray(jax.random.gumbel(
                 k_act, (n_envs, n_agents, n_actions))))
+        if n_agents == 1:
+            randints.append(goal_draws(k_reset, n_envs))
     ks = jax.random.split(jax.random.fold_in(key, 7), n_updates)
     for k, size in zip(ks, sizes):
         k_sample, k_update = jax.random.split(k)
@@ -75,3 +96,65 @@ def chunk_draws(key, n_envs, n_agents, n_actions, steps, random_actions,
         gumbels.append(np.asarray(jax.random.gumbel(
             k_update, (batch, n_agents, n_actions))))
     return randints, gumbels
+
+
+def eval_draws(key, n_eval, n_agents, n_actions, max_steps):
+    """The draws ``OffPolicyDriver.evaluate`` makes from ``key``
+    (offpolicy.py:389-432): (randints, gumbels) - the goals (one agent),
+    then a sample's Gumbel noise per step."""
+    randints = [goal_draws(key, n_eval)] if n_agents == 1 else []
+    gumbels = [np.asarray(jax.random.gumbel(k, (n_eval, n_agents,
+                                                 n_actions)))
+               for k in jax.random.split(key, max_steps)]
+    return randints, gumbels
+
+
+def stack_draws(per_seed):
+    """Per-seed (randints, gumbels) lists of equal structure -> the
+    seed-stacked draws a driver of S seeds asks for, [S, ...] each."""
+    return tuple([np.stack(xs) for xs in zip(*(d[i] for d in per_seed))]
+                 for i in range(2))
+
+
+def replay_batch(env, b, rng):
+    """A replay-like batch of b real Checkers transitions of ``env``
+    (JAX): random goals for one agent, identity goals for more, noisy
+    local rewards and some terminal rows."""
+    n = env.cfg.n_agents
+    if n == 1:
+        goals = jnp.asarray(np.eye(2, dtype=np.float32)[
+            rng.integers(0, 2, b)][:, None])
+    else:
+        goals = jnp.tile(jnp.eye(n, 2)[None], (b, 1, 1))
+    s, ts = jax.vmap(env.reset)(jax.random.split(jax.random.PRNGKey(0), b),
+                                goals)
+    for _ in range(3):
+        s, ts = jax.vmap(env.step)(
+            s, jnp.asarray(rng.integers(0, 5, (b, n)), jnp.int32))
+    a = jnp.asarray(rng.integers(0, 5, (b, n)), jnp.int32)
+    _, ts2 = jax.vmap(env.step)(s, a)
+    return {"obs": ts.obs, "state": ts.state, "a": a,
+            "a_prev": jnp.asarray(rng.integers(0, 5, (b, n)), jnp.int32),
+            "r": ts2.reward,
+            "rl": ts2.reward_local + jnp.asarray(rng.normal(size=(b, n)),
+                                                 jnp.float32),
+            "obs_next": ts2.obs, "state_next": ts2.state,
+            "done": jnp.asarray(rng.random(b) < 0.3), "goals": goals}
+
+
+def hold_states(got, want, nets, atol_nu=1e-9, rtol=1e-5, atol=1e-6):
+    """Two port CM3 states equal at the parity tolerance: every network
+    of ``nets`` and its target, and each Adam state's moments and
+    count."""
+    for name in nets:
+        for suffix in ("", "_tgt"):
+            np.testing.assert_allclose(
+                getattr(got, name + suffix).flat.numpy(),
+                getattr(want, name + suffix).flat.numpy(), rtol=rtol,
+                atol=atol, err_msg=name + suffix)
+        g, w = getattr(got, "opt_" + name), getattr(want, "opt_" + name)
+        assert g.count == w.count, name
+        np.testing.assert_allclose(g.mu.numpy(), w.mu.numpy(), rtol=rtol,
+                                   atol=atol, err_msg=name + ".mu")
+        np.testing.assert_allclose(g.nu.numpy(), w.nu.numpy(), rtol=rtol,
+                                   atol=atol_nu, err_msg=name + ".nu")
