@@ -4,9 +4,10 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Nine phases, each between progress lines with its elapsed seconds and
-held to a time budget (120 + 60 + 60 + 80 + 240 + 30 + 200 + 150 + 150 s
-= 1090 s):
+Ten phases, each between progress lines with its elapsed seconds and
+held to a time budget (120 + 60 + 60 + 80 + 90 + 30 + 100 + 150 + 150 +
+200 s = 1040 s; phases 4 and 6 at about twice their longest times on an
+H100, 40.8 and 46.4 s):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -95,10 +96,36 @@ held to a time budget (120 + 60 + 60 + 80 + 240 + 30 + 200 + 150 + 150 s
    read just after (2 per update, 16 per chunk, for all 16 seeds); and
    ``train_vmapped_seeds`` on stage 1 (one agent, 3 seeds x 256 envs)
    through two period rows, with finite evaluation returns.
+9. the curriculum through the runner (``cm3_tpu_torch.train.runner``),
+   in a temporary workdir, at the full widths of
+   ``checkers_stage1.json`` and ``checkers_stage2.json``, with
+   ``master.json`` and the paper's ``checkers_s1`` / ``checkers_s2`` /
+   ``checkers_s2_V`` settings (16 envs, N_eval 10, a period of 100
+   episodes); the episode budgets are cut to fit the phase's time
+   (``CURR_*`` below; the paper's runs are 50,000 episodes): stage 1
+   (optax) through ``train_function``, with its logs and
+   ``model_final``, and the same program through
+   ``OffPolicyDriver.run`` alone, in turns (the runner's overhead);
+   stage 2 from it (``train_from_nothing`` 0, fused optimizer, the
+   actor frozen for its first 20 updates), its grafted start state held
+   on the card
+   first (shared leaves equal stage 1's bit for bit, Q_credit's equal
+   Q_global's, targets equal mains), then trained with the Adam +
+   Polyak and the Polyak kernels' launch counts set to 0 just before
+   and read just after (the Polyak kernel once per frozen update); the
+   autosave's bytes and seconds and a period's CSV writes, timed alone;
+   stage 2 resumed with ``auto_resume`` to a larger budget, starting
+   at the autosave's episode count; three seeds in lockstep
+   (``vmapped_seeds``) with the graft into every seed, held first; the
+   V ablation for two periods; and one ``python -m
+   cm3_tpu_torch.train.runner`` process, which must exit 0 with period
+   rows.  Episodes per second and the wall time of each run.
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
-mean of the main path's two launches), the card's name and power limit,
+mean of the main path's two launches; B1's ``launches`` are phase 2's,
+B3's phase 9's, its training path: the actor freeze on the fused path),
+the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside it, it
 exits non-zero and prints no result.  Writes nothing into the checkout
@@ -191,6 +218,15 @@ SEEDS, BLOCKS, BLOCK_CHUNKS = 16, 5, 10
 # stage 1 through train_vmapped_seeds: 3 seeds x 256 envs, episodes of
 # at most 33 steps, a period row at 100 episodes and every 100 after
 STAGE1_SEEDS, STAGE1_EPISODES = 3, 500
+# the curriculum through the runner (phase 9): the paper's checkers_s1 /
+# checkers_s2 / checkers_s2_V cells (16 envs, N_eval 10, a period of 100
+# episodes) with episode budgets cut to the phase's time: stage 1 400
+# episodes (the runner alone, then OffPolicyDriver.run alone), stage 2
+# 300 with the actor frozen for its first 20 updates, the resume to 500,
+# 3 seeds in lockstep 200 each, the V ablation 200, the CLI 100
+CURR_ENVS, CURR_N_EVAL = 16, 10
+CURR_S1, CURR_S2, CURR_RESUME, CURR_SEEDS, CURR_SEEDED = 400, 300, 500, 3, 200
+CURR_V, CURR_CLI, CURR_FREEZE = 200, 100, 20
 
 T0 = time.time()
 
@@ -855,6 +891,222 @@ def phase_seeded(dev):
 
 
 # ------------------------------------------------------------------ #
+# the curriculum through the runner
+# ------------------------------------------------------------------ #
+
+
+def _curriculum_masters():
+    """master.json with the paper's checkers_s1 / checkers_s2 /
+    checkers_s2_V settings (scripts/reproduce_paper.py:153-161,
+    448-452) at their period of 100 episodes."""
+    from cm3_tpu_torch.core import config
+    m = config.load_json("master.json")
+    m.update(experiment="checkers", n_envs=CURR_ENVS, N_eval=CURR_N_EVAL,
+             period=100)
+    s1 = dict(m, stage=1, dir_name="ck_s1", N_train=CURR_S1)
+    s2 = dict(m, stage=2, dir_name="ck_s2", dir_restore="ck_s1",
+              train_from_nothing=0, N_train=CURR_S2, fused_opt=1,
+              actor_freeze_updates=CURR_FREEZE)
+    s2v = dict(m, stage=2, dir_name="ck_s2V", dir_restore="ck_s1",
+               train_from_nothing=0, N_train=CURR_V, use_Q_credit=0,
+               use_V=1)
+    return s1, s2, s2v
+
+
+def _rows(wd, d):
+    with open(os.path.join(wd, "log", d, "log_century.csv")) as f:
+        return f.read().strip().splitlines()[1:]
+
+
+def _hold_graft(st, s1):
+    """The shared leaves of the grafted actor and Q_global equal stage
+    1's bit for bit, Q_credit's equal Q_global's, targets equal mains."""
+    import torch
+    from cm3_tpu_torch.train import checkpoint
+    n = 0
+    for net, src in ((st.actor, s1.actor), (st.qg, s1.qg), (st.qc, st.qg)):
+        views = checkpoint.named_views(src)
+        for name, v in checkpoint.named_views(net).items():
+            if "stage2" not in name.split("."):
+                assert torch.equal(v, views[name]), name
+                n += v.numel()
+    for name in ("actor", "qg", "qc"):
+        assert torch.equal(getattr(st, name).flat,
+                           getattr(st, name + "_tgt").flat), name
+    return n
+
+
+def _timed_run(what, fn, episodes_from=0):
+    t0 = time.time()
+    out = fn()
+    wall = time.time() - t0
+    stats = out[1]
+    done = (stats["episodes"] if isinstance(stats, dict)
+            else int(stats[-1]["episode"].sum()))
+    rate = (done - episodes_from) / wall
+    log(f"  {what}: {done} episodes in {wall:.2f} s, {rate:.1f} episodes/s")
+    return out, wall
+
+
+def phase_curriculum(dev):
+    import tempfile
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.core import prng
+    from cm3_tpu_torch.ops import fused_opt, polyak
+    from cm3_tpu_torch.train import checkpoint, runner
+    from cm3_tpu_torch.train.logging import CSVLogger
+
+    s1, s2, s2v = _curriculum_masters()
+    with tempfile.TemporaryDirectory() as wd:
+        # 1. stage 1 (optax) through the runner and through
+        # OffPolicyDriver.run alone, the same program from the same seed,
+        # in turns: runner, driver, driver, runner (the last run's files
+        # are the ones stage 2 restores)
+        def alone():
+            driver, _, _, _, ts = runner.initial_state(s1, wd, dev)
+            return driver.run(ts, prng.root_key(s1["seed"]),
+                              n_episodes=CURR_S1)
+
+        walls = {"runner": [], "driver": []}
+        for who in ("runner", "driver", "driver", "runner"):
+            (ts1, st1), wall = _timed_run(
+                f"stage 1 through {'train_function' if who == 'runner' else 'OffPolicyDriver.run alone'}",
+                (lambda: runner.train_function(s1, wd, verbose=False,
+                                               device=dev))
+                if who == "runner" else alone)
+            walls[who].append(wall)
+        rows1 = _rows(wd, "ck_s1")
+        assert len(rows1) == len(st1["history"]) >= 1
+        for f in ("log_century.csv", "log.csv", "metrics.jsonl"):
+            assert os.path.isfile(os.path.join(wd, "log", "ck_s1", f)), f
+        assert checkpoint.exists(os.path.join(wd, "saved", "ck_s1",
+                                              "model_final"))
+        periods = len(st1["history"])
+        wall1, wall_d = sum(walls["runner"]) / 2, sum(walls["driver"]) / 2
+        log(f"  stage 1: {ts1.step} updates, {st1['episodes']} episodes, "
+            f"{len(st1['history'])} period rows")
+        log(f"  the runner's overhead: {wall1 - wall_d:.3f} s a run of "
+            f"{periods} periods (means of 2 in turns: {wall1:.2f} against "
+            f"{wall_d:.2f} s), {(wall1 - wall_d) / periods:.3f} s a period "
+            "(build, logs, autosave)")
+
+        # 2. stage 2 grafted from stage 1: the grafted state held first
+        _, alg2, _, _, g = runner.initial_state(s2, wd, dev)
+        shared = _hold_graft(g, ts1)
+        log(f"  graft: {shared} shared floats equal stage 1's bit for bit, "
+            "Q_credit's shared leaves equal Q_global's, targets equal "
+            "mains (on the card)")
+        torch.cuda.synchronize()
+        fused_opt.adam_polyak.launches = 0
+        polyak.polyak_update.launches = 0
+        (ts2, st2), _ = _timed_run(
+            "stage 2 (fused, the actor frozen for its first "
+            f"{CURR_FREEZE} updates), train_function",
+            lambda: runner.train_function(s2, wd, verbose=False,
+                                          device=dev))
+        b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
+        frozen = min(CURR_FREEZE, ts2.step)
+        log(f"  stage 2: {ts2.step} updates; adam_polyak {b1} launches, "
+            f"polyak {b3} launches ({frozen} frozen updates)")
+        assert b1 == 2 * ts2.step - frozen and b1 > 0, b1
+        assert b3 == frozen > 0, b3
+        for name in ("actor", "qg", "qc"):
+            assert torch.isfinite(getattr(ts2, name).flat).all(), name
+
+        # the autosave and a period's CSV writes, timed alone
+        path = os.path.join(wd, "autosave_timing")
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(path, {"ts": ts2, "episodes": st2["episodes"]})
+            times.append(time.perf_counter() - t0)
+        size = os.path.getsize(os.path.join(path, checkpoint.FILE))
+        row = dict(st2["history"][-1])
+        eps = row.pop("_episodes", None)
+        logger = CSVLogger(os.path.join(wd, "log", "timing"), 2)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            if eps is not None:
+                logger.log_episodes(*eps)
+            logger.log_period(row)
+        csv_s = (time.perf_counter() - t0) / 20
+        log(f"  stage-2 autosave: {size} bytes, "
+            f"{statistics.median(times):.4f} s (median of 5; "
+            f"{min(times):.4f}-{max(times):.4f}); a period's CSV and JSONL "
+            f"writes ({0 if eps is None else len(eps[0])} episode rows): "
+            f"{csv_s * 1e3:.3f} ms")
+
+        # 3. the same stage 2 resumed from its autosave, to a larger budget
+        auto = os.path.join(wd, "saved", "ck_s2", "model_autosave")
+        start = checkpoint.restore(auto, {"ts": alg2.empty_state(),
+                                          "episodes": 0})["episodes"]
+        before = len(_rows(wd, "ck_s2"))
+        (ts3, st3), _ = _timed_run(
+            f"stage 2 resumed from its autosave at episode {start}",
+            lambda: runner.train_function(
+                dict(s2, auto_resume=1, require_resume=1,
+                     N_train=CURR_RESUME), wd, verbose=False, device=dev),
+            start)
+        first = st3["history"][0]["episode"]
+        assert first // 100 > start // 100 and st3["episodes"] >= CURR_RESUME
+        assert len(_rows(wd, "ck_s2")) == before + len(st3["history"])
+        log(f"  resume: started at episode {start} (the autosave's), first "
+            f"period row at {first}, {ts3.step - ts2.step} more updates")
+
+        # 4. three seeds in lockstep, the stage-2 graft into every seed
+        sv = dict(s2, dir_name="ck_s2_seeds", vmapped_seeds=1,
+                  n_seeds=CURR_SEEDS, N_train=CURR_SEEDED)
+        _, alg1, _, _ = runner.build(sv, device=dev)
+        stack = runner.vmapped_resume(sv, wd, alg1, alg1.for_seeds(
+            CURR_SEEDS), dev)[0]
+        for i in range(CURR_SEEDS):
+            _hold_graft(checkpoint.seed_state(alg1, stack, i), ts1)
+        (ts4, hist4), _ = _timed_run(
+            f"{CURR_SEEDS} seeds in lockstep (vmapped_seeds), stage 2 "
+            "grafted into each", lambda: runner.train_multiseed(
+                sv, wd, device=dev))
+        assert (hist4[-1]["episode"] >= CURR_SEEDED).all() and ts4.step > 0
+        assert not torch.equal(ts4.actor.flat[0], ts4.actor.flat[1])
+        for i in range(CURR_SEEDS):
+            assert checkpoint.exists(os.path.join(
+                wd, "saved", f"ck_s2_seeds_{i + 1}", "model_final"))
+            assert len(_rows(wd, f"ck_s2_seeds_{i + 1}")) == len(hist4)
+        log(f"  seeds: all {CURR_SEEDS} grafted, rows "
+            + ", ".join(str(r["episode"].tolist()) for r in hist4))
+
+        # 5. the V ablation (checkers_s2_V), two periods
+        (ts5, st5), _ = _timed_run(
+            "checkers_s2_V (use_Q_credit 0, use_V 1)",
+            lambda: runner.train_function(s2v, wd, verbose=False,
+                                          device=dev))
+        assert ts5.qc is None and ts5.v is not None
+        assert len(st5["history"]) >= 2
+        assert np.isfinite([r["loss_V"] for r in st5["history"]]).all()
+
+        # 6. the CLI in a process of its own
+        cfg = os.path.join(wd, "cli_master.json")
+        with open(cfg, "w") as f:
+            json.dump(dict(s1, dir_name="cli"), f)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cm3_tpu_torch.train.runner", "--config",
+             cfg, "--episodes", str(CURR_CLI), "--workdir", wd],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"),
+            capture_output=True, text=True, timeout=300)
+        wall6 = time.time() - t0
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        rows6 = _rows(wd, "cli")
+        assert rows6, "the CLI wrote no period row"
+        log(f"  CLI: python -m cm3_tpu_torch.train.runner --episodes "
+            f"{CURR_CLI} exited 0 in {wall6:.2f} s with {len(rows6)} period "
+            f"rows; its last: {proc.stdout.strip().splitlines()[-1]}")
+    return b3
+
+
+# ------------------------------------------------------------------ #
 # the CUDA C++ build
 # ------------------------------------------------------------------ #
 
@@ -1337,11 +1589,14 @@ def main():
     kern = run_phase("1 kernel vs plain", 60, phase_kernel, dev)
     launches = run_phase("2 the slice", 60, phase_slice, dev)
     run_phase("3 card vs CPU", 80, phase_parity, dev)
-    rollout = run_phase("4 fused Checkers rollout", 240, phase_rollout, dev)
+    rollout = run_phase("4 fused Checkers rollout", 90, phase_rollout, dev)
     soft = run_phase("5 polyak", 30, phase_polyak, dev)
-    particle = run_phase("6 fused particle rollout", 200, phase_particle, dev)
+    particle = run_phase("6 fused particle rollout", 100, phase_particle,
+                         dev)
     roadway = run_phase("7 fused roadway rollout", 150, phase_roadway, dev)
     run_phase("8 seed-batched training", 150, phase_seeded, dev)
+    frozen = run_phase("9 the curriculum through the runner", 200,
+                       phase_curriculum, dev)
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1358,7 +1613,7 @@ def main():
         dict(name="polyak", route="cuda",
              source="cm3_tpu_torch/csrc/flat_update.cu",
              replaces="cm3_tpu/ops/polyak.py:58",
-             **{k: soft[k] for k in keys}),
+             launches=frozen, **{k: soft[k] for k in keys[1:]}),
         dict(name="particle_rollout", route="cuda",
              source="cm3_tpu_torch/csrc/particle_rollout.cu",
              replaces="cm3_tpu/ops/particle_rollout.py:64",

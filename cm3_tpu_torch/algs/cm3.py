@@ -1,21 +1,33 @@
 """CM3: multi-goal actor-critic with a counterfactual credit function.
 
 Port of ``cm3_tpu.algs.cm3`` for Checkers: stage 2 (n_agents > 1) with
-the Q_credit critic, and stage 1 (n_agents == 1) with the Q_global
-counterfactual.  The update keeps the JAX package's order:
+the Q_credit critic (``use_Q_credit``, the default) or the V(s, g^n)
+ablation critic (``use_V``) or neither, and stage 1 (n_agents == 1)
+with the Q_global counterfactual.  The update keeps the JAX package's
+order:
 
   * target-policy actions a' from the slow target actor with the
     eps-mixed policy, conditioned on the taken action as previous
     action (alg_credit.py:579-583);
-  * the Q_global and (n > 1) Q_credit TD targets from the target
-    critics; one backward pass over the sum of both TD losses (disjoint
-    parameters, so the gradients are those of two passes);
+  * the Q_global, Q_credit and V TD targets from the target critics;
+    one backward pass over the sum of the TD losses (disjoint
+    parameters, so the gradients are those of separate passes);
   * Q_actual for the policy gradient is the PRE-update Q_global
     forward; the counterfactual baseline uses the POST-update Q_credit,
     or for n == 1 the POST-update Q_global over every action
-    (alg_credit.py:720,750; ``cm3.py:538-549``); advantages are
+    (alg_credit.py:720,750; ``cm3.py:538-549``); with V instead of
+    Q_credit the baseline is the POST-update V (``cm3.py:528,550``),
+    with neither the advantage is the summed Q_actual; advantages are
     constants of the policy loss;
-  * each network's Adam step and soft target update.
+  * the opt-in corrections, in JAX's order (``cm3.py:559-608``): the
+    batch standardization of the advantages (``adv_norm``), the clipped
+    importance weight on the stored behavior probability ``bp``
+    (``pg_is_clip``) and the entropy bonus of the pure softmax
+    (``pg_ent_coef``);
+  * each network's Adam step and soft target update; for the first
+    ``actor_freeze_updates`` updates the actor and its Adam state stay
+    as they are and only its target moves, toward the frozen actor
+    (``cm3.py:624-635``).
 
 Two optimizer paths, as in the JAX package (``_opt_step``,
 ``cm3.py:120-143``):
@@ -27,10 +39,15 @@ Two optimizer paths, as in the JAX package (``_opt_step``,
     (``actor_lr_anneal_updates``), then the soft update; one call per
     network, as JAX makes one optax update per network;
   * ``fused_opt=True``: the fused Adam + Polyak kernel
-    (``ops.fused_opt``), the critics (adjacent, one lr) in one launch
-    and the actor in another: two launches per update for n = 2 and
-    for n = 1 alike (the JAX package makes three or two calls).  Like
-    JAX's, it refuses ``grad_clip`` and the anneal.
+    (``ops.fused_opt``), the critics (Q_global, Q_credit, V, each with
+    its lr) in one launch and the actor in another: two launches per
+    update for n = 2 and for n = 1 alike (the JAX package makes one
+    call per network).  Like JAX's, it refuses ``grad_clip`` and the
+    anneal.  While the actor is frozen its launch is left out and the
+    target's soft update is the Polyak kernel (``ops.polyak``): the
+    kernel computes the JAX update's ``common.soft_update`` itself, so
+    the host decides from its step count which of the two runs, where
+    JAX selects with ``jnp.where``.
 
 Seeds in lockstep (``n_seeds=S``).  Each network is a
 ``nets.SeedStack``: one flat [S, n] buffer.  Every step of the update
@@ -54,9 +71,7 @@ time per operation, and the map adds 7% launches;
 
 The update's one random draw, a' (``cm3.py:465``), comes in as Gumbel
 noise, so a test can feed JAX's.  Not ported yet (ROADMAP.md): the
-particle and roadway nets, the V critic, and the opt-in knobs
-``pg_is_clip``, ``pg_ent_coef``, ``adv_norm`` and
-``actor_freeze_updates``; their absence is their default.
+particle and roadway nets (A10b, A11b).
 """
 
 from __future__ import annotations
@@ -73,7 +88,7 @@ from cm3_tpu_torch.algs import common
 from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.core.config import AlgConfig, NNConfig
 from cm3_tpu_torch.models import nets
-from cm3_tpu_torch.ops import fused_opt
+from cm3_tpu_torch.ops import fused_opt, polyak
 
 
 @dataclasses.dataclass
@@ -81,7 +96,9 @@ class CM3State:
     """Each network is an ``nn.Module`` whose parameters are views into
     its flat buffer ``module.flat`` (``nets.flatten_parameters``), or
     with seeds a ``nets.SeedStack``.  ``qc``, ``qc_tgt`` and ``opt_qc``
-    are None for n_agents == 1 (no Q_credit)."""
+    are None without Q_credit (n_agents == 1 or ``use_Q_credit`` off),
+    ``v``, ``v_tgt`` and ``opt_v`` without V (n_agents == 1 or
+    ``use_V`` off).  ``step`` counts updates on the host."""
 
     actor: Any
     actor_tgt: Any
@@ -92,6 +109,9 @@ class CM3State:
     opt_actor: common.AdamState
     opt_qg: common.AdamState
     opt_qc: Optional[common.AdamState]
+    v: Any = None
+    v_tgt: Any = None
+    opt_v: Optional[common.AdamState] = None
     step: int = 0
 
 
@@ -123,7 +143,8 @@ class CM3:
         self.n_agents = alg.n_agents
         self.n_actions = spec["l_action"]
         self.stage = alg.stage
-        self.use_credit = alg.n_agents > 1
+        self.use_credit = alg.n_agents > 1 and alg.use_Q_credit
+        self.use_v = alg.n_agents > 1 and alg.use_V
         self.device = torch.device(device)
         self.n_seeds = n_seeds
         # forward templates for the seed-stacked networks
@@ -155,6 +176,9 @@ class CM3:
             self.spec, conv_f1=c.Q_conv_f, conv_k1=tuple(c.Q_conv_k),
             n_h1_1=c.Q_n_h1_1, n_h1_2=c.Q_n_h1_2, n_h2=c.Q_n_h2,
             stage=self.stage)
+
+    def _v_module(self):
+        return nets.VCheckersAblation(self.spec)
 
     def _template(self, make):
         if make not in self._tmpl:
@@ -202,23 +226,34 @@ class CM3:
             self._pair(self._actor_module, gens(0)),
             self._pair(self._qg_module, gens(1)),
             self._pair(self._qc_module, gens(2)) if self.use_credit
-            else None)
+            else None,
+            self._pair(self._v_module, gens(3)) if self.use_v else None)
 
     def empty_state(self) -> CM3State:
         """A state of the right shapes whose values are to be loaded
-        (``convert.state_from_jax``)."""
+        (``convert.state_from_jax``, ``train.checkpoint.restore``)."""
         return self._state(self._pair(self._actor_module),
                            self._pair(self._qg_module),
                            self._pair(self._qc_module) if self.use_credit
+                           else None,
+                           self._pair(self._v_module) if self.use_v
                            else None)
 
-    def _state(self, actor, qg, qc) -> CM3State:
+    def net_names(self):
+        """The names of the state's networks, in the order of the JAX
+        state's fields: each has ``<name>_tgt`` and ``opt_<name>``."""
+        return (("actor", "qg") + (("qc",) if self.use_credit else ())
+                + (("v",) if self.use_v else ()))
+
+    def _state(self, actor, qg, qc, v) -> CM3State:
+        clipped = bool(self.cfg.grad_clip)
+        adam = lambda net: common.adam_init(net.flat, clipped)
         return CM3State(
             actor=actor[0], actor_tgt=actor[1], qg=qg[0], qg_tgt=qg[1],
             qc=qc and qc[0], qc_tgt=qc and qc[1],
-            opt_actor=common.adam_init(actor[0].flat),
-            opt_qg=common.adam_init(qg[0].flat),
-            opt_qc=qc and common.adam_init(qc[0].flat))
+            opt_actor=adam(actor[0]), opt_qg=adam(qg[0]),
+            opt_qc=qc and adam(qc[0]),
+            v=v and v[0], v_tgt=v and v[1], opt_v=v and adam(v[0]))
 
     # ---- one seed's forward helpers ([B, N, ...] in, [B, N, ...] out).
     # A network argument is a flattened module (single seed) or one
@@ -270,6 +305,19 @@ class CM3:
         def one(actor, obs, goals, a_prev, eps, gumbel):
             probs = self.actor_probs(actor, obs, goals, a_prev, eps)
             return common.sample_actions(probs, gumbel)
+        return self._map(one, self._handle(ts.actor), obs, goals, a_prev,
+                         self._epsilon(epsilon), gumbel)
+
+    @torch.no_grad()
+    @nets.full_float32()
+    def act_bp(self, ts: CM3State, obs, goals, a_prev, epsilon, gumbel):
+        """``act`` and the behavior policy it sampled from: (actions
+        [B, N], eps-mixed probs [B, N, A]), with a leading [S] with
+        seeds (``cm3.py:176-184``).  The driver stores the probability
+        of the stored action as ``bp`` when ``pg_is_clip`` is on."""
+        def one(actor, obs, goals, a_prev, eps, gumbel):
+            probs = self.actor_probs(actor, obs, goals, a_prev, eps)
+            return common.sample_actions(probs, gumbel), probs
         return self._map(one, self._handle(ts.actor), obs, goals, a_prev,
                          self._epsilon(epsilon), gumbel)
 
@@ -337,11 +385,23 @@ class CM3:
                        flat(pm(obs["self_v"])))
         return q.reshape(shape4)
 
+    def _v_forward(self, v, state, goals):
+        """V(s, g^n) ablation baseline, [B, N] (``cm3.py:305-318``)."""
+        b, n = goals.shape[0], goals.shape[1]
+        f = common.flatten_bn
+        vec = state["vec"]
+        grid = state["grid"][:, None].expand((b, n) + state["grid"].shape[1:])
+        out = self._call(self._v_module, v, f(grid), f(vec), f(goals),
+                         f(common.others_concat(vec)))
+        return out.reshape(b, n)
+
     # ---- one seed's steps of the update ---- #
 
-    def _td_targets(self, actor_tgt, qg_tgt, qc_tgt, batch, eps, gumbel):
-        """The TD targets y_g [B, N] and (n > 1) y_c [B, M, N] from the
-        target nets and the target policy's a' (:579-596, :619-658)."""
+    def _td_targets(self, actor_tgt, qg_tgt, qc_tgt, v_tgt, batch, eps,
+                    gumbel):
+        """The TD targets y_g [B, N], y_c [B, M, N] (with Q_credit) and
+        y_v [B, N] (with V) from the target nets and the target policy's
+        a' (:579-596, :619-658, :675-684); an absent one is 0."""
         cfg = self.cfg
         obs_next, state_next = batch["obs_next"], batch["state_next"]
         goals = batch["goals"]
@@ -356,78 +416,137 @@ class CM3:
         q_next = self._q_global(qg_tgt, state_next, obs_next, goals,
                                 a_next_1h)
         y_g = tclip(rl + cfg.gamma * q_next * done_mult[:, None])
-        if not self.use_credit:
-            return y_g, rl.new_zeros(())
-        qc_next = self._q_credit_pairs(qc_tgt, state_next, obs_next, goals,
-                                       a_next_1h)
-        y_c = tclip(rl[:, None, :] + cfg.gamma * qc_next
-                    * done_mult[:, None, None])
-        return y_g, y_c
+        y_c = y_v = rl.new_zeros(())
+        if self.use_credit:
+            qc_next = self._q_credit_pairs(qc_tgt, state_next, obs_next,
+                                           goals, a_next_1h)
+            y_c = tclip(rl[:, None, :] + cfg.gamma * qc_next
+                        * done_mult[:, None, None])
+        if self.use_v:
+            v_next = self._v_forward(v_tgt, state_next, goals)
+            y_v = tclip(rl + cfg.gamma * v_next * done_mult[:, None])
+        return y_g, y_c, y_v
 
-    def _critic_losses(self, qg, qc, batch, y_g, y_c):
-        """(loss_qg, loss_qc, Q_actual [B, N]); loss_qc is 0 for n = 1."""
+    def _critic_losses(self, qg, qc, v, batch, y_g, y_c, y_v):
+        """(loss_qg, loss_qc, loss_v, Q_actual [B, N]); an absent
+        critic's loss is 0."""
         obs, state, goals = batch["obs"], batch["state"], batch["goals"]
         a_1h = common.one_hot(batch["a"], self.n_actions)
         q = self._q_global(qg, state, obs, goals, a_1h)
         loss_qg = torch.mean(torch.square(y_g - q))
-        if not self.use_credit:
-            return loss_qg, loss_qg.new_zeros(()), q
-        qcv = self._q_credit_pairs(qc, state, obs, goals, a_1h)
-        return loss_qg, torch.mean(torch.square(y_c - qcv)), q
+        loss_qc = loss_v = loss_qg.new_zeros(())
+        if self.use_credit:
+            qcv = self._q_credit_pairs(qc, state, obs, goals, a_1h)
+            loss_qc = torch.mean(torch.square(y_c - qcv))
+        if self.use_v:
+            loss_v = torch.mean(torch.square(
+                y_v - self._v_forward(v, state, goals)))
+        return loss_qg, loss_qc, loss_v, q
 
-    def _policy_loss(self, actor, q_cf_net, batch, q_actual, eps):
-        """The policy-gradient loss (:699-773) with the counterfactual
-        baseline from the POST-update ``q_cf_net`` (Q_credit, or Q_global
-        for n = 1).  The current policy's probs are differentiated for
-        the loss and are a constant inside the counterfactual sum (a
-        placeholder feed in the reference); the actor is still
-        pre-update here."""
+    def _advantages(self, p, q_cf_net, v, batch, q_actual):
+        """The policy gradient's weights sum_a [B, M] (:538-581), a
+        constant of the loss, and the mean importance weight (0 when
+        ``pg_is_clip`` is off).  ``q_cf_net`` is the POST-update Q_credit
+        (Q_global for n = 1), ``v`` the POST-update V; ``p`` the current
+        policy's eps-mixed probs."""
+        cfg = self.cfg
         obs, state, goals = batch["obs"], batch["state"], batch["goals"]
+        b, n = q_actual.shape
+        if n == 1:
+            q_cf = self._q_global_cf(q_cf_net, state, obs, goals)
+            baseline = torch.sum(p[:, 0] * q_cf, dim=-1)             # [B]
+            sum_a = (q_actual[:, 0] - baseline)[:, None]             # [B, 1]
+        elif self.use_credit:
+            q_cf = self._q_credit_cf(q_cf_net, state, obs, goals)
+            cf = torch.einsum("bma,bmna->bmn", p, q_cf)
+            sum_a = torch.sum(q_actual[:, None, :] - cf, dim=2)      # [B, M]
+        elif self.use_v:
+            v_res = self._v_forward(v, state, goals)
+            sum_a = torch.sum(q_actual - v_res, dim=1,
+                              keepdim=True).expand(b, n)
+        else:
+            sum_a = torch.sum(q_actual, dim=1, keepdim=True).expand(b, n)
+        if cfg.adv_norm:
+            sd = torch.std(sum_a, correction=0)     # jnp.std: population
+            sum_a = (sum_a - torch.mean(sum_a)) / (sd + 1e-8)
+        w_mean = sum_a.new_zeros(())
+        if cfg.pg_is_clip and "bp" in batch:
+            a_1h = common.one_hot(batch["a"], self.n_actions)
+            taken_now = torch.sum(p * a_1h, dim=-1)                  # [B, N]
+            w = torch.clamp(taken_now / torch.clamp_min(batch["bp"], 1e-8),
+                            0.0, cfg.pg_is_clip)
+            w_mean = torch.mean(w)
+            sum_a = sum_a * (w[:, :1] if n == 1 else w)
+        return sum_a, w_mean
+
+    def _policy_loss(self, actor, q_cf_net, v, batch, q_actual, eps):
+        """The policy-gradient loss (:699-773) -> (loss, entropy of the
+        pure softmax (0 when ``pg_ent_coef`` is off), mean importance
+        weight).  The current policy's probs are differentiated for the
+        loss and are a constant inside the advantages (a placeholder
+        feed in the reference); the actor is still pre-update here."""
+        cfg = self.cfg
+        obs, goals = batch["obs"], batch["goals"]
         a_1h = common.one_hot(batch["a"], self.n_actions)
         probs = self.actor_probs(actor, obs, goals, batch["a_prev"], eps)
         with torch.no_grad():
-            p = probs.detach()
-            if self.use_credit:
-                q_cf = self._q_credit_cf(q_cf_net, state, obs, goals)
-                cf = torch.einsum("bma,bmna->bmn", p, q_cf)
-                sum_a = torch.sum(q_actual[:, None, :] - cf, dim=2)  # [B, M]
-            else:
-                q_cf = self._q_global_cf(q_cf_net, state, obs, goals)
-                baseline = torch.sum(p[:, 0] * q_cf, dim=-1)         # [B]
-                sum_a = (q_actual[:, 0] - baseline)[:, None]         # [B, 1]
+            sum_a, w_mean = self._advantages(probs.detach(), q_cf_net, v,
+                                             batch, q_actual)
         taken = torch.sum(probs * a_1h, dim=-1)
         log_pi = torch.log(taken + 1e-15)                            # [B, N]
-        if not self.use_credit:
-            return -torch.mean(log_pi[:, 0] * sum_a[:, 0])
-        return -torch.mean(torch.sum(log_pi * sum_a, dim=1))
+        if self.n_agents == 1:
+            loss = -torch.mean(log_pi[:, 0] * sum_a[:, 0])
+        else:
+            loss = -torch.mean(torch.sum(log_pi * sum_a, dim=1))
+        ent = loss.new_zeros(())
+        if cfg.pg_ent_coef:
+            # the entropy of the PURE softmax (an epsilon-0 forward): the
+            # eps-mix floors the behavior probs and would hide a collapse
+            pure = self.actor_probs(actor, obs, goals, batch["a_prev"], 0.0)
+            ent = -torch.mean(torch.sum(pure * torch.log(pure + 1e-15),
+                                        dim=-1))
+            loss = loss - cfg.pg_ent_coef * ent
+        return loss, ent, w_mean
 
     # ---- the learning update ---- #
 
     def _actor_lr_scale(self, step: int):
-        """clip(1 - step / N, 0, 1) in float32 for the actor's lr anneal
-        (``cm3.py:611-619``), or None when it is off."""
+        """clip(1 - (step - K) / N, 0, 1) in float32 for the actor's lr
+        anneal over N updates after a freeze of K (``cm3.py:611-619``),
+        or None when it is off."""
         n = self.cfg.actor_lr_anneal_updates
         if not n:
             return None
-        return float(np.clip(np.float32(1.0) - np.float32(step)
-                             / np.float32(n), np.float32(0.0),
-                             np.float32(1.0)))
+        lived = np.float32(step - self.cfg.actor_freeze_updates)
+        return float(np.clip(np.float32(1.0) - lived / np.float32(n),
+                             np.float32(0.0), np.float32(1.0)))
 
-    def _opt_step(self, lr, *steps, lr_scale=None):
+    def _opt_step(self, *steps, lr_scale=None):
         """Adam apply + soft target update for the networks of ``steps``,
-        each (opt_state, net, tgt), at one lr: one fused kernel launch
-        over all their flat buffers (``ops/fused_opt.py``), or the
-        optax-order update per network (``common.adam_apply``)."""
+        each (opt_state, net, tgt, lr): one fused kernel launch over all
+        their flat buffers (``ops/fused_opt.py``), or the optax-order
+        update per network (``common.adam_apply``)."""
         cfg = self.cfg
         if cfg.fused_opt:
             fused_opt.adam_polyak_many(
                 [(opt, net.flat, tgt.flat, net.flat_grad, lr)
-                 for opt, net, tgt in steps], cfg.tau)
+                 for opt, net, tgt, lr in steps], cfg.tau)
             return
-        for opt, net, tgt in steps:
+        for opt, net, tgt, lr in steps:
             common.adam_apply(opt, net.flat, net.flat_grad, lr,
                               cfg.grad_clip, lr_scale)
             common.soft_update(tgt.flat, net.flat, cfg.tau)
+
+    def _frozen_target_step(self, tgt, net):
+        """The actor target's soft update toward the frozen actor: the
+        Polyak kernel on the fused path (over the [S, n] buffer viewed
+        flat with seeds), ``common.soft_update`` on the optax path, as
+        the JAX update computes it (``cm3.py:631``)."""
+        if self.cfg.fused_opt:
+            polyak.polyak_update(tgt.flat.view(-1), net.flat.view(-1),
+                                 self.cfg.tau)
+        else:
+            common.soft_update(tgt.flat, net.flat, self.cfg.tau)
 
     @staticmethod
     def _backward(loss):
@@ -447,44 +566,63 @@ class CM3:
 
         batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
         (dicts), a [B,N] int, rl [B,N], state_next, obs_next, done [B],
-        goals [B,N,G] and a_prev [B,N].  ``gumbel`` is the [B, N, A]
-        noise that samples the target-policy actions a'.  Returns (ts,
+        goals [B,N,G], a_prev [B,N] and, for ``pg_is_clip``, bp [B,N].
+        ``gumbel`` is the [B, N, A] noise that samples the target-policy
+        actions a'.  Returns (ts,
         metrics); the metrics are device scalars ([S] with seeds;
         reading them syncs)."""
         cfg = self.cfg
         h = self._handle
         eps = self._epsilon(epsilon)
         with torch.no_grad():
-            y_g, y_c = self._map(self._td_targets, h(ts.actor_tgt),
-                                 h(ts.qg_tgt), h(ts.qc_tgt), batch, eps,
-                                 gumbel)
+            y_g, y_c, y_v = self._map(
+                self._td_targets, h(ts.actor_tgt), h(ts.qg_tgt),
+                h(ts.qc_tgt), h(ts.v_tgt), batch, eps, gumbel)
 
-        # ---- Q_global + Q_credit critic updates, one backward ----
-        critics = [(ts.opt_qg, ts.qg, ts.qg_tgt)]
+        # ---- Q_global, Q_credit and V critic updates, one backward ----
+        critics = [(ts.opt_qg, ts.qg, ts.qg_tgt, cfg.lr_Q)]
         if self.use_credit:
-            critics.append((ts.opt_qc, ts.qc, ts.qc_tgt))
-        for _, net, _ in critics:
+            critics.append((ts.opt_qc, ts.qc, ts.qc_tgt, cfg.lr_Q))
+        if self.use_v:
+            critics.append((ts.opt_v, ts.v, ts.v_tgt, cfg.lr_V))
+        for _, net, _, _ in critics:
             net.flat_grad.zero_()
-        loss_qg, loss_qc, q = self._map(self._critic_losses, h(ts.qg),
-                                        h(ts.qc), batch, y_g, y_c)
-        self._backward(loss_qg.sum() + loss_qc.sum())
+        loss_qg, loss_qc, loss_v, q = self._map(
+            self._critic_losses, h(ts.qg), h(ts.qc), h(ts.v), batch, y_g,
+            y_c, y_v)
+        self._backward(loss_qg.sum() + loss_qc.sum() + loss_v.sum())
         q_actual = q.detach()
         with torch.no_grad():
-            self._opt_step(cfg.lr_Q, *critics)
+            self._opt_step(*critics)
 
-        # ---- policy gradient (:699-773) ----
+        # ---- policy gradient (:699-773); the actor frozen for the
+        # first actor_freeze_updates updates (:624-635), decided on the
+        # host from the step count ----
+        live = ts.step >= cfg.actor_freeze_updates
         ts.actor.flat_grad.zero_()
-        loss_pi = self._map(self._policy_loss, h(ts.actor),
-                            h(ts.qc if self.use_credit else ts.qg), batch,
-                            q_actual, eps)
-        self._backward(loss_pi.sum())
+        with torch.set_grad_enabled(live):
+            loss_pi, ent, w_mean = self._map(
+                self._policy_loss, h(ts.actor),
+                h(ts.qg if self.n_agents == 1 else ts.qc), h(ts.v), batch,
+                q_actual, eps)
+        if live:
+            self._backward(loss_pi.sum())
         with torch.no_grad():
-            self._opt_step(cfg.lr_actor,
-                           (ts.opt_actor, ts.actor, ts.actor_tgt),
-                           lr_scale=self._actor_lr_scale(ts.step))
+            if live:
+                self._opt_step(
+                    (ts.opt_actor, ts.actor, ts.actor_tgt, cfg.lr_actor),
+                    lr_scale=self._actor_lr_scale(ts.step))
+            else:
+                self._frozen_target_step(ts.actor_tgt, ts.actor)
         ts.step += 1
         metrics = {"loss_Q_global": loss_qg.detach()}
         if self.use_credit:
             metrics["loss_Q_credit"] = loss_qc.detach()
+        if self.use_v:
+            metrics["loss_V"] = loss_v.detach()
+        if cfg.pg_is_clip and "bp" in batch:
+            metrics["is_weight_mean"] = w_mean
+        if cfg.pg_ent_coef:
+            metrics["policy_entropy"] = ent.detach()
         metrics["policy_loss"] = loss_pi.detach()
         return ts, metrics

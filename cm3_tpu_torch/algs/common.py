@@ -24,21 +24,27 @@ class AdamState:
     ``mu``/``nu`` in ``ravel_pytree`` order ([n], or [S, n] for S seeds
     in lockstep) and ``count`` the number of steps taken.  ``count`` is
     a host integer, the same for every seed: the host knows it, so the
-    bias corrections cost no device round trip."""
+    bias corrections cost no device round trip.  ``clipped`` records
+    whether the optimizer clips the global norm first: in the JAX
+    package that changes the optax chain's state structure, so a
+    checkpoint taken with the clip off does not restore into a state
+    with it on, nor the other way round (``train/checkpoint.py``)."""
 
     mu: torch.Tensor
     nu: torch.Tensor
     count: int = 0
+    clipped: bool = False
 
 
-def adam_init(flat: torch.Tensor) -> AdamState:
+def adam_init(flat: torch.Tensor, clipped: bool = False) -> AdamState:
     """Zero moments for a flat f32 parameter buffer, [n] or [S, n].  One
     flat buffer per network is also what keeps the tree dtype-uniform,
     which the JAX ``common.adam`` asserts."""
     if flat.dtype != torch.float32 or flat.dim() not in (1, 2):
         raise TypeError("adam_init wants a flat float32 buffer, [n] or "
                         "[S, n]")
-    return AdamState(mu=torch.zeros_like(flat), nu=torch.zeros_like(flat))
+    return AdamState(mu=torch.zeros_like(flat), nu=torch.zeros_like(flat),
+                     clipped=clipped)
 
 
 def bias_corrections(count: int):

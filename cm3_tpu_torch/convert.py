@@ -105,13 +105,13 @@ def _seed_slice(tree, s):
 
 def state_from_jax(alg, jts):
     """A port ``CM3State`` holding the values of the JAX ``jts`` (host
-    arrays): parameters, targets, and each network's Adam state.  For an
+    arrays): parameters, targets, and each network's Adam state (the
+    actor, Q_global, and Q_credit and V where the algorithm has them).  For an
     algorithm with ``n_seeds`` the JAX state carries a leading seed axis
     on every leaf."""
     st = alg.empty_state()
     seeds = alg.n_seeds
-    names = ("actor", "qg", "qc") if alg.use_credit else ("actor", "qg")
-    for name in names:
+    for name in alg.net_names():
         main, tgt = getattr(st, name), getattr(st, name + "_tgt")
         adam = _adam(getattr(jts, "opt_" + name))
         opt = getattr(st, "opt_" + name)

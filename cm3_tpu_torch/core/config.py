@@ -7,9 +7,11 @@ Same frozen dataclasses, same field names and defaults.  The particle
 and roadway configs are whole, their observation and reset fields
 included (read once their engines are ported, ROADMAP.md A10b/A11b).
 Other fields of the JAX schema that no ported code reads yet (the
-V/QMIX/baseline knobs, the dual and sharded replay, the runner's
-schedule) are left out until the module that reads them is ported
-(ROADMAP.md, queue A).  The JSON experiment files are read in place
+QMIX and baseline knobs of ``AlgConfig``: ``alg_name``, ``use_Q``,
+``IAC``, ``alpha``, ``qmix_ref_bug``, and the generic staged nets'
+widths of ``NNConfig``) are left out until the module that reads them
+is ported (ROADMAP.md, queue A); the runner refuses an ``alg_name``
+other than ``cm3``.  The JSON experiment files are read in place
 from ``cm3_tpu/configs/`` as data.
 """
 
@@ -18,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 _CONFIG_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -182,15 +184,36 @@ class AlgConfig:
     # fused Adam + apply + Polyak kernel launches (ops/fused_opt.py)
     # instead of the optax-order plain update (algs/common.adam_apply)
     fused_opt: bool = False
-    # actor lr anneal to 0 over this many updates (optax path; the fused
-    # update rejects it: its lr is static)
+    # actor lr anneal to 0 over this many updates counted from the end
+    # of the freeze window (optax path; the fused update rejects it: its
+    # lr is static)
     actor_lr_anneal_updates: int = 0
+    # the Q_credit critic (n > 1); off with use_V gives the paper's V
+    # ablation, off with neither gives the summed Q_actual advantage
+    use_Q_credit: bool = True
+    # the V(s, g^n) ablation critic and its learning rate (n > 1)
+    use_V: bool = False
+    lr_V: float = 1e-3
+    # standardize the policy-gradient advantages over each update batch
+    adv_norm: bool = False
+    # clipped importance weight min(pi_now(a) / bp(a), c) on the policy
+    # gradient, bp the stored behavior probability (0 = off)
+    pg_is_clip: float = 0.0
+    # entropy bonus of the pure (epsilon 0) softmax on the policy loss
+    pg_ent_coef: float = 0.0
+    # keep the actor, its Adam state and its target's main frozen for
+    # the first K updates (0 = off)
+    actor_freeze_updates: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Driver schedule (reference ``alg/config.json`` + trainers): the
-    fields the off-policy driver and ``train_vmapped_seeds`` read.
+    JAX package's fields, in its order.  ``threshold``,
+    ``episodes_per_train``, ``epochs``, ``prob_random``, ``seed``,
+    ``n_seeds`` and ``dir_name`` are carried from the master config as
+    the JAX runner carries them; nothing on the off-policy Checkers path
+    reads them.
 
     ``dual_buffer``, ``replay_shards > 1``, ``chunks_per_sync > 1`` and
     ``summarize`` are the JAX package's options that the port does not
@@ -205,15 +228,25 @@ class TrainConfig:
     epsilon_div: float = 1000.0
     dual_buffer: bool = False
     buffer_size: int = 20000
+    # dual-buffer routing threshold (only the roadway predicate reads it)
+    threshold: float = 16.0
     batch_size: int = 128
     pretrain_episodes: int = 50
     steps_per_train: int = 10
+    episodes_per_train: int = 10
+    epochs: int = 24
     # greedy-eval rollout length (the env's own cap is its config's)
     max_steps: int = 33
+    prob_random: float = 0.2
+    seed: int = 12341
+    n_seeds: int = 1
     # env instances stepped in lockstep (the reference steps one)
     n_envs: int = 1
     # learning updates per chunk; 0 = auto (= n_envs)
     updates_per_chunk: int = 0
+    # eval threshold of the snapshots (None: the experiment's rule)
+    save_threshold: Optional[float] = None
+    dir_name: str = "try"
     # TensorBoard gradient summaries (not ported: ROADMAP A15)
     summarize: bool = False
     # training chunks per host sync (only 1 is ported: ROADMAP A6b)

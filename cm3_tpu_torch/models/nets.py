@@ -1,4 +1,5 @@
-"""Checkers networks: the actor and the two CM3 critics.
+"""Checkers networks: the actor, the two CM3 critics and the V
+ablation critic.
 
 Port of the Checkers subset of ``cm3_tpu.models.nets`` (itself the
 reference ``alg/networks.py``) as ``nn.Module``s.  Names follow the
@@ -286,6 +287,43 @@ class QCreditCheckers(_QCheckers):
     def forward(self, s_grid, s_n, g_n, a_m, s_m, s_others, t_obs, v_obs):
         return self._forward(s_grid, s_n, g_n, a_m, t_obs, v_obs,
                              [s_m, s_others])
+
+
+class _VInner(nn.Module):
+    """The body of ``VCheckersAblation``: conv over the global grid,
+    then two relu layers and a bias-free scalar output."""
+
+    def __init__(self, spec: Dict[str, int], conv_f: int,
+                 conv_k: Tuple[int, int], n_h1: int, n_h2: int):
+        super().__init__()
+        rs, cs = spec["rows_state"], spec["columns_state"]
+        self.conv = _conv(spec["channels_state"], conv_f, conv_k)
+        n_x = (rs * cs * conv_f + spec["l_state_one"] + spec["l_goal"]
+               + (spec["n_agents"] - 1) * spec["l_state_one"])
+        self.V_h1 = _dense(n_x, n_h1)
+        self.V_h2 = _dense(n_h1, n_h2)
+        self.V_out = nn.Linear(n_h2, 1, bias=False)
+
+    def forward(self, s_grid, s_n, g_n, s_others):
+        conv = _relu_flat_conv(self.conv, s_grid)
+        x = torch.cat([conv, s_n, g_n, s_others], dim=-1)
+        h1 = F.relu(self.V_h1(x))
+        return self.V_out(F.relu(self.V_h2(h1)))
+
+
+class VCheckersAblation(nn.Module):
+    """networks.V_checkers_ablation:461-470 (``nets.py:522``).  Every
+    parameter lives under ``stage2``, so the curriculum graft leaves the
+    whole critic fresh."""
+
+    def __init__(self, spec: Dict[str, int], conv_f: int = 4,
+                 conv_k: Tuple[int, int] = (3, 5), n_h1: int = 128,
+                 n_h2: int = 32):
+        super().__init__()
+        self.stage2 = _VInner(spec, conv_f, conv_k, n_h1, n_h2)
+
+    def forward(self, s_grid, s_n, g_n, s_others):
+        return self.stage2(s_grid, s_n, g_n, s_others)
 
 
 # --------------------------------------------------------------------- #

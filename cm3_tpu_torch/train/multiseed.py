@@ -13,7 +13,11 @@ the work.
 Schedule (``multiseed.py:72-266``): each seed keeps its own epsilon,
 from its own completed-episode count (``_eps_schedule``), while the
 switch from random fill to training and the periodic evaluation fire
-when the slowest seed crosses the threshold.
+when the slowest seed crosses the threshold.  A run resumed from an
+autosave (``resume``) starts from its per-seed episode counts with an
+empty replay, which policy rollouts without updates warm until the
+slowest seed has ``pretrain_episodes`` more episodes
+(``multiseed.py:99-102, 190-200``).
 
 Draws.  One draw source serves every seed (one [S, ...] draw a call,
 not S calls), keyed by the first seed's key and the seed count; so a
@@ -21,8 +25,7 @@ seed's stream depends on S.  Parameters are drawn per seed from its own
 key, ``root_key(base_seed + i)``, as for one seed.
 
 Not ported (ROADMAP.md): the mesh placement (A14), the on-policy
-regime (A13), resuming from an autosave (A8) and the gradient
-summaries (A15); each is refused.
+regime (A13) and the gradient summaries (A15); each is refused.
 """
 
 from __future__ import annotations
@@ -59,19 +62,18 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
 
     ``alg`` is the algorithm for one seed or for ``n_seeds`` seeds
     (``CM3.for_seeds``).  ``log_fn`` receives each period row, with
-    per-seed arrays, plus the state under ``_ts``.  ``draws`` and
-    ``eval_draws`` (draw sources) replace the ones made from the seeds'
-    keys.  ``mesh``, ``onpolicy`` and ``resume`` are the JAX package's
-    and are refused."""
+    per-seed arrays, plus the state under ``_ts``.  ``resume`` is
+    (seed-stacked CM3 state, per-seed episode counts [S]), e.g. from an
+    autosave or a curriculum graft; the state is trained in place.
+    ``draws`` and ``eval_draws`` (draw sources) replace the ones made
+    from the seeds' keys.  ``mesh`` and ``onpolicy`` are the JAX
+    package's and are refused."""
     if mesh is not None:
         raise NotImplementedError(
             "placing the seed axis over a mesh is not ported (ROADMAP A14)")
     if onpolicy:
         raise NotImplementedError(
             "the on-policy regime is not ported (ROADMAP A13)")
-    if resume is not None:
-        raise NotImplementedError(
-            "resuming from an autosave is not ported (ROADMAP A8)")
     if alg.n_seeds != n_seeds:
         alg = alg.for_seeds(n_seeds)
     driver = OffPolicyDriver(hooks, alg, cfg)
@@ -85,20 +87,29 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
     draws = draws or source(prng.ROLLOUT)
     eval_draws = eval_draws or source(prng.EVAL)
     rs = init_rollout(hooks, cfg.n_envs, draws, cfg.episode_log, n_seeds=s)
-    ts = alg.init_state(keys)
+    if resume is not None:
+        ts, initial = resume
+        initial = np.asarray(initial, np.int64).reshape(s)
+        rs.episodes = torch.as_tensor(initial, device=dev)
+    else:
+        ts = alg.init_state(keys)
+        initial = np.zeros(s, np.int64)
     buf = driver._replay_init(driver.example_transition(rs))
 
     history = []
-    last_ep_flushed = np.zeros(s, np.int64)
-    last_period = 0
+    last_ep_flushed = initial.copy()
+    start_min = int(initial.min())
+    last_period = start_min // cfg.period
     t0 = time.time()
-    episodes = np.zeros(s, np.int64)
+    episodes = initial.copy()
     while episodes.min() < n_episodes:
-        fill = episodes.min() < cfg.pretrain_episodes
+        emin = episodes.min()
+        fill = emin < cfg.pretrain_episodes
+        warm = not fill and emin < start_min + cfg.pretrain_episodes
         eps = torch.as_tensor(_eps_schedule(cfg, episodes), dtype=torch.float32,
                               device=dev)
         ts, buf, rs, metrics = driver._chunk(ts, buf, rs, eps, draws,
-                                             not fill, fill)
+                                             not (fill or warm), fill)
         episodes = _host(rs.episodes)    # one sync per chunk
 
         period_idx = int(episodes.min()) // cfg.period

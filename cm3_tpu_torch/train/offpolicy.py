@@ -30,6 +30,11 @@ Checkers) the goals of the auto-reset; per update, the replay indices
 and the Gumbel noise of a'.  Feeding JAX's draws through
 ``prng.FedDraws`` replays a JAX chunk exactly.
 
+With ``AlgConfig.pg_is_clip`` on, each transition also stores ``bp``,
+the behavior policy's probability of the stored action (the eps-mixed
+policy's; the uniform 1/A on random-fill chunks), as the JAX driver
+does (``offpolicy.py:115-118, 228-231, 249-272``).
+
 Not ported yet (ROADMAP.md): the K-chunk on-device schedule
 (``chunks_per_sync > 1``, A6b), the gradient summaries (``summarize``,
 A15), and the dual and shard-local replay (A13, A14); each is refused.
@@ -155,6 +160,10 @@ class OffPolicyDriver:
         self.n_seeds = getattr(alg, "n_seeds", None)
         self.lead = ((cfg.n_envs,) if self.n_seeds is None
                      else (self.n_seeds, cfg.n_envs))
+        # the clipped-IS policy gradient reads the behavior probability
+        # of each stored action
+        self._store_bp = (getattr(getattr(alg, "cfg", None), "pg_is_clip",
+                                  0.0) > 0 and hasattr(alg, "act_bp"))
 
     # ---- replay ---- #
 
@@ -182,7 +191,7 @@ class OffPolicyDriver:
 
     # -------------------------------------------------------------- #
 
-    def _transition(self, rs: RolloutState, actions, ts_next):
+    def _transition(self, rs: RolloutState, actions, ts_next, bp=None):
         tr = {
             "obs": rs.obs, "state": rs.state,
             "a": actions, "a_prev": rs.a_prev,
@@ -192,6 +201,10 @@ class OffPolicyDriver:
         }
         if not self.hooks.has_a_prev:
             tr.pop("a_prev")
+        if self._store_bp:
+            tr["bp"] = bp if bp is not None else torch.full(
+                actions.shape, 1.0 / self.alg.n_actions,
+                device=actions.device)
         return tr
 
     @torch.no_grad()
@@ -203,13 +216,19 @@ class OffPolicyDriver:
         lead = self.lead
         n = hooks.n_agents
         n_act = self.alg.n_actions
+        bp = None
         if random_actions:
             actions = draws.randint(lead + (n,), n_act)
+        elif self._store_bp:
+            actions, probs = self.alg.act_bp(
+                ts_alg, rs.obs, rs.goals, rs.a_prev, epsilon,
+                draws.gumbel(lead + (n, n_act)))
+            bp = torch.gather(probs, -1, actions[..., None])[..., 0]
         else:
             actions = self.alg.act(ts_alg, rs.obs, rs.goals, rs.a_prev,
                                    epsilon, draws.gumbel(lead + (n, n_act)))
         env_state2, ts2 = flat_call(env.step, lead, rs.env_state, actions)
-        buf = self._replay_add(buf, self._transition(rs, actions, ts2))
+        buf = self._replay_add(buf, self._transition(rs, actions, ts2, bp))
         done = ts2.done
         ep_ret_local = rs.ep_ret_local + ts2.reward_local
         ep_ret_global = rs.ep_ret_global + ts2.reward

@@ -7,7 +7,10 @@ kernels' builds, a small training chunk on the card against the same
 chunk on the CPU, also under PyTorch's default TF32 flags, and the
 seed-batched chunk (three seeds, stage 2 and stage 1, optax and fused)
 on the card against the CPU, with the fused update's two launches per
-update at 16 seeds.  They import
+update at 16 seeds, and the curriculum: the stage-2 graft and a
+checkpoint round trip on the card, the actor freeze on the fused path
+(the fused kernel without the actor, the Polyak kernel on its target)
+against the CPU, and a tiny run of the runner.  They import
 neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -180,10 +183,11 @@ def test_flat_update_entries_refuse_sizes_past_int32(cuda_device):
     assert lib.cm3_polyak(None, None, 2 ** 31, 0.01, 0.99, None) == 1
 
 
-def _small_chunks(cuda_device):
+def _small_chunks(cuda_device, **alg_kw):
     """A fill and a training chunk at small width on the card and on
-    the CPU with the same fed draws: the CM3 states and the kernel's
-    launches on each."""
+    the CPU with the same fed draws (``alg_kw``: more ``AlgConfig``
+    options): the CM3 states and the fused kernel's launches on each
+    (with ``alg_kw`` also the Polyak kernel's)."""
     from cm3_tpu_torch.algs.cm3 import CM3
     from cm3_tpu_torch.core import config, prng
     from cm3_tpu_torch.core.tree import tree_map
@@ -204,8 +208,8 @@ def _small_chunks(cuda_device):
         env = Checkers(config.CheckersEnvConfig(n_agents=2, max_steps=7),
                        device=dev)
         alg = CM3("checkers", env.spec(),
-                  config.AlgConfig(n_agents=2, stage=2, fused_opt=True), nn,
-                  device=dev)
+                  config.AlgConfig(n_agents=2, stage=2, fused_opt=True,
+                                   **alg_kw), nn, device=dev)
         cfg = config.TrainConfig(n_envs=e, batch_size=b, buffer_size=512,
                                  updates_per_chunk=u)
         drv = OffPolicyDriver(make_hooks("checkers", env), alg, cfg)
@@ -217,9 +221,12 @@ def _small_chunks(cuda_device):
                                             env.step(rs.env_state, z)[1])))
         draws = prng.FedDraws(fill + idx, act + upd, device=dev)
         before = fused_opt.adam_polyak.launches
+        soft = polyak.polyak_update.launches
         ts, buf, rs, _ = drv._chunk(ts, buf, rs, 0.2, draws, False, True)
         ts, buf, rs, _ = drv._chunk(ts, buf, rs, 0.2, draws, True, False)
         out[dev.type] = (ts, fused_opt.adam_polyak.launches - before)
+        if alg_kw:
+            out[dev.type] += (polyak.polyak_update.launches - soft,)
     return out, u
 
 
@@ -579,3 +586,128 @@ def test_flat_update_kernels_fill_the_card_without_spills(cuda_device, mod):
     o = mod.occupancy()
     assert o["threads"] == 128 and o["blocks_per_sm"] * 128 // 32 >= 8, o
     assert 0 < o["registers"] <= 255 and o["local_bytes"] == 0, o
+
+
+# ------------------------------------------------------------------ #
+# the curriculum: the graft, checkpoints, the actor freeze, the runner
+# ------------------------------------------------------------------ #
+
+
+def _small_nn():
+    from cm3_tpu_torch.core import config
+    return config.NNConfig(Q_conv_f=2, Q_n_h1_1=16, Q_n_h1_2=8, Q_n_h2=16,
+                           A_conv_f=2, A_n_h1=16, A_n_h2=12)
+
+
+def _alg(dev, n_agents, n_seeds=None, **kw):
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.envs.checkers import Checkers
+    env = Checkers(config.checkers_env_config(n_agents), device=dev)
+    return CM3("checkers", env.spec(),
+               config.AlgConfig(n_agents=n_agents, stage=n_agents, **kw),
+               _small_nn(), device=dev, n_seeds=n_seeds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_seeds", [None, 3])
+def test_graft_and_checkpoint_round_trip_on_card(cuda_device, tmp_path,
+                                                 n_seeds):
+    """The stage-2 graft on the card (into one seed, or into each of
+    three stacked): the shared leaves equal stage 1's bit for bit,
+    Q_credit's equal Q_global's, targets equal mains; the card's graft
+    equals the CPU's; a save/restore round trip on the card is bit for
+    bit."""
+    from cm3_tpu_torch.core import prng
+    from cm3_tpu_torch.train import checkpoint
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        s1 = _alg(dev, 1).init_state(prng.root_key(1))
+        a2 = _alg(dev, 2)
+        singles = [checkpoint.stage2_init_cm3(
+            a2.init_state(prng.root_key(2 + i)), s1.actor, s1.qg)
+            for i in range(n_seeds or 1)]
+        st = (singles[0] if n_seeds is None else checkpoint.stack_states(
+            a2.for_seeds(n_seeds), singles))
+        out[dev.type] = st
+        for one in singles:
+            for net, src in ((one.actor, s1.actor), (one.qg, s1.qg),
+                             (one.qc, one.qg)):
+                views = checkpoint.named_views(src)
+                for name, v in checkpoint.named_views(net).items():
+                    if "stage2" not in name.split("."):
+                        assert torch.equal(v, views[name]), name
+            for name in ("actor", "qg", "qc"):
+                assert torch.equal(getattr(one, name).flat,
+                                   getattr(one, name + "_tgt").flat)
+    for name in ("actor", "actor_tgt", "qg", "qg_tgt", "qc", "qc_tgt"):
+        assert torch.equal(getattr(out["cuda"], name).flat.cpu(),
+                           getattr(out["cpu"], name).flat), name
+    path = str(tmp_path / "ckpt")
+    st = out["cuda"]
+    st.opt_qg.mu.normal_()
+    st.opt_qg.count, st.step = 5, 7
+    checkpoint.save(path, st)
+    alg = _alg(cuda_device, 2, n_seeds)
+    back = checkpoint.restore(path, alg.empty_state())
+    for name in ("actor", "actor_tgt", "qg", "qg_tgt", "qc", "qc_tgt"):
+        assert getattr(back, name).flat.device.type == "cuda"
+        assert torch.equal(getattr(back, name).flat,
+                           getattr(st, name).flat), name
+    assert torch.equal(back.opt_qg.mu, st.opt_qg.mu)
+    assert (back.opt_qg.count, back.step) == (5, 7)
+
+
+@pytest.mark.cuda
+def test_fused_freeze_on_card_matches_cpu(cuda_device):
+    """The small chunk with the actor frozen for 2 of its 4 updates on
+    the fused path: on the card the frozen updates make one fused
+    launch each (the critics; the actor's segment is left out) and one
+    Polyak launch each (the actor's target), the live ones two fused
+    launches; the CPU runs the plain versions and launches nothing; the
+    states agree at rtol 1e-4, atol 1e-5."""
+    out, u = _small_chunks(cuda_device, actor_freeze_updates=2)
+    (ts_c, n_c, p_c), (ts_h, n_h, p_h) = out["cuda"], out["cpu"]
+    assert (n_c, p_c) == (2 + 2 * (u - 2), 2) and (n_h, p_h) == (0, 0)
+    assert ts_c.opt_actor.count == ts_h.opt_actor.count == u - 2
+    for name in ("actor", "actor_tgt", "qg", "qg_tgt", "qc", "qc_tgt"):
+        torch.testing.assert_close(getattr(ts_c, name).flat.cpu(),
+                                   getattr(ts_h, name).flat, rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_runner_curriculum_on_card(cuda_device, tmp_path, monkeypatch):
+    """A tiny curriculum through the runner on the card: stage 1 (optax),
+    then stage 2 grafted from it on the fused path with the actor frozen
+    for 2 updates (both kernels launched), the V ablation, and a resume
+    from the autosave; each writes its logs and ``model_final``."""
+    import os
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.train import checkpoint, runner
+    monkeypatch.setattr(runner, "_nn_config", lambda m, e, s: _small_nn())
+    m = config.load_json("master.json")
+    m.update(n_envs=8, seed=5, N_train=60, period=30, N_eval=2,
+             pretrain_episodes=8, batch_size=16, buffer_size=256,
+             steps_per_train=4, updates_per_chunk=1, dir_name="s1",
+             dir_restore="s1")
+    wd = str(tmp_path)
+    runner.train_function(dict(m, stage=1), wd, verbose=False)
+    b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
+    ts, stats = runner.train_function(
+        dict(m, stage=2, dir_name="s2", train_from_nothing=0, fused_opt=1,
+             actor_freeze_updates=2), wd, verbose=False)
+    assert polyak.polyak_update.launches - b3 == 2
+    assert fused_opt.adam_polyak.launches - b1 == 2 * ts.step - 2
+    assert ts.actor.flat.device.type == "cuda"
+    runner.train_function(dict(m, stage=2, dir_name="v", use_Q_credit=0,
+                               use_V=1, train_from_nothing=0), wd,
+                          verbose=False)
+    _, st2 = runner.train_function(
+        dict(m, stage=2, dir_name="s2", train_from_nothing=0, fused_opt=1,
+             auto_resume=1, require_resume=1, N_train=120), wd,
+        verbose=False)
+    assert st2["history"][0]["episode"] > stats["episodes"]
+    for d in ("s1", "s2", "v"):
+        assert checkpoint.exists(os.path.join(wd, "saved", d, "model_final"))
+        assert os.path.isfile(os.path.join(wd, "log", d, "log_century.csv"))

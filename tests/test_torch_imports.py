@@ -63,3 +63,11 @@ def test_importing_the_port_loads_no_jax_and_no_triton():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("module", ["cm3_tpu_torch.train.checkpoint",
+                                    "cm3_tpu_torch.train.logging",
+                                    "cm3_tpu_torch.train.runner"])
+def test_the_runner_modules_are_scanned(module):
+    """The curriculum's modules are among those the scans above read."""
+    assert module in _modules()

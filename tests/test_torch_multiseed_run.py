@@ -77,6 +77,40 @@ def test_train_vmapped_seeds_rows_match_jax():
 
 
 
+
+def test_train_vmapped_seeds_resume_matches_jax():
+    """A resumed run (``resume`` = a seed-stacked state and per-seed
+    episode counts 12 and 14) in both packages: the replay warms with
+    policy rollouts until the slowest seed has ``pretrain_episodes``
+    more, then trains; the same period rows (episode counts, epsilons)
+    and the same number of updates (Adam counts and steps)."""
+    je, te = tp.envs(max_steps=5, n_agents=1)
+    ja, ta = tp.algs(je.spec(), fused_opt=False)
+    kw = dict(n_envs=4, buffer_size=64, batch_size=8, steps_per_train=5,
+              updates_per_chunk=2, pretrain_episodes=4, period=8,
+              N_train=32, N_eval=3, max_steps=5, episode_log=8)
+    rs = jax_init_rollout(jax_hooks("checkers", je), jax.random.PRNGKey(0),
+                          2)
+    jts = jax.tree_util.tree_map(lambda *xs: np.stack(xs), *[
+        jax.device_get(ja.init_state(k, rs.obs, rs.state, rs.goals))
+        for k in jax.random.split(jax.random.PRNGKey(3), 2)])
+    initial = np.array([12, 14])
+    jout, jh = jmultiseed.train_vmapped_seeds(
+        jax_hooks("checkers", je), ja, jcfg.TrainConfig(**kw), 2, 7,
+        resume=(jts, initial))
+    ts2 = ta.for_seeds(2)
+    tout, th = multiseed.train_vmapped_seeds(
+        make_hooks("checkers", te), ts2, tcfg.TrainConfig(**kw), 2, 7,
+        resume=(convert.state_from_jax(ts2, jts), initial))
+    assert len(th) == len(jh) >= 2
+    assert th[0]["episode"].min() // 8 > 12 // 8
+    for j, t in zip(jh, th):
+        np.testing.assert_array_equal(t["episode"], j["episode"])
+        np.testing.assert_allclose(t["epsilon"], j["epsilon"])
+    jcount = np.asarray(convert._adam(jout.opt_actor).count).reshape(-1)
+    assert tout.opt_actor.count == tout.step == int(jcount[0]) > 0
+    assert tout.step == int(np.asarray(jout.step).reshape(-1)[0])
+
 SMALL = tcfg.NNConfig(Q_conv_f=2, Q_n_h1_1=8, Q_n_h1_2=4, Q_n_h2=8,
                       A_conv_f=2, A_n_h1=8, A_n_h2=8)
 
@@ -121,8 +155,7 @@ def test_driver_refuses_what_is_not_ported(field, value, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A14"), (dict(onpolicy=True), "A13"),
-    (dict(resume=(None, np.zeros(2))), "A8")])
+    (dict(mesh=object()), "A14"), (dict(onpolicy=True), "A13")])
 def test_train_vmapped_seeds_refuses_what_is_not_ported(kw, item):
     hooks, ta = _small_stage1()
     with pytest.raises(NotImplementedError, match=item):

@@ -7,12 +7,15 @@ fed to the port."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from cm3_tpu.algs.cm3 import CM3 as JaxCM3
 from cm3_tpu.core import config as jcfg
 from cm3_tpu.envs.checkers import Checkers as JaxCheckers
 from cm3_tpu_torch.algs.cm3 import CM3 as TorchCM3
+from cm3_tpu_torch import convert
+from cm3_tpu_torch.ops import fused_opt, polyak
 from cm3_tpu_torch.core import config as tcfg
 from cm3_tpu_torch.envs.checkers import Checkers as TorchCheckers
 
@@ -158,3 +161,126 @@ def hold_states(got, want, nets, atol_nu=1e-9, rtol=1e-5, atol=1e-6):
                                    atol=atol, err_msg=name + ".mu")
         np.testing.assert_allclose(g.nu.numpy(), w.nu.numpy(), rtol=rtol,
                                    atol=atol_nu, err_msg=name + ".nu")
+
+
+# --------------------------------------------------------------------- #
+# CM3's options: updates in both packages (test_torch_cm3_options*.py)
+# --------------------------------------------------------------------- #
+
+OPTION_B, OPTION_UPDATES = 16, 3
+
+
+def option_batch(env, rng, with_bp):
+    """``replay_batch`` of OPTION_B rows, with a stored behavior
+    probability ``bp`` in [0.05, 0.6) when asked."""
+    b = replay_batch(env, OPTION_B, rng)
+    if with_bp:
+        b["bp"] = jnp.asarray(rng.uniform(0.05, 0.6, b["a"].shape),
+                              jnp.float32)
+    return b
+
+
+def copy_state(alg, st):
+    """A snapshot of a port CM3 state (its buffers copied)."""
+    c = alg.empty_state()
+    for name in alg.net_names():
+        for suffix in ("", "_tgt"):
+            getattr(c, name + suffix).flat.copy_(
+                getattr(st, name + suffix).flat)
+        g, w = getattr(c, "opt_" + name), getattr(st, "opt_" + name)
+        g.mu.copy_(w.mu)
+        g.nu.copy_(w.nu)
+        g.count = w.count
+    c.step = st.step
+    return c
+
+
+def metric_tol(cfg, key):
+    """rtol 1e-5 and atol 1e-6 for a metric; with ``adv_norm``, atol
+    1e-5 for the policy loss: its B x N terms are ~1 in size and their
+    standardized advantages sum to 0, so the loss is a cancelling sum
+    (~2e-4 here) whose float32 error is absolute, ~1e-6 of the terms'
+    size, not relative to the sum (measured 1.8e-6 against JAX and
+    across the seed axis)."""
+    if cfg.adv_norm and key == "policy_loss":
+        return dict(rtol=1e-5, atol=1e-5)
+    return dict(rtol=1e-5, atol=1e-6)
+
+
+def option_runs(name, n, opts):
+    """OPTION_UPDATES CM3 updates with the options ``opts`` (optax path
+    unless they say fused_opt) in both packages from the same converted
+    state, on the same batches and a' noise: after each, the JAX state
+    converted, the port's state, both metrics, and the port's optimizer
+    calls (the fused kernel's segment sizes, the Polyak calls' sizes)."""
+    je, _ = envs(n_agents=n)
+    kw = dict(fused_opt=False)
+    kw.update(opts)
+    ja, ta = algs(je.spec(), **kw)
+    rng = np.random.default_rng(0)
+    batches = [option_batch(je, rng, "pg_is_clip" in opts)
+               for _ in range(OPTION_UPDATES)]
+    jts = ja.init_state(jax.random.PRNGKey(1), batches[0]["obs"],
+                        batches[0]["state"], batches[0]["goals"])
+    tts = convert.state_from_jax(ta, jax.device_get(jts))
+    upd = jax.jit(ja.update)
+    out = {"name": name, "n": n, "alg": ta, "states": [], "calls": [],
+           "start": copy_state(ta, tts)}
+    with pytest.MonkeyPatch.context() as mp:
+        many, soft = fused_opt.adam_polyak_many, polyak.polyak_update
+        calls = []
+        mp.setattr(fused_opt, "adam_polyak_many", lambda items, tau: (
+            calls.append(("adam", [p.numel() for _, p, *_ in items])),
+            many(items, tau)))
+        mp.setattr(polyak, "polyak_update", lambda t, m, tau: (
+            calls.append(("polyak", [t.numel()])), soft(t, m, tau))[1])
+        for i, batch in enumerate(batches):
+            key = jax.random.PRNGKey(5 + i)
+            jts, jm = upd(jts, batch, 0.2, key)
+            gumbel = np.array(jax.random.gumbel(key, (OPTION_B, n, 5)))
+            calls.clear()
+            tts, tm = ta.update(tts, to_torch(jax.device_get(batch)),
+                                0.2, torch.from_numpy(gumbel))
+            out["calls"].append(list(calls))
+            out["states"].append((convert.state_from_jax(
+                ta, jax.device_get(jts)), copy_state(ta, tts),
+                jax.device_get(jm), {k: float(v) for k, v in tm.items()}))
+    return out
+
+
+def hold_option_updates(runs, after):
+    """After ``after`` updates: networks, targets and Adam moments (V's
+    included) at rtol 1e-5 / atol 1e-6 (nu atol 1e-9), as in
+    ``test_torch_optax.py``: float32 sums in other orders; the metrics
+    (losses, the mean importance weight, the entropy) as ``metric_tol``
+    says."""
+    want, got, jm, tm = runs["states"][after - 1]
+    alg = runs["alg"]
+    hold_states(got, want, alg.net_names())
+    assert got.step == want.step == after
+    assert set(tm) == set(jm) - {"grads"}
+    for k in tm:
+        np.testing.assert_allclose(tm[k], float(jm[k]), err_msg=k,
+                                   **metric_tol(alg.cfg, k))
+
+
+def hold_options_take_effect(runs):
+    """The run has the critics its options ask for, the metrics of its
+    corrections, and its freeze: while frozen the actor and its Adam
+    state are unchanged (count and moments), after it they move."""
+    alg = runs["alg"]
+    cfg = alg.cfg
+    _, st1, _, m1 = runs["states"][0]
+    assert (st1.qc is None) == (runs["n"] == 1 or not cfg.use_Q_credit)
+    assert (st1.v is None) == (runs["n"] == 1 or not cfg.use_V)
+    if cfg.pg_is_clip:
+        assert 0.0 < m1["is_weight_mean"] <= cfg.pg_is_clip
+    if cfg.pg_ent_coef:
+        assert 0.0 < m1["policy_entropy"] <= np.log(5.0) + 1e-6
+    freeze = cfg.actor_freeze_updates
+    start = runs["start"]
+    for i, (_, st, _, _) in enumerate(runs["states"]):
+        assert st.opt_actor.count == max(0, i + 1 - freeze)
+        frozen = i < freeze
+        assert torch.equal(st.actor.flat, start.actor.flat) == frozen, i
+        assert (float(st.opt_actor.mu.abs().max()) == 0.0) == frozen, i
