@@ -4,10 +4,11 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Ten phases, each between progress lines with its elapsed seconds and
-held to a time budget (120 + 60 + 60 + 80 + 90 + 30 + 100 + 150 + 150 +
-200 s = 1040 s; phases 4 and 6 at about twice their longest times on an
-H100, 40.8 and 46.4 s):
+Eleven phases, each between progress lines with its elapsed seconds and
+held to a time budget (60 + 60 + 60 + 80 + 90 + 30 + 100 + 60 + 60 +
+220 + 230 s = 1050 s; phases 4, 6, 7, 9 and 10 at about twice their
+longest times on an H100, 41.6, 46.4, 30.1, 111.4 and 113.4 s, the
+others at 2.5-25 times theirs; a whole run took 224-403 s):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -120,6 +121,24 @@ H100, 40.8 and 46.4 s):
    V ablation for two periods; and one ``python -m
    cm3_tpu_torch.train.runner`` process, which must exit 0 with period
    rows.  Episodes per second and the wall time of each run.
+10. the baselines and QMIX (``algs/baseline.py``, ``algs/qmix.py``):
+   card against CPU, one fill and one training chunk from the same
+   seeded state with the same fed draws (QMIX's override actions and
+   uniforms among them) at full width for QMIX, QMIX with the
+   reference's wiring (``qmix_ref_bug``), COMA, IAC, central-V and the
+   blend, and for QMIX and COMA with three seeds in lockstep, at phase
+   3's tolerance; the paper's ``checkers_qmix``, ``checkers_qmix_ref``,
+   ``checkers_coma`` and ``checkers_iac`` cells (16 envs, N_eval 10, a
+   period of 100 episodes, stage 2 from nothing; budgets cut from
+   50,000 episodes to 300, ``CELL_*`` below) through
+   ``runner.train_function`` in turns with CM3's stage 2 from nothing
+   (the optax path, as the cells), each with the Adam + Polyak kernel's
+   launch count set to 0 just before and read just after (these
+   algorithms run the optax path: it must stay 0), their episodes per
+   second; ``checkers_coma`` with three seeds in lockstep through
+   ``train_multiseed``; QMIX resumed from its autosave to a larger
+   budget; and one ``python -m cm3_tpu_torch.train.runner --alg qmix``
+   process, which must exit 0 with a period row.
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
@@ -227,6 +246,21 @@ STAGE1_SEEDS, STAGE1_EPISODES = 3, 500
 CURR_ENVS, CURR_N_EVAL = 16, 10
 CURR_S1, CURR_S2, CURR_RESUME, CURR_SEEDS, CURR_SEEDED = 400, 300, 500, 3, 200
 CURR_V, CURR_CLI, CURR_FREEZE = 200, 100, 20
+# the baselines and QMIX (phase 10): (alg_name, AlgConfig options) of the
+# six configurations held card against CPU, their metrics, and the paper
+# cells' episode budgets cut to the phase's time (the paper's runs are
+# 50,000 episodes): each cell 300, the COMA seeds 200 each, the QMIX
+# resume to 500
+OTHER_CONFIGS = {
+    "qmix": ("qmix", {}), "qmix_ref": ("qmix", dict(qmix_ref_bug=True)),
+    "coma": ("coma", dict(use_Q=True)),
+    "iac": ("iac", dict(use_V=True, IAC=True)),
+    "central_v": ("coma", dict(use_V=True)),
+    "blend": ("coma", dict(use_Q=True, use_V=True)),
+}
+CELL_METRICS = {"qmix": ("loss_mixer",), "coma": ("loss_Q", "policy_loss"),
+                "iac": ("loss_V", "policy_loss")}
+CELL_EPISODES, CELL_SEEDED, CELL_RESUME = 300, 200, 500
 
 T0 = time.time()
 
@@ -1107,6 +1141,233 @@ def phase_curriculum(dev):
 
 
 # ------------------------------------------------------------------ #
+# the baselines and QMIX
+# ------------------------------------------------------------------ #
+
+
+def other_parity(device, name, n_seeds=None):
+    """One fill and one training chunk of the algorithm of
+    ``OTHER_CONFIGS[name]`` (full widths, 2 agents) on the card and on
+    the CPU from the same seeded state with the same fed draws; their
+    states, replay, rollout and metrics held at phase 3's tolerance.
+    Returns the largest difference."""
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.algs.baseline import Baseline
+    from cm3_tpu_torch.algs.qmix import QMIX
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.core.tree import tree_leaves
+    from cm3_tpu_torch.envs.checkers import Checkers
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
+
+    alg_name, opts = OTHER_CONFIGS[name]
+    qmix = alg_name == "qmix"
+    e, b, u = PAR_ENVS, PAR_BATCH, PAR_UPDATES
+    lead = () if n_seeds is None else (n_seeds,)
+    rng = np.random.default_rng(SEED + len(name))
+    fill = [rng.integers(0, 5, lead + (e, 2)) for _ in range(STEPS)]
+    act, unif = [], []
+    for _ in range(STEPS):
+        if qmix:
+            act.append(rng.integers(0, 5, lead + (e, 2)))
+            unif.append(rng.random(lead + (e, 2)).astype(np.float32))
+        else:
+            act.append(rng.gumbel(size=lead + (e, 2, 5)).astype(np.float32))
+    idx = [rng.integers(0, 2 * STEPS * e, lead + (b,)) for _ in range(u)]
+    upd = [] if qmix else [rng.gumbel(size=lead + (b, 2, 5)).astype(
+        np.float32) for _ in range(u)]
+    eps = (torch.tensor([0.1, 0.2, 0.3])[:n_seeds] if n_seeds else 0.3)
+    out = {}
+    for dev in (str(device), "cpu"):
+        env = Checkers(config.checkers_env_config(2, max_steps=7),
+                       device=dev)
+        cls = QMIX if qmix else Baseline
+        alg = cls("checkers", env.spec(),
+                  config.AlgConfig(n_agents=2, stage=2, alg_name=alg_name,
+                                   **opts),
+                  config.checkers_nn_config(2), device=dev, n_seeds=n_seeds)
+        cfg = config.TrainConfig(n_envs=e, batch_size=b, buffer_size=512,
+                                 steps_per_train=STEPS, updates_per_chunk=u,
+                                 episode_log=16)
+        driver = OffPolicyDriver(make_hooks("checkers", env), alg, cfg)
+        rs = init_rollout(driver.hooks, e, None, 16, n_seeds=n_seeds)
+        ts = alg.init_state(prng.root_key(SEED) if n_seeds is None else
+                            [prng.root_key(SEED + i) for i in range(n_seeds)])
+        buf = driver._replay_init(driver.example_transition(rs))
+        if qmix:
+            draws = prng.FedDraws(fill + act + idx, device=dev,
+                                  uniforms=unif)
+        else:
+            draws = prng.FedDraws(fill + idx, act + upd, device=dev)
+        ts, buf, rs, _ = driver._chunk(ts, buf, rs, eps, draws, False, True)
+        ts, buf, rs, m = driver._chunk(ts, buf, rs, eps, draws, True, False)
+        assert not any(draws.remaining().values()), draws.remaining()
+        out[dev] = (alg, ts, buf, rs, m)
+    (alg, ts_c, buf_c, rs_c, m_c), (_, ts_h, buf_h, rs_h, m_h) = \
+        out[str(device)], out["cpu"]
+    pairs = []
+    for k in alg.net_names():
+        pairs += [(getattr(ts_c, k).flat, getattr(ts_h, k).flat),
+                  (getattr(ts_c, k + "_tgt").flat,
+                   getattr(ts_h, k + "_tgt").flat),
+                  (getattr(ts_c, "opt_" + k).mu, getattr(ts_h, "opt_" + k).mu)]
+    pairs += [(x, y) for (_, x), (_, y) in zip(tree_leaves(buf_c.data),
+                                               tree_leaves(buf_h.data))]
+    pairs += [(getattr(rs_c, k), getattr(rs_h, k))
+              for k in ("episodes", "eplog", "acc_ret_local")]
+    pairs += [(m_c[k], m_h[k]) for k in m_h]
+    worst = 0.0
+    for got, want in pairs:
+        torch.testing.assert_close(got.cpu(), want, rtol=PARITY_RTOL,
+                                   atol=PARITY_ATOL)
+        if got.numel():
+            worst = max(worst, float((got.cpu().double()
+                                      - want.double()).abs().max()))
+    assert ts_c.step == u and int(rs_h.episodes.min()) > 0
+    want = (("loss_mixer",) if qmix else
+            ("loss_V",) * alg.use_v + ("loss_Q",) * alg.use_q
+            + ("policy_loss",))
+    assert tuple(m_h) == want, (tuple(m_h), want)
+    log(f"  {name}{'' if n_seeds is None else f', {n_seeds} seeds'}: card "
+        f"== CPU after a fill and a training chunk (rtol {PARITY_RTOL}, "
+        f"atol {PARITY_ATOL}); max abs difference {worst:.3g}; "
+        + ", ".join(f"{k} {np.round(m_c[k].cpu().numpy(), 4).tolist()}"
+                    for k in m_c))
+    return worst
+
+
+def _cell_masters():
+    """master.json with the paper's checkers_qmix, checkers_qmix_ref,
+    checkers_coma and checkers_iac settings
+    (scripts/reproduce_paper.py:216-237: 16 envs, N_eval 10, stage 2
+    from nothing) at a period of 100 episodes, and CM3's checkers_s2
+    settings from nothing (the same program without the graft) to run
+    in turns with them."""
+    from cm3_tpu_torch.core import config
+    m = config.load_json("master.json")
+    m.update(experiment="checkers", stage=2, n_envs=CURR_ENVS,
+             N_eval=CURR_N_EVAL, period=100, train_from_nothing=1,
+             N_train=CELL_EPISODES)
+    cells = {
+        "checkers_qmix": dict(m, alg_name="qmix", dir_name="ck_qmix"),
+        "checkers_qmix_ref": dict(m, alg_name="qmix", qmix_ref_bug=1,
+                                  dir_name="ck_qmixb"),
+        "checkers_coma": dict(m, alg_name="coma", dir_name="ck_coma"),
+        "checkers_iac": dict(m, alg_name="iac", dir_name="ck_iac"),
+    }
+    return cells, dict(m, alg_name="cm3", dir_name="ck_s2")
+
+
+def phase_baselines(dev):
+    import tempfile
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.ops import fused_opt
+    from cm3_tpu_torch.train import checkpoint, runner
+
+    # 1. card against CPU: the six configurations, QMIX and COMA also
+    # with three seeds in lockstep
+    worst = {}
+    for name in OTHER_CONFIGS:
+        worst[name] = other_parity(dev, name)
+    for name in ("qmix", "coma"):
+        worst[name + "_seeds"] = other_parity(dev, name, PAR_SEEDS)
+
+    cells, cm3 = _cell_masters()
+    rates = {}
+    with tempfile.TemporaryDirectory() as wd:
+        # 2. the four paper cells through train_function, in turns with
+        # CM3's stage 2: CM3, QMIX, QMIX-ref, CM3, COMA, IAC, CM3
+        order = ["cm3", "checkers_qmix", "checkers_qmix_ref", "cm3",
+                 "checkers_coma", "checkers_iac", "cm3"]
+        for who in order:
+            m = cm3 if who == "cm3" else cells[who]
+            torch.cuda.synchronize()
+            fused_opt.adam_polyak.launches = 0
+            (ts, st), wall = _timed_run(
+                f"{who} (alg_name {m['alg_name']}), train_function",
+                lambda: runner.train_function(m, wd, verbose=False,
+                                              device=dev))
+            b1 = fused_opt.adam_polyak.launches
+            assert b1 == 0, (who, b1)
+            assert st["episodes"] >= CELL_EPISODES and ts.step > 0
+            rows = st["history"]
+            assert rows and all(np.isfinite(r["r_eval_local"]).all()
+                                for r in rows)
+            for k in CELL_METRICS.get(m["alg_name"], ()):
+                assert np.isfinite([r[k] for r in rows]).all(), k
+            rates.setdefault(who, []).append(st["episodes"] / wall)
+            log(f"  {who}: {ts.step} updates, adam_polyak {b1} launches, "
+                f"last row episode {rows[-1]['episode']}, r_eval_global "
+                f"{rows[-1]['r_eval_global']:.3f}")
+        cm3_rate = statistics.mean(rates["cm3"])
+        log("  episodes/s (one run each; CM3 stage 2 the mean of its "
+            f"{len(rates['cm3'])} runs in turns, "
+            + ", ".join(f"{r:.1f}" for r in rates["cm3"]) + "): "
+            + json.dumps({k: round(v[0], 2) for k, v in rates.items()
+                          if k != "cm3"} | {"cm3_stage2": round(cm3_rate,
+                                                                2)}))
+
+        # 3. checkers_coma with three seeds in lockstep
+        sv = dict(cells["checkers_coma"], dir_name="ck_coma_seeds",
+                  vmapped_seeds=1, n_seeds=PAR_SEEDS, N_train=CELL_SEEDED)
+        fused_opt.adam_polyak.launches = 0
+        (ts4, hist4), _ = _timed_run(
+            f"checkers_coma, {PAR_SEEDS} seeds in lockstep (vmapped_seeds)",
+            lambda: runner.train_multiseed(sv, wd, device=dev))
+        assert fused_opt.adam_polyak.launches == 0
+        assert (hist4[-1]["episode"] >= CELL_SEEDED).all() and ts4.step > 0
+        assert not torch.equal(ts4.q.flat[0], ts4.q.flat[1])
+        for i in range(PAR_SEEDS):
+            assert checkpoint.exists(os.path.join(
+                wd, "saved", f"ck_coma_seeds_{i + 1}", "model_final"))
+        log(f"  coma seeds: rows " + ", ".join(
+            str(r["episode"].tolist()) for r in hist4)
+            + f"; loss_Q {np.round(hist4[-1]['loss_Q'], 4).tolist()}")
+
+        # 4. QMIX resumed from its autosave to a larger budget
+        q = cells["checkers_qmix"]
+        auto = os.path.join(wd, "saved", q["dir_name"], "model_autosave")
+        alg = runner.build(q, device=dev)[1]
+        start = checkpoint.restore(auto, {"ts": alg.empty_state(),
+                                          "episodes": 0})
+        (ts5, st5), _ = _timed_run(
+            f"checkers_qmix resumed from its autosave at episode "
+            f"{start['episodes']}",
+            lambda: runner.train_function(
+                dict(q, auto_resume=1, require_resume=1,
+                     N_train=CELL_RESUME), wd, verbose=False, device=dev),
+            start["episodes"])
+        period = q["period"]
+        assert (st5["history"][0]["episode"] // period
+                > start["episodes"] // period)
+        assert ts5.opt_qmix.count > start["ts"].opt_qmix.count > 0
+        assert st5["episodes"] >= CELL_RESUME
+
+        # 5. the CLI with --alg qmix in a process of its own
+        cfg = os.path.join(wd, "cli_master.json")
+        with open(cfg, "w") as f:
+            json.dump(dict(q, alg_name="cm3", dir_name="cli_qmix"), f)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cm3_tpu_torch.train.runner", "--config",
+             cfg, "--alg", "qmix", "--episodes", str(CURR_CLI),
+             "--workdir", wd],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"),
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        rows = _rows(wd, "cli_qmix")
+        assert rows, "the CLI wrote no period row"
+        log(f"  CLI: python -m cm3_tpu_torch.train.runner --alg qmix "
+            f"--episodes {CURR_CLI} exited 0 in {time.time() - t0:.2f} s "
+            f"with {len(rows)} period rows; its last: "
+            f"{proc.stdout.strip().splitlines()[-1]}")
+    return worst
+
+
+# ------------------------------------------------------------------ #
 # the CUDA C++ build
 # ------------------------------------------------------------------ #
 
@@ -1584,19 +1845,23 @@ def main():
     dev = torch.device("cuda", 0)
     card = smi_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    run_phase("0 build", 120, phase_build)
-    kern = run_phase("1 kernel vs plain", 60, phase_kernel, dev)
-    launches = run_phase("2 the slice", 60, phase_slice, dev)
-    run_phase("3 card vs CPU", 80, phase_parity, dev)
-    rollout = run_phase("4 fused Checkers rollout", 90, phase_rollout, dev)
-    soft = run_phase("5 polyak", 30, phase_polyak, dev)
-    particle = run_phase("6 fused particle rollout", 100, phase_particle,
-                         dev)
-    roadway = run_phase("7 fused roadway rollout", 150, phase_roadway, dev)
-    run_phase("8 seed-batched training", 150, phase_seeded, dev)
-    frozen = run_phase("9 the curriculum through the runner", 200,
-                       phase_curriculum, dev)
+    phases = [
+        ("0 build", 60, phase_build),
+        ("1 kernel vs plain", 60, phase_kernel, dev),
+        ("2 the slice", 60, phase_slice, dev),
+        ("3 card vs CPU", 80, phase_parity, dev),
+        ("4 fused Checkers rollout", 90, phase_rollout, dev),
+        ("5 polyak", 30, phase_polyak, dev),
+        ("6 fused particle rollout", 100, phase_particle, dev),
+        ("7 fused roadway rollout", 60, phase_roadway, dev),
+        ("8 seed-batched training", 60, phase_seeded, dev),
+        ("9 the curriculum through the runner", 220, phase_curriculum, dev),
+        ("10 the baselines and QMIX", 230, phase_baselines, dev),
+    ]
+    out = {name.split()[0]: run_phase(name, budget, fn, *args)
+           for name, budget, fn, *args in phases}
+    kern, launches, rollout, soft, particle, roadway, frozen = (
+        out[k] for k in ("1", "2", "4", "5", "6", "7", "9"))
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

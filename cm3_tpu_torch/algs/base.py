@@ -1,0 +1,229 @@
+"""What CM3, the baselines and QMIX share: the parameter layouts (one
+seed in flattened modules, or seeds in lockstep in ``nets.SeedStack``s),
+the per-seed map, fresh and empty states, the optax-path step, and the
+draws each algorithm asks of the driver.
+
+A subclass names its networks with ``_makers()`` (a list of module
+constructors, None for a network the configuration leaves out) and
+builds its state from their (main, target) pairs in ``_state``.  Every
+step of an update is written for one seed; ``_map`` runs it over the
+seed axis with ``torch.func.vmap``, or as it is without seeds.
+
+Draws.  The driver hands ``act`` what ``act_draws(draws, lead)`` makes
+and ``update`` what ``update_draws(draws, lead)`` makes, ``lead`` being
+the instances' leading shape ([E] or [S, E]; for an update [B] or
+[S, B]).  An actor-critic samples from its policy with Gumbel noise
+[*lead, N, A] in both; QMIX overrides them (``algs/qmix.py``).
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, Optional, Sequence, Union
+
+import torch
+from torch.func import functional_call, vmap
+
+from cm3_tpu_torch.algs import common
+from cm3_tpu_torch.core import prng
+from cm3_tpu_torch.core.config import AlgConfig, NNConfig
+from cm3_tpu_torch.models import nets
+
+# the ROADMAP items that port the other experiments' engines and nets
+NOT_PORTED = {"particle": "A10b", "roadway": "A11b"}
+
+
+class SeededAlgorithm:
+    """Runs on ``device`` (``cuda`` unless told); with ``n_seeds`` (1
+    included) it trains that many independent seeds in lockstep in seed
+    stacks, and without it one seed in flattened modules."""
+
+    def __init__(self, experiment: str, spec: Dict[str, int], alg: AlgConfig,
+                 nn_cfg: NNConfig = NNConfig(), device="cuda",
+                 n_seeds: Optional[int] = None):
+        if experiment != "checkers":
+            item = NOT_PORTED.get(experiment)
+            raise NotImplementedError(
+                f"only Checkers is ported, not {experiment!r}"
+                + (f" (ROADMAP {item})" if item else ""))
+        nets.init_scheme(alg.init_scheme)
+        self.experiment = experiment
+        self.spec = dict(spec, n_agents=alg.n_agents)
+        self.cfg = alg
+        self.nn_cfg = nn_cfg
+        self.n_agents = alg.n_agents
+        self.n_actions = spec["l_action"]
+        self.stage = alg.stage
+        self.device = torch.device(device)
+        self.n_seeds = n_seeds
+        # forward templates for the seed-stacked networks
+        self._tmpl = {}
+
+    def for_seeds(self, n_seeds: Optional[int]):
+        """The same algorithm for ``n_seeds`` seeds in lockstep (None:
+        one seed in flattened modules)."""
+        return type(self)(self.experiment, self.spec, self.cfg, self.nn_cfg,
+                          self.device, n_seeds)
+
+    # ---- networks and states ---- #
+
+    def _makers(self):
+        """The networks' module constructors in the state's order; None
+        where the configuration has no such network."""
+        raise NotImplementedError
+
+    def _state(self, *pairs):
+        """The state from each network's (main, target) pair (None for
+        an absent one), in the order of ``_makers``."""
+        raise NotImplementedError
+
+    def _template(self, make):
+        if make not in self._tmpl:
+            self._tmpl[make] = make().to(self.device)
+        return self._tmpl[make]
+
+    def _pair(self, make, gens=None):
+        """(main, target) on the device, each flattened; the target
+        starts equal to the main.  Parameters are drawn on the CPU from
+        ``gens`` (one generator per seed, so a seed gives the same
+        weights on every device and for any number of seeds), or left to
+        be loaded when ``gens`` is None."""
+        def drawn(gen):
+            m = make()
+            if gen is not None:
+                nets.init_parameters(m, gen, self.cfg.init_scheme)
+            return m
+
+        if self.n_seeds is None:
+            main = nets.flatten_parameters(
+                drawn(gens and gens[0]).to(self.device))
+            tgt = nets.flatten_parameters(make().to(self.device),
+                                          with_grad=False)
+        else:
+            tmpl = self._template(make)
+            main = nets.SeedStack(tmpl, self.n_seeds)
+            tgt = nets.SeedStack(tmpl, self.n_seeds, with_grad=False)
+            for s, gen in enumerate(gens or ()):
+                main.flat[s] = nets.flatten_parameters(drawn(gen)).flat
+        tgt.flat.copy_(main.flat)
+        return main, tgt
+
+    def init_state(self, key: Union[int, Sequence[int]]):
+        """Fresh parameters from ``key`` (a ``core.prng`` key), or with
+        seeds from ``key``, a sequence of one key per seed.  Network i of
+        ``_makers`` draws from the key's PARAMS purpose folded with i."""
+        keys = [key] if self.n_seeds is None else list(key)
+        if len(keys) != (self.n_seeds or 1):
+            raise ValueError(f"init_state wants {self.n_seeds} keys, got "
+                             f"{len(keys)}")
+
+        def gens(i):
+            return [prng.generator(prng.fold_in(
+                prng.for_purpose(k, prng.PARAMS), i), "cpu") for k in keys]
+        return self._state(*(make and self._pair(make, gens(i))
+                             for i, make in enumerate(self._makers())))
+
+    def empty_state(self):
+        """A state of the right shapes whose values are to be loaded
+        (``convert.state_from_jax``, ``train.checkpoint.restore``)."""
+        return self._state(*(make and self._pair(make)
+                             for make in self._makers()))
+
+    def _adam(self, net):
+        return common.adam_init(net.flat, bool(self.cfg.grad_clip))
+
+    # ---- the seed map.  A network argument is a flattened module
+    # (single seed) or one seed's parameter dict (inside ``_map``) ---- #
+
+    def _call(self, make, net, *args):
+        if isinstance(net, torch.nn.Module):
+            return net(*args)
+        return functional_call(self._template(make), net, args)
+
+    def _map(self, fn, *args):
+        """``fn`` (written for one seed) over the seed axis of ``args``,
+        or on them as they are without seeds."""
+        if self.n_seeds is None:
+            return fn(*args)
+        return vmap(fn)(*args)
+
+    @staticmethod
+    def _handle(net):
+        """What ``_map`` passes for a network: the module itself, the
+        stacked parameter dict, or {} for an absent network."""
+        if net is None:
+            return {}
+        return net if isinstance(net, torch.nn.Module) else net.params
+
+    def _epsilon(self, epsilon):
+        """A Python float without seeds; an [S] float32 tensor with."""
+        if self.n_seeds is None:
+            return epsilon
+        return torch.as_tensor(epsilon, dtype=torch.float32,
+                               device=self.device).expand(self.n_seeds)
+
+    @staticmethod
+    def _backward(loss):
+        """Backward into the flat gradient buffers.  The seed stacks'
+        gradient views are strided (a row of [S, n] each), which autograd
+        notes as a layout it would not have chosen; it accumulates into
+        them in place all the same."""
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", message="grad and param do not obey")
+            loss.backward()
+
+    def _optax_step(self, *steps, lr_scale=None):
+        """The optax-order Adam step (``common.adam_apply``, with the
+        global-norm clip ``grad_clip``) and the soft target update for
+        each (opt_state, net, tgt, lr) of ``steps``: one call per
+        network, as JAX makes one optax update per network."""
+        for opt, net, tgt, lr in steps:
+            common.adam_apply(opt, net.flat, net.flat_grad, lr,
+                              self.cfg.grad_clip, lr_scale)
+            common.soft_update(tgt.flat, net.flat, self.cfg.tau)
+
+    # ---- draws ---- #
+
+    def act_draws(self, draws, lead: Sequence[int]):
+        """What ``act`` consumes for instances of the leading shape
+        ``lead``: Gumbel noise [*lead, N, A] for the policy's sample."""
+        return draws.gumbel(tuple(lead) + (self.n_agents, self.n_actions))
+
+    def update_draws(self, draws, lead: Sequence[int]):
+        """What ``update`` consumes for a batch of the leading shape
+        ``lead``: Gumbel noise [*lead, N, A] for the target policy's
+        a'."""
+        return draws.gumbel(tuple(lead) + (self.n_agents, self.n_actions))
+
+
+class ActorCritic(SeededAlgorithm):
+    """An algorithm with CM3's Checkers actor (CM3 and the baselines)."""
+
+    def _actor_module(self):
+        c = self.nn_cfg
+        return nets.ActorCheckers(
+            self.spec, conv_f=c.A_conv_f, conv_k=tuple(c.A_conv_k),
+            n_h1=c.A_n_h1, n_h2=c.A_n_h2, stage=self.stage)
+
+    def actor_probs(self, actor, obs, goals, a_prev, epsilon):
+        """eps-mixed policy probabilities, [B, N, A]."""
+        b, n = goals.shape[0], goals.shape[1]
+        f = common.flatten_bn
+        probs = self._call(
+            self._actor_module, actor,
+            f(common.one_hot(a_prev, self.n_actions)), f(obs["self_t"]),
+            f(obs["self_v"]), f(obs["others"]), f(goals))
+        probs = probs.reshape(b, n, self.n_actions)
+        return common.epsilon_probs(probs, epsilon, self.n_actions)
+
+    @torch.no_grad()
+    @nets.full_float32()
+    def act(self, ts, obs, goals, a_prev, epsilon, gumbel):
+        """Sample actions for all agents as one batch, [B, N] ([S, B, N]
+        with seeds); ``gumbel`` is [B, N, A] standard Gumbel noise."""
+        def one(actor, obs, goals, a_prev, eps, gumbel):
+            probs = self.actor_probs(actor, obs, goals, a_prev, eps)
+            return common.sample_actions(probs, gumbel)
+        return self._map(one, self._handle(ts.actor), obs, goals, a_prev,
+                         self._epsilon(epsilon), gumbel)

@@ -70,22 +70,21 @@ time per operation, and the map adds 7% launches;
 ``scripts/torch_seed_layout_times.py``).
 
 The update's one random draw, a' (``cm3.py:465``), comes in as Gumbel
-noise, so a test can feed JAX's.  Not ported yet (ROADMAP.md): the
-particle and roadway nets (A10b, A11b).
+noise, so a test can feed JAX's.  The seed plumbing, the states' set-up,
+the actor and ``act`` are shared with the baselines
+(``algs/base.py``).  Not ported yet (ROADMAP.md): the particle and
+roadway nets (A10b, A11b).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import warnings
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-from torch.func import functional_call, vmap
 
-from cm3_tpu_torch.algs import common
-from cm3_tpu_torch.core import prng
+from cm3_tpu_torch.algs import base, common
 from cm3_tpu_torch.core.config import AlgConfig, NNConfig
 from cm3_tpu_torch.models import nets
 from cm3_tpu_torch.ops import fused_opt, polyak
@@ -115,7 +114,7 @@ class CM3State:
     step: int = 0
 
 
-class CM3:
+class CM3(base.ActorCritic):
     """CM3 on Checkers.  Runs on ``device`` (``cuda`` unless told); with
     ``n_seeds`` (1 included) it trains that many independent seeds in
     lockstep in seed stacks, and without it one seed in flattened
@@ -124,9 +123,7 @@ class CM3:
     def __init__(self, experiment: str, spec: Dict[str, int], alg: AlgConfig,
                  nn_cfg: NNConfig = NNConfig(), device="cuda",
                  n_seeds: Optional[int] = None):
-        if experiment != "checkers":
-            raise NotImplementedError(
-                f"only Checkers is ported, not {experiment!r}")
+        super().__init__(experiment, spec, alg, nn_cfg, device, n_seeds)
         if alg.fused_opt and alg.grad_clip:
             raise ValueError(
                 "fused_opt requires grad_clip == 0 (the global-norm clip "
@@ -135,33 +132,10 @@ class CM3:
             raise ValueError(
                 "fused_opt is incompatible with actor_lr_anneal_updates "
                 "(the fused kernel's lr is static; use the optax path)")
-        nets.init_scheme(alg.init_scheme)
-        self.experiment = experiment
-        self.spec = dict(spec, n_agents=alg.n_agents)
-        self.cfg = alg
-        self.nn_cfg = nn_cfg
-        self.n_agents = alg.n_agents
-        self.n_actions = spec["l_action"]
-        self.stage = alg.stage
         self.use_credit = alg.n_agents > 1 and alg.use_Q_credit
         self.use_v = alg.n_agents > 1 and alg.use_V
-        self.device = torch.device(device)
-        self.n_seeds = n_seeds
-        # forward templates for the seed-stacked networks
-        self._tmpl = {}
-
-    def for_seeds(self, n_seeds: int) -> "CM3":
-        """The same algorithm for ``n_seeds`` seeds in lockstep."""
-        return CM3(self.experiment, self.spec, self.cfg, self.nn_cfg,
-                   self.device, n_seeds)
 
     # ---- networks ---- #
-
-    def _actor_module(self):
-        c = self.nn_cfg
-        return nets.ActorCheckers(
-            self.spec, conv_f=c.A_conv_f, conv_k=tuple(c.A_conv_k),
-            n_h1=c.A_n_h1, n_h2=c.A_n_h2, stage=self.stage)
 
     def _qg_module(self):
         c = self.nn_cfg
@@ -180,64 +154,10 @@ class CM3:
     def _v_module(self):
         return nets.VCheckersAblation(self.spec)
 
-    def _template(self, make):
-        if make not in self._tmpl:
-            self._tmpl[make] = make().to(self.device)
-        return self._tmpl[make]
-
-    def _pair(self, make, gens=None):
-        """(main, target) on the device, each flattened; the target
-        starts equal to the main.  Parameters are drawn on the CPU from
-        ``gens`` (one generator per seed, so a seed gives the same
-        weights on every device and for any number of seeds), or left to
-        be loaded when ``gens`` is None."""
-        def drawn(gen):
-            m = make()
-            if gen is not None:
-                nets.init_parameters(m, gen, self.cfg.init_scheme)
-            return m
-
-        if self.n_seeds is None:
-            main = nets.flatten_parameters(
-                drawn(gens and gens[0]).to(self.device))
-            tgt = nets.flatten_parameters(make().to(self.device),
-                                          with_grad=False)
-        else:
-            tmpl = self._template(make)
-            main = nets.SeedStack(tmpl, self.n_seeds)
-            tgt = nets.SeedStack(tmpl, self.n_seeds, with_grad=False)
-            for s, gen in enumerate(gens or ()):
-                main.flat[s] = nets.flatten_parameters(drawn(gen)).flat
-        tgt.flat.copy_(main.flat)
-        return main, tgt
-
-    def init_state(self, key: Union[int, Sequence[int]]) -> CM3State:
-        """Fresh parameters from ``key`` (a ``core.prng`` key), or with
-        seeds from ``key``, a sequence of one key per seed."""
-        keys = [key] if self.n_seeds is None else list(key)
-        if len(keys) != (self.n_seeds or 1):
-            raise ValueError(f"init_state wants {self.n_seeds} keys, got "
-                             f"{len(keys)}")
-
-        def gens(i):
-            return [prng.generator(prng.fold_in(
-                prng.for_purpose(k, prng.PARAMS), i), "cpu") for k in keys]
-        return self._state(
-            self._pair(self._actor_module, gens(0)),
-            self._pair(self._qg_module, gens(1)),
-            self._pair(self._qc_module, gens(2)) if self.use_credit
-            else None,
-            self._pair(self._v_module, gens(3)) if self.use_v else None)
-
-    def empty_state(self) -> CM3State:
-        """A state of the right shapes whose values are to be loaded
-        (``convert.state_from_jax``, ``train.checkpoint.restore``)."""
-        return self._state(self._pair(self._actor_module),
-                           self._pair(self._qg_module),
-                           self._pair(self._qc_module) if self.use_credit
-                           else None,
-                           self._pair(self._v_module) if self.use_v
-                           else None)
+    def _makers(self):
+        return [self._actor_module, self._qg_module,
+                self._qc_module if self.use_credit else None,
+                self._v_module if self.use_v else None]
 
     def net_names(self):
         """The names of the state's networks, in the order of the JAX
@@ -246,67 +166,12 @@ class CM3:
                 + (("v",) if self.use_v else ()))
 
     def _state(self, actor, qg, qc, v) -> CM3State:
-        clipped = bool(self.cfg.grad_clip)
-        adam = lambda net: common.adam_init(net.flat, clipped)
         return CM3State(
             actor=actor[0], actor_tgt=actor[1], qg=qg[0], qg_tgt=qg[1],
             qc=qc and qc[0], qc_tgt=qc and qc[1],
-            opt_actor=adam(actor[0]), opt_qg=adam(qg[0]),
-            opt_qc=qc and adam(qc[0]),
-            v=v and v[0], v_tgt=v and v[1], opt_v=v and adam(v[0]))
-
-    # ---- one seed's forward helpers ([B, N, ...] in, [B, N, ...] out).
-    # A network argument is a flattened module (single seed) or one
-    # seed's parameter dict (inside ``_map``) ---- #
-
-    def _call(self, make, net, *args):
-        if isinstance(net, torch.nn.Module):
-            return net(*args)
-        return functional_call(self._template(make), net, args)
-
-    def _map(self, fn, *args):
-        """``fn`` (written for one seed) over the seed axis of ``args``,
-        or on them as they are without seeds."""
-        if self.n_seeds is None:
-            return fn(*args)
-        return vmap(fn)(*args)
-
-    @staticmethod
-    def _handle(net):
-        """What ``_map`` passes for a network: the module itself, the
-        stacked parameter dict, or {} for an absent network."""
-        if net is None:
-            return {}
-        return net if isinstance(net, torch.nn.Module) else net.params
-
-    def _epsilon(self, epsilon):
-        """A Python float without seeds; an [S] float32 tensor with."""
-        if self.n_seeds is None:
-            return epsilon
-        return torch.as_tensor(epsilon, dtype=torch.float32,
-                               device=self.device).expand(self.n_seeds)
-
-    def actor_probs(self, actor, obs, goals, a_prev, epsilon):
-        """eps-mixed policy probabilities, [B, N, A]."""
-        b, n = goals.shape[0], goals.shape[1]
-        f = common.flatten_bn
-        probs = self._call(
-            self._actor_module, actor,
-            f(common.one_hot(a_prev, self.n_actions)), f(obs["self_t"]),
-            f(obs["self_v"]), f(obs["others"]), f(goals))
-        probs = probs.reshape(b, n, self.n_actions)
-        return common.epsilon_probs(probs, epsilon, self.n_actions)
-
-    @torch.no_grad()
-    @nets.full_float32()
-    def act(self, ts: CM3State, obs, goals, a_prev, epsilon, gumbel):
-        """Sample actions for all agents as one batch, [B, N] ([S, B, N]
-        with seeds); ``gumbel`` is [B, N, A] standard Gumbel noise."""
-        def one(actor, obs, goals, a_prev, eps, gumbel):
-            probs = self.actor_probs(actor, obs, goals, a_prev, eps)
-            return common.sample_actions(probs, gumbel)
-        return self._map(one, self._handle(ts.actor), obs, goals, a_prev,
-                         self._epsilon(epsilon), gumbel)
+            opt_actor=self._adam(actor[0]), opt_qg=self._adam(qg[0]),
+            opt_qc=qc and self._adam(qc[0]),
+            v=v and v[0], v_tgt=v and v[1], opt_v=v and self._adam(v[0]))
 
     @torch.no_grad()
     @nets.full_float32()
@@ -320,6 +185,10 @@ class CM3:
             return common.sample_actions(probs, gumbel), probs
         return self._map(one, self._handle(ts.actor), obs, goals, a_prev,
                          self._epsilon(epsilon), gumbel)
+
+    # ---- one seed's forward helpers ([B, N, ...] in, [B, N, ...] out).
+    # A network argument is a flattened module (single seed) or one
+    # seed's parameter dict (inside ``_map``) ---- #
 
     def _q_global(self, qg, state, obs, goals, a_1h):
         """Q_n(s, a_all) for every agent, [B, N]."""
@@ -526,16 +395,12 @@ class CM3:
         each (opt_state, net, tgt, lr): one fused kernel launch over all
         their flat buffers (``ops/fused_opt.py``), or the optax-order
         update per network (``common.adam_apply``)."""
-        cfg = self.cfg
-        if cfg.fused_opt:
+        if self.cfg.fused_opt:
             fused_opt.adam_polyak_many(
                 [(opt, net.flat, tgt.flat, net.flat_grad, lr)
-                 for opt, net, tgt, lr in steps], cfg.tau)
+                 for opt, net, tgt, lr in steps], self.cfg.tau)
             return
-        for opt, net, tgt, lr in steps:
-            common.adam_apply(opt, net.flat, net.flat_grad, lr,
-                              cfg.grad_clip, lr_scale)
-            common.soft_update(tgt.flat, net.flat, cfg.tau)
+        self._optax_step(*steps, lr_scale=lr_scale)
 
     def _frozen_target_step(self, tgt, net):
         """The actor target's soft update toward the frozen actor: the
@@ -547,17 +412,6 @@ class CM3:
                                  self.cfg.tau)
         else:
             common.soft_update(tgt.flat, net.flat, self.cfg.tau)
-
-    @staticmethod
-    def _backward(loss):
-        """Backward into the flat gradient buffers.  The seed stacks'
-        gradient views are strided (a row of [S, n] each), which autograd
-        notes as a layout it would not have chosen; it accumulates into
-        them in place all the same."""
-        with warnings.catch_warnings():
-            warnings.filterwarnings(
-                "ignore", message="grad and param do not obey")
-            loss.backward()
 
     @nets.full_float32()
     def update(self, ts: CM3State, batch: Dict[str, Any], epsilon,

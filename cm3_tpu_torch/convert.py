@@ -1,7 +1,8 @@
-"""Load the JAX package's CM3 state into the port.
+"""Load the JAX package's algorithm states into the port.
 
 Takes the state as host arrays (``jax.device_get`` of a
-``cm3_tpu.algs.cm3.CM3State``) and never imports JAX: flax variable
+``cm3_tpu.algs.cm3.CM3State``, ``baseline.BaselineState`` or
+``qmix.QmixState``) and never imports JAX: flax variable
 dicts are nested dicts of arrays, and the optimizer states are read by
 attribute (``opt_state[0].count``, ``.mu``, ``.nu``).
 
@@ -14,9 +15,15 @@ leaf in torch layout.  The JAX Adam moments are flat vectors in
 ``ravel_pytree`` order with leaves in flax layout, so they are cut into
 leaves, transposed the same way, and joined again.
 
+QMIX's agent net and mixer are one network in the port
+(``nets.QmixJoint``): JAX's ``agent`` and ``mixer`` params join under
+``agent`` and ``mixer``, whose sorted flatten is ``ravel_pytree`` of
+the pair (agent, mixer), the order of JAX's one flat Adam state
+``opt``, which loads whole.
+
 A JAX state of seeds in lockstep (``jax.vmap(alg.init_state)``, every
 leaf with a leading seed axis) loads into the port's seed-stacked
-state (``CM3(..., n_seeds=S)``), row by row.
+state (``n_seeds=S``), row by row.
 """
 
 from __future__ import annotations
@@ -103,29 +110,40 @@ def _seed_slice(tree, s):
     return np.asarray(tree)[s]
 
 
+def _jax_fields(jts, name):
+    """(params, target params, optax state) of the port's network
+    ``name`` in the JAX state ``jts``."""
+    if name == "qmix":
+        join = lambda a, m: {"params": {"agent": a["params"],
+                                        "mixer": m["params"]}}
+        return (join(jts.agent, jts.mixer),
+                join(jts.agent_tgt, jts.mixer_tgt), jts.opt)
+    return (getattr(jts, name), getattr(jts, name + "_tgt"),
+            getattr(jts, "opt_" + name))
+
+
 def state_from_jax(alg, jts):
-    """A port ``CM3State`` holding the values of the JAX ``jts`` (host
-    arrays): parameters, targets, and each network's Adam state (the
-    actor, Q_global, and Q_credit and V where the algorithm has them).  For an
-    algorithm with ``n_seeds`` the JAX state carries a leading seed axis
-    on every leaf."""
+    """A port state of ``alg`` (CM3, Baseline or QMIX) holding the values
+    of the JAX ``jts`` (host arrays): parameters, targets, and each
+    network's Adam state.  For an algorithm with ``n_seeds`` the JAX
+    state carries a leading seed axis on every leaf."""
     st = alg.empty_state()
     seeds = alg.n_seeds
     for name in alg.net_names():
         main, tgt = getattr(st, name), getattr(st, name + "_tgt")
-        adam = _adam(getattr(jts, "opt_" + name))
+        params, tgt_params, opt_state = _jax_fields(jts, name)
+        adam = _adam(opt_state)
         opt = getattr(st, "opt_" + name)
         if seeds is None:
-            load_params(main, getattr(jts, name))
-            load_params(tgt, getattr(jts, name + "_tgt"))
+            load_params(main, params)
+            load_params(tgt, tgt_params)
             opt.mu.copy_(flat_to_torch(main, adam.mu))
             opt.nu.copy_(flat_to_torch(main, adam.nu))
             opt.count = int(adam.count)
             continue
         tmpl = main.module
         for s in range(seeds):
-            for net, tree in ((main, getattr(jts, name)),
-                              (tgt, getattr(jts, name + "_tgt"))):
+            for net, tree in ((main, params), (tgt, tgt_params)):
                 net.flat[s].copy_(params_to_flat(tmpl, _seed_slice(tree, s)))
             opt.mu[s].copy_(flat_to_torch(tmpl, np.asarray(adam.mu)[s]))
             opt.nu[s].copy_(flat_to_torch(tmpl, np.asarray(adam.nu)[s]))

@@ -1,18 +1,18 @@
 """Typed configuration: the subset of ``cm3_tpu.core.config`` that the
-ported modules read: Checkers CM3 training (stage 1 and stage 2, one
-seed or seeds in lockstep) and the particle and roadway
-struct-of-arrays engines of the fused rollouts.
+ported modules read: Checkers training with CM3, the baselines (COMA,
+IAC, central-V, the alpha-blend) and QMIX (stage 1 and stage 2, one seed
+or seeds in lockstep), and the particle and roadway struct-of-arrays
+engines of the fused rollouts.
 
 Same frozen dataclasses, same field names and defaults.  The particle
 and roadway configs are whole, their observation and reset fields
 included (read once their engines are ported, ROADMAP.md A10b/A11b).
-Other fields of the JAX schema that no ported code reads yet (the
-QMIX and baseline knobs of ``AlgConfig``: ``alg_name``, ``use_Q``,
-``IAC``, ``alpha``, ``qmix_ref_bug``, and the generic staged nets'
-widths of ``NNConfig``) are left out until the module that reads them
-is ported (ROADMAP.md, queue A); the runner refuses an ``alg_name``
-other than ``cm3``.  The JSON experiment files are read in place
-from ``cm3_tpu/configs/`` as data.
+``NNConfig`` has the Checkers widths and the two generic widths the
+Checkers baselines read (``Q_units``, ``V_n_h2``); the generic staged
+nets' other widths (``V_n_others``, ``Actor_n_others``,
+``Actor_n_h2``) are left out until the particle and roadway nets are
+ported.  The JSON experiment files are read in place from
+``cm3_tpu/configs/`` as data.
 """
 
 from __future__ import annotations
@@ -150,8 +150,14 @@ class RoadwayEnvConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NNConfig:
-    """Checkers conv-net sizes (``config_checkers_stage*.json`` "nn")."""
+    """Checkers net sizes (``config_checkers_stage*.json`` "nn"), and
+    the generic COMA critic width and V width (``master.json`` "nn")."""
 
+    # generic staged nets (config.json "nn"); the Checkers COMA critic
+    # reads Q_units, the IAC critic V_n_h2 (checkers_stage2.json: 256)
+    Q_units: int = 256
+    V_n_h2: int = 64
+    # checkers conv nets (config_checkers_stage*.json "nn")
     Q_conv_f: int = 4
     Q_conv_k: Tuple[int, int] = (3, 5)
     Q_n_h1_1: int = 256
@@ -161,15 +167,26 @@ class NNConfig:
     A_conv_k: Tuple[int, int] = (3, 3)
     A_n_h1: int = 256
     A_n_h2: int = 256
+    V_conv_f: int = 6
+    V_conv_k: Tuple[int, int] = (3, 3)
+    V_n_h1_1: int = 256
+    V_n_h1_2: int = 32
 
 
 @dataclasses.dataclass(frozen=True)
 class AlgConfig:
-    """CM3 hyperparameters (reference ``alg/config.json:40-67``); see the
-    JAX ``AlgConfig`` for the provenance of each knob."""
+    """Algorithm hyperparameters (reference ``alg/config.json:40-67``);
+    see the JAX ``AlgConfig`` for the provenance of each knob."""
 
+    alg_name: str = "cm3"  # cm3 | coma | iac | qmix
     stage: int = 1
     n_agents: int = 1
+    # the baselines' critics (algs/baseline.py): the COMA critic, the
+    # per-agent local V instead of V(s, g^n), and the blend's weight of
+    # the local (V) term when both critics are on
+    use_Q: bool = False
+    IAC: bool = False
+    alpha: float = 0.7
     tau: float = 0.01
     gamma: float = 0.99
     lr_Q: float = 1e-3
@@ -177,6 +194,9 @@ class AlgConfig:
     # global-norm gradient clip, 0 = off (optax path; the fused update
     # rejects it)
     grad_clip: float = 0.0
+    # QMIX: feed the MAIN agent nets' q-values into the target mixer, as
+    # the reference's Checkers QMIX does (alg_qmix_checkers.py:106)
+    qmix_ref_bug: bool = False
     # parameter-init scheme: "ref" | "tf1" | "trunc001" (models/nets.py)
     init_scheme: str = "ref"
     # clamp TD targets to [-target_clip, +target_clip] (0 = off)

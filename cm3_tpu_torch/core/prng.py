@@ -8,15 +8,16 @@ streams are not JAX's (threefry cannot be reproduced in PyTorch); the
 parity tests feed JAX's draws in through ``FedDraws`` instead.
 
 A draw source is what the JAX code's ``key`` argument becomes: the
-driver asks it for random actions, Gumbel noise and replay indices in
-a fixed order.  ``GeneratorDraws`` makes them on the device from a
-``torch.Generator``; ``FedDraws`` hands out given arrays.
+driver asks it for random actions, Gumbel noise, uniform draws (QMIX's
+epsilon override) and replay indices in a fixed order.
+``GeneratorDraws`` makes them on the device from a ``torch.Generator``;
+``FedDraws`` hands out given arrays.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -85,28 +86,37 @@ class GeneratorDraws:
                              device=self.device)
 
     def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
-        u = torch.rand(tuple(shape), generator=self.gen, device=self.device)
-        return gumbel_from_uniform(u)
+        return gumbel_from_uniform(self.uniform(shape))
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        """float32 in [0, 1)."""
+        return torch.rand(tuple(shape), generator=self.gen,
+                          device=self.device)
 
 
 class FedDraws:
     """Hands out given arrays, per kind in the order given.
 
     ``randint`` returns the next array of ``randints`` (random actions
-    and replay indices, in the order the driver asks for them) and
-    ``gumbel`` the next of ``gumbels``.  Each array must have the shape
-    asked for, and a randint array must lie in [0, high).
+    and replay indices, in the order the driver asks for them),
+    ``gumbel`` the next of ``gumbels`` and ``uniform`` the next of
+    ``uniforms``.  Each array must have the shape asked for, and a
+    randint array must lie in [0, high).  ``uniforms`` are given only
+    for an algorithm that draws them (QMIX); ``remaining`` counts them
+    only then.
     """
 
     def __init__(self, randints: Iterable = (), gumbels: Iterable = (),
-                 device="cuda"):
+                 device="cuda", uniforms: Optional[Iterable] = None):
         self.device = torch.device(device)
         self._q: Dict[str, collections.deque] = {
             "randint": collections.deque(randints),
             "gumbel": collections.deque(gumbels)}
+        if uniforms is not None:
+            self._q["uniform"] = collections.deque(uniforms)
 
     def _next(self, kind: str, shape, dtype) -> torch.Tensor:
-        if not self._q[kind]:
+        if not self._q.get(kind):
             raise IndexError(f"FedDraws: no {kind} draw left")
         x = torch.tensor(np.asarray(self._q[kind].popleft()), dtype=dtype)
         if tuple(x.shape) != tuple(shape):
@@ -122,6 +132,9 @@ class FedDraws:
 
     def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
         return self._next("gumbel", shape, torch.float32).to(self.device)
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        return self._next("uniform", shape, torch.float32).to(self.device)
 
     def remaining(self) -> Dict[str, int]:
         return {k: len(v) for k, v in self._q.items()}

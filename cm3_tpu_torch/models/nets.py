@@ -1,11 +1,14 @@
 """Checkers networks: the actor, the two CM3 critics and the V
-ablation critic.
+ablation critic; the baselines' IAC critic, V(s, g^n) critic and COMA
+critic; QMIX's agent net and mixer.
 
 Port of the Checkers subset of ``cm3_tpu.models.nets`` (itself the
 reference ``alg/networks.py``) as ``nn.Module``s.  Names follow the
 flax modules, so each torch parameter maps to one flax leaf:
 ``<module path>.weight`` is flax's ``kernel``, every other name is the
-same (``W_h2``, ``b``, ``bias``).
+same (``W_h2``, ``b``, ``bias``, the mixer's raw matrices
+``hyper_w_1``, ``hyper_b_1`` and ``hyper_w_final``, which keep flax's
+(d, .) layout and are used as ``x @ W``).
 
 Layouts.  The public forwards take the JAX layouts: observation and
 state grids are NHWC.  Flax convolutions are NHWC/HWIO with SAME
@@ -36,7 +39,10 @@ Initialization (``nets.py:47-92``): dense and conv kernels are
 Glorot-uniform, biases zero, the branch-combination matrices ``W_h2``
 truncated-normal with sigma 0.01, and the h2 bias ``b`` follows the init
 scheme: zeros under "ref" and "trunc001", TF1's rank-1 Glorot under
-"tf1"; "trunc001" also draws every kernel truncated-normal 0.01.
+"tf1"; "trunc001" also draws every kernel truncated-normal 0.01.  The
+COMA critic's ``FC3`` draws its kernels truncated-normal 0.01 under
+every scheme (``nets.py:364-377``), as do the mixer's ``hyper_w_1``
+and ``hyper_w_final``; its ``hyper_b_1`` is a kernel of the scheme.
 
 Precision.  On the card a float32 convolution goes through cuDNN in
 TF32 unless ``torch.backends.cudnn.allow_tf32`` is False, and that is
@@ -45,8 +51,8 @@ PyTorch's default; a matrix product does when
 ``torch.set_float32_matmul_precision`` is not "highest").  The JAX
 package pins full float32 (``cm3_tpu/train/runner.py:302,480``), and
 reduced precision is measured to trap Checkers stage 1.  So every
-entry of the port that runs these nets (``CM3.act`` and
-``CM3.update``, forward and backward: a backward reads the flags when
+entry of the port that runs these nets (each algorithm's ``act`` and
+``update``, forward and backward: a backward reads the flags when
 it runs) does so inside ``full_float32()``, which turns both flags off
 and gives the caller's values back on exit, whatever they were.  The
 scope is entered once per ``act`` and once per ``update`` (18 times per
@@ -138,14 +144,18 @@ def init_parameters(module: nn.Module, gen: torch.Generator,
                     scheme: str = "ref"):
     """Draw every parameter of ``module`` in place (see module doc)."""
     init_scheme(scheme)
+    trunc = tuple(name + "." for name, m in module.named_modules()
+                  if isinstance(m, FC3))
     for name, p in sorted(module.named_parameters(),
                           key=lambda kv: flax_path(kv[0])):
         leaf = name.split(".")[-1]
-        if leaf == "weight":
+        if leaf == "weight" and name.startswith(trunc):
+            _trunc001(p, gen)
+        elif leaf in ("weight", "hyper_b_1"):
             _kinit(p, gen, scheme)
         elif leaf == "bias":
             nn.init.zeros_(p)
-        elif leaf == "W_h2":
+        elif leaf in ("W_h2", "hyper_w_1", "hyper_w_final"):
             _trunc001(p, gen)
         elif leaf == "b":
             _binit(p, gen, scheme)
@@ -324,6 +334,178 @@ class VCheckersAblation(nn.Module):
 
     def forward(self, s_grid, s_n, g_n, s_others):
         return self.stage2(s_grid, s_n, g_n, s_others)
+
+
+class VCheckersLocal(nn.Module):
+    """networks.V_checkers_local:415-435 (``nets.py:479``): the IAC
+    critic V(o^n, g^n), a conv over the agent's own observation; its
+    output layer has a bias."""
+
+    def __init__(self, spec: Dict[str, int], conv_f: int = 6,
+                 conv_k: Tuple[int, int] = (3, 3), n_h1_1: int = 256,
+                 n_h1_2: int = 32, n_h2: int = 256, stage: int = 1):
+        super().__init__()
+        ro, co = spec["rows_obs"], spec["columns_obs"]
+        self.stage = stage
+        self.conv = _conv(spec["channels_obs"], conv_f, conv_k)
+        n_x = ro * co * conv_f + spec["l_obs_self"] + spec["l_goal"]
+        self.self_branch = Branch(n_x, n_h1_1, n_h2)
+        if stage > 1:
+            self.stage2 = Branch(spec["l_obs_others"], n_h1_2, n_h2)
+        self.out = _dense(n_h2, 1)
+
+    def forward(self, t_obs_self, v_obs_self, v_obs_others, goal):
+        conv = _relu_flat_conv(self.conv, t_obs_self)
+        h2 = self.self_branch(torch.cat([conv, v_obs_self, goal], dim=-1))
+        if self.stage > 1:
+            h2 = h2 + self.stage2(v_obs_others)
+        return self.out(F.relu(h2))
+
+
+class VCheckersGlobal(nn.Module):
+    """networks.V_checkers_global:438-458 (``nets.py:501``): the
+    central-V critic V(s, g^n); its output layer has a bias.  The
+    baseline builds it at these default widths, not ``NNConfig``'s
+    (``cm3_tpu/algs/baseline.py:98``)."""
+
+    def __init__(self, spec: Dict[str, int], conv_f: int = 2,
+                 conv_k: Tuple[int, int] = (3, 5), n_h1_1: int = 128,
+                 n_h1_2: int = 32, n_h2: int = 32, stage: int = 1):
+        super().__init__()
+        rs, cs = spec["rows_state"], spec["columns_state"]
+        self.stage = stage
+        self.conv = _conv(spec["channels_state"], conv_f, conv_k)
+        n_x = rs * cs * conv_f + spec["l_state_one"] + spec["l_goal"]
+        self.branch1 = Branch(n_x, n_h1_1, n_h2)
+        if stage > 1:
+            self.stage2 = Branch((spec["n_agents"] - 1) * spec["l_state_one"],
+                                 n_h1_2, n_h2)
+        self.out = _dense(n_h2, 1)
+
+    def forward(self, s_grid, s_n, g_n, s_others):
+        conv = _relu_flat_conv(self.conv, s_grid)
+        h2 = self.branch1(torch.cat([conv, s_n, g_n], dim=-1))
+        if self.stage > 1:
+            h2 = h2 + self.stage2(s_others)
+        return self.out(F.relu(h2))
+
+
+class FC3(nn.Module):
+    """networks.fc3:20-36 (``nets.py:364``): three dense layers, relu
+    between; its kernels are truncated-normal 0.01 under every init
+    scheme (``init_parameters``)."""
+
+    def __init__(self, n_in: int, n_h1: int, n_h2: int, n_out: int):
+        super().__init__()
+        self.h1 = _dense(n_in, n_h1)
+        self.h2 = _dense(n_h1, n_h2)
+        self.out = _dense(n_h2, n_out)
+
+    def forward(self, x):
+        return self.out(F.relu(self.h2(F.relu(self.h1(x)))))
+
+
+class QComaCheckers(nn.Module):
+    """networks.Q_coma_checkers:293-306 (``nets.py:570``): COMA's
+    critic, Q(s, a^{-n}, g^n, g^{-n}, label_n, o^n) for every action;
+    its ``FC3`` lives under ``stage2``."""
+
+    def __init__(self, spec: Dict[str, int], units: int = 256,
+                 conv_f1: int = 4, conv_k1: Tuple[int, int] = (3, 5),
+                 conv_f2: int = 6, conv_k2: Tuple[int, int] = (3, 3)):
+        super().__init__()
+        n, a = spec["n_agents"], spec["l_action"]
+        rs, cs = spec["rows_state"], spec["columns_state"]
+        ro, co = spec["rows_obs"], spec["columns_obs"]
+        self.conv_s = _conv(spec["channels_state"], conv_f1, conv_k1)
+        self.conv_o = _conv(spec["channels_obs"], conv_f2, conv_k2)
+        n_x = (rs * cs * conv_f1 + n * spec["l_state_one"] + (n - 1) * a
+               + n * spec["l_goal"] + n + ro * co * conv_f2
+               + spec["l_obs_self"])
+        self.stage2 = FC3(n_x, units, units, a)
+
+    def forward(self, s_grid, s_agents, a_others, g_n, g_others, labels,
+                t_obs, v_obs):
+        conv_s = _relu_flat_conv(self.conv_s, s_grid)
+        conv_o = _relu_flat_conv(self.conv_o, t_obs)
+        return self.stage2(torch.cat(
+            [conv_s, s_agents, a_others.flatten(-2), g_n, g_others, labels,
+             conv_o, v_obs], dim=-1))
+
+
+class QmixSingleCheckers(nn.Module):
+    """networks.Qmix_single_checkers:617-637 (``nets.py:628``): one
+    agent's action values; the raw bias ``b`` follows the init scheme
+    like the actor's."""
+
+    def __init__(self, spec: Dict[str, int], conv_f: int = 3,
+                 conv_k: Tuple[int, int] = (3, 3), n_h1: int = 64,
+                 n_h2: int = 64):
+        super().__init__()
+        n_actions = spec["l_action"]
+        h, w = spec["rows_obs"], spec["columns_obs"]
+        self.conv = _conv(spec["channels_obs"], conv_f, conv_k)
+        self.conv_linear = _dense(h * w * conv_f, 32)
+        n_x = 32 + spec["l_obs_self"] + n_actions + spec["l_goal"]
+        self.self_branch = Branch(n_x, n_h1, n_h2)
+        self.others_branch = Branch(spec["l_obs_others"], n_h1, n_h2)
+        self.b = nn.Parameter(torch.empty(n_h2))
+        self.out = _dense(n_h2, n_actions)
+
+    def forward(self, a_prev, t_obs_self, v_obs_self, v_obs_others, goal):
+        conv = _relu_flat_conv(self.conv, t_obs_self)
+        conv_lin = F.relu(self.conv_linear(conv))
+        x = torch.cat([conv_lin, v_obs_self, a_prev, goal], dim=-1)
+        h2 = self.self_branch(x) + self.others_branch(v_obs_others)
+        return self.out(F.relu(h2 + self.b))
+
+
+class QmixMixerCheckers(nn.Module):
+    """networks.Qmix_mixer_checkers:688-734 (``nets.py:675``): the
+    monotonic hypernetwork mixer over a conv of the state grid, the
+    agents' state rows and all goals; abs() weights, ELU hidden."""
+
+    def __init__(self, spec: Dict[str, int], embed_dim: int = 128,
+                 conv_f: int = 4, conv_k: Tuple[int, int] = (3, 5)):
+        super().__init__()
+        n = spec["n_agents"]
+        rs, cs = spec["rows_state"], spec["columns_state"]
+        self.n_agents, self.embed_dim = n, embed_dim
+        self.conv = _conv(spec["channels_state"], conv_f, conv_k)
+        d = rs * cs * conv_f + n * (spec["l_state_one"] + spec["l_goal"])
+        self.hyper_w_1 = nn.Parameter(torch.empty(d, embed_dim * n))
+        self.hyper_b_1 = nn.Parameter(torch.empty(d, embed_dim))
+        self.hyper_w_final = nn.Parameter(torch.empty(d, embed_dim))
+        self.hyper_b_final_l1 = nn.Linear(d, embed_dim, bias=False)
+        self.hyper_b_final = nn.Linear(embed_dim, 1, bias=False)
+
+    def forward(self, agent_qs, state_env, state, goals_all):
+        conv = _relu_flat_conv(self.conv, state_env)
+        sg = torch.cat([conv, state, goals_all], dim=-1)
+        w1 = torch.abs(sg @ self.hyper_w_1).reshape(-1, self.n_agents,
+                                                    self.embed_dim)
+        b1 = sg @ self.hyper_b_1
+        hidden = F.elu(torch.einsum("bn,bne->be", agent_qs, w1) + b1)
+        w_final = torch.abs(sg @ self.hyper_w_final)
+        b_final = self.hyper_b_final(F.relu(self.hyper_b_final_l1(sg)))
+        return torch.sum(hidden * w_final, dim=-1, keepdim=True) + b_final
+
+
+class QmixJoint(nn.Module):
+    """QMIX's agent net and mixer as one network, so that one flat
+    buffer holds both in the order of JAX's ``optax.flatten`` over the
+    pair (agent, mixer): the agent's leaves, then the mixer's (the
+    sorted paths ``agent.*`` < ``mixer.*``).  ``forward(part, *args)``
+    runs ``part`` ("agent" or "mixer"), so ``functional_call`` reaches
+    either."""
+
+    def __init__(self, agent: nn.Module, mixer: nn.Module):
+        super().__init__()
+        self.agent = agent
+        self.mixer = mixer
+
+    def forward(self, part: str, *args):
+        return getattr(self, part)(*args)
 
 
 # --------------------------------------------------------------------- #

@@ -13,7 +13,15 @@ parameters by name:
     raises;
   * ``stage2_init_cm3``: stage-1 actor and Q_global into stage 2's,
     the grafted Q_global into Q_credit, every target equal to its main;
-    stage 2's fresh optimizer and V (all of it under ``stage2``) stay.
+    stage 2's fresh optimizer and V (all of it under ``stage2``) stay;
+  * ``stage2_init_baseline``: the stage-1 actor, and V where stage 1
+    trained one, into stage 2's; the COMA critic (all of it under
+    ``stage2``) stays fresh.  QMIX grafts nothing: the JAX runner
+    restores its stage-1 checkpoint and keeps the fresh state.
+
+A state is any of the port's algorithm states (``CM3State``,
+``BaselineState``, ``QmixState``): every field but ``step`` and the
+``opt_<name>`` optimizer states is a network or None.
 
 A network is one flat buffer (``nets.flatten_parameters``) or, with
 seeds in lockstep, one [S, n] buffer (``nets.SeedStack``) whose leaves
@@ -134,6 +142,22 @@ def stage2_init_cm3(ts2, stage1_actor, stage1_qg):
     return ts2
 
 
+def stage2_init_baseline(ts2, stage1_actor, stage1_v=None):
+    """The baselines' curriculum restore (``checkpoint.py:98-110`` of the
+    JAX package), in place on the stage-2 state ``ts2``: the stage-1
+    actor -> stage 2's (leaves outside ``stage2``), and V likewise when
+    both states have one; the actor's target, and V's, set equal to
+    their mains.  COMA's critic and every optimizer state stay as
+    ``ts2`` has them.  Returns ``ts2``."""
+    graft_params(ts2.actor, stage1_actor)
+    copy_tree(ts2.actor_tgt, ts2.actor)
+    if ts2.v is not None:
+        if stage1_v is not None:
+            graft_params(ts2.v, stage1_v)
+        copy_tree(ts2.v_tgt, ts2.v)
+    return ts2
+
+
 def _nets(ts):
     """(field name, network) of the state's parameter fields."""
     return [(f.name, getattr(ts, f.name)) for f in dataclasses.fields(ts)
@@ -166,7 +190,7 @@ def merge_non_opt(fresh, restored):
 @torch.no_grad()
 def seed_state(alg, stacked, i: int):
     """Seed ``i`` of the seed-stacked state ``stacked`` as a one-seed
-    state of ``alg`` (an algorithm without seeds: ``CM3.for_seeds(None)``)."""
+    state of ``alg`` (an algorithm without seeds: ``alg.for_seeds(None)``)."""
     st = alg.empty_state()
     for name, net in _nets(st):
         if net is not None:
@@ -234,7 +258,7 @@ def _pack(ts) -> Dict:
 
 
 def save(path: str, state) -> None:
-    """Save a CM3 state, or a dict ``{"ts": state, "episodes": n}``
+    """Save an algorithm's state, or a dict ``{"ts": state, "episodes": n}``
     (``n`` an int, or per-seed counts), to the directory ``path``."""
     payload = {"format": FORMAT}
     if isinstance(state, dict):
@@ -298,9 +322,10 @@ def exists(path: str) -> bool:
 
 
 def restore(path: str, like):
-    """Restore what ``save`` wrote at ``path`` into ``like`` (a CM3
-    state, or ``{"ts": state, "episodes": ...}``) in place, its buffers
-    kept; returns it, with ``episodes`` an int or per-seed counts.  A
+    """Restore what ``save`` wrote at ``path`` into ``like`` (an
+    algorithm's state, or ``{"ts": state, "episodes": ...}``) in place,
+    its buffers kept; returns it, with ``episodes`` an int or per-seed
+    counts.  A
     checkpoint of other networks, shapes or optimizer structure raises
     ``ValueError``."""
     d = torch.load(os.path.join(path, FILE), map_location="cpu",

@@ -6,7 +6,8 @@ The JAX package maps its whole training chunk over a seed axis with
 instances step as one batch, the replay keeps one ring per seed, and
 the learner keeps each network's S copies in one [S, n] buffer whose
 forward and backward passes run for all seeds at once
-(``algs/cm3.py``, ``models/nets.SeedStack``).  So one chunk of S seeds
+(``algs/base.py``, ``models/nets.SeedStack``), for CM3, the baselines
+and QMIX alike.  So one chunk of S seeds
 costs about as many kernel launches as one seed's, each doing S times
 the work.
 
@@ -58,13 +59,14 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
                         resume: Optional[Tuple[Any, np.ndarray]] = None,
                         draws=None, eval_draws=None):
     """Train ``n_seeds`` independent replicas in lockstep, off-policy.
-    Returns (the seed-stacked CM3 state, per-period history).
+    Returns (the seed-stacked state, per-period history).
 
-    ``alg`` is the algorithm for one seed or for ``n_seeds`` seeds
-    (``CM3.for_seeds``).  ``log_fn`` receives each period row, with
-    per-seed arrays, plus the state under ``_ts``.  ``resume`` is
-    (seed-stacked CM3 state, per-seed episode counts [S]), e.g. from an
-    autosave or a curriculum graft; the state is trained in place.
+    ``alg`` is the algorithm (CM3, Baseline or QMIX) for one seed or for
+    ``n_seeds`` seeds (``alg.for_seeds``).  ``log_fn`` receives each
+    period row, with per-seed arrays, plus the state under ``_ts``.
+    ``resume`` is (seed-stacked state, per-seed episode counts [S]),
+    e.g. from an autosave or a curriculum graft; the state is trained in
+    place.
     ``draws`` and ``eval_draws`` (draw sources) replace the ones made
     from the seeds' keys.  ``mesh`` and ``onpolicy`` are the JAX
     package's and are refused."""

@@ -24,11 +24,14 @@ same code runs one seed with [E] and scalars.  ``train/multiseed.py``
 drives it.
 
 Where the JAX chunk splits a key, this one asks a draw source
-(``core.prng``) in a fixed order: per env step, random actions or the
-[E, N, A] Gumbel noise of the policy's sample, then (single-agent
-Checkers) the goals of the auto-reset; per update, the replay indices
-and the Gumbel noise of a'.  Feeding JAX's draws through
-``prng.FedDraws`` replays a JAX chunk exactly.
+(``core.prng``) in a fixed order: per env step, random actions or what
+the algorithm's ``act`` consumes (``alg.act_draws``: the [E, N, A]
+Gumbel noise of CM3's and the baselines' sample; QMIX's override
+actions and uniforms), then (single-agent Checkers) the goals of the
+auto-reset; per update, the replay indices and what ``update`` consumes
+(``alg.update_draws``: the Gumbel noise of a'; nothing for QMIX).
+Feeding JAX's draws through ``prng.FedDraws`` replays a JAX chunk
+exactly.
 
 With ``AlgConfig.pg_is_clip`` on, each transition also stores ``bp``,
 the behavior policy's probability of the stored action (the eps-mixed
@@ -214,19 +217,18 @@ class OffPolicyDriver:
         auto-reset."""
         hooks, env = self.hooks, self.hooks.env
         lead = self.lead
-        n = hooks.n_agents
-        n_act = self.alg.n_actions
         bp = None
         if random_actions:
-            actions = draws.randint(lead + (n,), n_act)
+            actions = draws.randint(lead + (hooks.n_agents,),
+                                    self.alg.n_actions)
         elif self._store_bp:
             actions, probs = self.alg.act_bp(
                 ts_alg, rs.obs, rs.goals, rs.a_prev, epsilon,
-                draws.gumbel(lead + (n, n_act)))
+                self.alg.act_draws(draws, lead))
             bp = torch.gather(probs, -1, actions[..., None])[..., 0]
         else:
             actions = self.alg.act(ts_alg, rs.obs, rs.goals, rs.a_prev,
-                                   epsilon, draws.gumbel(lead + (n, n_act)))
+                                   epsilon, self.alg.act_draws(draws, lead))
         env_state2, ts2 = flat_call(env.step, lead, rs.env_state, actions)
         buf = self._replay_add(buf, self._transition(rs, actions, ts2, bp))
         done = ts2.done
@@ -275,13 +277,12 @@ class OffPolicyDriver:
         metrics = {}
         if do_train:
             n_upd = self.cfg.updates_per_chunk or self.n_envs
-            shape = self.lead[:-1] + (self.cfg.batch_size,
-                                      self.hooks.n_agents,
-                                      self.alg.n_actions)
+            lead = self.lead[:-1] + (self.cfg.batch_size,)
             for _ in range(n_upd):
                 batch = self._replay_sample(buf, draws)
-                ts_alg, metrics = self.alg.update(ts_alg, batch, epsilon,
-                                                  draws.gumbel(shape))
+                ts_alg, metrics = self.alg.update(
+                    ts_alg, batch, epsilon,
+                    self.alg.update_draws(draws, lead))
         return ts_alg, buf, rs, metrics
 
     # -------------------------------------------------------------- #
@@ -295,7 +296,8 @@ class OffPolicyDriver:
         leading [S] with seeds.  aux carries "act_dist", the per-agent
         action distribution [N, A] (evaluate.py:193-200), and the hooks'
         eval metrics.  ``draws`` gives the goals where they are random,
-        then per step the [n_eval, N, A] Gumbel noise of the sample."""
+        then per step what the algorithm's ``act`` consumes
+        (``alg.act_draws``)."""
         hooks = self.hooks
         env = hooks.env
         n = hooks.n_agents
@@ -312,7 +314,7 @@ class OffPolicyDriver:
         acc = hooks.eval_metrics_init(lead[:-1])
         for _ in range(self.cfg.max_steps):
             actions = self.alg.act(ts_alg, obs, goals, a_prev, 0.0,
-                                   draws.gumbel(lead + (n, n_act)))
+                                   self.alg.act_draws(draws, lead))
             env_state, ts2 = flat_call(env.step, lead, env_state, actions)
             m = alive.float()
             ret_l = ret_l + ts2.reward_local * m[..., None]

@@ -13,13 +13,20 @@ the stage-2 graft into every seed, one autosave of the stack).  The
 files and their formats are the JAX runner's; the checkpoints are the
 port's own (``train/checkpoint.py``).
 
-The port runs CM3 on Checkers, off-policy.  The runner refuses, naming
-the ROADMAP item: the particle and roadway experiments (A10b, A11b),
-an ``alg_name`` other than ``cm3`` (A12), the dual buffer (A13, refused
-by the driver), a ``mesh`` (A14), ``summarize`` (A15, refused by the
-driver) and rendering (A15).  Learning runs in full float32: the nets
-pin it themselves (``models/nets.py:full_float32``), where the JAX
-runner enters ``jax.default_matmul_precision("float32")``.
+The port runs Checkers off-policy with each ``alg_name`` of the JAX
+runner: ``cm3``, the baselines ``coma`` and ``iac`` (central-V and the
+alpha-blend through ``use_V``/``use_Q``), and ``qmix``; ``build`` maps
+the name to the algorithm and its flags as JAX's ``build`` does.  At
+stage 2 from a stage-1 checkpoint CM3 and the baselines graft it
+(``checkpoint.stage2_init_cm3``, ``stage2_init_baseline``); QMIX
+restores it and grafts nothing, as the JAX runner does
+(``runner.py:208-214, 398-404``).  The runner refuses, naming the
+ROADMAP item: the particle and roadway experiments (A10b, A11b), the
+dual buffer (A13, refused by the driver), a ``mesh`` (A14),
+``summarize`` (A15, refused by the driver) and rendering (A15).
+Learning runs in full float32: the nets pin it themselves
+(``models/nets.py:full_float32``), where the JAX runner enters
+``jax.default_matmul_precision("float32")``.
 
 Every function runs on ``device`` (``cuda`` unless told).
 
@@ -38,7 +45,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from cm3_tpu_torch.algs.base import NOT_PORTED
+from cm3_tpu_torch.algs.baseline import Baseline
 from cm3_tpu_torch.algs.cm3 import CM3
+from cm3_tpu_torch.algs.qmix import QMIX
 from cm3_tpu_torch.core import config as cfgmod
 from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.envs.checkers import Checkers
@@ -47,8 +57,6 @@ from cm3_tpu_torch.train.experiments import make_hooks
 from cm3_tpu_torch.train.logging import CSVLogger, stdout_log
 from cm3_tpu_torch.train.multiseed import train_vmapped_seeds
 from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
-
-_NOT_PORTED = {"particle": "A10b", "roadway": "A11b"}
 
 
 def _nn_config(master: Dict, experiment: str, stage: int) -> cfgmod.NNConfig:
@@ -61,10 +69,10 @@ def _nn_config(master: Dict, experiment: str, stage: int) -> cfgmod.NNConfig:
 
 
 def build_env(master: Dict, experiment: str, stage: int, device="cuda"):
-    if experiment in _NOT_PORTED:
+    if experiment in NOT_PORTED:
         raise NotImplementedError(
             f"the {experiment} engine is not ported (ROADMAP "
-            f"{_NOT_PORTED[experiment]})")
+            f"{NOT_PORTED[experiment]})")
     if experiment != "checkers":
         raise ValueError(experiment)
     # the reference passes the master max_steps into Checkers
@@ -91,21 +99,21 @@ def build(master: Dict, experiment: Optional[str] = None,
     experiment = experiment or master.get("experiment", "checkers")
     stage = stage or master.get("stage", 1)
     alg_name = select_alg_name(master)
-    if alg_name != "cm3":
-        raise NotImplementedError(
-            f"alg_name {alg_name!r}: only CM3 is ported (the baselines "
-            "and QMIX are ROADMAP A12)")
     if master.get("mesh"):
         raise NotImplementedError("a device mesh is not ported (ROADMAP "
                                   "A14)")
     env = build_env(master, experiment, stage, device)
     alg_cfg = cfgmod.AlgConfig(
-        stage=stage, n_agents=env.spec()["n_agents"],
+        alg_name=alg_name, stage=stage, n_agents=env.spec()["n_agents"],
         use_Q_credit=bool(master.get("use_Q_credit", 1)),
         use_V=bool(master.get("use_V", 0)),
+        use_Q=bool(master.get("use_Q", alg_name == "coma")),
+        IAC=alg_name == "iac" or bool(master.get("IAC", 0)),
+        alpha=master.get("alpha", 0.7),
         lr_Q=master.get("lr_Q", 1e-3), lr_V=master.get("lr_V", 1e-3),
         lr_actor=master.get("lr_actor", 1e-4),
         grad_clip=master.get("grad_clip", 0.0),
+        qmix_ref_bug=bool(master.get("qmix_ref_bug", 0)),
         init_scheme=master.get("init_scheme", "ref"),
         actor_freeze_updates=int(master.get("actor_freeze_updates", 0)),
         actor_lr_anneal_updates=int(master.get("actor_lr_anneal_updates",
@@ -115,7 +123,18 @@ def build(master: Dict, experiment: Optional[str] = None,
         pg_ent_coef=master.get("pg_ent_coef", 0.0),
         adv_norm=bool(master.get("adv_norm", 0)),
         fused_opt=bool(master.get("fused_opt", 0)))
-    alg = CM3(experiment, env.spec(), alg_cfg,
+    if alg_name == "cm3":
+        cls = CM3
+    elif alg_name == "qmix":
+        cls = QMIX
+    else:  # coma / iac / central-V baselines
+        cls = Baseline
+        if alg_name == "iac":
+            alg_cfg = dataclasses.replace(alg_cfg, use_V=True, IAC=True,
+                                          use_Q=False)
+        elif alg_name == "coma" and not alg_cfg.use_V:
+            alg_cfg = dataclasses.replace(alg_cfg, use_Q=True)
+    alg = cls(experiment, env.spec(), alg_cfg,
               _nn_config(master, experiment, stage), device=device)
 
     known = {f.name for f in dataclasses.fields(cfgmod.TrainConfig)}
@@ -175,12 +194,26 @@ def _snapshot_stat(r_eval, save_threshold, experiment: str, stage: int):
     return False, -np.inf
 
 
+def _graft(alg, ts, ts1):
+    """The stage-1 state ``ts1`` grafted into the fresh stage-2 state
+    ``ts`` as the JAX runner does for ``alg``'s kind: CM3's graft, the
+    baselines' (the actor, and V where stage 1 has one), and for QMIX
+    nothing: the JAX runner restores QMIX's stage-1 checkpoint and keeps
+    the fresh state (``runner.py:208-214, 398-404``)."""
+    if isinstance(alg, CM3):
+        return checkpoint.stage2_init_cm3(ts, ts1.actor, ts1.qg)
+    if isinstance(alg, Baseline):
+        return checkpoint.stage2_init_baseline(ts, ts1.actor, ts1.v)
+    return ts
+
+
 def initial_state(master: Dict, workdir: str = ".", device="cuda"):
     """(driver, alg, hooks, train_cfg, state) of one seed's run before
     it trains: fresh parameters from the seed, then the curriculum
     restore (train_offpolicy.py:154-198): with ``train_from_nothing`` 0,
     the same stage's checkpoint (``restore_same_stage``) or, at stage 2,
-    the stage-1 checkpoint grafted into the fresh state."""
+    the stage-1 checkpoint restored and grafted into the fresh state
+    (``_graft``)."""
     driver, alg, hooks, train_cfg = build(master, device=device)
     key = prng.root_key(master.get("seed", 12341))
     ts = alg.init_state(key)
@@ -190,7 +223,7 @@ def initial_state(master: Dict, workdir: str = ".", device="cuda"):
                                    dict(master), key, device)
         elif master.get("stage", 1) == 2:
             ts1 = _restore_stage1_state(master, workdir, key, device)
-            ts = checkpoint.stage2_init_cm3(ts, ts1.actor, ts1.qg)
+            ts = _graft(alg, ts, ts1)
     return driver, alg, hooks, train_cfg, ts
 
 
@@ -198,7 +231,7 @@ def train_function(master: Dict, workdir: str = ".",
                    n_episodes: Optional[int] = None,
                    verbose: bool = True, device="cuda") -> Tuple[Any, Dict]:
     """The reference's train_function(config) for one seed: returns the
-    trained CM3 state and the driver's final stats."""
+    trained state and the driver's final stats."""
     experiment = master.get("experiment", "checkers")
     stage = master.get("stage", 1)
     dir_name = master.get("dir_name", "try")
@@ -264,10 +297,10 @@ def _vmapped_autosave(master: Dict, workdir: str) -> str:
 def vmapped_resume(master: Dict, workdir: str, alg, alg_s, device="cuda"):
     """What seeds in lockstep start from: None (fresh per-seed
     parameters), the curriculum graft into every seed at stage 2 (each
-    seed's fresh state with the stage-1 checkpoint grafted in, stacked;
-    episode counts 0), or with ``auto_resume`` the stack's autosave
-    (state and per-seed episode counts); ``require_resume`` without an
-    autosave raises.  ``alg`` is the one-seed algorithm, ``alg_s`` the
+    seed's fresh state with the stage-1 checkpoint grafted in as
+    ``_graft`` does, stacked; episode counts 0), or with ``auto_resume``
+    the stack's autosave (state and per-seed episode counts);
+    ``require_resume`` without an autosave raises.  ``alg`` is the one-seed algorithm, ``alg_s`` the
     same for the seeds."""
     n_seeds, base_seed = alg_s.n_seeds, master.get("seed", 12341)
     autosave = _vmapped_autosave(master, workdir)
@@ -286,9 +319,8 @@ def vmapped_resume(master: Dict, workdir: str, alg, alg_s, device="cuda"):
             and not master.get("restore_same_stage", 0)):
         ts1 = _restore_stage1_state(master, workdir,
                                     prng.root_key(base_seed), device)
-        singles = [checkpoint.stage2_init_cm3(
-            alg.init_state(prng.root_key(base_seed + i)), ts1.actor,
-            ts1.qg) for i in range(n_seeds)]
+        singles = [_graft(alg, alg.init_state(prng.root_key(base_seed + i)),
+                          ts1) for i in range(n_seeds)]
         return (checkpoint.stack_states(alg_s, singles),
                 np.zeros(n_seeds, np.int64))
     return None

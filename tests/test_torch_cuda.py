@@ -10,7 +10,11 @@ on the card against the CPU, with the fused update's two launches per
 update at 16 seeds, and the curriculum: the stage-2 graft and a
 checkpoint round trip on the card, the actor freeze on the fused path
 (the fused kernel without the actor, the Polyak kernel on its target)
-against the CPU, and a tiny run of the runner.  They import
+against the CPU, and a tiny run of the runner; the baselines (COMA,
+IAC, central-V, the blend) and QMIX (and its reference wiring): a fill
+and a training chunk on the card against the CPU, one seed and three,
+and the four paper cells through the runner with no fused-kernel
+launch.  They import
 neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -711,3 +715,127 @@ def test_runner_curriculum_on_card(cuda_device, tmp_path, monkeypatch):
     for d in ("s1", "s2", "v"):
         assert checkpoint.exists(os.path.join(wd, "saved", d, "model_final"))
         assert os.path.isfile(os.path.join(wd, "log", d, "log_century.csv"))
+
+
+# the baselines and QMIX: (alg_name, AlgConfig options)
+OTHER_CONFIGS = {
+    "qmix": ("qmix", {}), "qmix_ref": ("qmix", dict(qmix_ref_bug=True)),
+    "coma": ("coma", dict(use_Q=True)),
+    "iac": ("iac", dict(use_V=True, IAC=True)),
+    "central_v": ("coma", dict(use_V=True)),
+    "blend": ("coma", dict(use_Q=True, use_V=True)),
+}
+
+
+def _other_chunks(cuda_device, name, s=None, e=8, b=16, u=3):
+    """A fill and a training chunk of ``OTHER_CONFIGS[name]`` at small
+    width (one seed, or ``s`` in lockstep) on the card and on the CPU,
+    from the same parameters with the same fed draws."""
+    from cm3_tpu_torch.algs.baseline import Baseline
+    from cm3_tpu_torch.algs.qmix import QMIX
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.envs.checkers import Checkers
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
+
+    alg_name, opts = OTHER_CONFIGS[name]
+    qmix = alg_name == "qmix"
+    lead = () if s is None else (s,)
+    rng = np.random.default_rng(len(name))
+    fill = [rng.integers(0, 5, lead + (e, 2)) for _ in range(10)]
+    act, unif = [], []
+    for _ in range(10):
+        if qmix:
+            act.append(rng.integers(0, 5, lead + (e, 2)))
+            unif.append(rng.random(lead + (e, 2)).astype(np.float32))
+        else:
+            act.append(rng.gumbel(size=lead + (e, 2, 5)).astype(np.float32))
+    idx = [rng.integers(0, 20 * e, lead + (b,)) for _ in range(u)]
+    upd = [] if qmix else [rng.gumbel(size=lead + (b, 2, 5)).astype(
+        np.float32) for _ in range(u)]
+    nn = NNConfig(**dict(vars(_small_nn()), Q_units=16, V_conv_f=2,
+                         V_n_h1_1=16, V_n_h1_2=8, V_n_h2=16))
+    eps = torch.tensor([0.1, 0.2, 0.3])[:s] if s else 0.3
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        env = Checkers(CheckersEnvConfig(max_steps=7), device=dev)
+        alg = (QMIX if qmix else Baseline)(
+            "checkers", env.spec(),
+            config.AlgConfig(n_agents=2, stage=2, alg_name=alg_name, **opts),
+            nn, device=dev, n_seeds=s)
+        cfg = config.TrainConfig(n_envs=e, batch_size=b, buffer_size=512,
+                                 updates_per_chunk=u, episode_log=16)
+        drv = OffPolicyDriver(make_hooks("checkers", env), alg, cfg)
+        rs = init_rollout(drv.hooks, e, None, 16, n_seeds=s)
+        ts = alg.init_state(0 if s is None else list(range(s)))
+        buf = drv._replay_init(drv.example_transition(rs))
+        draws = (prng.FedDraws(fill + act + idx, device=dev, uniforms=unif)
+                 if qmix else prng.FedDraws(fill + idx, act + upd,
+                                            device=dev))
+        before = fused_opt.adam_polyak.launches
+        ts, buf, rs, _ = drv._chunk(ts, buf, rs, eps, draws, False, True)
+        ts, buf, rs, m = drv._chunk(ts, buf, rs, eps, draws, True, False)
+        assert not any(draws.remaining().values())
+        out[dev.type] = (alg, ts, buf, rs, m,
+                         fused_opt.adam_polyak.launches - before)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,s", [(n, None) for n in sorted(OTHER_CONFIGS)]
+                         + [("qmix", 3), ("coma", 3)])
+def test_baseline_chunk_on_card_matches_cpu(cuda_device, name, s):
+    """The six configurations (QMIX and COMA also with three seeds in
+    lockstep): the card equals the CPU after a fill and a training
+    chunk at rtol 1e-4, atol 1e-5, as CM3's chunk; the fused kernel is
+    never launched (these algorithms run the optax path)."""
+    from cm3_tpu_torch.core.tree import tree_leaves
+    out = _other_chunks(cuda_device, name, s)
+    (alg, ts_c, buf_c, rs_c, m_c, n_c), (_, ts_h, buf_h, rs_h, m_h, n_h) = \
+        out["cuda"], out["cpu"]
+    assert (n_c, n_h) == (0, 0)
+    for k in alg.net_names():
+        for got, want in ((getattr(ts_c, k).flat, getattr(ts_h, k).flat),
+                          (getattr(ts_c, k + "_tgt").flat,
+                           getattr(ts_h, k + "_tgt").flat),
+                          (getattr(ts_c, "opt_" + k).mu,
+                           getattr(ts_h, "opt_" + k).mu)):
+            assert got.device.type == "cuda"
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                       atol=1e-5)
+    for (_, x), (_, y) in zip(tree_leaves(buf_c.data),
+                              tree_leaves(buf_h.data)):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-5)
+    assert torch.equal(rs_c.episodes.cpu(), rs_h.episodes)
+    assert set(m_c) == set(m_h)
+    for k in m_h:
+        torch.testing.assert_close(m_c[k].cpu(), m_h[k], rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_paper_cells_through_the_runner_on_card(cuda_device, tmp_path,
+                                                monkeypatch):
+    """``checkers_qmix``, ``checkers_qmix_ref``, ``checkers_coma`` and
+    ``checkers_iac`` at narrow widths through ``train_function`` on the
+    card: each writes its rows and ``model_final`` and launches no
+    fused kernel."""
+    import os
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.train import checkpoint, runner
+    monkeypatch.setattr(runner, "_nn_config", lambda m, e, s: NNConfig(
+        **dict(vars(_small_nn()), Q_units=16, V_n_h1_1=16, V_n_h2=16)))
+    m = config.load_json("master.json")
+    m.update(stage=2, n_envs=8, seed=5, N_train=60, period=30, N_eval=2,
+             pretrain_episodes=8, batch_size=16, buffer_size=256,
+             steps_per_train=4, updates_per_chunk=1)
+    wd = str(tmp_path)
+    before = fused_opt.adam_polyak.launches
+    for d, over in (("q", dict(alg_name="qmix")),
+                    ("qb", dict(alg_name="qmix", qmix_ref_bug=1)),
+                    ("c", dict(alg_name="coma")), ("i", dict(alg_name="iac"))):
+        ts, stats = runner.train_function(dict(m, dir_name=d, **over), wd,
+                                          verbose=False)
+        assert stats["episodes"] >= 60 and ts.step > 0
+        assert checkpoint.exists(os.path.join(wd, "saved", d, "model_final"))
+    assert fused_opt.adam_polyak.launches == before

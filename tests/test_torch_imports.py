@@ -67,7 +67,11 @@ def test_importing_the_port_loads_no_jax_and_no_triton():
 
 @pytest.mark.parametrize("module", ["cm3_tpu_torch.train.checkpoint",
                                     "cm3_tpu_torch.train.logging",
-                                    "cm3_tpu_torch.train.runner"])
+                                    "cm3_tpu_torch.train.runner",
+                                    "cm3_tpu_torch.algs.base",
+                                    "cm3_tpu_torch.algs.baseline",
+                                    "cm3_tpu_torch.algs.qmix"])
 def test_the_runner_modules_are_scanned(module):
-    """The curriculum's modules are among those the scans above read."""
+    """The curriculum's and the algorithms' modules are among those the
+    scans above read."""
     assert module in _modules()

@@ -145,6 +145,11 @@ def test_init_schemes(scheme):
 
 
 def test_checkers_nn_config_reads_stage2_json():
-    assert tcfg.checkers_nn_config(2) == tcfg.NNConfig(**FULL_NN)
+    """The stage-2 JSON's widths, its IAC critic's among them (V_n_h2
+    256 over the generic default 64)."""
+    assert tcfg.checkers_nn_config(2) == tcfg.NNConfig(
+        **FULL_NN, V_conv_f=6, V_conv_k=(3, 3), V_n_h1_1=256, V_n_h1_2=32,
+        V_n_h2=256)
+    assert tcfg.NNConfig().V_n_h2 == 64
     env = tcfg.checkers_env_config(2)
     assert (env.n_agents, env.agents_r, env.agents_c) == (2, (0, 2), (8, 8))

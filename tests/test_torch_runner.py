@@ -1,6 +1,7 @@
 """The port's runner and CLI (``cm3_tpu_torch.train.runner``) on the CPU:
 ``build`` against JAX's ``build`` on the same masters; the refusals,
-each naming its ROADMAP item; ``train_function`` end to end at narrow
+each naming its ROADMAP item (the baselines and QMIX are in
+``test_torch_baseline_runner.py``); ``train_function`` end to end at narrow
 widths, with the files it writes; the stage-1 -> stage-2 graft; the
 autosave's ``auto_resume`` and ``require_resume``; ``train_multiseed``
 one seed after another and in lockstep (``vmapped_seeds``) with the
@@ -73,9 +74,6 @@ def test_build_matches_jax(name):
 REFUSALS = {
     "particle": (dict(experiment="particle"), "A10b"),
     "roadway": (dict(experiment="roadway"), "A11b"),
-    "qmix": (dict(alg_name="qmix"), "A12"),
-    "coma": (dict(alg_name="", use_alg_credit=0), "A12"),
-    "iac": (dict(alg_name="iac"), "A12"),
     "dual_buffer": (dict(dual_buffer=1), "A13"),
     "mesh": (dict(mesh=[4]), "A14"),
     "replay_shards": (dict(replay_shards=2), "A14"),

@@ -1,8 +1,8 @@
 """Shared set-up of the parity tests between ``cm3_tpu`` (JAX, the
 reference) and ``cm3_tpu_torch`` (the port): one small Checkers stage-2
-CM3 configuration built in both packages, and the JAX draws of one
-``OffPolicyDriver._chunk`` recomputed from its key so that they can be
-fed to the port."""
+CM3 configuration built in both packages (and the baselines' and
+QMIX's), and the JAX draws of one ``OffPolicyDriver._chunk`` recomputed
+from its key so that they can be fed to the port."""
 
 import jax
 import jax.numpy as jnp
@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from cm3_tpu.algs.baseline import Baseline as JaxBaseline
 from cm3_tpu.algs.cm3 import CM3 as JaxCM3
+from cm3_tpu.algs.qmix import QMIX as JaxQMIX
 from cm3_tpu.core import config as jcfg
 from cm3_tpu.envs.checkers import Checkers as JaxCheckers
+from cm3_tpu_torch.algs.baseline import Baseline as TorchBaseline
 from cm3_tpu_torch.algs.cm3 import CM3 as TorchCM3
+from cm3_tpu_torch.algs.qmix import QMIX as TorchQMIX
 from cm3_tpu_torch import convert
 from cm3_tpu_torch.ops import fused_opt, polyak
 from cm3_tpu_torch.core import config as tcfg
@@ -22,6 +26,10 @@ from cm3_tpu_torch.envs.checkers import Checkers as TorchCheckers
 # narrow widths; the layer structure is the full one
 SMALL_NN = dict(Q_conv_f=2, Q_conv_k=(3, 5), Q_n_h1_1=16, Q_n_h1_2=8,
                 Q_n_h2=16, A_conv_f=2, A_conv_k=(3, 3), A_n_h1=16, A_n_h2=12)
+# and the baselines' critics (the central V keeps its own default widths,
+# as both packages build it)
+SMALL_BASE_NN = dict(SMALL_NN, Q_units=16, V_conv_f=2, V_n_h1_1=16,
+                     V_n_h1_2=8, V_n_h2=16)
 
 
 def set_torch_cpu():
@@ -53,6 +61,23 @@ def algs(spec, n_seeds=None, **alg):
     return j, t
 
 
+def other_algs(kind, spec, n_seeds=None, **alg):
+    """The JAX and the port's Baseline (``kind`` "baseline") or QMIX
+    ("qmix") for the engines' spec, at SMALL_BASE_NN widths; stage 2
+    for two agents, stage 1 for one."""
+    n = spec["n_agents"]
+    kw = dict(n_agents=n, stage=2 if n > 1 else 1,
+              alg_name="qmix" if kind == "qmix" else "coma")
+    kw.update(alg)
+    jcls, tcls = ((JaxQMIX, TorchQMIX) if kind == "qmix"
+                  else (JaxBaseline, TorchBaseline))
+    j = jcls("checkers", spec, jcfg.AlgConfig(**kw),
+             jcfg.NNConfig(**SMALL_BASE_NN))
+    t = tcls("checkers", spec, tcfg.AlgConfig(**kw),
+             tcfg.NNConfig(**SMALL_BASE_NN), device="cpu", n_seeds=n_seeds)
+    return j, t
+
+
 def goal_draws(key, n):
     """The goal indices that ``CheckersHooks.episode_init`` draws for n
     single-agent instances from ``key`` (``prng.split_batch``, then the
@@ -73,19 +98,34 @@ def to_torch(tree):
     return jax.tree_util.tree_map(conv, tree)
 
 
+def qmix_act_draws(key, shape, n_actions):
+    """The override's random actions and uniforms that QMIX's ``act``
+    draws from ``key`` (``qmix.py:113-115``), ``shape`` = [.., N]."""
+    k1, k2 = jax.random.split(key)
+    return (np.asarray(jax.random.randint(k1, shape, 0, n_actions)),
+            np.asarray(jax.random.uniform(k2, shape)))
+
+
 def chunk_draws(key, n_envs, n_agents, n_actions, steps, random_actions,
-                n_updates=0, batch=0, sizes=()):
+                n_updates=0, batch=0, sizes=(), qmix=False):
     """The draws ``OffPolicyDriver._chunk`` makes from ``key``
     (offpolicy.py:242-248,369-371), as (randints, gumbels) in the order
     the port's driver asks for them; for one agent, each step's
     auto-reset goals too.  ``sizes`` is the replay fill seen by each
-    update (jax.random.randint's bound)."""
-    randints, gumbels = [], []
+    update (jax.random.randint's bound).  With ``qmix`` the policy's
+    steps draw QMIX's override (random actions among the randints, and
+    uniforms) and the updates draw nothing: (randints, gumbels,
+    uniforms), the gumbels empty."""
+    randints, gumbels, uniforms = [], [], []
     for k in jax.random.split(key, steps):
         k_act, k_rand, k_reset = jax.random.split(k, 3)
         if random_actions:
             randints.append(np.asarray(jax.random.randint(
                 k_rand, (n_envs, n_agents), 0, n_actions)))
+        elif qmix:
+            rand_a, u = qmix_act_draws(k_act, (n_envs, n_agents), n_actions)
+            randints.append(rand_a)
+            uniforms.append(u)
         else:
             gumbels.append(np.asarray(jax.random.gumbel(
                 k_act, (n_envs, n_agents, n_actions))))
@@ -96,9 +136,10 @@ def chunk_draws(key, n_envs, n_agents, n_actions, steps, random_actions,
         k_sample, k_update = jax.random.split(k)
         randints.append(np.asarray(jax.random.randint(
             k_sample, (batch,), 0, jnp.maximum(jnp.int32(size), 1))))
-        gumbels.append(np.asarray(jax.random.gumbel(
-            k_update, (batch, n_agents, n_actions))))
-    return randints, gumbels
+        if not qmix:
+            gumbels.append(np.asarray(jax.random.gumbel(
+                k_update, (batch, n_agents, n_actions))))
+    return (randints, gumbels, uniforms) if qmix else (randints, gumbels)
 
 
 def eval_draws(key, n_eval, n_agents, n_actions, max_steps):
@@ -113,10 +154,11 @@ def eval_draws(key, n_eval, n_agents, n_actions, max_steps):
 
 
 def stack_draws(per_seed):
-    """Per-seed (randints, gumbels) lists of equal structure -> the
-    seed-stacked draws a driver of S seeds asks for, [S, ...] each."""
+    """Per-seed (randints, gumbels[, uniforms]) lists of equal structure
+    -> the seed-stacked draws a driver of S seeds asks for, [S, ...]
+    each."""
     return tuple([np.stack(xs) for xs in zip(*(d[i] for d in per_seed))]
-                 for i in range(2))
+                 for i in range(len(per_seed[0])))
 
 
 def replay_batch(env, b, rng):
@@ -284,3 +326,69 @@ def hold_options_take_effect(runs):
         frozen = i < freeze
         assert torch.equal(st.actor.flat, start.actor.flat) == frozen, i
         assert (float(st.opt_actor.mu.abs().max()) == 0.0) == frozen, i
+
+
+# --------------------------------------------------------------------- #
+# the baselines and QMIX: updates in both packages
+# (test_torch_baseline*.py, test_torch_qmix.py)
+# --------------------------------------------------------------------- #
+
+
+def other_runs(kind, opts, n_updates=OPTION_UPDATES, b=OPTION_B):
+    """``n_updates`` Baseline or QMIX updates (``kind`` as in
+    ``other_algs``) with the options ``opts`` in both packages from the
+    same converted state, on the same batches (and for the baselines
+    the same a' noise): after each, the JAX state converted, the port's
+    state and both metrics; and the port's algorithm and its start."""
+    je, _ = envs()
+    ja, ta = other_algs(kind, je.spec(), **opts)
+    rng = np.random.default_rng(0)
+    batches = [replay_batch(je, b, rng) for _ in range(n_updates)]
+    jts = ja.init_state(jax.random.PRNGKey(1), batches[0]["obs"],
+                        batches[0]["state"], batches[0]["goals"])
+    tts = convert.state_from_jax(ta, jax.device_get(jts))
+    upd = jax.jit(ja.update)
+    out = {"alg": ta, "states": [], "start": copy_state(ta, tts),
+           "batches": batches}
+    for i, batch in enumerate(batches):
+        key = jax.random.PRNGKey(5 + i)
+        jts, jm = upd(jts, batch, 0.2, key)
+        noise = None if kind == "qmix" else torch.from_numpy(np.array(
+            jax.random.gumbel(key, (b, 2, 5))))
+        tts, tm = ta.update(tts, to_torch(jax.device_get(batch)), 0.2,
+                            noise)
+        out["states"].append((convert.state_from_jax(
+            ta, jax.device_get(jts)), copy_state(ta, tts),
+            jax.device_get(jm), {k: float(v) for k, v in tm.items()}))
+    return out
+
+
+# QMIX's state at atol 1e-4 (networks, targets, mu) and 1e-7 (nu).
+# Its gradients are large (|g| up to 130: the mixer's hypernetwork
+# products), and a float32 gradient sums terms of that size, so XLA's
+# and PyTorch's CPU sums differ by up to 1.2e-7 of max |g| (1.5e-5)
+# where CM3's differ by ulps of O(1) values, and by at most 1.2e-9
+# where |g| < 1e-6 (``test_torch_qmix.py::test_qmix_gradient_matches_jax``).
+# nu = (1 - b2) g^2 then differs by ~2e-3 |g| dg: measured 3.05e-8 (24
+# of 270,987 floats in the S = 3 update).  One Adam step moves a float
+# by lr * g / (|g| + eps) (first step), so a gradient near eps = 1e-8
+# carries its rounding into the step amplified up to lr * dg / eps: the
+# mixer has such gradients (hyper_w_1's rows of conv units that few
+# samples leave nonzero: cancelling sums of ~3e-8).  Measured: 2 of
+# 90,329 floats 2.37e-6 apart after one step, 1 of 270,987 1.59e-5
+# apart in the S = 3 update; the rest within 1e-6.
+QMIX_TOL = dict(atol=1e-4, atol_nu=1e-7)
+
+
+def hold_other_updates(runs, after, **tol):
+    """After ``after`` updates: networks, targets and Adam moments at
+    rtol 1e-5 / atol 1e-6 (nu atol 1e-9) unless ``tol`` says otherwise
+    (``QMIX_TOL``), as ``hold_option_updates``; the metrics at rtol
+    1e-5 / atol 1e-6."""
+    want, got, jm, tm = runs["states"][after - 1]
+    hold_states(got, want, runs["alg"].net_names(), **tol)
+    assert got.step == want.step == after
+    assert set(tm) == set(jm)
+    for k in tm:
+        np.testing.assert_allclose(tm[k], float(jm[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
