@@ -4,11 +4,13 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Eleven phases, each between progress lines with its elapsed seconds and
-held to a time budget (60 + 60 + 60 + 80 + 90 + 30 + 100 + 60 + 60 +
-220 + 230 s = 1050 s; phases 4, 6, 7, 9 and 10 at about twice their
-longest times on an H100, 41.6, 46.4, 30.1, 111.4 and 113.4 s, the
-others at 2.5-25 times theirs; a whole run took 224-403 s):
+Twelve phases, each between progress lines with its elapsed seconds and
+held to a time budget (30 + 45 + 20 + 20 + 90 + 10 + 95 + 60 + 40 +
+225 + 230 + 130 s = 995 s: about twice each phase's longest time on an
+H100, 0: 4.1, 1: 21.2, 2: 3.1, 3: 3.4, 4: 41.6, 5: 0.8, 6: 46.4, 7:
+30.1, 8: 18.8, 9: 111.4, 10: 113.4, 11: 63.5 s, with at least 10 s a
+phase and 30 s for a cold ``nvcc`` build; a whole run took 224-403 s
+before phase 11):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -139,11 +141,36 @@ others at 2.5-25 times theirs; a whole run took 224-403 s):
    ``train_multiseed``; QMIX resumed from its autosave to a larger
    budget; and one ``python -m cm3_tpu_torch.train.runner --alg qmix``
    process, which must exit 0 with a period row.
+11. particle through the runner (``envs/particle.py``,
+   ``train/onpolicy.py``; the particle branches of the algorithms):
+   four-agent particle at the full widths of ``master.json``'s "nn",
+   card against CPU from the same seeded state with the same fed draws
+   (the reset's four draws among them) at phase 3's tolerance: CM3
+   on-policy (a fill chunk, a policy chunk and a burst of 24 updates;
+   fused for one seed, with B1's launches counted: 2 per update; optax
+   for three seeds) and QMIX off-policy (a fill and a training chunk),
+   one seed and three; B1 bit for bit at the particle actor's and both
+   critics' sizes and its time per launch there; then the paper's
+   ``particle_s1``, ``particle_s2``, ``particle_s2_V``,
+   ``particle_coma`` and ``particle_qmix`` cells and an IAC run (16
+   envs, N_eval 10, a period of 100 episodes; budgets ``PT_*`` below)
+   through ``runner.train_function``, each with B1's launch count set
+   to 0 just before and read just after (0 on the optax path, which
+   the paper's cells run), the stage-1 -> stage-2 graft held on the
+   card first; one fused stage 2 with the actor frozen for 20 updates
+   (B1 = 2 per update less the frozen ones, B3 = the frozen updates);
+   three seeds in lockstep on-policy with the graft into every seed;
+   an auto-resume (the state restored, the episode count restarted, as
+   JAX's on-policy runner does); and one ``python -m
+   cm3_tpu_torch.train.runner --experiment particle`` process.  Each
+   run's episodes per second, and ``t_env`` / ``t_train`` for the
+   on-policy ones.
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
 mean of the main path's two launches; B1's ``launches`` are phase 2's,
-B3's phase 9's, its training path: the actor freeze on the fused path),
+B3's phase 9's, its training path: the actor freeze on the fused path;
+beside them ``particle_onpolicy_launches``, phase 11's fused stage 2),
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside it, it
@@ -261,6 +288,22 @@ OTHER_CONFIGS = {
 CELL_METRICS = {"qmix": ("loss_mixer",), "coma": ("loss_Q", "policy_loss"),
                 "iac": ("loss_V", "policy_loss")}
 CELL_EPISODES, CELL_SEEDED, CELL_RESUME = 300, 200, 500
+# particle through the runner (phase 11): the paper's particle_s1,
+# particle_s2, particle_s2_V, particle_coma and particle_qmix cells and an
+# IAC run (16 envs, N_eval 10, a period of 100 episodes; the paper's runs
+# are 50,000 episodes) with episode budgets cut to the phase's time: stage
+# 1 300, stage 2 300, the fused stage 2 (actor frozen for its first 20
+# updates) 200, the V ablation, COMA, IAC and QMIX 200 each, 3 seeds in
+# lockstep 200 each, the resume 100 (an on-policy resume restarts its
+# count), the CLI 100.  The full widths: master.json's "nn" (the actor
+# 14,789 floats at four agents, Q_global 16,704, Q_credit 15,296)
+PT_S1, PT_S2, PT_FUSED, PT_CELL, PT_SEEDED, PT_RESUME = (300, 300, 200, 200,
+                                                        200, 100)
+PT_FREEZE = 20
+PT_SIZES = {"actor": 14789, "Q_global": 16704, "Q_credit": 15296}
+# card vs CPU on particle: E envs, B-row samples, one burst of the
+# reference's 24 updates (on-policy) or a chunk of 4 updates (QMIX)
+PT_PAR_ENVS, PT_PAR_BATCH, PT_PAR_EPOCHS, PT_PAR_UPDATES = 16, 128, 24, 4
 
 T0 = time.time()
 
@@ -1368,6 +1411,330 @@ def phase_baselines(dev):
 
 
 # ------------------------------------------------------------------ #
+# particle through the runner
+# ------------------------------------------------------------------ #
+
+
+class _ParticleFeed:
+    """Seeded numpy draws in the order a particle driver asks for them,
+    kind by kind: per env step the actions (random, Gumbel noise, or
+    QMIX's random action and uniform) then the reset's four draws for
+    every instance; per update the replay indices and the a' noise."""
+
+    def __init__(self, seed, lead, n=4, a=5, qmix=False):
+        import numpy as np
+        self.rng = np.random.default_rng(seed)
+        self.lead, self.n, self.a, self.qmix = tuple(lead), n, a, qmix
+        self.q = {"randint": [], "gumbel": [], "uniform": [], "normal": []}
+
+    def reset(self, e):
+        import numpy as np
+        r, pts = self.rng, self.lead + (e, self.n, 2)
+        f32 = lambda x: x.astype(np.float32)
+        self.q["uniform"] += [f32(r.random(self.lead + (e,))),
+                              f32(r.uniform(-1, 1, pts)),
+                              f32(r.uniform(-1, 1, pts))]
+        self.q["normal"].append(f32(r.normal(size=pts)))
+
+    def step(self, e, random_actions):
+        import numpy as np
+        shape = self.lead + (e, self.n)
+        if random_actions or self.qmix:
+            self.q["randint"].append(self.rng.integers(0, self.a, shape))
+        if self.qmix and not random_actions:
+            self.q["uniform"].append(self.rng.random(shape).astype(
+                np.float32))
+        if not (random_actions or self.qmix):
+            self.q["gumbel"].append(self.rng.gumbel(
+                size=shape + (self.a,)).astype(np.float32))
+        self.reset(e)
+
+    def update(self, b, size):
+        import numpy as np
+        self.q["randint"].append(self.rng.integers(0, size,
+                                                   self.lead + (b,)))
+        if not self.qmix:
+            self.q["gumbel"].append(self.rng.gumbel(
+                size=self.lead + (b, self.n, self.a)).astype(np.float32))
+
+    def fed(self, dev):
+        from cm3_tpu_torch.core import prng
+        return prng.FedDraws(self.q["randint"], self.q["gumbel"],
+                             device=dev, uniforms=self.q["uniform"],
+                             normals=self.q["normal"])
+
+
+def particle_parity(device, kind, n_seeds=None):
+    """Four-agent particle (stage 2, antipodal; episodes of 7 steps) at
+    full width on the card and on the CPU from the same seeded state
+    with the same fed draws: for ``kind`` "cm3" (on-policy; the fused
+    optimizer for one seed, optax for seeds) a fill chunk, a policy
+    chunk and a burst of 24 updates; for "qmix" (off-policy) a fill
+    chunk and a training chunk of 4 updates.  States, replay, rollout
+    and metrics held at phase 3's tolerance.  Returns (largest
+    difference, B1 launches on the card)."""
+    import torch
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.core.tree import tree_leaves
+    from cm3_tpu_torch.ops import fused_opt
+    from cm3_tpu_torch.train import runner
+    from cm3_tpu_torch.train.offpolicy import init_rollout
+
+    e, b, steps = PT_PAR_ENVS, PT_PAR_BATCH, STEPS
+    lead = () if n_seeds is None else (n_seeds,)
+    qmix = kind == "qmix"
+    feed = _ParticleFeed(SEED + 11 + (n_seeds or 0), lead, qmix=qmix)
+    feed.reset(e)
+    for rand in (True, False):
+        for _ in range(steps):
+            feed.step(e, rand)
+    for _ in range(PT_PAR_UPDATES if qmix else PT_PAR_EPOCHS):
+        feed.update(b, 2 * steps * e)
+    m = config.load_json("master.json")
+    m.update(experiment="particle", particle_config="stage2_antipodal",
+             stage=2, n_envs=e, batch_size=b, buffer_size=512, max_steps=7,
+             prob_random=0.5, episode_log=16, alg_name=kind,
+             fused_opt=int(kind == "cm3" and n_seeds is None),
+             updates_per_chunk=PT_PAR_UPDATES)
+    eps = torch.tensor([0.1, 0.2, 0.3])[:n_seeds] if n_seeds else 0.3
+    out = {}
+    for dev in (str(device), "cpu"):
+        driver, alg, hooks, cfg = runner.build(m, device=dev)
+        if n_seeds is not None:
+            alg = alg.for_seeds(n_seeds)
+            driver = type(driver)(hooks, alg, cfg)
+        draws = feed.fed(dev)
+        rs = init_rollout(hooks, e, draws, 16, n_seeds=n_seeds)
+        ts = alg.init_state(prng.root_key(SEED) if n_seeds is None else
+                            [prng.root_key(SEED + i) for i in range(n_seeds)])
+        buf = driver._replay_init(driver.example_transition(rs))
+        torch.cuda.synchronize()
+        before = fused_opt.adam_polyak.launches
+        if qmix:
+            ts, buf, rs, _ = driver._chunk(ts, buf, rs, eps, draws, False,
+                                           True)
+            ts, buf, rs, met = driver._chunk(ts, buf, rs, eps, draws, True,
+                                             False)
+        else:
+            buf, rs = driver._rollout_chunk(ts, buf, rs, eps, draws, True)
+            buf, rs = driver._rollout_chunk(ts, buf, rs, eps, draws, False)
+            ts, met = driver._train_burst(ts, buf, eps, draws)
+        assert not any(draws.remaining().values()), draws.remaining()
+        out[dev] = (alg, ts, buf, rs, met,
+                    fused_opt.adam_polyak.launches - before)
+    (alg, ts_c, buf_c, rs_c, m_c, b1), (_, ts_h, buf_h, rs_h, m_h, _) = \
+        out[str(device)], out["cpu"]
+    pairs = []
+    for k in alg.net_names():
+        pairs += [(getattr(ts_c, k).flat, getattr(ts_h, k).flat),
+                  (getattr(ts_c, k + "_tgt").flat,
+                   getattr(ts_h, k + "_tgt").flat),
+                  (getattr(ts_c, "opt_" + k).mu, getattr(ts_h, "opt_" + k).mu),
+                  (getattr(ts_c, "opt_" + k).nu, getattr(ts_h, "opt_" + k).nu)]
+    pairs += [(x, y) for (_, x), (_, y) in zip(tree_leaves(buf_c.data),
+                                               tree_leaves(buf_h.data))]
+    pairs += [(getattr(rs_c.env_state, k), getattr(rs_h.env_state, k))
+              for k in ("pos", "vel", "landmarks", "collisions")]
+    pairs += [(getattr(rs_c, k), getattr(rs_h, k))
+              for k in ("episodes", "eplog", "acc_ret_local")]
+    pairs += [(m_c[k], m_h[k]) for k in m_h]
+    worst = 0.0
+    for got, want in pairs:
+        torch.testing.assert_close(got.cpu(), want, rtol=PARITY_RTOL,
+                                   atol=PARITY_ATOL)
+        if got.numel():
+            worst = max(worst, float((got.cpu().double()
+                                      - want.double()).abs().max()))
+    updates = PT_PAR_UPDATES if qmix else PT_PAR_EPOCHS
+    assert ts_c.step == updates and int(rs_h.episodes.min()) > 0
+    want_b1 = 2 * updates if alg.cfg.fused_opt else 0
+    assert b1 == want_b1, (kind, n_seeds, b1, want_b1)
+    log(f"  particle {kind}{'' if n_seeds is None else f', {n_seeds} seeds'}"
+        f" ({'fused' if alg.cfg.fused_opt else 'optax'}): card == CPU after "
+        + ("a fill and a training chunk" if qmix else
+           "a fill chunk, a policy chunk and a burst") +
+        f" of {updates} updates (rtol {PARITY_RTOL}, atol {PARITY_ATOL}); "
+        f"max abs difference {worst:.3g}; adam_polyak {b1} launches; "
+        + ", ".join(f"{k} {[round(x, 4) for x in m_c[k].reshape(-1).tolist()]}"
+                    for k in m_c))
+    return worst, b1
+
+
+def _particle_masters():
+    """master.json with the paper's particle cells
+    (scripts/reproduce_paper.py:160-166, 453-475, 558-562: 16 envs,
+    N_eval 10), at a period of 100 episodes."""
+    from cm3_tpu_torch.core import config
+    m = config.load_json("master.json")
+    m.update(experiment="particle", n_envs=CURR_ENVS, N_eval=CURR_N_EVAL,
+             period=100)
+    s1 = dict(m, particle_config="stage1", stage=1, dir_name="pt_s1",
+              N_train=PT_S1)
+    s2 = dict(m, particle_config="stage2_antipodal", stage=2,
+              dir_name="pt_s2", dir_restore="pt_s1", train_from_nothing=0,
+              N_train=PT_S2)
+    cells = {
+        "particle_s2_V": dict(s2, dir_name="pt_s2V", use_Q_credit=0,
+                              use_V=1, N_train=PT_CELL),
+        "particle_coma": dict(s2, alg_name="coma", dir_name="pt_coma",
+                              train_from_nothing=1, N_train=PT_CELL),
+        "particle_iac": dict(s2, alg_name="iac", dir_name="pt_iac",
+                             train_from_nothing=1, N_train=PT_CELL),
+        "particle_qmix": dict(s2, alg_name="qmix", dir_name="pt_qmix",
+                              train_from_nothing=1, N_train=PT_CELL),
+    }
+    fused = dict(s2, dir_name="pt_s2_fused", N_train=PT_FUSED, fused_opt=1,
+                 actor_freeze_updates=PT_FREEZE)
+    return s1, s2, fused, cells
+
+
+def _onpolicy_times(stats):
+    return (f"t_env {stats['t_env']:.2f} s, t_train {stats['t_train']:.2f} s"
+            if "t_env" in stats else "off-policy")
+
+
+def phase_particle_runner(dev):
+    import tempfile
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.ops import fused_opt, polyak
+    from cm3_tpu_torch.train import checkpoint, runner
+
+    # 1. card against CPU at full width, one seed and three
+    worst = {}
+    for kind in ("cm3", "qmix"):
+        for s in (None, PAR_SEEDS):
+            worst[f"{kind}{'' if s is None else '_seeds'}"] = \
+                particle_parity(dev, kind, s)[0]
+
+    # 2. B1 at particle sizes: bit for bit, then its time per launch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    err = max(hold_adam(dev, gen, [(PT_SIZES["actor"], 0, 1e-4, 0)]),
+              hold_adam(dev, gen, [(PT_SIZES["Q_global"], 0, LR, 0),
+                                   (PT_SIZES["Q_credit"], 0, LR, 0)]))
+    log("  adam_polyak at particle sizes: kernel == plain bit for bit over 5 "
+        f"steps (max abs difference {err})")
+    times = {name: adam_times(dev, gen, f"particle {name}", sizes)
+             for name, sizes in (("actor", [PT_SIZES["actor"]]),
+                                 ("critics", [PT_SIZES["Q_global"],
+                                              PT_SIZES["Q_credit"]]))}
+
+    s1, s2, fused, cells = _particle_masters()
+    rates = {}
+    with tempfile.TemporaryDirectory() as wd:
+        def run(name, m, **kw):
+            torch.cuda.synchronize()
+            fused_opt.adam_polyak.launches = 0
+            polyak.polyak_update.launches = 0
+            (ts, st), wall = _timed_run(
+                f"{name} ({m.get('alg_name', 'cm3')}), train_function",
+                lambda: runner.train_function(m, wd, verbose=False,
+                                              device=dev, **kw))
+            rates[name] = st["episodes"] / wall
+            rows = st["history"]
+            assert rows and all(np.isfinite(r["r_eval_local"]).all()
+                                for r in rows)
+            log(f"    {ts.step} updates, {_onpolicy_times(st)}; last row: "
+                f"episode {rows[-1]['episode']}, r_eval_global "
+                f"{rows[-1]['r_eval_global']:.3f}, eval_reach_rate "
+                f"{rows[-1]['eval_reach_rate']:.3f}; adam_polyak "
+                f"{fused_opt.adam_polyak.launches}, polyak "
+                f"{polyak.polyak_update.launches} launches")
+            return ts, st
+
+        # 3. particle_s1 from nothing, then its graft into stage 2 held
+        ts1, _ = run("particle_s1", s1)
+        assert fused_opt.adam_polyak.launches == 0
+        _, _, _, _, g = runner.initial_state(s2, wd, dev)
+        shared = _hold_graft(g, ts1)
+        log(f"  graft: {shared} shared floats equal stage 1's bit for bit "
+            "(stage 1: one agent; stage 2: four), Q_credit's shared leaves "
+            "equal Q_global's, targets equal mains (on the card)")
+
+        # 4. particle_s2 (the paper's cell: optax), the fused stage 2 with
+        # the actor frozen, and the V ablation
+        ts2, st2 = run("particle_s2", s2)
+        assert fused_opt.adam_polyak.launches == 0
+        tsf, _ = run(f"particle_s2, fused, actor frozen {PT_FREEZE} updates",
+                     fused)
+        b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
+        frozen = min(PT_FREEZE, tsf.step)
+        assert b1 == 2 * tsf.step - frozen and b1 > 0, (b1, tsf.step)
+        assert b3 == frozen > 0, b3
+        log(f"  fused stage 2: {tsf.step} updates, adam_polyak {b1} launches "
+            f"= 2 x {tsf.step} - {frozen} frozen, polyak {b3}")
+
+        # 5. the V ablation, COMA, IAC (on-policy) and QMIX (off-policy)
+        for name, m in cells.items():
+            ts, st = run(name, m)
+            assert fused_opt.adam_polyak.launches == 0, name
+            if name == "particle_s2_V":
+                assert ts.qc is None and ts.v is not None
+            if name == "particle_qmix":
+                assert "loss_mixer" in st["history"][-1]
+            else:
+                assert "t_env" in st and "policy_loss" not in \
+                    st["history"][-1]
+
+        # 6. three seeds in lockstep with the graft into every seed
+        sv = dict(s2, dir_name="pt_s2_seeds", vmapped_seeds=1,
+                  n_seeds=PAR_SEEDS, N_train=PT_SEEDED)
+        _, alg1, _, _ = runner.build(sv, device=dev)
+        stack = runner.vmapped_resume(sv, wd, alg1, alg1.for_seeds(
+            PAR_SEEDS), dev)[0]
+        for i in range(PAR_SEEDS):
+            _hold_graft(checkpoint.seed_state(alg1, stack, i), ts1)
+        (ts4, hist4), wall4 = _timed_run(
+            f"particle_s2, {PAR_SEEDS} seeds in lockstep (vmapped_seeds), "
+            "grafted into each", lambda: runner.train_multiseed(
+                sv, wd, device=dev))
+        rates["particle_s2_seeds"] = float(hist4[-1]["episode"].sum()) / wall4
+        assert (hist4[-1]["episode"] >= PT_SEEDED).all() and ts4.step > 0
+        assert not torch.equal(ts4.actor.flat[0], ts4.actor.flat[1])
+        log(f"  seeds: rows " + ", ".join(str(r["episode"].tolist())
+                                          for r in hist4))
+
+        # 7. particle_s2 resumed from its autosave: the state restored,
+        # the episode count restarted (JAX's on-policy runner)
+        auto = os.path.join(wd, "saved", "pt_s2", "model_autosave")
+        start = checkpoint.restore(auto, {"ts": runner.build(
+            s2, device=dev)[1].empty_state(), "episodes": 0})
+        ts5, st5 = run("particle_s2 resumed", dict(
+            s2, auto_resume=1, require_resume=1, N_train=PT_RESUME))
+        assert ts5.step > start["ts"].step > 0
+        assert st5["history"][0]["episode"] // 100 == 1
+        log(f"  resume: the autosave's state at step {start['ts'].step} "
+            f"(episode {start['episodes']}), the count restarted: first row "
+            f"at {st5['history'][0]['episode']}, step {ts5.step} after")
+
+        # 8. the CLI in a process of its own
+        cfg = os.path.join(wd, "cli_master.json")
+        with open(cfg, "w") as f:
+            json.dump(dict(s1, experiment="checkers", dir_name="cli_pt"), f)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cm3_tpu_torch.train.runner", "--config",
+             cfg, "--experiment", "particle", "--episodes", str(CURR_CLI),
+             "--workdir", wd],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"),
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        rows = _rows(wd, "cli_pt")
+        assert rows, "the CLI wrote no period row"
+        log(f"  CLI: python -m cm3_tpu_torch.train.runner --experiment "
+            f"particle --episodes {CURR_CLI} exited 0 in "
+            f"{time.time() - t0:.2f} s with {len(rows)} period rows; its "
+            f"last: {proc.stdout.strip().splitlines()[-1]}")
+    log("  particle episodes/s: " + json.dumps(
+        {k: round(v, 2) for k, v in rates.items()}))
+    log("  adam_polyak at particle sizes, after a PyTorch kernel: actor "
+        f"{times['actor']['ms'] * 1e3:.2f} us, both critics "
+        f"{times['critics']['ms'] * 1e3:.2f} us per launch")
+    return {"b1": b1, "b3": b3, "times": times, "worst": worst}
+
+
+# ------------------------------------------------------------------ #
 # the CUDA C++ build
 # ------------------------------------------------------------------ #
 
@@ -1846,22 +2213,23 @@ def main():
     card = smi_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phases = [
-        ("0 build", 60, phase_build),
-        ("1 kernel vs plain", 60, phase_kernel, dev),
-        ("2 the slice", 60, phase_slice, dev),
-        ("3 card vs CPU", 80, phase_parity, dev),
+        ("0 build", 30, phase_build),
+        ("1 kernel vs plain", 45, phase_kernel, dev),
+        ("2 the slice", 20, phase_slice, dev),
+        ("3 card vs CPU", 20, phase_parity, dev),
         ("4 fused Checkers rollout", 90, phase_rollout, dev),
-        ("5 polyak", 30, phase_polyak, dev),
-        ("6 fused particle rollout", 100, phase_particle, dev),
+        ("5 polyak", 10, phase_polyak, dev),
+        ("6 fused particle rollout", 95, phase_particle, dev),
         ("7 fused roadway rollout", 60, phase_roadway, dev),
-        ("8 seed-batched training", 60, phase_seeded, dev),
-        ("9 the curriculum through the runner", 220, phase_curriculum, dev),
+        ("8 seed-batched training", 40, phase_seeded, dev),
+        ("9 the curriculum through the runner", 225, phase_curriculum, dev),
         ("10 the baselines and QMIX", 230, phase_baselines, dev),
+        ("11 particle through the runner", 130, phase_particle_runner, dev),
     ]
     out = {name.split()[0]: run_phase(name, budget, fn, *args)
            for name, budget, fn, *args in phases}
-    kern, launches, rollout, soft, particle, roadway, frozen = (
-        out[k] for k in ("1", "2", "4", "5", "6", "7", "9"))
+    kern, launches, rollout, soft, particle, roadway, frozen, pt = (
+        out[k] for k in ("1", "2", "4", "5", "6", "7", "9", "11"))
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1870,6 +2238,7 @@ def main():
         dict(name="adam_polyak", route="cuda",
              source="cm3_tpu_torch/csrc/flat_update.cu",
              replaces="cm3_tpu/ops/fused_opt.py:100", launches=launches,
+             particle_onpolicy_launches=pt["b1"],
              **{k: kern[k] for k in keys[1:]}),
         dict(name="checkers_rollout", route="cuda",
              source="cm3_tpu_torch/csrc/checkers_rollout.cu",
@@ -1877,8 +2246,9 @@ def main():
              **{k: rollout[k] for k in keys}),
         dict(name="polyak", route="cuda",
              source="cm3_tpu_torch/csrc/flat_update.cu",
-             replaces="cm3_tpu/ops/polyak.py:58",
-             launches=frozen, **{k: soft[k] for k in keys[1:]}),
+             replaces="cm3_tpu/ops/polyak.py:58", launches=frozen,
+             particle_onpolicy_launches=pt["b3"],
+             **{k: soft[k] for k in keys[1:]}),
         dict(name="particle_rollout", route="cuda",
              source="cm3_tpu_torch/csrc/particle_rollout.cu",
              replaces="cm3_tpu/ops/particle_rollout.py:64",

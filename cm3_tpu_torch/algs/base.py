@@ -29,8 +29,8 @@ from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.core.config import AlgConfig, NNConfig
 from cm3_tpu_torch.models import nets
 
-# the ROADMAP items that port the other experiments' engines and nets
-NOT_PORTED = {"particle": "A10b", "roadway": "A11b"}
+# the ROADMAP item that ports the last experiment's engine and nets
+NOT_PORTED = {"roadway": "A11b"}
 
 
 class SeededAlgorithm:
@@ -41,10 +41,10 @@ class SeededAlgorithm:
     def __init__(self, experiment: str, spec: Dict[str, int], alg: AlgConfig,
                  nn_cfg: NNConfig = NNConfig(), device="cuda",
                  n_seeds: Optional[int] = None):
-        if experiment != "checkers":
+        if experiment not in ("checkers", "particle"):
             item = NOT_PORTED.get(experiment)
             raise NotImplementedError(
-                f"only Checkers is ported, not {experiment!r}"
+                f"only Checkers and particle are ported, not {experiment!r}"
                 + (f" (ROADMAP {item})" if item else ""))
         nets.init_scheme(alg.init_scheme)
         self.experiment = experiment
@@ -198,22 +198,32 @@ class SeededAlgorithm:
 
 
 class ActorCritic(SeededAlgorithm):
-    """An algorithm with CM3's Checkers actor (CM3 and the baselines)."""
+    """An algorithm with CM3's actor (CM3 and the baselines)."""
 
     def _actor_module(self):
         c = self.nn_cfg
+        if self.experiment == "particle":
+            return nets.ActorParticle(
+                self.spec, n_h1_others=c.Actor_n_others, n_h2=c.Actor_n_h2,
+                stage=self.stage)
         return nets.ActorCheckers(
             self.spec, conv_f=c.A_conv_f, conv_k=tuple(c.A_conv_k),
             n_h1=c.A_n_h1, n_h2=c.A_n_h2, stage=self.stage)
 
     def actor_probs(self, actor, obs, goals, a_prev, epsilon):
-        """eps-mixed policy probabilities, [B, N, A]."""
+        """eps-mixed policy probabilities, [B, N, A]; ``a_prev`` feeds
+        only the Checkers actor (particle has none: pass None)."""
         b, n = goals.shape[0], goals.shape[1]
         f = common.flatten_bn
-        probs = self._call(
-            self._actor_module, actor,
-            f(common.one_hot(a_prev, self.n_actions)), f(obs["self_t"]),
-            f(obs["self_v"]), f(obs["others"]), f(goals))
+        if self.experiment == "particle":
+            probs = self._call(self._actor_module, actor, f(obs["others"]),
+                               f(obs["self_v"]), f(goals))
+        else:
+            probs = self._call(
+                self._actor_module, actor,
+                f(common.one_hot(a_prev, self.n_actions)),
+                f(obs["self_t"]), f(obs["self_v"]), f(obs["others"]),
+                f(goals))
         probs = probs.reshape(b, n, self.n_actions)
         return common.epsilon_probs(probs, epsilon, self.n_actions)
 

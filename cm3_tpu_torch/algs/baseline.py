@@ -1,4 +1,4 @@
-"""COMA, IAC, central-V and the alpha-blend on Checkers
+"""COMA, IAC, central-V and the alpha-blend on Checkers and particle
 (``cm3_tpu.algs.baseline``).
 
 One class, as in the JAX package, whose critics the flags of
@@ -6,14 +6,16 @@ One class, as in the JAX package, whose critics the flags of
 
   * COMA (``use_Q``, n_agents > 1): the centralized critic
     Q(s, a^{-n}, g^n, g^{-n}, label_n, o^n) over every action
-    (``nets.QComaCheckers``); advantage Q[a_n] - sum_a pi(a) Q[a];
+    (``nets.QComaCheckers``, particle ``nets.QComa``); advantage
+    Q[a_n] - sum_a pi(a) Q[a];
   * IAC (``use_V`` with ``IAC``): the per-agent local critic
-    V(o^n, g^n) (``nets.VCheckersLocal``), TD-error advantage per agent
-    row;
+    V(o^n, g^n) (``nets.VCheckersLocal``, particle
+    ``nets.VParticleLocal``), TD-error advantage per agent row;
   * central-V (``use_V`` without ``IAC``): V(s, g^n)
     (``nets.VCheckersGlobal`` at its own default widths, as the JAX
-    package builds it); the policy loss couples the sums over agents of
-    the log-probabilities and of the TD errors;
+    package builds it; particle ``nets.VParticleGlobal`` at the master's
+    ``V_n_others``/``V_n_h2``); the policy loss couples the sums over
+    agents of the log-probabilities and of the TD errors;
   * the blend (``use_Q`` and ``use_V``): alpha * local + (1 - alpha) *
     global.
 
@@ -68,8 +70,8 @@ class BaselineState:
 
 
 class Baseline(base.ActorCritic):
-    """The baselines on Checkers, one seed or ``n_seeds`` in lockstep
-    (``algs/base.py``)."""
+    """The baselines on Checkers or particle, one seed or ``n_seeds``
+    in lockstep (``algs/base.py``)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
@@ -81,6 +83,10 @@ class Baseline(base.ActorCritic):
 
     def _v_module(self):
         c = self.nn_cfg
+        if self.experiment == "particle":
+            cls = nets.VParticleLocal if self.iac else nets.VParticleGlobal
+            return cls(self.spec, n_h1_2=c.V_n_others, n_h2=c.V_n_h2,
+                       stage=self.stage)
         if self.iac:
             return nets.VCheckersLocal(
                 self.spec, conv_f=c.V_conv_f, conv_k=tuple(c.V_conv_k),
@@ -89,6 +95,8 @@ class Baseline(base.ActorCritic):
         return nets.VCheckersGlobal(self.spec, stage=self.stage)
 
     def _q_module(self):
+        if self.experiment == "particle":
+            return nets.QComa(self.spec, units=self.nn_cfg.Q_units)
         return nets.QComaCheckers(self.spec, units=self.nn_cfg.Q_units)
 
     def _makers(self):
@@ -115,16 +123,20 @@ class Baseline(base.ActorCritic):
         """V per agent, [B, N] (the local or the global critic)."""
         b, n = goals.shape[0], goals.shape[1]
         f = common.flatten_bn
-        if self.iac:
-            out = self._call(self._v_module, v, f(obs["self_t"]),
-                             f(obs["self_v"]), f(obs["others"]), f(goals))
+        vec = state["vec"]
+        if self.experiment == "particle":
+            args = ([f(obs["others"]), f(obs["self_v"]), f(goals)]
+                    if self.iac else
+                    [f(vec), f(goals), f(common.others_concat(vec)),
+                     f(common.others_concat(goals))])
+        elif self.iac:
+            args = [f(obs["self_t"]), f(obs["self_v"]), f(obs["others"]),
+                    f(goals)]
         else:
-            vec = state["vec"]
             grid = state["grid"][:, None].expand(
                 (b, n) + state["grid"].shape[1:])
-            out = self._call(self._v_module, v, f(grid), f(vec), f(goals),
-                             f(common.others_concat(vec)))
-        return out.reshape(b, n)
+            args = [f(grid), f(vec), f(goals), f(common.others_concat(vec))]
+        return self._call(self._v_module, v, *args).reshape(b, n)
 
     def _q_forward(self, q, state, obs, goals, a_others):
         """COMA's critic over every action, [B, N, A]; ``a_others`` is
@@ -135,12 +147,16 @@ class Baseline(base.ActorCritic):
         state_all = vec.reshape(b, 1, -1).expand(b, n, vec.shape[1]
                                                  * vec.shape[2])
         labels = torch.eye(n, device=vec.device).expand(b, n, n)
-        grid = state["grid"][:, None].expand((b, n) + state["grid"].shape[1:])
-        out = self._call(self._q_module, q, f(grid), f(state_all),
-                         f(a_others), f(goals),
-                         f(common.others_concat(goals)), f(labels),
-                         f(obs["self_t"]), f(obs["self_v"]))
-        return out.reshape(b, n, self.n_actions)
+        args = [f(state_all), f(a_others), f(goals),
+                f(common.others_concat(goals)), f(labels)]
+        if self.experiment == "particle":
+            args = args + [f(obs["self_v"])]
+        else:
+            grid = state["grid"][:, None].expand(
+                (b, n) + state["grid"].shape[1:])
+            args = [f(grid)] + args + [f(obs["self_t"]), f(obs["self_v"])]
+        return self._call(self._q_module, q, *args).reshape(
+            b, n, self.n_actions)
 
     # ---- one seed's steps of the update ---- #
 
@@ -194,7 +210,8 @@ class Baseline(base.ActorCritic):
         cfg = self.cfg
         obs, state, goals = batch["obs"], batch["state"], batch["goals"]
         a_1h = common.one_hot(batch["a"], self.n_actions)
-        probs = self.actor_probs(actor, obs, goals, batch["a_prev"], eps)
+        probs = self.actor_probs(actor, obs, goals, batch.get("a_prev"),
+                                 eps)
         log_pi = torch.log(torch.sum(probs * a_1h, dim=-1) + 1e-15)  # [B, N]
         loss_g = loss_l = None
         if self.use_q:
@@ -223,8 +240,9 @@ class Baseline(base.ActorCritic):
 
         batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
         (dicts), a [B, N] int, r [B], rl [B, N], state_next, obs_next,
-        done [B], goals [B, N, G], a_prev [B, N].  ``gumbel`` is the
-        [B, N, A] noise that samples the target policy's a' (COMA).
+        done [B], goals [B, N, G], a_prev [B, N] (Checkers).  ``gumbel``
+        is the [B, N, A] noise that samples the target policy's a'
+        (COMA).
         Returns (ts, metrics); the metrics are device scalars ([S] with
         seeds)."""
         if not (self.use_v or self.use_q):

@@ -1,6 +1,9 @@
 """CM3: multi-goal actor-critic with a counterfactual credit function.
 
-Port of ``cm3_tpu.algs.cm3`` for Checkers: stage 2 (n_agents > 1) with
+Port of ``cm3_tpu.algs.cm3`` for Checkers and particle (the networks
+and their inputs per experiment, ``cm3.py:76-81, 155-318``; the
+particle nets take no grid, no egocentric view and no previous action):
+stage 2 (n_agents > 1) with
 the Q_credit critic (``use_Q_credit``, the default) or the V(s, g^n)
 ablation critic (``use_V``) or neither, and stage 1 (n_agents == 1)
 with the Q_global counterfactual.  The update keeps the JAX package's
@@ -72,8 +75,8 @@ time per operation, and the map adds 7% launches;
 The update's one random draw, a' (``cm3.py:465``), comes in as Gumbel
 noise, so a test can feed JAX's.  The seed plumbing, the states' set-up,
 the actor and ``act`` are shared with the baselines
-(``algs/base.py``).  Not ported yet (ROADMAP.md): the particle and
-roadway nets (A10b, A11b).
+(``algs/base.py``).  Not ported yet (ROADMAP.md): the roadway nets
+(A11b).
 """
 
 from __future__ import annotations
@@ -115,10 +118,10 @@ class CM3State:
 
 
 class CM3(base.ActorCritic):
-    """CM3 on Checkers.  Runs on ``device`` (``cuda`` unless told); with
-    ``n_seeds`` (1 included) it trains that many independent seeds in
-    lockstep in seed stacks, and without it one seed in flattened
-    modules."""
+    """CM3 on Checkers or particle.  Runs on ``device`` (``cuda``
+    unless told); with ``n_seeds`` (1 included) it trains that many
+    independent seeds in lockstep in seed stacks, and without it one
+    seed in flattened modules."""
 
     def __init__(self, experiment: str, spec: Dict[str, int], alg: AlgConfig,
                  nn_cfg: NNConfig = NNConfig(), device="cuda",
@@ -139,6 +142,8 @@ class CM3(base.ActorCritic):
 
     def _qg_module(self):
         c = self.nn_cfg
+        if self.experiment == "particle":
+            return nets.QGlobalParticle(self.spec, stage=self.stage)
         return nets.QGlobalCheckers(
             self.spec, conv_f1=c.Q_conv_f, conv_k1=tuple(c.Q_conv_k),
             n_h1_1=c.Q_n_h1_1, n_h1_2=c.Q_n_h1_2, n_h2=c.Q_n_h2,
@@ -146,12 +151,16 @@ class CM3(base.ActorCritic):
 
     def _qc_module(self):
         c = self.nn_cfg
+        if self.experiment == "particle":
+            return nets.QCreditParticle(self.spec, stage=self.stage)
         return nets.QCreditCheckers(
             self.spec, conv_f1=c.Q_conv_f, conv_k1=tuple(c.Q_conv_k),
             n_h1_1=c.Q_n_h1_1, n_h1_2=c.Q_n_h1_2, n_h2=c.Q_n_h2,
             stage=self.stage)
 
     def _v_module(self):
+        if self.experiment == "particle":
+            return nets.VParticleAblation(self.spec)
         return nets.VCheckersAblation(self.spec)
 
     def _makers(self):
@@ -195,12 +204,13 @@ class CM3(base.ActorCritic):
         b, n = goals.shape[0], goals.shape[1]
         f = common.flatten_bn
         vec = state["vec"]
-        grid = state["grid"][:, None].expand((b, n) + state["grid"].shape[1:])
-        q = self._call(self._qg_module, qg, f(grid), f(vec), f(goals),
-                       f(a_1h), f(common.others_concat(vec)),
-                       f(common.others_stack(a_1h)), f(obs["self_t"]),
-                       f(obs["self_v"]))
-        return q.reshape(b, n)
+        args = [f(vec), f(goals), f(a_1h), f(common.others_concat(vec)),
+                f(common.others_stack(a_1h))]
+        if self.experiment == "checkers":
+            grid = state["grid"][:, None].expand(
+                (b, n) + state["grid"].shape[1:])
+            args = [f(grid)] + args + [f(obs["self_t"]), f(obs["self_v"])]
+        return self._call(self._qg_module, qg, *args).reshape(b, n)
 
     def _q_global_cf(self, qg, state, obs, goals):
         """n_agents == 1 counterfactual: Q(s, a) for every action, [B, A]
@@ -211,12 +221,14 @@ class CM3(base.ActorCritic):
         flat = lambda x: x.reshape((b * a_dim,) + x.shape[2:])
         eye = torch.eye(a_dim, device=goals.device).expand(b, a_dim, a_dim)
         vec = state["vec"][:, 0]
-        q = self._call(
-            self._qg_module, qg, flat(bc(state["grid"])), flat(bc(vec)),
-            flat(bc(goals[:, 0])), flat(eye), vec.new_zeros(b * a_dim, 0),
-            vec.new_zeros(b * a_dim, 0, a_dim),
-            flat(bc(obs["self_t"][:, 0])), flat(bc(obs["self_v"][:, 0])))
-        return q.reshape(b, a_dim)
+        args = [flat(bc(vec)), flat(bc(goals[:, 0])), flat(eye),
+                vec.new_zeros(b * a_dim, 0),
+                vec.new_zeros(b * a_dim, 0, a_dim)]
+        if self.experiment == "checkers":
+            args = ([flat(bc(state["grid"]))] + args
+                    + [flat(bc(obs["self_t"][:, 0])),
+                       flat(bc(obs["self_v"][:, 0]))])
+        return self._call(self._qg_module, qg, *args).reshape(b, a_dim)
 
     def _q_credit_pairs(self, qc, state, obs, goals, a_m_1h):
         """Q_n(s, a^m) for all (m, n) pairs, [B, M, N]; m is the outer
@@ -227,13 +239,14 @@ class CM3(base.ActorCritic):
         pn = lambda x: x[:, None].expand((b, n) + x.shape[1:])
         pm = lambda x: x[:, :, None].expand((b, n, n) + x.shape[2:])
         flat = lambda x: x.reshape((b * n * n,) + x.shape[3:])
-        grid = state["grid"]
-        grid_p = grid[:, None, None].expand((b, n, n) + grid.shape[1:])
-        q = self._call(self._qc_module, qc, flat(grid_p), flat(pn(vec)),
-                       flat(pn(goals)), flat(pm(a_m_1h)), flat(pm(vec)),
-                       flat(pn(s_others)), flat(pm(obs["self_t"])),
-                       flat(pm(obs["self_v"])))
-        return q.reshape(b, n, n)
+        args = [flat(pn(vec)), flat(pn(goals)), flat(pm(a_m_1h)),
+                flat(pm(vec)), flat(pn(s_others))]
+        if self.experiment == "checkers":
+            grid = state["grid"]
+            grid_p = grid[:, None, None].expand((b, n, n) + grid.shape[1:])
+            args = ([flat(grid_p)] + args + [flat(pm(obs["self_t"])),
+                                             flat(pm(obs["self_v"]))])
+        return self._call(self._qc_module, qc, *args).reshape(b, n, n)
 
     def _q_credit_cf(self, qc, state, obs, goals):
         """Counterfactual Q_n(s, a^m = each action): [B, M, N, A]."""
@@ -246,23 +259,27 @@ class CM3(base.ActorCritic):
         pm = lambda x: x[:, :, None, None].expand(shape4 + x.shape[2:])
         flat = lambda x: x.reshape((b * n * n * a_dim,) + x.shape[4:])
         eye = torch.eye(a_dim, device=vec.device).expand(shape4 + (a_dim,))
-        grid = state["grid"]
-        grid_p = grid[:, None, None, None].expand(shape4 + grid.shape[1:])
-        q = self._call(self._qc_module, qc, flat(grid_p), flat(pn(vec)),
-                       flat(pn(goals)), flat(eye), flat(pm(vec)),
-                       flat(pn(s_others)), flat(pm(obs["self_t"])),
-                       flat(pm(obs["self_v"])))
-        return q.reshape(shape4)
+        args = [flat(pn(vec)), flat(pn(goals)), flat(eye), flat(pm(vec)),
+                flat(pn(s_others))]
+        if self.experiment == "checkers":
+            grid = state["grid"]
+            grid_p = grid[:, None, None, None].expand(shape4
+                                                      + grid.shape[1:])
+            args = ([flat(grid_p)] + args + [flat(pm(obs["self_t"])),
+                                             flat(pm(obs["self_v"]))])
+        return self._call(self._qc_module, qc, *args).reshape(shape4)
 
     def _v_forward(self, v, state, goals):
         """V(s, g^n) ablation baseline, [B, N] (``cm3.py:305-318``)."""
         b, n = goals.shape[0], goals.shape[1]
         f = common.flatten_bn
         vec = state["vec"]
-        grid = state["grid"][:, None].expand((b, n) + state["grid"].shape[1:])
-        out = self._call(self._v_module, v, f(grid), f(vec), f(goals),
-                         f(common.others_concat(vec)))
-        return out.reshape(b, n)
+        args = [f(vec), f(goals), f(common.others_concat(vec))]
+        if self.experiment == "checkers":
+            grid = state["grid"][:, None].expand(
+                (b, n) + state["grid"].shape[1:])
+            args = [f(grid)] + args
+        return self._call(self._v_module, v, *args).reshape(b, n)
 
     # ---- one seed's steps of the update ---- #
 
@@ -357,7 +374,8 @@ class CM3(base.ActorCritic):
         cfg = self.cfg
         obs, goals = batch["obs"], batch["goals"]
         a_1h = common.one_hot(batch["a"], self.n_actions)
-        probs = self.actor_probs(actor, obs, goals, batch["a_prev"], eps)
+        probs = self.actor_probs(actor, obs, goals, batch.get("a_prev"),
+                                 eps)
         with torch.no_grad():
             sum_a, w_mean = self._advantages(probs.detach(), q_cf_net, v,
                                              batch, q_actual)
@@ -371,7 +389,8 @@ class CM3(base.ActorCritic):
         if cfg.pg_ent_coef:
             # the entropy of the PURE softmax (an epsilon-0 forward): the
             # eps-mix floors the behavior probs and would hide a collapse
-            pure = self.actor_probs(actor, obs, goals, batch["a_prev"], 0.0)
+            pure = self.actor_probs(actor, obs, goals, batch.get("a_prev"),
+                                    0.0)
             ent = -torch.mean(torch.sum(pure * torch.log(pure + 1e-15),
                                         dim=-1))
             loss = loss - cfg.pg_ent_coef * ent
@@ -420,7 +439,8 @@ class CM3(base.ActorCritic):
 
         batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
         (dicts), a [B,N] int, rl [B,N], state_next, obs_next, done [B],
-        goals [B,N,G], a_prev [B,N] and, for ``pg_is_clip``, bp [B,N].
+        goals [B,N,G], a_prev [B,N] (Checkers) and, for ``pg_is_clip``,
+        bp [B,N].
         ``gumbel`` is the [B, N, A] noise that samples the target-policy
         actions a'.  Returns (ts,
         metrics); the metrics are device scalars ([S] with seeds;

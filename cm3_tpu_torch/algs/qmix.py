@@ -1,5 +1,8 @@
-"""QMIX on Checkers (``cm3_tpu.algs.qmix``): per-agent Q networks and a
-monotonic hypernetwork mixer, trained jointly.
+"""QMIX on Checkers and particle (``cm3_tpu.algs.qmix``): per-agent Q
+networks and a monotonic hypernetwork mixer, trained jointly; on
+particle the agent net (``nets.QmixSingleParticle``) and the mixer
+(``nets.QmixMixer``) are dense, with no state grid and no previous
+action.
 
   * ``act``: the argmax of each agent's action values (the first maximum,
     as ``jnp.argmax``), then the per-agent epsilon override OUTSIDE the
@@ -50,11 +53,14 @@ class QmixState:
 
 
 class QMIX(base.SeededAlgorithm):
-    """QMIX on Checkers, one seed or ``n_seeds`` in lockstep
+    """QMIX on Checkers or particle, one seed or ``n_seeds`` in lockstep
     (``algs/base.py``)."""
 
     def _joint_module(self):
         c = self.nn_cfg
+        if self.experiment == "particle":
+            return nets.QmixJoint(nets.QmixSingleParticle(self.spec),
+                                  nets.QmixMixer(self.spec))
         return nets.QmixJoint(
             nets.QmixSingleCheckers(self.spec, conv_f=c.A_conv_f,
                                     conv_k=tuple(c.A_conv_k)),
@@ -78,19 +84,23 @@ class QMIX(base.SeededAlgorithm):
         """Per-agent action values, [B, N, A]."""
         b, n = goals.shape[0], goals.shape[1]
         f = common.flatten_bn
-        q = self._call(self._joint_module, net, "agent",
-                       f(common.one_hot(a_prev, self.n_actions)),
-                       f(obs["self_t"]), f(obs["self_v"]), f(obs["others"]),
-                       f(goals))
+        if self.experiment == "particle":
+            args = [f(obs["others"]), f(obs["self_v"]), f(goals)]
+        else:
+            args = [f(common.one_hot(a_prev, self.n_actions)),
+                    f(obs["self_t"]), f(obs["self_v"]), f(obs["others"]),
+                    f(goals)]
+        q = self._call(self._joint_module, net, "agent", *args)
         return q.reshape(b, n, self.n_actions)
 
     def _mix(self, net, agent_q, state, goals):
         """Q_tot [B] of the agents' chosen values ``agent_q`` [B, N]."""
         b = goals.shape[0]
-        q_tot = self._call(self._joint_module, net, "mixer", agent_q,
-                           state["grid"], state["vec"].reshape(b, -1),
-                           goals.reshape(b, -1))
-        return q_tot[:, 0]
+        args = [state["vec"].reshape(b, -1), goals.reshape(b, -1)]
+        if self.experiment == "checkers":
+            args = [state["grid"]] + args
+        return self._call(self._joint_module, net, "mixer", agent_q,
+                          *args)[:, 0]
 
     # ---- acting ---- #
 
@@ -136,7 +146,7 @@ class QMIX(base.SeededAlgorithm):
     def _loss(self, net, batch, y):
         a_1h = common.one_hot(batch["a"], self.n_actions)
         q = self._agent_qs(net, batch["obs"], batch["goals"],
-                           batch["a_prev"])
+                           batch.get("a_prev"))
         q_tot = self._mix(net, torch.sum(q * a_1h, dim=-1), batch["state"],
                           batch["goals"])
         return torch.mean(torch.square(y - q_tot))
@@ -148,9 +158,9 @@ class QMIX(base.SeededAlgorithm):
 
         batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
         (dicts), a [B, N] int, rl [B, N], state_next, obs_next, done
-        [B], goals [B, N, G], a_prev [B, N].  ``epsilon`` and ``draws``
-        are unused (the driver's interface).  Returns (ts, metrics); the
-        metrics are device scalars ([S] with seeds)."""
+        [B], goals [B, N, G], a_prev [B, N] (Checkers).  ``epsilon``
+        and ``draws`` are unused (the driver's interface).  Returns (ts,
+        metrics); the metrics are device scalars ([S] with seeds)."""
         h = self._handle
         with torch.no_grad():
             y = self._map(self._target, h(ts.qmix_tgt), h(ts.qmix), batch)

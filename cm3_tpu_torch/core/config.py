@@ -1,17 +1,16 @@
 """Typed configuration: the subset of ``cm3_tpu.core.config`` that the
-ported modules read: Checkers training with CM3, the baselines (COMA,
-IAC, central-V, the alpha-blend) and QMIX (stage 1 and stage 2, one seed
-or seeds in lockstep), and the particle and roadway struct-of-arrays
-engines of the fused rollouts.
+ported modules read: Checkers and particle training with CM3, the
+baselines (COMA, IAC, central-V, the alpha-blend) and QMIX (stage 1 and
+stage 2, one seed or seeds in lockstep, off-policy and on-policy), and
+the particle and roadway struct-of-arrays engines of the fused
+rollouts.
 
-Same frozen dataclasses, same field names and defaults.  The particle
-and roadway configs are whole, their observation and reset fields
-included (read once their engines are ported, ROADMAP.md A10b/A11b).
-``NNConfig`` has the Checkers widths and the two generic widths the
-Checkers baselines read (``Q_units``, ``V_n_h2``); the generic staged
-nets' other widths (``V_n_others``, ``Actor_n_others``,
-``Actor_n_h2``) are left out until the particle and roadway nets are
-ported.  The JSON experiment files are read in place from
+Same frozen dataclasses, same field names and defaults.  The roadway
+config is whole, its observation and reset fields included (read once
+its engine is ported, ROADMAP.md A11b).  ``NNConfig`` has the Checkers
+widths and the generic staged nets' widths of ``master.json``'s "nn"
+block (``Q_units``, ``V_n_others``, ``V_n_h2``, ``Actor_n_others``,
+``Actor_n_h2``).  The JSON experiment files are read in place from
 ``cm3_tpu/configs/`` as data.
 """
 
@@ -150,13 +149,17 @@ class RoadwayEnvConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NNConfig:
-    """Checkers net sizes (``config_checkers_stage*.json`` "nn"), and
-    the generic COMA critic width and V width (``master.json`` "nn")."""
+    """Network sizes: the generic staged nets' (``master.json`` "nn")
+    and the Checkers nets' (``config_checkers_stage*.json`` "nn")."""
 
-    # generic staged nets (config.json "nn"); the Checkers COMA critic
-    # reads Q_units, the IAC critic V_n_h2 (checkers_stage2.json: 256)
+    # generic staged nets (config.json "nn"): the particle actor, V
+    # critics and COMA critic; the Checkers COMA critic reads Q_units,
+    # its IAC critic V_n_h2 (checkers_stage2.json: 256)
     Q_units: int = 256
+    V_n_others: int = 128
     V_n_h2: int = 64
+    Actor_n_others: int = 128
+    Actor_n_h2: int = 64
     # checkers conv nets (config_checkers_stage*.json "nn")
     Q_conv_f: int = 4
     Q_conv_k: Tuple[int, int] = (3, 5)
@@ -229,11 +232,11 @@ class AlgConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Driver schedule (reference ``alg/config.json`` + trainers): the
-    JAX package's fields, in its order.  ``threshold``,
-    ``episodes_per_train``, ``epochs``, ``prob_random``, ``seed``,
-    ``n_seeds`` and ``dir_name`` are carried from the master config as
-    the JAX runner carries them; nothing on the off-policy Checkers path
-    reads them.
+    JAX package's fields, in its order.  ``episodes_per_train`` and
+    ``epochs`` set the on-policy driver's bursts; ``threshold``,
+    ``prob_random``, ``seed``, ``n_seeds`` and ``dir_name`` are carried
+    from the master config as the JAX runner carries them, and the
+    drivers do not read them.
 
     ``dual_buffer``, ``replay_shards > 1``, ``chunks_per_sync > 1`` and
     ``summarize`` are the JAX package's options that the port does not
@@ -299,6 +302,21 @@ def checkers_env_config(stage: int, max_steps: int = 50) -> CheckersEnvConfig:
         n_obs=init["n_obs"],
         agents_r=tuple(init["agents_r"]), agents_c=tuple(init["agents_c"]),
         n_agents=cfg["n_agents"], max_steps=max_steps)
+
+
+def particle_env_config(name: str, prob_random: float = 0.2,
+                        max_steps: int = 33) -> ParticleEnvConfig:
+    """``particle_{name}.json`` (``stage1``, ``stage2_antipodal``, ...)
+    with the master's ``prob_random`` and ``max_steps``
+    (``cm3_tpu/core/config.py:372-381``)."""
+    cfg = load_json(f"particle_{name}.json")
+    return ParticleEnvConfig(
+        n_agents=cfg["n_agents"],
+        agents_x=tuple(cfg["agents_x"]), agents_y=tuple(cfg["agents_y"]),
+        landmarks_x=tuple(cfg["landmarks_x"]),
+        landmarks_y=tuple(cfg["landmarks_y"]),
+        initial_std=cfg["initial_std"], prob_random=prob_random,
+        max_steps=max_steps)
 
 
 def checkers_nn_config(stage: int) -> NNConfig:

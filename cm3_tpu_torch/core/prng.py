@@ -9,7 +9,9 @@ parity tests feed JAX's draws in through ``FedDraws`` instead.
 
 A draw source is what the JAX code's ``key`` argument becomes: the
 driver asks it for random actions, Gumbel noise, uniform draws (QMIX's
-epsilon override) and replay indices in a fixed order.
+epsilon override, the particle reset's branch and positions), normal
+draws (the particle reset's start noise) and replay indices in a fixed
+order.
 ``GeneratorDraws`` makes them on the device from a ``torch.Generator``;
 ``FedDraws`` hands out given arrays.
 """
@@ -88,10 +90,19 @@ class GeneratorDraws:
     def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
         return gumbel_from_uniform(self.uniform(shape))
 
-    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
-        """float32 in [0, 1)."""
-        return torch.rand(tuple(shape), generator=self.gen,
-                          device=self.device)
+    def uniform(self, shape: Sequence[int], low: float = 0.0,
+                high: float = 1.0) -> torch.Tensor:
+        """float32 in [low, high): u * (high - low) + low for u in
+        [0, 1), as ``jax.random.uniform`` scales."""
+        u = torch.rand(tuple(shape), generator=self.gen, device=self.device)
+        if (low, high) == (0.0, 1.0):
+            return u
+        return torch.clamp_min(u * (high - low) + low, low)
+
+    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+        """Standard normal float32."""
+        return torch.randn(tuple(shape), generator=self.gen,
+                           device=self.device)
 
 
 class FedDraws:
@@ -99,21 +110,25 @@ class FedDraws:
 
     ``randint`` returns the next array of ``randints`` (random actions
     and replay indices, in the order the driver asks for them),
-    ``gumbel`` the next of ``gumbels`` and ``uniform`` the next of
-    ``uniforms``.  Each array must have the shape asked for, and a
-    randint array must lie in [0, high).  ``uniforms`` are given only
-    for an algorithm that draws them (QMIX); ``remaining`` counts them
-    only then.
+    ``gumbel`` the next of ``gumbels``, ``uniform`` the next of
+    ``uniforms`` and ``normal`` the next of ``normals``.  Each array
+    must have the shape asked for, a randint array must lie in
+    [0, high) and a uniform array in [low, high).  ``uniforms`` and
+    ``normals`` are given only where something draws them (QMIX, the
+    particle reset); ``remaining`` counts them only then.
     """
 
     def __init__(self, randints: Iterable = (), gumbels: Iterable = (),
-                 device="cuda", uniforms: Optional[Iterable] = None):
+                 device="cuda", uniforms: Optional[Iterable] = None,
+                 normals: Optional[Iterable] = None):
         self.device = torch.device(device)
         self._q: Dict[str, collections.deque] = {
             "randint": collections.deque(randints),
             "gumbel": collections.deque(gumbels)}
         if uniforms is not None:
             self._q["uniform"] = collections.deque(uniforms)
+        if normals is not None:
+            self._q["normal"] = collections.deque(normals)
 
     def _next(self, kind: str, shape, dtype) -> torch.Tensor:
         if not self._q.get(kind):
@@ -133,8 +148,16 @@ class FedDraws:
     def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
         return self._next("gumbel", shape, torch.float32).to(self.device)
 
-    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
-        return self._next("uniform", shape, torch.float32).to(self.device)
+    def uniform(self, shape: Sequence[int], low: float = 0.0,
+                high: float = 1.0) -> torch.Tensor:
+        x = self._next("uniform", shape, torch.float32)
+        if x.numel() and (float(x.min()) < low or float(x.max()) >= high):
+            raise ValueError(f"FedDraws: uniform draw outside [{low}, "
+                             f"{high})")
+        return x.to(self.device)
+
+    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+        return self._next("normal", shape, torch.float32).to(self.device)
 
     def remaining(self) -> Dict[str, int]:
         return {k: len(v) for k, v in self._q.items()}

@@ -1,9 +1,10 @@
-"""Checkers networks: the actor, the two CM3 critics and the V
-ablation critic; the baselines' IAC critic, V(s, g^n) critic and COMA
-critic; QMIX's agent net and mixer.
+"""Checkers and particle networks: the actor, the two CM3 critics and
+the V ablation critic; the baselines' IAC critic, V(s, g^n) critic and
+COMA critic; QMIX's agent net and mixer.
 
-Port of the Checkers subset of ``cm3_tpu.models.nets`` (itself the
-reference ``alg/networks.py``) as ``nn.Module``s.  Names follow the
+Port of the Checkers and particle nets of ``cm3_tpu.models.nets``
+(itself the reference ``alg/networks.py``) as ``nn.Module``s; the
+particle nets are dense layers only.  Names follow the
 flax modules, so each torch parameter maps to one flax leaf:
 ``<module path>.weight`` is flax's ``kernel``, every other name is the
 same (``W_h2``, ``b``, ``bias``, the mixer's raw matrices
@@ -481,14 +482,224 @@ class QmixMixerCheckers(nn.Module):
 
     def forward(self, agent_qs, state_env, state, goals_all):
         conv = _relu_flat_conv(self.conv, state_env)
-        sg = torch.cat([conv, state, goals_all], dim=-1)
-        w1 = torch.abs(sg @ self.hyper_w_1).reshape(-1, self.n_agents,
-                                                    self.embed_dim)
-        b1 = sg @ self.hyper_b_1
-        hidden = F.elu(torch.einsum("bn,bne->be", agent_qs, w1) + b1)
-        w_final = torch.abs(sg @ self.hyper_w_final)
-        b_final = self.hyper_b_final(F.relu(self.hyper_b_final_l1(sg)))
-        return torch.sum(hidden * w_final, dim=-1, keepdim=True) + b_final
+        return _mix(self, torch.cat([conv, state, goals_all], dim=-1),
+                    agent_qs)
+
+
+# --------------------------------------------------------------------- #
+# particle (dense layers only)
+# --------------------------------------------------------------------- #
+
+
+class ActorParticle(nn.Module):
+    """networks.actor_particle:517-538 (``nets.py:150``): a self branch
+    over (own velocity and position, goal), a stage-2 branch over the
+    others' relative observations, the raw bias ``b``, softmax."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_self: int = 64,
+                 n_h1_others: int = 64, n_h2: int = 64, stage: int = 1):
+        super().__init__()
+        self.stage = stage
+        self.self_branch = Branch(spec["l_obs_self"] + spec["l_goal"],
+                                  n_h1_self, n_h2)
+        if stage > 1:
+            self.stage2 = Branch(spec["l_obs_others"], n_h1_others, n_h2)
+        self.b = nn.Parameter(torch.empty(n_h2))
+        self.out = _dense(n_h2, spec["l_action"])
+
+    def forward(self, obs_others, v_obs, goal):
+        h2 = self.self_branch(torch.cat([v_obs, goal], dim=-1))
+        if self.stage > 1:
+            h2 = h2 + self.stage2(obs_others)
+        h2 = F.relu(h2 + self.b)
+        return F.softmax(self.out(h2), dim=-1)
+
+
+class _QParticle(nn.Module):
+    """Shared body of the particle CM3 critics (networks.py:97-122,
+    186-211): a stage-1 branch over (s^n, g^n, a), a stage-2 branch over
+    ``n_in2`` more features, relu, and a bias-free scalar output.  The
+    stage-1 leaves of the two critics have the same shapes, so Q_global's
+    graft into Q_credit."""
+
+    def __init__(self, spec: Dict[str, int], n_in2: int, n_h1_1: int,
+                 n_h1_2: int, n_h2: int, stage: int):
+        super().__init__()
+        self.stage = stage
+        self.branch1 = Branch(spec["l_state_one"] + spec["l_goal"]
+                              + spec["l_action"], n_h1_1, n_h2)
+        if stage > 1:
+            self.stage2 = Branch(n_in2, n_h1_2, n_h2)
+        self.out = nn.Linear(n_h2, 1, bias=False)
+
+    def _forward(self, s_n, g_n, a, stage2_in):
+        h2 = self.branch1(torch.cat([s_n, g_n, a], dim=-1))
+        if self.stage > 1:
+            h2 = h2 + self.stage2(torch.cat(stage2_in, dim=-1))
+        return self.out(F.relu(h2))
+
+
+class QGlobalParticle(_QParticle):
+    """networks.Q_global_1output:97-122 (``nets.py:226``)."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_1: int = 64,
+                 n_h1_2: int = 128, n_h2: int = 64, stage: int = 1):
+        super().__init__(
+            spec, (spec["n_agents"] - 1) * (spec["l_state_one"]
+                                            + spec["l_action"]),
+            n_h1_1, n_h1_2, n_h2, stage)
+
+    def forward(self, s_n, g_n, a_n, s_others, a_others):
+        return self._forward(s_n, g_n, a_n,
+                             [s_others, a_others.flatten(-2)])
+
+
+class QCreditParticle(_QParticle):
+    """networks.Q_credit:186-211 (``nets.py:247``)."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_1: int = 64,
+                 n_h1_2: int = 128, n_h2: int = 64, stage: int = 2):
+        super().__init__(spec, spec["n_agents"] * spec["l_state_one"],
+                         n_h1_1, n_h1_2, n_h2, stage)
+
+    def forward(self, s_n, g_n, a_m, s_m, s_others):
+        return self._forward(s_n, g_n, a_m, [s_m, s_others])
+
+
+class _VParticleInner(nn.Module):
+    """The body of ``VParticleAblation``: two relu layers and a
+    bias-free scalar output."""
+
+    def __init__(self, n_in: int, n_h1: int, n_h2: int):
+        super().__init__()
+        self.V_h1 = _dense(n_in, n_h1)
+        self.V_h2 = _dense(n_h1, n_h2)
+        self.V_out = nn.Linear(n_h2, 1, bias=False)
+
+    def forward(self, x):
+        return self.V_out(F.relu(self.V_h2(F.relu(self.V_h1(x)))))
+
+
+class VParticleAblation(nn.Module):
+    """networks.V_particle_ablation:405-412 (``nets.py:418``): V(s, g^n)
+    over (s^n, g^n, s^{-n}); every parameter under ``stage2``."""
+
+    def __init__(self, spec: Dict[str, int], n_h1: int = 64, n_h2: int = 64):
+        super().__init__()
+        n_in = (spec["n_agents"] * spec["l_state_one"] + spec["l_goal"])
+        self.stage2 = _VParticleInner(n_in, n_h1, n_h2)
+
+    def forward(self, s_n, g_n, s_others):
+        return self.stage2(torch.cat([s_n, g_n, s_others], dim=-1))
+
+
+class VParticleLocal(nn.Module):
+    """networks.V_particle_local:356-374 (``nets.py:380``): the IAC
+    critic V(o^n, g^n); bias-free output."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_1: int = 64,
+                 n_h1_2: int = 64, n_h2: int = 64, stage: int = 1):
+        super().__init__()
+        self.stage = stage
+        self.self_branch = Branch(spec["l_obs_self"] + spec["l_goal"],
+                                  n_h1_1, n_h2)
+        if stage > 1:
+            self.stage2 = Branch(spec["l_obs_others"], n_h1_2, n_h2)
+        self.out = nn.Linear(n_h2, 1, bias=False)
+
+    def forward(self, v_obs_others, v_obs, goal):
+        h2 = self.self_branch(torch.cat([v_obs, goal], dim=-1))
+        if self.stage > 1:
+            h2 = h2 + self.stage2(v_obs_others)
+        return self.out(F.relu(h2))
+
+
+class VParticleGlobal(nn.Module):
+    """networks.V_particle_global:377-402 (``nets.py:399``): the
+    central-V critic V(s, g^n) with the others' states and goals at
+    stage 2; bias-free output."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_1: int = 64,
+                 n_h1_2: int = 64, n_h2: int = 64, stage: int = 1):
+        super().__init__()
+        self.stage = stage
+        one = spec["l_state_one"] + spec["l_goal"]
+        self.branch1 = Branch(one, n_h1_1, n_h2)
+        if stage > 1:
+            self.stage2 = Branch((spec["n_agents"] - 1) * one, n_h1_2, n_h2)
+        self.out = nn.Linear(n_h2, 1, bias=False)
+
+    def forward(self, s_n, g_n, s_others, g_others):
+        h2 = self.branch1(torch.cat([s_n, g_n], dim=-1))
+        if self.stage > 1:
+            h2 = h2 + self.stage2(torch.cat([s_others, g_others], dim=-1))
+        return self.out(F.relu(h2))
+
+
+class QComa(nn.Module):
+    """networks.Q_global:84-94 (``nets.py:555``): COMA's critic for
+    particle, Q(s, a^{-n}, g^n, g^{-n}, label_n, o^n) for every action;
+    its ``FC3`` lives under ``stage2``."""
+
+    def __init__(self, spec: Dict[str, int], units: int = 256):
+        super().__init__()
+        n, a = spec["n_agents"], spec["l_action"]
+        n_x = (n * spec["l_state_one"] + (n - 1) * a + n * spec["l_goal"]
+               + n + spec["l_obs_self"])
+        self.stage2 = FC3(n_x, units, units, a)
+
+    def forward(self, v_state, a_others, g_n, g_others, labels, v_obs):
+        return self.stage2(torch.cat(
+            [v_state, a_others.flatten(-2), g_n, g_others, labels, v_obs],
+            dim=-1))
+
+
+class QmixSingleParticle(nn.Module):
+    """networks.Qmix_single_particle:581-594 (``nets.py:597``): one
+    agent's action values over (others, self, goal)."""
+
+    def __init__(self, spec: Dict[str, int]):
+        super().__init__()
+        n_x = spec["l_obs_others"] + spec["l_obs_self"] + spec["l_goal"]
+        self.h = _dense(n_x, 64)
+        self.h2 = _dense(64, 64)
+        self.out = _dense(64, spec["l_action"])
+
+    def forward(self, o_others, o_self, goal):
+        x = torch.cat([o_others, o_self, goal], dim=-1)
+        return self.out(F.relu(self.h2(F.relu(self.h(x)))))
+
+
+class QmixMixer(nn.Module):
+    """networks.Qmix_mixer:640-685 (``nets.py:649``): the monotonic
+    hypernetwork mixer over (state, all goals); abs() weights, ELU
+    hidden.  The raw ``hyper_*`` matrices keep flax's (d, .) layout."""
+
+    def __init__(self, spec: Dict[str, int], embed_dim: int = 64):
+        super().__init__()
+        n = spec["n_agents"]
+        self.n_agents, self.embed_dim = n, embed_dim
+        d = n * (spec["l_state_one"] + spec["l_goal"])
+        self.hyper_w_1 = nn.Parameter(torch.empty(d, embed_dim * n))
+        self.hyper_b_1 = nn.Parameter(torch.empty(d, embed_dim))
+        self.hyper_w_final = nn.Parameter(torch.empty(d, embed_dim))
+        self.hyper_b_final_l1 = nn.Linear(d, embed_dim, bias=False)
+        self.hyper_b_final = nn.Linear(embed_dim, 1, bias=False)
+
+    def forward(self, agent_qs, state, goals_all):
+        sg = torch.cat([state, goals_all], dim=-1)
+        return _mix(self, sg, agent_qs)
+
+
+def _mix(m, sg, agent_qs):
+    """The hypernetwork mix of ``agent_qs`` [B, N] conditioned on ``sg``
+    (``nets.py:660-672``), for both mixers."""
+    w1 = torch.abs(sg @ m.hyper_w_1).reshape(-1, m.n_agents, m.embed_dim)
+    b1 = sg @ m.hyper_b_1
+    hidden = F.elu(torch.einsum("bn,bne->be", agent_qs, w1) + b1)
+    w_final = torch.abs(sg @ m.hyper_w_final)
+    b_final = m.hyper_b_final(F.relu(m.hyper_b_final_l1(sg)))
+    return torch.sum(hidden * w_final, dim=-1, keepdim=True) + b_final
 
 
 class QmixJoint(nn.Module):

@@ -76,6 +76,14 @@ def add_batch(state: ReplayState, transitions) -> ReplayState:
     return state
 
 
+def reset(state: ReplayState) -> ReplayState:
+    """Empty the ring (cursor and fill to 0; the rows stay and are
+    overwritten), as the on-policy driver discards it after a burst
+    (``cm3_tpu/train/onpolicy.py:100-107``); in place."""
+    state.insert = state.size = 0
+    return state
+
+
 def sample(state: ReplayState, idx: torch.Tensor):
     """The rows ``idx`` (replay_buffer.py:28-37): [B] -> leaves [B, ...];
     with seeds [S, B] -> leaves [S, B, ...], row idx[s, b] of seed s."""

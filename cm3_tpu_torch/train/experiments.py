@@ -1,5 +1,7 @@
 """Per-experiment episode hooks (``cm3_tpu.train.experiments``): the
-env, per-episode goals, and what the driver stores.  Checkers only.
+env, per-episode goals, what the driver stores, the dual buffer's
+routing predicate and the evaluation's extra metrics, for Checkers and
+particle (roadway: ROADMAP A11b).
 
 Instances are laid out on a leading ``shape``: (E,) for one seed, or
 (S, E) for S seeds in lockstep, whose S x E instances the engine steps
@@ -42,8 +44,15 @@ class Hooks:
         any) from the draw source ``draws``."""
         raise NotImplementedError
 
-    # eval-time auxiliary metrics (the JAX package's roadway traffic
-    # metrics); Checkers has none
+    def is_bad_episode(self, env_state, ep_return_local):
+        """The dual buffer's routing predicate per instance, on the
+        post-step env state and the episode's local returns
+        (``experiments.py:36-45``): False unless the experiment says."""
+        return torch.zeros(ep_return_local.shape[:-1], dtype=torch.bool,
+                           device=ep_return_local.device)
+
+    # eval-time auxiliary metrics: accumulators [*shape] per seed shape
+    # (() or (S,)); Checkers has none
 
     def eval_metrics_init(self, shape):
         return {}
@@ -85,8 +94,54 @@ class CheckersHooks(Hooks):
         return state, ts, goals
 
 
+class ParticleHooks(Hooks):
+    """Goals are the landmarks the reset places (train_offpolicy.py:
+    286-290; ``experiments.py:88-123``); the reset's draws come from the
+    draw source (``Particle.draw_reset``)."""
+
+    experiment = "particle"
+
+    def __init__(self, env):
+        self.env = env
+        self.n_agents = env.cfg.n_agents
+        self.l_goal = 2
+
+    def episode_init(self, shape, draws=None):
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        if draws is None:
+            raise ValueError("the particle reset draws its positions: "
+                             "pass a draw source")
+        state, ts = flat_call(self.env.reset, shape,
+                              self.env.draw_reset(shape, draws))
+        return state, ts, state.landmarks
+
+    def is_bad_episode(self, env_state, ep_return_local):
+        # the scenario's collision count != 0 (train_offpolicy.py:373-374)
+        return env_state.collisions != 0
+
+    def eval_metrics_init(self, shape):
+        z = torch.zeros(tuple(shape), device=self.env.device)
+        return dict(reached=z, episodes=z)
+
+    def eval_metrics_step(self, acc, env_state, ts, alive):
+        """The goal-reach rate at episode end (multi-goal_spread.py:
+        126-129): each instance whose episode ends this step adds its
+        share of agents within reach."""
+        done_now = (alive & ts.done).float()
+        frac = env_state.reached.float().mean(dim=-1)
+        return dict(reached=acc["reached"] + torch.sum(frac * done_now, -1),
+                    episodes=acc["episodes"] + torch.sum(done_now, -1))
+
+    def eval_metrics_final(self, acc, n_eval: int):
+        return {"eval_reach_rate": acc["reached"]
+                / torch.clamp_min(acc["episodes"], 1.0)}
+
+
+HOOKS = {"checkers": CheckersHooks, "particle": ParticleHooks}
+
+
 def make_hooks(experiment: str, env) -> Hooks:
-    if experiment != "checkers":
+    if experiment not in HOOKS:
         raise NotImplementedError(
-            f"only Checkers hooks are ported, not {experiment!r}")
-    return CheckersHooks(env)
+            f"the {experiment} hooks are not ported (ROADMAP A11b)")
+    return HOOKS[experiment](env)

@@ -11,22 +11,33 @@ and QMIX alike.  So one chunk of S seeds
 costs about as many kernel launches as one seed's, each doing S times
 the work.
 
-Schedule (``multiseed.py:72-266``): each seed keeps its own epsilon,
-from its own completed-episode count (``_eps_schedule``), while the
-switch from random fill to training and the periodic evaluation fire
-when the slowest seed crosses the threshold.  A run resumed from an
-autosave (``resume``) starts from its per-seed episode counts with an
-empty replay, which policy rollouts without updates warm until the
-slowest seed has ``pretrain_episodes`` more episodes
+Schedule (``multiseed.py:72-266``): off-policy, each seed keeps its
+own epsilon, from its own completed-episode count (``_eps_schedule``),
+while the switch from random fill to training and the periodic
+evaluation fire when the slowest seed crosses the threshold.  A run
+resumed from an autosave (``resume``) starts from its per-seed episode
+counts with an empty replay, which policy rollouts without updates warm
+until the slowest seed has ``pretrain_episodes`` more episodes
 (``multiseed.py:99-102, 190-200``).
+
+On-policy (``onpolicy=True``, ``multiseed.py:128-143, 186-200``): the
+``OnPolicyDriver``'s rollout chunks (random while the slowest seed has
+fewer than ``pretrain_episodes`` episodes; no warm-up after a resume),
+a burst of ``epochs`` updates for every seed once the slowest seed has
+``episodes_per_train`` more episodes, then every seed's ring
+discarded; epsilon is one host value for all seeds, decayed once per
+burst, and rebuilt on resume from the bursts the slowest seed's count
+implies (``multiseed.py:169-176``).  A period row carries the metrics
+of a burst run in the same iteration, else none (``multiseed.py:
+234-235``).
 
 Draws.  One draw source serves every seed (one [S, ...] draw a call,
 not S calls), keyed by the first seed's key and the seed count; so a
 seed's stream depends on S.  Parameters are drawn per seed from its own
 key, ``root_key(base_seed + i)``, as for one seed.
 
-Not ported (ROADMAP.md): the mesh placement (A14), the on-policy
-regime (A13) and the gradient summaries (A15); each is refused.
+Not ported (ROADMAP.md): the mesh placement (A14), the dual buffer
+(A13b) and the gradient summaries (A15); each is refused.
 """
 
 from __future__ import annotations
@@ -38,8 +49,10 @@ import numpy as np
 import torch
 
 from cm3_tpu_torch.core import prng
+from cm3_tpu_torch.replay import buffer as replay
 from cm3_tpu_torch.train.offpolicy import (OffPolicyDriver, flush_eplog,
                                            init_rollout)
+from cm3_tpu_torch.train.onpolicy import OnPolicyDriver
 
 
 def _eps_schedule(cfg, episodes):
@@ -58,8 +71,9 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
                         mesh=None, onpolicy: bool = False,
                         resume: Optional[Tuple[Any, np.ndarray]] = None,
                         draws=None, eval_draws=None):
-    """Train ``n_seeds`` independent replicas in lockstep, off-policy.
-    Returns (the seed-stacked state, per-period history).
+    """Train ``n_seeds`` independent replicas in lockstep, off-policy
+    or (``onpolicy``) on-policy.  Returns (the seed-stacked state,
+    per-period history).
 
     ``alg`` is the algorithm (CM3, Baseline or QMIX) for one seed or for
     ``n_seeds`` seeds (``alg.for_seeds``).  ``log_fn`` receives each
@@ -68,17 +82,15 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
     e.g. from an autosave or a curriculum graft; the state is trained in
     place.
     ``draws`` and ``eval_draws`` (draw sources) replace the ones made
-    from the seeds' keys.  ``mesh`` and ``onpolicy`` are the JAX
-    package's and are refused."""
+    from the seeds' keys.  ``mesh`` is the JAX package's and is
+    refused."""
     if mesh is not None:
         raise NotImplementedError(
             "placing the seed axis over a mesh is not ported (ROADMAP A14)")
-    if onpolicy:
-        raise NotImplementedError(
-            "the on-policy regime is not ported (ROADMAP A13)")
     if alg.n_seeds != n_seeds:
         alg = alg.for_seeds(n_seeds)
-    driver = OffPolicyDriver(hooks, alg, cfg)
+    driver = (OnPolicyDriver if onpolicy else OffPolicyDriver)(hooks, alg,
+                                                               cfg)
     n_episodes = n_episodes or cfg.N_train
     s = n_seeds
     dev = hooks.env.device
@@ -102,17 +114,38 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
     last_ep_flushed = initial.copy()
     start_min = int(initial.min())
     last_period = start_min // cfg.period
+    # on-policy: one epsilon for all seeds, decayed once per burst;
+    # rebuilt on resume from the bursts the slowest seed's count implies
+    last_train_eps = start_min
+    eps_scalar = max(cfg.epsilon_end, cfg.epsilon_start
+                     - (max(0, start_min - cfg.pretrain_episodes)
+                        // max(cfg.episodes_per_train, 1))
+                     * cfg.epsilon_step)
     t0 = time.time()
     episodes = initial.copy()
     while episodes.min() < n_episodes:
         emin = episodes.min()
         fill = emin < cfg.pretrain_episodes
-        warm = not fill and emin < start_min + cfg.pretrain_episodes
-        eps = torch.as_tensor(_eps_schedule(cfg, episodes), dtype=torch.float32,
-                              device=dev)
-        ts, buf, rs, metrics = driver._chunk(ts, buf, rs, eps, draws,
-                                             not (fill or warm), fill)
-        episodes = _host(rs.episodes)    # one sync per chunk
+        if onpolicy:
+            metrics = {}
+            buf, rs = driver._rollout_chunk(ts, buf, rs, eps_scalar, draws,
+                                            fill)
+            episodes = _host(rs.episodes)
+            if (not fill and episodes.min() - last_train_eps
+                    >= cfg.episodes_per_train):
+                ts, metrics = driver._train_burst(ts, buf, eps_scalar, draws)
+                last_train_eps = int(episodes.min())
+                buf = replay.reset(buf)
+                if eps_scalar > cfg.epsilon_end:
+                    eps_scalar = max(cfg.epsilon_end,
+                                     eps_scalar - cfg.epsilon_step)
+        else:
+            warm = not fill and emin < start_min + cfg.pretrain_episodes
+            eps = torch.as_tensor(_eps_schedule(cfg, episodes),
+                                  dtype=torch.float32, device=dev)
+            ts, buf, rs, metrics = driver._chunk(ts, buf, rs, eps, draws,
+                                                 not (fill or warm), fill)
+            episodes = _host(rs.episodes)    # one sync per chunk
 
         period_idx = int(episodes.min()) // cfg.period
         if period_idx > last_period:
@@ -121,7 +154,8 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
                                                      cfg.N_eval)
             row = {
                 "episode": episodes.copy(),                         # [S]
-                "epsilon": _eps_schedule(cfg, episodes),            # [S]
+                "epsilon": (np.full(s, eps_scalar) if onpolicy
+                            else _eps_schedule(cfg, episodes)),     # [S]
                 "r_eval_local": _host(r_local),                     # [S, N]
                 "r_eval_global": _host(r_global),                   # [S]
                 "eval_action_dist": _host(aux["act_dist"]).reshape(s, -1),

@@ -40,7 +40,7 @@ does (``offpolicy.py:115-118, 228-231, 249-272``).
 
 Not ported yet (ROADMAP.md): the K-chunk on-device schedule
 (``chunks_per_sync > 1``, A6b), the gradient summaries (``summarize``,
-A15), and the dual and shard-local replay (A13, A14); each is refused.
+A15), and the dual and shard-local replay (A13b, A14); each is refused.
 """
 
 from __future__ import annotations
@@ -149,7 +149,7 @@ class OffPolicyDriver:
     def __init__(self, hooks: Hooks, alg, cfg: TrainConfig):
         if cfg.dual_buffer:
             raise NotImplementedError(
-                "the dual replay buffer is not ported (ROADMAP A13)")
+                "the dual replay buffer is not ported (ROADMAP A13b)")
         if cfg.replay_shards > 1:
             raise NotImplementedError(
                 "shard-local replay is not ported (ROADMAP A14)")
@@ -167,6 +167,16 @@ class OffPolicyDriver:
         # of each stored action
         self._store_bp = (getattr(getattr(alg, "cfg", None), "pg_is_clip",
                                   0.0) > 0 and hasattr(alg, "act_bp"))
+
+    def _seed_epsilon(self, epsilon):
+        """epsilon as the algorithm takes it: the float for one seed, an
+        [S] tensor on the device with seeds (made once per chunk or
+        burst, not at every act and update)."""
+        if self.n_seeds is None:
+            return epsilon
+        return torch.as_tensor(epsilon, dtype=torch.float32,
+                               device=self.hooks.env.device).expand(
+                                   self.n_seeds)
 
     # ---- replay ---- #
 
@@ -266,11 +276,7 @@ class OffPolicyDriver:
         updates_per_chunk learning updates.  ``epsilon`` is a float, or
         [S] with seeds.  Returns (ts_alg, buf, rs, metrics of the last
         update)."""
-        if self.n_seeds is not None:
-            # once per chunk, not at every act and update
-            epsilon = torch.as_tensor(
-                epsilon, dtype=torch.float32,
-                device=self.hooks.env.device).expand(self.n_seeds)
+        epsilon = self._seed_epsilon(epsilon)
         for _ in range(self.cfg.steps_per_train):
             rs, buf = self._step_once(ts_alg, rs, buf, epsilon, draws,
                                       random_actions)

@@ -1,0 +1,152 @@
+"""On-policy trainer (``cm3_tpu.train.onpolicy``): the reference's
+``alg/train_onpolicy.py`` schedule, which particle CM3, COMA and IAC
+train with.
+
+Transitions accumulate in the replay ring for ``episodes_per_train``
+completed episodes; then ``epochs`` minibatch updates run back to back
+and the ring is discarded (``train_onpolicy.py:359-378``); epsilon
+decays once per burst, from ``epsilon_start``.  A rollout chunk
+(``_rollout_chunk``) is ``steps_per_train`` lockstep env steps with
+their replay adds and auto-resets, random actions while fewer than
+``pretrain_episodes`` episodes are done; a burst (``_train_burst``)
+draws, per update, the replay indices and then what the algorithm's
+``update`` consumes, as the off-policy chunk's updates do.  The ring's
+cursor and fill are host integers shared by the seeds, so discarding
+it (``replay.reset``) is setting both to 0.
+
+``run`` is the single-seed host loop.  It keeps two of JAX's quirks,
+which the reference's runner shows (ROADMAP.md §C, hazard 5): its
+period row carries no learning metrics (JAX's ``run`` never merges
+them, ``onpolicy.py:117-150``; the lockstep row does,
+``multiseed.py:234-235``), and it takes no ``initial_episodes``, so a
+resumed run restarts its episode count and epsilon
+(``runner.py:293-295``).  The row splits the wall time into ``t_env``
+(rollout chunks) and ``t_train`` (bursts), as the reference logs
+(``train_onpolicy.py:304, 324, 358, 378``); both are host clocks read
+after the chunk's or the burst's episode count or metrics reach the
+host.
+
+Seeds in lockstep run through ``train/multiseed.py`` with
+``onpolicy=True``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from cm3_tpu_torch.core import prng
+from cm3_tpu_torch.replay import buffer as replay
+from cm3_tpu_torch.train.offpolicy import (OffPolicyDriver, flush_eplog,
+                                           init_rollout)
+
+
+class OnPolicyDriver(OffPolicyDriver):
+
+    def _rollout_chunk(self, ts_alg, buf, rs, epsilon, draws,
+                       random_actions: bool):
+        """``steps_per_train`` lockstep env steps with their replay adds
+        and auto-resets (``onpolicy.py:41-50``); returns (buf, rs)."""
+        epsilon = self._seed_epsilon(epsilon)
+        for _ in range(self.cfg.steps_per_train):
+            rs, buf = self._step_once(ts_alg, rs, buf, epsilon, draws,
+                                      random_actions)
+        return buf, rs
+
+    def _train_burst(self, ts_alg, buf, epsilon, draws):
+        """``epochs`` minibatch updates back to back on the ring
+        (``onpolicy.py:52-62``); returns (ts_alg, metrics of the last)."""
+        epsilon = self._seed_epsilon(epsilon)
+        lead = self.lead[:-1] + (self.cfg.batch_size,)
+        metrics = {}
+        for _ in range(self.cfg.epochs):
+            batch = self._replay_sample(buf, draws)
+            ts_alg, metrics = self.alg.update(
+                ts_alg, batch, epsilon, self.alg.update_draws(draws, lead))
+        return ts_alg, metrics
+
+    def run(self, ts_alg, key: int = 0, n_episodes: Optional[int] = None,
+            log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
+            draws=None, eval_draws=None):
+        """Host training loop of one seed until ``n_episodes`` completed
+        episodes (``onpolicy.py:64-158``): a rollout chunk, then a burst
+        once ``episodes_per_train`` more episodes are done (after the
+        random fill), then the discard and one epsilon decay; one
+        evaluation and one history row per ``period`` episodes.  Draws
+        as ``OffPolicyDriver.run``'s.  Returns (ts_alg, final stats)."""
+        cfg = self.cfg
+        if self.n_seeds is not None:
+            raise ValueError("run trains one seed; seeds in lockstep train "
+                             "through multiseed.train_vmapped_seeds")
+        n_episodes = n_episodes or cfg.N_train
+        dev = self.hooks.env.device
+        source = lambda purpose: prng.GeneratorDraws(prng.generator(
+            prng.for_purpose(key, purpose), dev))
+        draws = draws or source(prng.ROLLOUT)
+        eval_draws = eval_draws or source(prng.EVAL)
+        rs = init_rollout(self.hooks, self.n_envs, draws, cfg.episode_log)
+        buf = self._replay_init(self.example_transition(rs))
+
+        epsilon = cfg.epsilon_start
+        episodes_done = last_train_eps = last_logged_period = 0
+        last_ep_flushed = 0
+        history = []
+        t_env = t_train = 0.0
+        t0 = time.time()
+        while episodes_done < n_episodes:
+            pretrain = episodes_done < cfg.pretrain_episodes
+            te = time.time()
+            buf, rs = self._rollout_chunk(ts_alg, buf, rs, epsilon, draws,
+                                          pretrain)
+            episodes_done = int(rs.episodes)
+            t_env += time.time() - te
+
+            if (not pretrain and
+                    episodes_done - last_train_eps >= cfg.episodes_per_train):
+                tt = time.time()
+                ts_alg, metrics = self._train_burst(ts_alg, buf, epsilon,
+                                                    draws)
+                for v in metrics.values():
+                    float(v)    # waits for the burst's device work
+                t_train += time.time() - tt
+                last_train_eps = episodes_done
+                # discard the ring (train_onpolicy.py:372-377)
+                buf = replay.reset(buf)
+                if epsilon > cfg.epsilon_end:
+                    epsilon = max(cfg.epsilon_end,
+                                  epsilon - cfg.epsilon_step)
+
+            period_idx = episodes_done // cfg.period
+            if period_idx > last_logged_period:
+                last_logged_period = period_idx
+                r_l, r_g, aux = self.evaluate(ts_alg, eval_draws, cfg.N_eval)
+                row = {
+                    "episode": episodes_done, "epsilon": epsilon,
+                    "r_eval_local": r_l.cpu().numpy(),
+                    "r_eval_global": float(r_g),
+                    "eval_action_dist": aux["act_dist"].cpu().numpy().ravel(),
+                    "r_train_local": rs.acc_ret_local.cpu().numpy()
+                    / max(cfg.period, 1),
+                    "r_train_global": float(rs.acc_ret_global)
+                    / max(cfg.period, 1),
+                    "t_env": t_env, "t_train": t_train,
+                    "duration_s": time.time() - t0,
+                }
+                if cfg.episode_log:
+                    row["_episodes"] = flush_eplog(
+                        rs.eplog.cpu().numpy(), rs.eplog_ep.cpu().numpy(),
+                        last_ep_flushed, episodes_done)
+                    last_ep_flushed = episodes_done
+                row.update({k: float(v) for k, v in aux.items()
+                            if k != "act_dist"})
+                history.append(row)
+                if log_fn is not None:
+                    log_fn(dict(row, _ts=ts_alg))
+                rs.acc_ret_local = torch.zeros_like(rs.acc_ret_local)
+                rs.acc_ret_global = torch.zeros_like(rs.acc_ret_global)
+                t0 = time.time()
+
+        return ts_alg, dict(episodes=episodes_done, history=history,
+                            epsilon=epsilon, t_env=t_env, t_train=t_train)

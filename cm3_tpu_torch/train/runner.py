@@ -13,17 +13,26 @@ the stage-2 graft into every seed, one autosave of the stack).  The
 files and their formats are the JAX runner's; the checkpoints are the
 port's own (``train/checkpoint.py``).
 
-The port runs Checkers off-policy with each ``alg_name`` of the JAX
+The port runs Checkers and particle with each ``alg_name`` of the JAX
 runner: ``cm3``, the baselines ``coma`` and ``iac`` (central-V and the
 alpha-blend through ``use_V``/``use_Q``), and ``qmix``; ``build`` maps
-the name to the algorithm and its flags as JAX's ``build`` does.  At
-stage 2 from a stage-1 checkpoint CM3 and the baselines graft it
+the name to the algorithm and its flags as JAX's ``build`` does, and
+picks the driver as JAX's does (``runner.py:143-146``): on-policy
+(``train/onpolicy.py``) for particle CM3, COMA and IAC, off-policy for
+Checkers and for QMIX everywhere.  The particle scenario is the
+master's ``particle_config`` (``stage2_antipodal``,
+``config_particle_stage2_merge.json``, ...; the default ``stage<N>``),
+with its ``prob_random`` and ``max_steps``.  At stage 2 from a stage-1
+checkpoint CM3 and the baselines graft it
 (``checkpoint.stage2_init_cm3``, ``stage2_init_baseline``); QMIX
 restores it and grafts nothing, as the JAX runner does
-(``runner.py:208-214, 398-404``).  The runner refuses, naming the
-ROADMAP item: the particle and roadway experiments (A10b, A11b), the
-dual buffer (A13, refused by the driver), a ``mesh`` (A14),
-``summarize`` (A15, refused by the driver) and rendering (A15).
+(``runner.py:208-214, 398-404``).  As in the JAX runner, an on-policy
+run resumed from its autosave restores the state but restarts its
+episode count and epsilon: only the off-policy driver takes
+``initial_episodes`` (``runner.py:293-295``).  The runner refuses,
+naming the ROADMAP item: the roadway experiment (A11b), the dual
+buffer (A13b, refused by the driver), a ``mesh`` (A14), ``summarize``
+(A15, refused by the driver) and rendering (A15).
 Learning runs in full float32: the nets pin it themselves
 (``models/nets.py:full_float32``), where the JAX runner enters
 ``jax.default_matmul_precision("float32")``.
@@ -32,8 +41,9 @@ Every function runs on ``device`` (``cuda`` unless told).
 
 Usage:
     python -m cm3_tpu_torch.train.runner \\
-        --config cm3_tpu/configs/master.json [--stage 2 --episodes 5000 \\
-        --n-envs 16 --workdir DIR --multiseed --device cpu]
+        --config cm3_tpu/configs/master.json [--experiment particle \\
+        --stage 2 --alg coma --episodes 5000 --n-envs 16 --workdir DIR \\
+        --multiseed --device cpu]
 """
 
 from __future__ import annotations
@@ -52,11 +62,13 @@ from cm3_tpu_torch.algs.qmix import QMIX
 from cm3_tpu_torch.core import config as cfgmod
 from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.envs.checkers import Checkers
+from cm3_tpu_torch.envs.particle import Particle
 from cm3_tpu_torch.train import checkpoint
 from cm3_tpu_torch.train.experiments import make_hooks
 from cm3_tpu_torch.train.logging import CSVLogger, stdout_log
 from cm3_tpu_torch.train.multiseed import train_vmapped_seeds
 from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
+from cm3_tpu_torch.train.onpolicy import OnPolicyDriver
 
 
 def _nn_config(master: Dict, experiment: str, stage: int) -> cfgmod.NNConfig:
@@ -73,12 +85,19 @@ def build_env(master: Dict, experiment: str, stage: int, device="cuda"):
         raise NotImplementedError(
             f"the {experiment} engine is not ported (ROADMAP "
             f"{NOT_PORTED[experiment]})")
+    max_steps = master.get("max_steps", 33)
+    if experiment == "particle":
+        name = master.get("particle_config", f"stage{stage}")
+        name = name.replace("config_particle_", "").replace(".json", "")
+        return Particle(cfgmod.particle_env_config(
+            name, prob_random=master.get("prob_random", 0.2),
+            max_steps=max_steps), device=device)
     if experiment != "checkers":
         raise ValueError(experiment)
     # the reference passes the master max_steps into Checkers
     # (train_offpolicy.py:127)
-    return Checkers(cfgmod.checkers_env_config(
-        stage, max_steps=master.get("max_steps", 33)), device=device)
+    return Checkers(cfgmod.checkers_env_config(stage, max_steps=max_steps),
+                    device=device)
 
 
 def select_alg_name(master: Dict) -> str:
@@ -143,7 +162,11 @@ def build(master: Dict, experiment: Optional[str] = None,
     train_cfg = cfgmod.TrainConfig(**tc_kwargs)
 
     hooks = make_hooks(experiment, env)
-    return OffPolicyDriver(hooks, alg, train_cfg), alg, hooks, train_cfg
+    onpolicy = experiment == "particle" and alg_name in ("cm3", "coma",
+                                                         "iac")
+    driver = (OnPolicyDriver if onpolicy else OffPolicyDriver)(
+        hooks, alg, train_cfg)
+    return driver, alg, hooks, train_cfg
 
 
 def _restore_dir(master: Dict, workdir: str) -> str:
@@ -282,8 +305,11 @@ def train_function(master: Dict, workdir: str = ".",
         checkpoint.save(autosave_path,
                         {"ts": row["_ts"], "episodes": row["episode"]})
 
+    run_kwargs = {}
+    if not isinstance(driver, OnPolicyDriver):
+        run_kwargs["initial_episodes"] = initial_episodes
     ts, stats = driver.run(ts, key, n_episodes=n_episodes, log_fn=log_fn,
-                           initial_episodes=initial_episodes)
+                           **run_kwargs)
     checkpoint.save(os.path.join(save_dir, "model_final"), ts)
     return ts, stats
 
@@ -385,7 +411,8 @@ def train_multiseed(master: Dict, workdir: str = ".",
 
     ts, history = train_vmapped_seeds(
         hooks, alg_s, train_cfg, n_seeds=n_seeds, base_seed=base_seed,
-        n_episodes=n_episodes, log_fn=log_fn, resume=resume)
+        n_episodes=n_episodes, log_fn=log_fn,
+        onpolicy=isinstance(driver, OnPolicyDriver), resume=resume)
     for i in range(n_seeds):
         checkpoint.save(os.path.join(save_dirs[i], "model_final"),
                         checkpoint.seed_state(alg, ts, i))

@@ -839,3 +839,230 @@ def test_paper_cells_through_the_runner_on_card(cuda_device, tmp_path,
         assert stats["episodes"] >= 60 and ts.step > 0
         assert checkpoint.exists(os.path.join(wd, "saved", d, "model_final"))
     assert fused_opt.adam_polyak.launches == before
+
+
+# ------------------------------------------------------------------ #
+# particle: the engine, the on-policy driver, QMIX, B1 at its sizes
+# ------------------------------------------------------------------ #
+
+# the particle nets at narrow widths
+PARTICLE_NN = dict(Q_units=16, V_n_others=8, V_n_h2=12, Actor_n_others=8,
+                   Actor_n_h2=12)
+
+
+def _particle_feed(lead, e, n, steps, updates, b, size, qmix, seed):
+    """Seeded draws for a particle driver, per kind in the order it asks
+    for them: the first reset, then per env step of a random and a
+    policy chunk the actions and the reset's four draws, then per update
+    the replay indices and (not QMIX) the a' noise."""
+    rng = np.random.default_rng(seed)
+    lead = tuple(lead)
+    q = {"randint": [], "gumbel": [], "uniform": [], "normal": []}
+    f32 = lambda x: x.astype(np.float32)
+
+    def reset():
+        pts = lead + (e, n, 2)
+        q["uniform"].extend([f32(rng.random(lead + (e,))),
+                             f32(rng.uniform(-1, 1, pts)),
+                             f32(rng.uniform(-1, 1, pts))])
+        q["normal"].append(f32(rng.normal(size=pts)))
+
+    reset()
+    for rand in (True, False):
+        for _ in range(steps):
+            if rand or qmix:
+                q["randint"].append(rng.integers(0, 5, lead + (e, n)))
+            if qmix and not rand:
+                q["uniform"].append(f32(rng.random(lead + (e, n))))
+            if not (rand or qmix):
+                q["gumbel"].append(f32(rng.gumbel(size=lead + (e, n, 5))))
+            reset()
+    for _ in range(updates):
+        q["randint"].append(rng.integers(0, size, lead + (b,)))
+        if not qmix:
+            q["gumbel"].append(f32(rng.gumbel(size=lead + (b, n, 5))))
+    return q
+
+
+def _particle_runs(cuda_device, alg_name, s=None, e=8, b=16, u=3,
+                   **opts):
+    """Four-agent particle (antipodal, episodes of 7 steps, half the
+    starts uniform-random) at narrow width on the card and on the CPU
+    from the same parameters with the same fed draws: CM3, COMA or IAC
+    on-policy (a fill chunk, a policy chunk, a burst of ``u``
+    updates), QMIX off-policy (a fill and a training chunk of ``u``
+    updates).  Per device (alg, state, replay, rollout, metrics, B1
+    launches)."""
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.train import runner
+    from cm3_tpu_torch.train.offpolicy import init_rollout
+
+    qmix = alg_name == "qmix"
+    lead = () if s is None else (s,)
+    q = _particle_feed(lead, e, 4, 10, u, b, 20 * e, qmix, len(alg_name))
+    m = config.load_json("master.json")
+    m.update(experiment="particle", particle_config="stage2_antipodal",
+             stage=2, n_envs=e, batch_size=b, buffer_size=256, max_steps=7,
+             prob_random=0.5, episode_log=16, alg_name=alg_name, epochs=u,
+             updates_per_chunk=u, **opts)
+    eps = torch.tensor([0.1, 0.2, 0.3])[:s] if s else 0.3
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        driver, alg, hooks, cfg = runner.build(m, device=dev)
+        alg = type(alg)("particle", alg.spec, alg.cfg,
+                        NNConfig(**PARTICLE_NN), device=dev, n_seeds=s)
+        driver = type(driver)(hooks, alg, cfg)
+        draws = prng.FedDraws(q["randint"], q["gumbel"], device=dev,
+                              uniforms=q["uniform"], normals=q["normal"])
+        rs = init_rollout(hooks, e, draws, 16, n_seeds=s)
+        ts = alg.init_state(0 if s is None else list(range(s)))
+        buf = driver._replay_init(driver.example_transition(rs))
+        before = fused_opt.adam_polyak.launches
+        if qmix:
+            ts, buf, rs, _ = driver._chunk(ts, buf, rs, eps, draws, False,
+                                           True)
+            ts, buf, rs, met = driver._chunk(ts, buf, rs, eps, draws, True,
+                                             False)
+        else:
+            buf, rs = driver._rollout_chunk(ts, buf, rs, eps, draws, True)
+            buf, rs = driver._rollout_chunk(ts, buf, rs, eps, draws, False)
+            ts, met = driver._train_burst(ts, buf, eps, draws)
+        assert not any(draws.remaining().values()), draws.remaining()
+        torch.cuda.synchronize()
+        out[dev.type] = (alg, ts, buf, rs, met,
+                         fused_opt.adam_polyak.launches - before)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg_name,s,opts", [
+    ("cm3", None, dict(fused_opt=1)), ("cm3", None, {}), ("cm3", 3, {}),
+    ("cm3", 3, dict(fused_opt=1)), ("coma", None, {}), ("iac", None, {}),
+    ("qmix", None, {}), ("qmix", 3, {})],
+    ids=["cm3_fused", "cm3", "cm3_seeds", "cm3_fused_seeds", "coma", "iac",
+         "qmix", "qmix_seeds"])
+def test_particle_onpolicy_burst_on_card_matches_cpu(cuda_device, alg_name,
+                                                     s, opts):
+    """Particle on the card equals the CPU at rtol 1e-4, atol 1e-5, as
+    CM3's Checkers chunk: the replay, the rollout and env state, the
+    networks, targets and Adam moments, the metrics; B1 runs 2 launches
+    per fused update (one seed or three) and none elsewhere."""
+    from cm3_tpu_torch.core.tree import tree_leaves
+    out = _particle_runs(cuda_device, alg_name, s, **opts)
+    (alg, ts_c, buf_c, rs_c, m_c, n_c), (_, ts_h, buf_h, rs_h, m_h, n_h) = \
+        out["cuda"], out["cpu"]
+    assert (n_c, n_h) == ((2 * 3 if opts.get("fused_opt") else 0), 0)
+    for k in alg.net_names():
+        for got, want in ((getattr(ts_c, k).flat, getattr(ts_h, k).flat),
+                          (getattr(ts_c, k + "_tgt").flat,
+                           getattr(ts_h, k + "_tgt").flat),
+                          (getattr(ts_c, "opt_" + k).mu,
+                           getattr(ts_h, "opt_" + k).mu)):
+            assert got.device.type == "cuda"
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                       atol=1e-5)
+    for (_, x), (_, y) in zip(tree_leaves(buf_c.data),
+                              tree_leaves(buf_h.data)):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-5)
+    for k in ("pos", "vel", "landmarks", "collisions", "reached"):
+        torch.testing.assert_close(getattr(rs_c.env_state, k).cpu(),
+                                   getattr(rs_h.env_state, k), rtol=1e-4,
+                                   atol=1e-5)
+    assert torch.equal(rs_c.episodes.cpu(), rs_h.episodes)
+    assert set(m_c) == set(m_h)
+    for k in m_h:
+        torch.testing.assert_close(m_c[k].cpu(), m_h[k], rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_particle_engine_on_card_matches_cpu(cuda_device):
+    """The engine on the card from the same reset draws over 40 steps of
+    the same actions: floats at atol 1e-5 (CUDA's exp and log1p are
+    other approximations than the CPU's), reach flags, step and
+    collision counts and done exactly."""
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.envs.particle import Particle
+    rng = np.random.default_rng(0)
+    e = 64
+    draws = dict(branch=rng.random(e), agents=rng.uniform(-1, 1, (e, 4, 2)),
+                 landmarks=rng.uniform(-1, 1, (e, 4, 2)),
+                 noise=rng.normal(size=(e, 4, 2)))
+    acts = rng.integers(0, 5, (40, e, 4))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        env = Particle(config.particle_env_config("stage2_antipodal",
+                                                  prob_random=0.5,
+                                                  max_steps=100), device=dev)
+        d = {k: torch.tensor(v, dtype=torch.float32) for k, v in
+             draws.items()}
+        st, ts = env.reset(d)
+        traj = []
+        for a in acts:
+            st, ts = env.step(st, torch.from_numpy(a))
+            traj.append((st, ts))
+        out[dev.type] = traj
+    for (sc, tc), (sh, th) in zip(out["cuda"], out["cpu"]):
+        for k in ("pos", "vel"):
+            torch.testing.assert_close(getattr(sc, k).cpu(), getattr(sh, k),
+                                       rtol=0, atol=1e-5)
+        for k in ("reached", "steps", "collisions"):
+            assert torch.equal(getattr(sc, k).cpu(), getattr(sh, k)), k
+        torch.testing.assert_close(tc.reward_local.cpu(), th.reward_local,
+                                   rtol=0, atol=1e-5)
+        assert torch.equal(tc.done.cpu(), th.done)
+    assert int(out["cpu"][-1][0].collisions.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [(14789,), (16704, 15296)],
+                         ids=["actor", "critics"])
+def test_adam_polyak_at_particle_sizes_matches_plain(cuda_device, sizes):
+    """B1 at the particle actor's size (master.json's widths, four
+    agents) and at both critics' in one launch, bit for bit against the
+    plain version over 5 steps, one launch a step."""
+    spec = [(n, i, 1e-3, 0) for i, n in enumerate(sizes)]
+    assert _hold_adam(cuda_device, spec, sum(sizes)) == 5
+
+
+@pytest.mark.cuda
+def test_particle_runner_on_card(cuda_device, tmp_path, monkeypatch):
+    """A tiny particle curriculum through the runner on the card: stage
+    1, stage 2 grafted from it on the fused path with the actor frozen
+    for 2 updates (B1 2 per live update, B3 per frozen one), COMA and
+    QMIX from nothing (no B1), three seeds in lockstep; each writes its
+    logs and ``model_final``."""
+    import os
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.train import checkpoint, runner
+    monkeypatch.setattr(runner, "_nn_config",
+                        lambda m, e, s: NNConfig(**PARTICLE_NN))
+    m = config.load_json("master.json")
+    m.update(experiment="particle", n_envs=8, seed=5, N_train=40, period=20,
+             N_eval=2, pretrain_episodes=8, batch_size=16, buffer_size=512,
+             epochs=3, episodes_per_train=4, max_steps=10, dir_name="s1",
+             dir_restore="s1")
+    wd = str(tmp_path)
+    runner.train_function(dict(m, stage=1), wd, verbose=False)
+    s2 = dict(m, stage=2, particle_config="stage2_antipodal")
+    b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
+    ts, _ = runner.train_function(
+        dict(s2, dir_name="s2", train_from_nothing=0, fused_opt=1,
+             actor_freeze_updates=2), wd, verbose=False)
+    assert polyak.polyak_update.launches - b3 == 2
+    assert fused_opt.adam_polyak.launches - b1 == 2 * ts.step - 2
+    assert ts.actor.flat.device.type == "cuda"
+    b1 = fused_opt.adam_polyak.launches
+    for d, over in (("c", dict(alg_name="coma")),
+                    ("q", dict(alg_name="qmix"))):
+        ts, st = runner.train_function(dict(s2, dir_name=d, **over), wd,
+                                       verbose=False)
+        assert st["episodes"] >= 40 and ts.step > 0
+    assert fused_opt.adam_polyak.launches == b1
+    ts, hist = runner.train_multiseed(
+        dict(s2, dir_name="v", train_from_nothing=0, vmapped_seeds=1,
+             n_seeds=3), wd)
+    assert ts.actor.flat.shape[0] == 3 and (hist[-1]["episode"] >= 40).all()
+    for d in ("s1", "s2", "c", "q", "v_1"):
+        assert checkpoint.exists(os.path.join(wd, "saved", d, "model_final"))
+        assert os.path.isfile(os.path.join(wd, "log", d, "log_century.csv"))

@@ -70,8 +70,10 @@ def test_importing_the_port_loads_no_jax_and_no_triton():
                                     "cm3_tpu_torch.train.runner",
                                     "cm3_tpu_torch.algs.base",
                                     "cm3_tpu_torch.algs.baseline",
-                                    "cm3_tpu_torch.algs.qmix"])
+                                    "cm3_tpu_torch.algs.qmix",
+                                    "cm3_tpu_torch.envs.particle",
+                                    "cm3_tpu_torch.train.onpolicy"])
 def test_the_runner_modules_are_scanned(module):
-    """The curriculum's and the algorithms' modules are among those the
-    scans above read."""
+    """The curriculum's, the algorithms', the particle engine's and the
+    on-policy driver's modules are among those the scans above read."""
     assert module in _modules()

@@ -155,9 +155,12 @@ def test_driver_refuses_what_is_not_ported(field, value, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A14"), (dict(onpolicy=True), "A13")])
+    (dict(mesh=object()), "A14"),
+    (dict(onpolicy=True, cfg=dict(dual_buffer=True)), "A13")])
 def test_train_vmapped_seeds_refuses_what_is_not_ported(kw, item):
+    """A mesh, and the on-policy regime's dual buffer (A13b)."""
     hooks, ta = _small_stage1()
+    kw = dict(kw)
+    cfg = tcfg.TrainConfig(**kw.pop("cfg", {}))
     with pytest.raises(NotImplementedError, match=item):
-        multiseed.train_vmapped_seeds(hooks, ta, tcfg.TrainConfig(), 2, 0,
-                                      **kw)
+        multiseed.train_vmapped_seeds(hooks, ta, cfg, 2, 0, **kw)

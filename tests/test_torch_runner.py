@@ -72,7 +72,8 @@ def test_build_matches_jax(name):
 
 
 REFUSALS = {
-    "particle": (dict(experiment="particle"), "A10b"),
+    # particle trains on the port; its dual-buffer cells wait for A13b
+    "particle": (dict(experiment="particle", dual_buffer=1), "A13"),
     "roadway": (dict(experiment="roadway"), "A11b"),
     "dual_buffer": (dict(dual_buffer=1), "A13"),
     "mesh": (dict(mesh=[4]), "A14"),

@@ -1,8 +1,9 @@
 """Shared set-up of the parity tests between ``cm3_tpu`` (JAX, the
 reference) and ``cm3_tpu_torch`` (the port): one small Checkers stage-2
 CM3 configuration built in both packages (and the baselines' and
-QMIX's), and the JAX draws of one ``OffPolicyDriver._chunk`` recomputed
-from its key so that they can be fed to the port."""
+QMIX's), the same for particle, and the JAX draws of a driver's chunk,
+burst or evaluation recomputed from its keys so that they can be fed to
+the port."""
 
 import jax
 import jax.numpy as jnp
@@ -334,32 +335,41 @@ def hold_options_take_effect(runs):
 # --------------------------------------------------------------------- #
 
 
-def other_runs(kind, opts, n_updates=OPTION_UPDATES, b=OPTION_B):
-    """``n_updates`` Baseline or QMIX updates (``kind`` as in
-    ``other_algs``) with the options ``opts`` in both packages from the
-    same converted state, on the same batches (and for the baselines
-    the same a' noise): after each, the JAX state converted, the port's
-    state and both metrics; and the port's algorithm and its start."""
-    je, _ = envs()
-    ja, ta = other_algs(kind, je.spec(), **opts)
-    rng = np.random.default_rng(0)
-    batches = [replay_batch(je, b, rng) for _ in range(n_updates)]
+def update_runs(ja, ta, batches, gumbel=True, eps=0.2):
+    """Updates of the JAX and the port's algorithm from the same
+    converted state on the same batches (and, with ``gumbel``, the same
+    a' noise); after each: (JAX state converted, the port's state, JAX's
+    metrics, the port's metrics as floats), plus the algorithm and its
+    start."""
+    b, n = batches[0]["a"].shape
     jts = ja.init_state(jax.random.PRNGKey(1), batches[0]["obs"],
                         batches[0]["state"], batches[0]["goals"])
     tts = convert.state_from_jax(ta, jax.device_get(jts))
     upd = jax.jit(ja.update)
-    out = {"alg": ta, "states": [], "start": copy_state(ta, tts),
-           "batches": batches}
+    out = {"alg": ta, "states": [], "start": copy_state(ta, tts)}
     for i, batch in enumerate(batches):
         key = jax.random.PRNGKey(5 + i)
-        jts, jm = upd(jts, batch, 0.2, key)
-        noise = None if kind == "qmix" else torch.from_numpy(np.array(
-            jax.random.gumbel(key, (b, 2, 5))))
-        tts, tm = ta.update(tts, to_torch(jax.device_get(batch)), 0.2,
-                            noise)
+        jts, jm = upd(jts, batch, eps, key)
+        noise = (torch.from_numpy(np.array(jax.random.gumbel(key, (b, n, 5))))
+                 if gumbel else None)
+        tts, tm = ta.update(tts, to_torch(jax.device_get(batch)), eps, noise)
         out["states"].append((convert.state_from_jax(
             ta, jax.device_get(jts)), copy_state(ta, tts),
             jax.device_get(jm), {k: float(v) for k, v in tm.items()}))
+    return out
+
+
+def other_runs(kind, opts, n_updates=OPTION_UPDATES, b=OPTION_B):
+    """``n_updates`` Baseline or QMIX updates (``kind`` as in
+    ``other_algs``) with the options ``opts`` in both packages from the
+    same converted state, on the same batches (and for the baselines
+    the same a' noise): ``update_runs``' record, and the batches."""
+    je, _ = envs()
+    ja, ta = other_algs(kind, je.spec(), **opts)
+    rng = np.random.default_rng(0)
+    batches = [replay_batch(je, b, rng) for _ in range(n_updates)]
+    out = update_runs(ja, ta, batches, gumbel=kind != "qmix")
+    out["batches"] = batches
     return out
 
 
@@ -392,3 +402,221 @@ def hold_other_updates(runs, after, **tol):
     for k in tm:
         np.testing.assert_allclose(tm[k], float(jm[k]), rtol=1e-5,
                                    atol=1e-6, err_msg=k)
+
+
+# --------------------------------------------------------------------- #
+# particle (test_torch_particle*.py, test_torch_onpolicy*.py)
+# --------------------------------------------------------------------- #
+
+# the particle nets at narrow widths; the layer structure is the full one
+SMALL_PARTICLE_NN = dict(Q_units=16, V_n_others=8, V_n_h2=12,
+                         Actor_n_others=8, Actor_n_h2=12)
+
+
+def particle_envs(name, **over):
+    """The JAX and the port's particle engines for ``particle_<name>.json``
+    (``prob_random`` and ``max_steps`` from ``over``)."""
+    from cm3_tpu.envs.particle import Particle as JaxParticle
+    from cm3_tpu_torch.envs.particle import Particle as TorchParticle
+    j = JaxParticle(jcfg.particle_env_config(name, **over))
+    t = TorchParticle(tcfg.particle_env_config(name, **over), device="cpu")
+    return j, t
+
+
+def particle_reset_draws(key, n, n_agents):
+    """What ``ParticleHooks.episode_init`` draws for n instances from
+    ``key`` (``prng.split_batch``, then the reset's split into four,
+    ``particle.py:70-76``): ([branch [n], agents [n, N, 2], landmarks
+    [n, N, 2]] uniforms, [noise [n, N, 2]] normals), in the order the
+    port's reset asks for them."""
+    keys = jax.vmap(lambda i: jax.random.fold_in(key, i))(jnp.arange(n))
+
+    def one(k):
+        kb, ka, kl, kn = jax.random.split(k, 4)
+        return (jax.random.uniform(kb),
+                jax.random.uniform(ka, (n_agents, 2), minval=-1.0,
+                                   maxval=1.0),
+                jax.random.uniform(kl, (n_agents, 2), minval=-1.0,
+                                   maxval=1.0),
+                jax.random.normal(kn, (n_agents, 2)))
+    b, a, l, z = (np.asarray(x) for x in jax.vmap(one)(keys))
+    return [b, a, l], [z]
+
+
+class ParticleDraws:
+    """Accumulates the draws a port driver asks for on particle, kind by
+    kind in its order, from JAX keys split as the JAX driver splits them;
+    ``fed(device)`` makes the ``prng.FedDraws``."""
+
+    def __init__(self, n_agents, n_actions=5, qmix=False):
+        self.n, self.a, self.qmix = n_agents, n_actions, qmix
+        self.randints, self.gumbels, self.uniforms, self.normals = \
+            [], [], [], []
+
+    def reset(self, key, n):
+        u, z = particle_reset_draws(key, n, self.n)
+        self.uniforms += u
+        self.normals += z
+
+    def act(self, key, e):
+        if self.qmix:
+            rand_a, u = qmix_act_draws(key, (e, self.n), self.a)
+            self.randints.append(rand_a)
+            self.uniforms.append(u)
+        else:
+            self.gumbels.append(np.asarray(jax.random.gumbel(
+                key, (e, self.n, self.a))))
+
+    def step(self, key, e, random_actions):
+        """One ``_step_once`` (offpolicy.py:242-248): actions, then the
+        auto-reset's draws for every instance."""
+        k_act, k_rand, k_reset = jax.random.split(key, 3)
+        if random_actions:
+            self.randints.append(np.asarray(jax.random.randint(
+                k_rand, (e, self.n), 0, self.a)))
+        else:
+            self.act(k_act, e)
+        self.reset(k_reset, e)
+
+    def rollout(self, key, e, steps, random_actions):
+        for k in jax.random.split(key, steps):
+            self.step(k, e, random_actions)
+
+    def update(self, key, batch, size):
+        """One update of a burst or chunk: the replay indices, then the
+        update's a' noise (none for QMIX)."""
+        k_sample, k_update = jax.random.split(key)
+        self.randints.append(np.asarray(jax.random.randint(
+            k_sample, (batch,), 0, jnp.maximum(jnp.int32(size), 1))))
+        if not self.qmix:
+            self.gumbels.append(np.asarray(jax.random.gumbel(
+                k_update, (batch, self.n, self.a))))
+
+    def burst(self, key, epochs, batch, size):
+        """``OnPolicyDriver._train_burst`` (onpolicy.py:52-62)."""
+        for k in jax.random.split(key, epochs):
+            self.update(k, batch, size)
+
+    def evaluate(self, key, n_eval, max_steps):
+        """``OffPolicyDriver.evaluate`` (offpolicy.py:389-432)."""
+        self.reset(key, n_eval)
+        for k in jax.random.split(key, max_steps):
+            self.act(k, n_eval)
+
+    def lists(self):
+        return self.randints, self.gumbels, self.uniforms, self.normals
+
+    def fed(self, device="cpu"):
+        from cm3_tpu_torch.core import prng
+        return prng.FedDraws(self.randints, self.gumbels, device=device,
+                             uniforms=self.uniforms, normals=self.normals)
+
+
+def stacked_particle_draws(per_seed, device="cpu"):
+    """``ParticleDraws`` of S seeds with equal structure -> the FedDraws
+    of a driver of S seeds, every draw [S, ...]."""
+    from cm3_tpu_torch.core import prng
+    lists = [d.lists() for d in per_seed]
+    stack = [[np.stack(xs) for xs in zip(*(l[i] for l in lists))]
+             for i in range(4)]
+    return prng.FedDraws(stack[0], stack[1], device=device,
+                         uniforms=stack[2], normals=stack[3])
+
+
+def particle_algs(kind, spec, n_seeds=None, **alg):
+    """The JAX and the port's CM3 (``kind`` "cm3"), Baseline
+    ("baseline") or QMIX ("qmix") for a particle engine's spec at
+    SMALL_PARTICLE_NN widths; stage 2 for several agents, stage 1 for
+    one.  CM3 runs the optax path unless ``alg`` says fused_opt."""
+    n = spec["n_agents"]
+    kw = dict(n_agents=n, stage=2 if n > 1 else 1,
+              alg_name={"cm3": "cm3", "qmix": "qmix"}.get(kind, "coma"))
+    kw.update(alg)
+    jcls, tcls = {"cm3": (JaxCM3, TorchCM3), "qmix": (JaxQMIX, TorchQMIX),
+                  "baseline": (JaxBaseline, TorchBaseline)}[kind]
+    j = jcls("particle", spec, jcfg.AlgConfig(**kw),
+             jcfg.NNConfig(**SMALL_PARTICLE_NN))
+    t = tcls("particle", spec, tcfg.AlgConfig(**kw),
+             tcfg.NNConfig(**SMALL_PARTICLE_NN), device="cpu",
+             n_seeds=n_seeds)
+    return j, t
+
+
+def particle_batch(env, b, rng):
+    """A replay-like batch of b real particle transitions of ``env``
+    (JAX): uniform-random starts, a few random steps, noisy local
+    rewards, some terminal rows; no previous action (particle stores
+    none)."""
+    n = env.cfg.n_agents
+    keys = jax.random.split(jax.random.PRNGKey(int(rng.integers(1 << 30))),
+                            b)
+    s, ts = jax.vmap(env.reset)(keys)
+    for _ in range(3):
+        s, ts = jax.vmap(env.step)(
+            s, jnp.asarray(rng.integers(0, 5, (b, n)), jnp.int32))
+    a = jnp.asarray(rng.integers(0, 5, (b, n)), jnp.int32)
+    _, ts2 = jax.vmap(env.step)(s, a)
+    return {"obs": ts.obs, "state": ts.state, "a": a, "r": ts2.reward,
+            "rl": ts2.reward_local + jnp.asarray(rng.normal(size=(b, n)),
+                                                 jnp.float32),
+            "obs_next": ts2.obs, "state_next": ts2.state,
+            "done": jnp.asarray(rng.random(b) < 0.3), "goals": s.landmarks}
+
+
+PARTICLE_B, PARTICLE_UPDATES = 16, 3
+
+
+def particle_case_runs(kind, scenario, opts):
+    """PARTICLE_UPDATES updates of ``kind`` (``particle_algs``) with the
+    options ``opts`` on ``scenario``'s engine in both packages
+    (``update_runs``), on batches from uniform-random starts."""
+    je, _ = particle_envs(scenario, prob_random=1.0)
+    ja, ta = particle_algs(kind, je.spec(), **opts)
+    rng = np.random.default_rng(0)
+    batches = [particle_batch(je, PARTICLE_B, rng)
+               for _ in range(PARTICLE_UPDATES)]
+    out = update_runs(ja, ta, batches, gumbel=kind != "qmix")
+    out["kind"] = kind
+    return out
+
+
+def hold_particle_seeds(kind, opts, s=3):
+    """One update with S seeds (each its own batch, epsilon and a'
+    noise) in the port's seed stacks against ``jax.vmap`` of JAX's
+    update on four-agent particle batches, at ``hold_states``'
+    tolerances; the seeds apart."""
+    eps = np.array([0.1, 0.2, 0.3], np.float32)[:s]
+    b = PARTICLE_B
+    je, _ = particle_envs("stage2_antipodal", prob_random=1.0)
+    ja, ta = particle_algs(kind, je.spec(), n_seeds=s, **opts)
+    rng = np.random.default_rng(3)
+    batches = [jax.device_get(particle_batch(je, b, rng)) for _ in range(s)]
+    batch = jax.tree_util.tree_map(lambda *x: np.stack(x), *batches)
+    jts = jax.vmap(ja.init_state)(
+        jax.random.split(jax.random.PRNGKey(1), s), batch["obs"],
+        batch["state"], batch["goals"])
+    tts = convert.state_from_jax(ta, jax.device_get(jts))
+    keys = jax.random.split(jax.random.PRNGKey(9), s)
+    jts, jm = jax.jit(jax.vmap(ja.update))(jts, batch, jnp.asarray(eps),
+                                           keys)
+    noise = torch.from_numpy(np.stack(
+        [np.asarray(jax.random.gumbel(k, (b, 4, 5))) for k in keys]))
+    tts, tm = ta.update(tts, to_torch(batch), torch.from_numpy(eps), noise)
+    want = convert.state_from_jax(ta, jax.device_get(jts))
+    hold_states(tts, want, ta.net_names())
+    assert tts.step == want.step == 1
+    assert set(tm) == set(jm)
+    for k, v in tm.items():
+        assert v.shape == (s,)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jm[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    assert not torch.equal(tts.actor.flat[0], tts.actor.flat[1])
+
+
+def hold_particle_networks(runs, want):
+    """The state has exactly the networks ``want`` and every one moved."""
+    assert runs["alg"].net_names() == want
+    _, st, _, _ = runs["states"][-1]
+    for name in want:
+        assert not torch.equal(getattr(st, name).flat,
+                               getattr(runs["start"], name).flat), name
