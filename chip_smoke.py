@@ -4,13 +4,13 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Twelve phases, each between progress lines with its elapsed seconds and
-held to a time budget (30 + 45 + 20 + 20 + 90 + 10 + 95 + 60 + 40 +
-225 + 230 + 130 s = 995 s: about twice each phase's longest time on an
-H100, 0: 4.1, 1: 21.2, 2: 3.1, 3: 3.4, 4: 41.6, 5: 0.8, 6: 46.4, 7:
-30.1, 8: 18.8, 9: 111.4, 10: 113.4, 11: 63.5 s, with at least 10 s a
-phase and 30 s for a cold ``nvcc`` build; a whole run took 224-403 s
-before phase 11):
+Thirteen phases, each between progress lines with its elapsed seconds
+and held to a time budget (30 + 45 + 20 + 20 + 90 + 10 + 95 + 60 + 40 +
+225 + 230 + 130 + 100 s = 1095 s: about twice each phase's longest time
+on an H100, 0: 4.1, 1: 21.2, 2: 3.1, 3: 3.4, 4: 41.6, 5: 0.8, 6: 46.4,
+7: 30.1, 8: 18.8, 9: 111.4, 10: 113.4, 11: 63.5, 12: 45.3 s, with at
+least 10 s a phase and 30 s for a cold ``nvcc`` build; a whole run took
+224-407 s before phase 12):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -165,12 +165,37 @@ before phase 11):
    cm3_tpu_torch.train.runner --experiment particle`` process.  Each
    run's episodes per second, and ``t_env`` / ``t_train`` for the
    on-policy ones.
+12. roadway and the dual buffer through the runner
+   (``envs/roadway.py``, the feasibility filter, ``RoadwayHooks``, the
+   roadway nets and branches, the dual buffer and its staging slab):
+   card against CPU from the same seeded state with the same fed draws
+   (the roadway reset's branch, lanes, goal lanes and depart noise; the
+   dual buffer's indices taken modulo each memory's fill) at phase 3's
+   tolerance: CM3 on two cars with the dual buffer (a short road at top
+   speed, a slab of 3 transitions, a fill and a training chunk of 4
+   updates; fused for one seed, with B1's launches counted, optax for
+   three seeds) and CM3 on-policy on particle ``stage2_cross`` with the
+   dual buffer (a fill chunk, a policy chunk and a burst of 24); B1 bit
+   for bit at the roadway actor's and both critics' sizes and its time
+   per launch there, B3 bit for bit at the actor's size; then the paper's ``roadway_s1`` through one
+   ``python -m cm3_tpu_torch.train.runner --experiment roadway``
+   process, its graft into stage 2 held on the card, ``roadway_s2``
+   (grafted, dual buffer), ``roadway_s2_stable`` (``grad_clip`` 10),
+   ``roadway_qmix``, a fused ``roadway_s2`` with the actor frozen for
+   20 updates (B1 = 2 per update less the frozen ones, B3 = the frozen
+   updates), ``particle_s2_dual`` (on-policy, from nothing) and
+   ``roadway_s2`` with three seeds in lockstep (16 envs, N_eval 10, a
+   period of 100 episodes; budgets ``RD_*`` below) through
+   ``runner.train_function`` / ``train_multiseed``, each with B1's
+   launch count set to 0 just before and read just after.  Each run's
+   episodes per second and its last row's ``n_bad``/``n_good``.
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
 mean of the main path's two launches; B1's ``launches`` are phase 2's,
 B3's phase 9's, its training path: the actor freeze on the fused path;
-beside them ``particle_onpolicy_launches``, phase 11's fused stage 2),
+beside them ``particle_onpolicy_launches``, phase 11's fused stage 2,
+and ``roadway_launches``, phase 12's fused roadway stage 2),
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside it, it
@@ -304,6 +329,19 @@ PT_SIZES = {"actor": 14789, "Q_global": 16704, "Q_credit": 15296}
 # card vs CPU on particle: E envs, B-row samples, one burst of the
 # reference's 24 updates (on-policy) or a chunk of 4 updates (QMIX)
 PT_PAR_ENVS, PT_PAR_BATCH, PT_PAR_EPOCHS, PT_PAR_UPDATES = 16, 128, 24, 4
+
+# roadway and the dual buffer through the runner (phase 12): the paper's
+# roadway_s1 (through the CLI), roadway_s2 (grafted, dual buffer),
+# roadway_s2_stable (grad_clip 10), roadway_qmix, a fused roadway_s2 (the
+# actor frozen for its first 20 updates), roadway_s2 with 3 seeds in
+# lockstep and particle_s2_dual (on-policy, from nothing) (16 envs, N_eval
+# 10, a period of 100 episodes; the paper's runs are 50,000 episodes) with
+# episode budgets cut to the phase's time
+RD_S1, RD_S2, RD_CELL, RD_SEEDED, RD_FREEZE = 150, 150, 100, 100, 20
+# card vs CPU with the dual buffer: E envs, B-row samples, updates a
+# chunk; a short road at top speed (episodes of 4-6 steps) and a slab of
+# 3 transitions, so that episodes end inside chunks and lose their tails
+RD_PAR_ENVS, RD_PAR_BATCH, RD_PAR_UPDATES, RD_SLAB = 16, 128, 4, 3
 
 T0 = time.time()
 
@@ -1449,19 +1487,56 @@ class _ParticleFeed:
                 size=shape + (self.a,)).astype(np.float32))
         self.reset(e)
 
-    def update(self, b, size):
+    def update(self, b, size=None):
+        """One update's draws: the replay indices below ``size``, or with
+        the dual buffer (``size`` None) the two memories' indices as
+        large integers that ``_ModDraws`` takes modulo each fill."""
         import numpy as np
-        self.q["randint"].append(self.rng.integers(0, size,
-                                                   self.lead + (b,)))
+        if size is None:
+            for _ in range(2):
+                self.q["randint"].append(self.rng.integers(
+                    0, 1 << 40, self.lead + (b,)))
+        else:
+            self.q["randint"].append(self.rng.integers(0, size,
+                                                       self.lead + (b,)))
         if not self.qmix:
             self.q["gumbel"].append(self.rng.gumbel(
                 size=self.lead + (b, self.n, self.a)).astype(np.float32))
 
     def fed(self, dev):
-        from cm3_tpu_torch.core import prng
-        return prng.FedDraws(self.q["randint"], self.q["gumbel"],
-                             device=dev, uniforms=self.q["uniform"],
-                             normals=self.q["normal"])
+        return _mod_draws()(self.q["randint"], self.q["gumbel"],
+                            device=dev, uniforms=self.q["uniform"],
+                            normals=self.q["normal"])
+
+
+class _RoadwayFeed(_ParticleFeed):
+    """``_ParticleFeed`` for roadway (two cars): the reset draws the
+    branch uniform, the lanes, the goal lanes and the depart noise."""
+
+    def __init__(self, seed, lead, qmix=False):
+        super().__init__(seed, lead, n=2, qmix=qmix)
+
+    def reset(self, e):
+        import numpy as np
+        r, cars = self.rng, self.lead + (e, self.n)
+        self.q["uniform"].append(r.random(self.lead + (e,)).astype(
+            np.float32))
+        self.q["randint"] += [r.integers(0, 4, cars), r.integers(0, 4, cars)]
+        self.q["normal"].append(r.normal(size=cars).astype(np.float32))
+
+
+def _mod_draws():
+    """A ``FedDraws`` whose draws below a device bound are the fed
+    integers modulo the bound: the dual buffer's fills, which are the
+    same on the card and on the CPU while the two runs agree."""
+    import torch
+    from cm3_tpu_torch.core import prng
+
+    class ModDraws(prng.FedDraws):
+        def randint_below(self, shape, high):
+            x = self._next("randint", shape, torch.int64).to(self.device)
+            return torch.remainder(x, high[..., None])
+    return ModDraws
 
 
 def particle_parity(device, kind, n_seeds=None):
@@ -1729,6 +1804,302 @@ def phase_particle_runner(dev):
     log("  particle episodes/s: " + json.dumps(
         {k: round(v, 2) for k, v in rates.items()}))
     log("  adam_polyak at particle sizes, after a PyTorch kernel: actor "
+        f"{times['actor']['ms'] * 1e3:.2f} us, both critics "
+        f"{times['critics']['ms'] * 1e3:.2f} us per launch")
+    return {"b1": b1, "b3": b3, "times": times, "worst": worst}
+
+
+def _dual_pairs(alg, ts_c, ts_h, buf_c, buf_h, rs_c, rs_h, m_c, m_h,
+                env_fields):
+    """(card, CPU) pairs of a dual-buffer run: every network, target and
+    Adam moment, both memories' rows below their capacity (the spare row
+    takes dropped rows in any order) and their cursors, the slab's
+    columns, the rollout, the env state and the metrics."""
+    from cm3_tpu_torch.core.tree import tree_leaves
+    pairs = []
+    for k in alg.net_names():
+        pairs += [(getattr(ts_c, k).flat, getattr(ts_h, k).flat),
+                  (getattr(ts_c, k + "_tgt").flat,
+                   getattr(ts_h, k + "_tgt").flat),
+                  (getattr(ts_c, "opt_" + k).mu, getattr(ts_h, "opt_" + k).mu),
+                  (getattr(ts_c, "opt_" + k).nu, getattr(ts_h, "opt_" + k).nu)]
+    lead = len(rs_h.episodes.shape)
+    for ring_c, ring_h in ((buf_c.bad, buf_h.bad), (buf_c.good, buf_h.good)):
+        cap = ring_h.capacity
+        pairs += [(ring_c.size, ring_h.size), (ring_c.insert, ring_h.insert)]
+        pairs += [(x.narrow(lead, 0, cap), y.narrow(lead, 0, cap))
+                  for (_, x), (_, y) in zip(tree_leaves(ring_c.data),
+                                            tree_leaves(ring_h.data))]
+    t = rs_h.stage_t.dim()
+    pairs += [(x.narrow(t, 0, x.shape[t] - 1), y.narrow(t, 0, y.shape[t] - 1))
+              for (_, x), (_, y) in zip(tree_leaves(rs_c.stage),
+                                        tree_leaves(rs_h.stage))]
+    pairs += [(getattr(rs_c.env_state, k), getattr(rs_h.env_state, k))
+              for k in env_fields]
+    pairs += [(getattr(rs_c, k), getattr(rs_h, k))
+              for k in ("episodes", "eplog", "acc_ret_local", "stage_t")]
+    pairs += [(m_c[k], m_h[k]) for k in m_h]
+    return pairs
+
+
+def dual_parity(device, kind, n_seeds=None):
+    """The dual buffer on the card and on the CPU from the same seeded
+    state with the same fed draws, at full width: for ``kind`` "roadway"
+    CM3 off-policy on two cars (a short road at top speed, a slab of 3
+    transitions: episodes end inside chunks and lose their tails; fused
+    for one seed, with B1's launches counted, optax for seeds), a fill
+    and a training chunk of 4 updates; for "particle" CM3 on-policy
+    (``stage2_cross`` from uniform starts), a fill chunk, a policy chunk
+    and a burst of 24 updates.  Held at phase 3's tolerance.  Returns
+    (largest difference, B1 launches, (n_bad, n_good) on the card)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.envs.particle import Particle
+    from cm3_tpu_torch.envs.roadway import Roadway
+    from cm3_tpu_torch.ops import fused_opt
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
+    from cm3_tpu_torch.train.onpolicy import OnPolicyDriver
+
+    e, b, steps = RD_PAR_ENVS, RD_PAR_BATCH, STEPS
+    lead = () if n_seeds is None else (n_seeds,)
+    road = kind == "roadway"
+    feed = (_RoadwayFeed if road else _ParticleFeed)(
+        SEED + 13 + (n_seeds or 0), lead)
+    feed.reset(e)
+    for rand in (True, False):
+        for _ in range(steps):
+            feed.step(e, rand)
+    for _ in range(RD_PAR_UPDATES if road else PT_PAR_EPOCHS):
+        feed.update(b)
+    m = config.load_json("master.json")
+    eps = torch.tensor([0.1, 0.2, 0.3])[:n_seeds] if n_seeds else 0.3
+    out = {}
+    for dev in (str(device), "cpu"):
+        if road:
+            env = Roadway(dataclasses.replace(
+                config.roadway_env_config(2, 0.5),
+                init_position=(150.0, 150.0), speed=(50.0, 50.0)),
+                device=dev)
+            cfg = config.TrainConfig(
+                n_envs=e, batch_size=b, buffer_size=512, dual_buffer=True,
+                max_steps=RD_SLAB, steps_per_train=steps, episode_log=16,
+                updates_per_chunk=RD_PAR_UPDATES, threshold=12.0)
+        else:
+            env = Particle(config.particle_env_config(
+                "stage2_cross", prob_random=1.0, max_steps=7), device=dev)
+            cfg = config.TrainConfig(
+                n_envs=e, batch_size=b, buffer_size=512, dual_buffer=True,
+                max_steps=7, steps_per_train=steps, episode_log=16,
+                epochs=PT_PAR_EPOCHS)
+        n = env.spec()["n_agents"]
+        alg = CM3(kind, env.spec(), config.AlgConfig(
+            n_agents=n, stage=2, fused_opt=road and n_seeds is None),
+            config.NNConfig(**m["nn"]), device=dev, n_seeds=n_seeds)
+        driver = (OffPolicyDriver if road else OnPolicyDriver)(
+            make_hooks(kind, env, threshold=cfg.threshold), alg, cfg)
+        draws = feed.fed(dev)
+        rs = init_rollout(driver.hooks, e, draws, 16, n_seeds=n_seeds)
+        ts = alg.init_state(prng.root_key(SEED) if n_seeds is None else
+                            [prng.root_key(SEED + i) for i in range(n_seeds)])
+        buf, rs = driver.init_replay(rs)
+        torch.cuda.synchronize()
+        before = fused_opt.adam_polyak.launches
+        if road:
+            ts, buf, rs, _ = driver._chunk(ts, buf, rs, eps, draws, False,
+                                           True)
+            ts, buf, rs, met = driver._chunk(ts, buf, rs, eps, draws, True,
+                                             False)
+        else:
+            buf, rs = driver._rollout_chunk(ts, buf, rs, eps, draws, True)
+            buf, rs = driver._rollout_chunk(ts, buf, rs, eps, draws, False)
+            ts, met = driver._train_burst(ts, buf, eps, draws)
+        assert not any(draws.remaining().values()), draws.remaining()
+        out[dev] = (alg, ts, buf, rs, met,
+                    fused_opt.adam_polyak.launches - before)
+    (alg, ts_c, buf_c, rs_c, m_c, b1), (_, ts_h, buf_h, rs_h, m_h, _) = \
+        out[str(device)], out["cpu"]
+    fields = (("x", "vel", "sublane", "removed") if road else
+              ("pos", "vel", "collisions"))
+    worst = 0.0
+    for got, want in _dual_pairs(alg, ts_c, ts_h, buf_c, buf_h, rs_c, rs_h,
+                                 m_c, m_h, fields):
+        torch.testing.assert_close(got.cpu(), want, rtol=PARITY_RTOL,
+                                   atol=PARITY_ATOL)
+        if got.numel() and got.is_floating_point():
+            worst = max(worst, float((got.cpu().double()
+                                      - want.double()).abs().max()))
+    updates = RD_PAR_UPDATES if road else PT_PAR_EPOCHS
+    routed = (int(buf_c.bad.size.sum()), int(buf_c.good.size.sum()))
+    assert ts_c.step == updates and min(routed) > 0, routed
+    want_b1 = 2 * updates if alg.cfg.fused_opt else 0
+    assert b1 == want_b1, (kind, n_seeds, b1, want_b1)
+    log(f"  {kind} dual{'' if n_seeds is None else f', {n_seeds} seeds'} "
+        f"({'fused' if alg.cfg.fused_opt else 'optax'}): card == CPU after "
+        + ("a fill and a training chunk" if road else
+           "a fill chunk, a policy chunk and a burst") +
+        f" of {updates} updates (rtol {PARITY_RTOL}, atol {PARITY_ATOL}); "
+        f"max abs difference {worst:.3g}; n_bad {routed[0]}, n_good "
+        f"{routed[1]} (per seed {buf_c.bad.size.tolist()} / "
+        f"{buf_c.good.size.tolist()}); adam_polyak {b1} launches")
+    return worst, b1, routed
+
+
+def _roadway_masters():
+    """master.json with the paper's roadway cells
+    (scripts/reproduce_paper.py:166-214, 558-562: 16 envs, N_eval 10) at
+    a period of 100 episodes, budgets ``RD_*``."""
+    from cm3_tpu_torch.core import config
+    m = config.load_json("master.json")
+    m.update(experiment="roadway", n_envs=CURR_ENVS, N_eval=CURR_N_EVAL,
+             period=100)
+    s1 = dict(m, stage=1, dir_name="rd_s1", N_train=RD_S1)
+    s2 = dict(m, stage=2, dir_name="rd_s2", dir_restore="rd_s1",
+              train_from_nothing=0, dual_buffer=1, N_train=RD_S2)
+    cells = {
+        "roadway_s2_stable": dict(s2, dir_name="rd_s2c", grad_clip=10.0,
+                                  N_train=RD_CELL),
+        "roadway_qmix": dict(m, stage=2, alg_name="qmix",
+                             dir_name="rd_qmix", N_train=RD_CELL),
+        f"roadway_s2, fused, actor frozen {RD_FREEZE} updates": dict(
+            s2, dir_name="rd_s2_fused", fused_opt=1,
+            actor_freeze_updates=RD_FREEZE, N_train=RD_CELL),
+        "particle_s2_dual (from nothing)": dict(
+            m, experiment="particle", particle_config="stage2_antipodal",
+            stage=2, dir_name="pt_s2d", dual_buffer=1, N_train=RD_CELL),
+    }
+    seeds = dict(s2, dir_name="rd_s2_seeds", vmapped_seeds=1,
+                 n_seeds=PAR_SEEDS, N_train=RD_SEEDED)
+    return s1, s2, cells, seeds
+
+
+def phase_roadway_runner(dev):
+    import tempfile
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.core import prng
+    from cm3_tpu_torch.ops import fused_opt, polyak
+    from cm3_tpu_torch.train import runner
+
+    # 1. card against CPU with the dual buffer
+    worst = {"roadway": dual_parity(dev, "roadway")[0],
+             "roadway_seeds": dual_parity(dev, "roadway", PAR_SEEDS)[0],
+             "particle": dual_parity(dev, "particle")[0]}
+
+    # 2. B1 at roadway sizes: bit for bit, then its time per launch
+    s1, s2, cells, seeds = _roadway_masters()
+    alg = runner.build(s2, device=dev)[1]
+    st = alg.empty_state()
+    sizes = {k: getattr(st, k).flat.numel() for k in ("actor", "qg", "qc")}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    err = max(hold_adam(dev, gen, [(sizes["actor"], 0, 1e-4, 0)]),
+              hold_adam(dev, gen, [(sizes["qg"], 0, LR, 0),
+                                   (sizes["qc"], 0, LR, 0)]))
+    log(f"  adam_polyak at roadway sizes (actor {sizes['actor']}, Q_global "
+        f"{sizes['qg']}, Q_credit {sizes['qc']} floats): kernel == plain "
+        f"bit for bit over 5 steps (max abs difference {err})")
+    tgt, main = (torch.randn(sizes["actor"], device=dev, generator=gen)
+                 for _ in range(2))
+    want = polyak.polyak_update_plain(tgt.clone(), main, TAU)
+    polyak.polyak_update(tgt, main, TAU)
+    log("  polyak at the roadway actor's size: kernel == plain bit for bit "
+        f"(max abs difference {assert_bit_equal([(tgt, want)], 'polyak')})")
+    times = {name: adam_times(dev, gen, f"roadway {name}", n)
+             for name, n in (("actor", [sizes["actor"]]),
+                             ("critics", [sizes["qg"], sizes["qc"]]))}
+
+    rates, routed = {}, {}
+    with tempfile.TemporaryDirectory() as wd:
+        def run(name, m):
+            torch.cuda.synchronize()
+            fused_opt.adam_polyak.launches = 0
+            polyak.polyak_update.launches = 0
+            (ts, st), wall = _timed_run(
+                f"{name} ({m.get('alg_name', 'cm3')}), train_function",
+                lambda: runner.train_function(m, wd, verbose=False,
+                                              device=dev))
+            rates[name] = st["episodes"] / wall
+            row = st["history"][-1]
+            assert np.isfinite(row["r_eval_local"]).all()
+            extra = (f", n_bad {row['n_bad']}, n_good {row['n_good']}"
+                     if "n_bad" in row else "")
+            if "n_bad" in row:
+                routed[name] = (row["n_bad"], row["n_good"])
+            traffic = (f", eval_avg_speed {row['eval_avg_speed']:.3f}, "
+                       f"eval_count_success {row['eval_count_success']:.2f}"
+                       if "eval_avg_speed" in row else "")
+            log(f"    {ts.step} updates; last row: episode "
+                f"{row['episode']}, r_eval_global "
+                f"{row['r_eval_global']:.3f}{traffic}{extra}; adam_polyak "
+                f"{fused_opt.adam_polyak.launches}, polyak "
+                f"{polyak.polyak_update.launches} launches")
+            return ts, st
+
+        # 3. roadway_s1 through the CLI in a process of its own
+        cfg = os.path.join(wd, "rd_master.json")
+        with open(cfg, "w") as f:
+            json.dump(dict(s1, experiment="checkers"), f)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cm3_tpu_torch.train.runner", "--config",
+             cfg, "--experiment", "roadway", "--stage", "1", "--episodes",
+             str(RD_S1), "--workdir", wd],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"),
+            capture_output=True, text=True, timeout=300)
+        wall = time.time() - t0
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        rows = _rows(wd, "rd_s1")
+        assert rows, "the CLI wrote no period row"
+        # at least RD_S1 episodes: a lower bound of the rate
+        rates["roadway_s1 (CLI process)"] = RD_S1 / wall
+        log(f"  roadway_s1: python -m cm3_tpu_torch.train.runner "
+            f"--experiment roadway --stage 1 --episodes {RD_S1} exited 0 in "
+            f"{wall:.2f} s (the process's start included), >= "
+            f"{RD_S1 / wall:.1f} episodes/s, {len(rows)} period rows; its "
+            f"last: {proc.stdout.strip().splitlines()[-1]}")
+
+        # 4. its graft into stage 2 held on the card, then roadway_s2
+        ts1 = runner._restore_stage1_state(s2, wd, prng.root_key(
+            s2.get("seed", 12341)), dev)
+        shared = _hold_graft(runner.initial_state(s2, wd, dev)[4], ts1)
+        log(f"  graft: {shared} shared floats equal stage 1's bit for bit "
+            "(one car into two), Q_credit's shared leaves equal Q_global's, "
+            "targets equal mains (on the card)")
+        run("roadway_s2 (grafted, dual buffer)", s2)
+        assert fused_opt.adam_polyak.launches == 0
+
+        # 5. the stable cell, QMIX, the fused stage 2, particle dual
+        b1 = b3 = 0
+        for name, m in cells.items():
+            ts, st = run(name, m)
+            if m.get("fused_opt"):
+                b1 = fused_opt.adam_polyak.launches
+                b3 = polyak.polyak_update.launches
+                frozen = min(RD_FREEZE, ts.step)
+                assert b1 == 2 * ts.step - frozen and b1 > 0, (b1, ts.step)
+                assert b3 == frozen > 0, b3
+                log(f"  fused roadway_s2: {ts.step} updates, adam_polyak "
+                    f"{b1} launches = 2 x {ts.step} - {frozen} frozen, "
+                    f"polyak {b3}")
+            else:
+                assert fused_opt.adam_polyak.launches == 0, name
+
+        # 6. three seeds in lockstep with the dual buffer, grafted
+        (ts4, hist4), wall4 = _timed_run(
+            f"roadway_s2, {PAR_SEEDS} seeds in lockstep (vmapped_seeds, "
+            "dual buffer), grafted into each",
+            lambda: runner.train_multiseed(seeds, wd, device=dev))
+        rates["roadway_s2_seeds"] = float(hist4[-1]["episode"].sum()) / wall4
+        assert (hist4[-1]["episode"] >= RD_SEEDED).all() and ts4.step > 0
+        assert not torch.equal(ts4.actor.flat[0], ts4.actor.flat[1])
+    log("  roadway episodes/s: " + json.dumps(
+        {k: round(v, 2) for k, v in rates.items()}))
+    log("  n_bad / n_good at the end: " + json.dumps(routed))
+    log("  adam_polyak at roadway sizes, after a PyTorch kernel: actor "
         f"{times['actor']['ms'] * 1e3:.2f} us, both critics "
         f"{times['critics']['ms'] * 1e3:.2f} us per launch")
     return {"b1": b1, "b3": b3, "times": times, "worst": worst}
@@ -2225,11 +2596,13 @@ def main():
         ("9 the curriculum through the runner", 225, phase_curriculum, dev),
         ("10 the baselines and QMIX", 230, phase_baselines, dev),
         ("11 particle through the runner", 130, phase_particle_runner, dev),
+        ("12 roadway and the dual buffer through the runner", 100,
+         phase_roadway_runner, dev),
     ]
     out = {name.split()[0]: run_phase(name, budget, fn, *args)
            for name, budget, fn, *args in phases}
-    kern, launches, rollout, soft, particle, roadway, frozen, pt = (
-        out[k] for k in ("1", "2", "4", "5", "6", "7", "9", "11"))
+    kern, launches, rollout, soft, particle, roadway, frozen, pt, rd = (
+        out[k] for k in ("1", "2", "4", "5", "6", "7", "9", "11", "12"))
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2238,7 +2611,7 @@ def main():
         dict(name="adam_polyak", route="cuda",
              source="cm3_tpu_torch/csrc/flat_update.cu",
              replaces="cm3_tpu/ops/fused_opt.py:100", launches=launches,
-             particle_onpolicy_launches=pt["b1"],
+             particle_onpolicy_launches=pt["b1"], roadway_launches=rd["b1"],
              **{k: kern[k] for k in keys[1:]}),
         dict(name="checkers_rollout", route="cuda",
              source="cm3_tpu_torch/csrc/checkers_rollout.cu",
@@ -2247,7 +2620,7 @@ def main():
         dict(name="polyak", route="cuda",
              source="cm3_tpu_torch/csrc/flat_update.cu",
              replaces="cm3_tpu/ops/polyak.py:58", launches=frozen,
-             particle_onpolicy_launches=pt["b3"],
+             particle_onpolicy_launches=pt["b3"], roadway_launches=rd["b3"],
              **{k: soft[k] for k in keys[1:]}),
         dict(name="particle_rollout", route="cuda",
              source="cm3_tpu_torch/csrc/particle_rollout.cu",

@@ -29,8 +29,7 @@ from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.core.config import AlgConfig, NNConfig
 from cm3_tpu_torch.models import nets
 
-# the ROADMAP item that ports the last experiment's engine and nets
-NOT_PORTED = {"roadway": "A11b"}
+EXPERIMENTS = ("checkers", "particle", "roadway")
 
 
 class SeededAlgorithm:
@@ -41,11 +40,8 @@ class SeededAlgorithm:
     def __init__(self, experiment: str, spec: Dict[str, int], alg: AlgConfig,
                  nn_cfg: NNConfig = NNConfig(), device="cuda",
                  n_seeds: Optional[int] = None):
-        if experiment not in ("checkers", "particle"):
-            item = NOT_PORTED.get(experiment)
-            raise NotImplementedError(
-                f"only Checkers and particle are ported, not {experiment!r}"
-                + (f" (ROADMAP {item})" if item else ""))
+        if experiment not in EXPERIMENTS:
+            raise ValueError(f"unknown experiment {experiment!r}")
         nets.init_scheme(alg.init_scheme)
         self.experiment = experiment
         self.spec = dict(spec, n_agents=alg.n_agents)
@@ -206,17 +202,23 @@ class ActorCritic(SeededAlgorithm):
             return nets.ActorParticle(
                 self.spec, n_h1_others=c.Actor_n_others, n_h2=c.Actor_n_h2,
                 stage=self.stage)
+        if self.experiment == "roadway":
+            return nets.ActorRoadway(self.spec, stage=self.stage)
         return nets.ActorCheckers(
             self.spec, conv_f=c.A_conv_f, conv_k=tuple(c.A_conv_k),
             n_h1=c.A_n_h1, n_h2=c.A_n_h2, stage=self.stage)
 
     def actor_probs(self, actor, obs, goals, a_prev, epsilon):
         """eps-mixed policy probabilities, [B, N, A]; ``a_prev`` feeds
-        only the Checkers actor (particle has none: pass None)."""
+        only the Checkers actor (particle and roadway have none: pass
+        None)."""
         b, n = goals.shape[0], goals.shape[1]
         f = common.flatten_bn
         if self.experiment == "particle":
             probs = self._call(self._actor_module, actor, f(obs["others"]),
+                               f(obs["self_v"]), f(goals))
+        elif self.experiment == "roadway":
+            probs = self._call(self._actor_module, actor, f(obs["self_t"]),
                                f(obs["self_v"]), f(goals))
         else:
             probs = self._call(

@@ -1,20 +1,23 @@
-"""COMA, IAC, central-V and the alpha-blend on Checkers and particle
-(``cm3_tpu.algs.baseline``).
+"""COMA, IAC, central-V and the alpha-blend on Checkers, particle and
+roadway (``cm3_tpu.algs.baseline``).
 
 One class, as in the JAX package, whose critics the flags of
 ``AlgConfig`` select:
 
   * COMA (``use_Q``, n_agents > 1): the centralized critic
     Q(s, a^{-n}, g^n, g^{-n}, label_n, o^n) over every action
-    (``nets.QComaCheckers``, particle ``nets.QComa``); advantage
+    (``nets.QComaCheckers``, particle and roadway ``nets.QComa``);
+    advantage
     Q[a_n] - sum_a pi(a) Q[a];
   * IAC (``use_V`` with ``IAC``): the per-agent local critic
     V(o^n, g^n) (``nets.VCheckersLocal``, particle
-    ``nets.VParticleLocal``), TD-error advantage per agent row;
+    ``nets.VParticleLocal``, roadway ``nets.VRoadwayLocal``, whose grid
+    branch is ``V_n_others`` wide), TD-error advantage per agent row;
   * central-V (``use_V`` without ``IAC``): V(s, g^n)
     (``nets.VCheckersGlobal`` at its own default widths, as the JAX
-    package builds it; particle ``nets.VParticleGlobal`` at the master's
-    ``V_n_others``/``V_n_h2``); the policy loss couples the sums over
+    package builds it; particle ``nets.VParticleGlobal`` and roadway
+    ``nets.VRoadwayGlobal`` at the master's ``V_n_others``/``V_n_h2``);
+    the policy loss couples the sums over
     agents of the log-probabilities and of the TD errors;
   * the blend (``use_Q`` and ``use_V``): alpha * local + (1 - alpha) *
     global.
@@ -70,7 +73,8 @@ class BaselineState:
 
 
 class Baseline(base.ActorCritic):
-    """The baselines on Checkers or particle, one seed or ``n_seeds``
+    """The baselines on Checkers, particle or roadway, one seed or
+    ``n_seeds``
     in lockstep (``algs/base.py``)."""
 
     def __init__(self, *args, **kw):
@@ -87,6 +91,13 @@ class Baseline(base.ActorCritic):
             cls = nets.VParticleLocal if self.iac else nets.VParticleGlobal
             return cls(self.spec, n_h1_2=c.V_n_others, n_h2=c.V_n_h2,
                        stage=self.stage)
+        if self.experiment == "roadway":
+            if self.iac:
+                return nets.VRoadwayLocal(
+                    self.spec, n_conv_reduced=c.V_n_others, n_h2=c.V_n_h2,
+                    stage=self.stage)
+            return nets.VRoadwayGlobal(self.spec, n_h1_2=c.V_n_others,
+                                       n_h2=c.V_n_h2, stage=self.stage)
         if self.iac:
             return nets.VCheckersLocal(
                 self.spec, conv_f=c.V_conv_f, conv_k=tuple(c.V_conv_k),
@@ -95,9 +106,9 @@ class Baseline(base.ActorCritic):
         return nets.VCheckersGlobal(self.spec, stage=self.stage)
 
     def _q_module(self):
-        if self.experiment == "particle":
-            return nets.QComa(self.spec, units=self.nn_cfg.Q_units)
-        return nets.QComaCheckers(self.spec, units=self.nn_cfg.Q_units)
+        if self.experiment == "checkers":
+            return nets.QComaCheckers(self.spec, units=self.nn_cfg.Q_units)
+        return nets.QComa(self.spec, units=self.nn_cfg.Q_units)
 
     def _makers(self):
         return [self._actor_module,
@@ -124,9 +135,10 @@ class Baseline(base.ActorCritic):
         b, n = goals.shape[0], goals.shape[1]
         f = common.flatten_bn
         vec = state["vec"]
-        if self.experiment == "particle":
-            args = ([f(obs["others"]), f(obs["self_v"]), f(goals)]
-                    if self.iac else
+        if self.experiment != "checkers":
+            own = obs["others"] if self.experiment == "particle" else \
+                obs["self_t"]
+            args = ([f(own), f(obs["self_v"]), f(goals)] if self.iac else
                     [f(vec), f(goals), f(common.others_concat(vec)),
                      f(common.others_concat(goals))])
         elif self.iac:
@@ -149,7 +161,7 @@ class Baseline(base.ActorCritic):
         labels = torch.eye(n, device=vec.device).expand(b, n, n)
         args = [f(state_all), f(a_others), f(goals),
                 f(common.others_concat(goals)), f(labels)]
-        if self.experiment == "particle":
+        if self.experiment != "checkers":
             args = args + [f(obs["self_v"])]
         else:
             grid = state["grid"][:, None].expand(

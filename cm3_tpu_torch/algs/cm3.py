@@ -1,8 +1,11 @@
 """CM3: multi-goal actor-critic with a counterfactual credit function.
 
-Port of ``cm3_tpu.algs.cm3`` for Checkers and particle (the networks
-and their inputs per experiment, ``cm3.py:76-81, 155-318``; the
-particle nets take no grid, no egocentric view and no previous action):
+Port of ``cm3_tpu.algs.cm3`` for Checkers, particle and roadway (the
+networks and their inputs per experiment, ``cm3.py:76-87, 155-318``;
+the particle and roadway nets take no global grid and no previous
+action, the particle actor no egocentric view; roadway's critics take
+the others' goals, which they do not use, and its V ablation critic is
+particle's):
 stage 2 (n_agents > 1) with
 the Q_credit critic (``use_Q_credit``, the default) or the V(s, g^n)
 ablation critic (``use_V``) or neither, and stage 1 (n_agents == 1)
@@ -75,8 +78,7 @@ time per operation, and the map adds 7% launches;
 The update's one random draw, a' (``cm3.py:465``), comes in as Gumbel
 noise, so a test can feed JAX's.  The seed plumbing, the states' set-up,
 the actor and ``act`` are shared with the baselines
-(``algs/base.py``).  Not ported yet (ROADMAP.md): the roadway nets
-(A11b).
+(``algs/base.py``).
 """
 
 from __future__ import annotations
@@ -118,7 +120,7 @@ class CM3State:
 
 
 class CM3(base.ActorCritic):
-    """CM3 on Checkers or particle.  Runs on ``device`` (``cuda``
+    """CM3 on Checkers, particle or roadway.  Runs on ``device`` (``cuda``
     unless told); with ``n_seeds`` (1 included) it trains that many
     independent seeds in lockstep in seed stacks, and without it one
     seed in flattened modules."""
@@ -144,6 +146,8 @@ class CM3(base.ActorCritic):
         c = self.nn_cfg
         if self.experiment == "particle":
             return nets.QGlobalParticle(self.spec, stage=self.stage)
+        if self.experiment == "roadway":
+            return nets.QGlobalRoadway(self.spec, stage=self.stage)
         return nets.QGlobalCheckers(
             self.spec, conv_f1=c.Q_conv_f, conv_k1=tuple(c.Q_conv_k),
             n_h1_1=c.Q_n_h1_1, n_h1_2=c.Q_n_h1_2, n_h2=c.Q_n_h2,
@@ -153,15 +157,17 @@ class CM3(base.ActorCritic):
         c = self.nn_cfg
         if self.experiment == "particle":
             return nets.QCreditParticle(self.spec, stage=self.stage)
+        if self.experiment == "roadway":
+            return nets.QCreditRoadway(self.spec, stage=self.stage)
         return nets.QCreditCheckers(
             self.spec, conv_f1=c.Q_conv_f, conv_k1=tuple(c.Q_conv_k),
             n_h1_1=c.Q_n_h1_1, n_h1_2=c.Q_n_h1_2, n_h2=c.Q_n_h2,
             stage=self.stage)
 
     def _v_module(self):
-        if self.experiment == "particle":
-            return nets.VParticleAblation(self.spec)
-        return nets.VCheckersAblation(self.spec)
+        if self.experiment == "checkers":
+            return nets.VCheckersAblation(self.spec)
+        return nets.VParticleAblation(self.spec)
 
     def _makers(self):
         return [self._actor_module, self._qg_module,
@@ -206,6 +212,8 @@ class CM3(base.ActorCritic):
         vec = state["vec"]
         args = [f(vec), f(goals), f(a_1h), f(common.others_concat(vec)),
                 f(common.others_stack(a_1h))]
+        if self.experiment == "roadway":
+            args.append(f(common.others_concat(goals)))
         if self.experiment == "checkers":
             grid = state["grid"][:, None].expand(
                 (b, n) + state["grid"].shape[1:])
@@ -224,6 +232,8 @@ class CM3(base.ActorCritic):
         args = [flat(bc(vec)), flat(bc(goals[:, 0])), flat(eye),
                 vec.new_zeros(b * a_dim, 0),
                 vec.new_zeros(b * a_dim, 0, a_dim)]
+        if self.experiment == "roadway":
+            args.append(vec.new_zeros(b * a_dim, 0))
         if self.experiment == "checkers":
             args = ([flat(bc(state["grid"]))] + args
                     + [flat(bc(obs["self_t"][:, 0])),
@@ -241,6 +251,8 @@ class CM3(base.ActorCritic):
         flat = lambda x: x.reshape((b * n * n,) + x.shape[3:])
         args = [flat(pn(vec)), flat(pn(goals)), flat(pm(a_m_1h)),
                 flat(pm(vec)), flat(pn(s_others))]
+        if self.experiment == "roadway":
+            args.append(flat(pn(common.others_concat(goals))))
         if self.experiment == "checkers":
             grid = state["grid"]
             grid_p = grid[:, None, None].expand((b, n, n) + grid.shape[1:])
@@ -261,6 +273,8 @@ class CM3(base.ActorCritic):
         eye = torch.eye(a_dim, device=vec.device).expand(shape4 + (a_dim,))
         args = [flat(pn(vec)), flat(pn(goals)), flat(eye), flat(pm(vec)),
                 flat(pn(s_others))]
+        if self.experiment == "roadway":
+            args.append(flat(pn(common.others_concat(goals))))
         if self.experiment == "checkers":
             grid = state["grid"]
             grid_p = grid[:, None, None, None].expand(shape4

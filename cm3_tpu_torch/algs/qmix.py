@@ -1,8 +1,10 @@
-"""QMIX on Checkers and particle (``cm3_tpu.algs.qmix``): per-agent Q
-networks and a monotonic hypernetwork mixer, trained jointly; on
-particle the agent net (``nets.QmixSingleParticle``) and the mixer
-(``nets.QmixMixer``) are dense, with no state grid and no previous
-action.
+"""QMIX on Checkers, particle and roadway (``cm3_tpu.algs.qmix``):
+per-agent Q networks and a monotonic hypernetwork mixer, trained
+jointly; on particle the agent net (``nets.QmixSingleParticle``) and the
+mixer (``nets.QmixMixer``) are dense, with no state grid and no previous
+action; roadway's agent net (``nets.QmixSingleRoadway``) adds a
+convolutional branch over the egocentric grid, and its mixer is
+particle's.
 
   * ``act``: the argmax of each agent's action values (the first maximum,
     as ``jnp.argmax``), then the per-agent epsilon override OUTSIDE the
@@ -53,13 +55,17 @@ class QmixState:
 
 
 class QMIX(base.SeededAlgorithm):
-    """QMIX on Checkers or particle, one seed or ``n_seeds`` in lockstep
+    """QMIX on Checkers, particle or roadway, one seed or ``n_seeds`` in
+    lockstep
     (``algs/base.py``)."""
 
     def _joint_module(self):
         c = self.nn_cfg
         if self.experiment == "particle":
             return nets.QmixJoint(nets.QmixSingleParticle(self.spec),
+                                  nets.QmixMixer(self.spec))
+        if self.experiment == "roadway":
+            return nets.QmixJoint(nets.QmixSingleRoadway(self.spec),
                                   nets.QmixMixer(self.spec))
         return nets.QmixJoint(
             nets.QmixSingleCheckers(self.spec, conv_f=c.A_conv_f,
@@ -86,6 +92,8 @@ class QMIX(base.SeededAlgorithm):
         f = common.flatten_bn
         if self.experiment == "particle":
             args = [f(obs["others"]), f(obs["self_v"]), f(goals)]
+        elif self.experiment == "roadway":
+            args = [f(obs["self_t"]), f(obs["self_v"]), f(goals)]
         else:
             args = [f(common.one_hot(a_prev, self.n_actions)),
                     f(obs["self_t"]), f(obs["self_v"]), f(obs["others"]),

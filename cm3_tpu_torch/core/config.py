@@ -1,13 +1,11 @@
 """Typed configuration: the subset of ``cm3_tpu.core.config`` that the
 ported modules read: Checkers and particle training with CM3, the
 baselines (COMA, IAC, central-V, the alpha-blend) and QMIX (stage 1 and
-stage 2, one seed or seeds in lockstep, off-policy and on-policy), and
-the particle and roadway struct-of-arrays engines of the fused
-rollouts.
+stage 2, one seed or seeds in lockstep, off-policy and on-policy) on
+Checkers, particle and roadway, and the particle and roadway
+struct-of-arrays engines of the fused rollouts.
 
-Same frozen dataclasses, same field names and defaults.  The roadway
-config is whole, its observation and reset fields included (read once
-its engine is ported, ROADMAP.md A11b).  ``NNConfig`` has the Checkers
+Same frozen dataclasses, same field names and defaults.  ``NNConfig`` has the Checkers
 widths and the generic staged nets' widths of ``master.json``'s "nn"
 block (``Q_units``, ``V_n_others``, ``V_n_h2``, ``Actor_n_others``,
 ``Actor_n_h2``).  The JSON experiment files are read in place from
@@ -233,15 +231,16 @@ class AlgConfig:
 class TrainConfig:
     """Driver schedule (reference ``alg/config.json`` + trainers): the
     JAX package's fields, in its order.  ``episodes_per_train`` and
-    ``epochs`` set the on-policy driver's bursts; ``threshold``,
-    ``prob_random``, ``seed``, ``n_seeds`` and ``dir_name`` are carried
-    from the master config as the JAX runner carries them, and the
-    drivers do not read them.
+    ``epochs`` set the on-policy driver's bursts; ``dual_buffer``
+    routes whole episodes into a bad and a good memory by the hooks'
+    predicate (roadway's reads ``threshold``, which the runner hands
+    the hooks); ``prob_random``, ``seed``, ``n_seeds`` and ``dir_name``
+    are carried from the master config as the JAX runner carries them,
+    and the drivers do not read them.
 
-    ``dual_buffer``, ``replay_shards > 1``, ``chunks_per_sync > 1`` and
-    ``summarize`` are the JAX package's options that the port does not
-    run yet; the driver refuses them (ROADMAP.md names the item of
-    each)."""
+    ``replay_shards > 1``, ``chunks_per_sync > 1`` and ``summarize`` are
+    the JAX package's options that the port does not run yet; the
+    driver refuses them (ROADMAP.md names the item of each)."""
 
     N_train: int = 50000
     period: int = 100
@@ -317,6 +316,22 @@ def particle_env_config(name: str, prob_random: float = 0.2,
         landmarks_y=tuple(cfg["landmarks_y"]),
         initial_std=cfg["initial_std"], prob_random=prob_random,
         max_steps=max_steps)
+
+
+def roadway_env_config(stage: int,
+                       prob_random: float = 0.2) -> RoadwayEnvConfig:
+    """``roadway_stage{stage}.json`` (its cars, lanes, goals, depart
+    noise and ``save_threshold``) with the master's ``prob_random``
+    (``cm3_tpu/core/config.py:384-393``)."""
+    cfg = load_json(f"roadway_stage{stage}.json")
+    return RoadwayEnvConfig(
+        n_agents=cfg["n_agents"], goal_lane=tuple(cfg["goal_lane"]),
+        goal_pos=tuple(cfg["goal_pos"]), speed=tuple(cfg["speed"]),
+        lane=tuple(cfg["lane"]), init_position=tuple(cfg["init_position"]),
+        depart_mean=tuple(cfg["depart_mean"]),
+        depart_stdev=cfg["depart_stdev"], total_length=cfg["total_length"],
+        total_width=cfg["total_width"], save_threshold=cfg["save_threshold"],
+        prob_random=prob_random)
 
 
 def checkers_nn_config(stage: int) -> NNConfig:

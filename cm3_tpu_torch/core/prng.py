@@ -10,8 +10,10 @@ parity tests feed JAX's draws in through ``FedDraws`` instead.
 A draw source is what the JAX code's ``key`` argument becomes: the
 driver asks it for random actions, Gumbel noise, uniform draws (QMIX's
 epsilon override, the particle reset's branch and positions), normal
-draws (the particle reset's start noise) and replay indices in a fixed
-order.
+draws (the particle reset's start noise, the roadway reset's depart
+noise) and replay indices in a fixed order; the dual buffer's indices
+are drawn below a per-seed bound that lives on the device
+(``randint_below``).
 ``GeneratorDraws`` makes them on the device from a ``torch.Generator``;
 ``FedDraws`` hands out given arrays.
 """
@@ -87,6 +89,16 @@ class GeneratorDraws:
         return torch.randint(0, high, tuple(shape), generator=self.gen,
                              device=self.device)
 
+    def randint_below(self, shape: Sequence[int],
+                      high: torch.Tensor) -> torch.Tensor:
+        """int64 in [0, high) with ``high`` a device tensor of the draw's
+        leading shape (``shape[:-1]``, each >= 1): a 62-bit draw modulo
+        the bound (bias below 2^-30), so the bound never reaches the
+        host."""
+        x = torch.randint(0, 1 << 62, tuple(shape), generator=self.gen,
+                          device=self.device)
+        return torch.remainder(x, high[..., None])
+
     def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
         return gumbel_from_uniform(self.uniform(shape))
 
@@ -108,8 +120,9 @@ class GeneratorDraws:
 class FedDraws:
     """Hands out given arrays, per kind in the order given.
 
-    ``randint`` returns the next array of ``randints`` (random actions
-    and replay indices, in the order the driver asks for them),
+    ``randint`` and ``randint_below`` return the next array of
+    ``randints`` (random actions, the roadway reset's lanes and goal
+    lanes, replay indices, in the order the driver asks for them),
     ``gumbel`` the next of ``gumbels``, ``uniform`` the next of
     ``uniforms`` and ``normal`` the next of ``normals``.  Each array
     must have the shape asked for, a randint array must lie in
@@ -143,6 +156,14 @@ class FedDraws:
         x = self._next("randint", shape, torch.int64)
         if x.numel() and (int(x.min()) < 0 or int(x.max()) >= high):
             raise ValueError(f"FedDraws: randint draw outside [0, {high})")
+        return x.to(self.device)
+
+    def randint_below(self, shape: Sequence[int],
+                      high: torch.Tensor) -> torch.Tensor:
+        x = self._next("randint", shape, torch.int64)
+        bound = high.detach().cpu()[..., None]
+        if x.numel() and bool(((x < 0) | (x >= bound)).any()):
+            raise ValueError("FedDraws: randint draw outside [0, high)")
         return x.to(self.device)
 
     def gumbel(self, shape: Sequence[int]) -> torch.Tensor:

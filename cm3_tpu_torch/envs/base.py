@@ -32,6 +32,17 @@ class TimeStep:
     done: torch.Tensor
 
 
+def sum_agents(x, dim=-1):
+    """Sum over an agent (car) axis in index order, as XLA's reduce
+    accumulates a short axis, so that an engine's sums round as the JAX
+    engine's do."""
+    x = x.movedim(dim, -1)
+    out = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        out = out + x[..., i]
+    return out
+
+
 class Env:
     """Base class; concrete engines define ``spec``, ``reset`` and
     ``step`` over batched state."""

@@ -56,15 +56,6 @@ class ParticleState:
     collisions: torch.Tensor  # [E] i64, colliding ordered pairs so far
 
 
-def _sum_agents(x):
-    """Sum over the agent axis (1) in index order, as XLA's reduce
-    accumulates."""
-    out = x[:, 0]
-    for i in range(1, x.shape[1]):
-        out = out + x[:, i]
-    return out
-
-
 class Particle(base.Env):
 
     def __init__(self, cfg: ParticleEnvConfig, device="cuda"):
@@ -177,7 +168,7 @@ class Particle(base.Env):
             steps=steps, collisions=state.collisions + n_coll.sum(dim=1))
         ts = base.TimeStep(
             obs=self._observe(new_state), state=self._global_state(new_state),
-            reward=_sum_agents(rl), reward_local=rl, done=done)
+            reward=base.sum_agents(rl), reward_local=rl, done=done)
         return new_state, ts
 
     # ------------------------------------------------------------------ #

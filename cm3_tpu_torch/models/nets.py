@@ -1,10 +1,12 @@
-"""Checkers and particle networks: the actor, the two CM3 critics and
-the V ablation critic; the baselines' IAC critic, V(s, g^n) critic and
-COMA critic; QMIX's agent net and mixer.
+"""Checkers, particle and roadway networks: the actor, the two CM3
+critics and the V ablation critic; the baselines' IAC critic, V(s, g^n)
+critic and COMA critic; QMIX's agent net and mixer.
 
-Port of the Checkers and particle nets of ``cm3_tpu.models.nets``
-(itself the reference ``alg/networks.py``) as ``nn.Module``s; the
-particle nets are dense layers only.  Names follow the
+Port of the nets of ``cm3_tpu.models.nets`` (itself the reference
+``alg/networks.py``) as ``nn.Module``s; the particle nets are dense
+layers only, the roadway nets dense but for a convolutional branch over
+the egocentric grid (the actor's and the IAC critic's at stage 2,
+QMIX's agent net's always).  Names follow the
 flax modules, so each torch parameter maps to one flax leaf:
 ``<module path>.weight`` is flax's ``kernel``, every other name is the
 same (``W_h2``, ``b``, ``bias``, the mixer's raw matrices
@@ -156,7 +158,8 @@ def init_parameters(module: nn.Module, gen: torch.Generator,
             _kinit(p, gen, scheme)
         elif leaf == "bias":
             nn.init.zeros_(p)
-        elif leaf in ("W_h2", "hyper_w_1", "hyper_w_final"):
+        elif leaf in ("W_h2", "W_concated_h2", "hyper_w_1",
+                      "hyper_w_final"):
             _trunc001(p, gen)
         elif leaf == "b":
             _binit(p, gen, scheme)
@@ -516,21 +519,22 @@ class ActorParticle(nn.Module):
 
 
 class _QParticle(nn.Module):
-    """Shared body of the particle CM3 critics (networks.py:97-122,
-    186-211): a stage-1 branch over (s^n, g^n, a), a stage-2 branch over
-    ``n_in2`` more features, relu, and a bias-free scalar output.  The
-    stage-1 leaves of the two critics have the same shapes, so Q_global's
-    graft into Q_credit."""
+    """Shared body of the particle and roadway CM3 critics
+    (networks.py:97-152, 186-241): a stage-1 branch over (s^n, g^n, a), a
+    stage-2 branch over ``n_in2`` more features, relu, and a scalar
+    output, bias-free for particle, with a bias for roadway
+    (``out_bias``).  The stage-1 leaves of the two critics have the same
+    shapes, so Q_global's graft into Q_credit."""
 
     def __init__(self, spec: Dict[str, int], n_in2: int, n_h1_1: int,
-                 n_h1_2: int, n_h2: int, stage: int):
+                 n_h1_2: int, n_h2: int, stage: int, out_bias: bool = False):
         super().__init__()
         self.stage = stage
         self.branch1 = Branch(spec["l_state_one"] + spec["l_goal"]
                               + spec["l_action"], n_h1_1, n_h2)
         if stage > 1:
             self.stage2 = Branch(n_in2, n_h1_2, n_h2)
-        self.out = nn.Linear(n_h2, 1, bias=False)
+        self.out = nn.Linear(n_h2, 1, bias=out_bias)
 
     def _forward(self, s_n, g_n, a, stage2_in):
         h2 = self.branch1(torch.cat([s_n, g_n, a], dim=-1))
@@ -636,16 +640,22 @@ class VParticleGlobal(nn.Module):
         return self.out(F.relu(h2))
 
 
+def _l_obs_self(spec):
+    """The width of an agent's own observation vector: particle's
+    ``l_obs_self``, roadway's ``l_obs``."""
+    return spec["l_obs_self"] if "l_obs_self" in spec else spec["l_obs"]
+
+
 class QComa(nn.Module):
     """networks.Q_global:84-94 (``nets.py:555``): COMA's critic for
-    particle, Q(s, a^{-n}, g^n, g^{-n}, label_n, o^n) for every action;
+    particle and roadway, Q(s, a^{-n}, g^n, g^{-n}, label_n, o^n) for every action;
     its ``FC3`` lives under ``stage2``."""
 
     def __init__(self, spec: Dict[str, int], units: int = 256):
         super().__init__()
         n, a = spec["n_agents"], spec["l_action"]
         n_x = (n * spec["l_state_one"] + (n - 1) * a + n * spec["l_goal"]
-               + n + spec["l_obs_self"])
+               + n + _l_obs_self(spec))
         self.stage2 = FC3(n_x, units, units, a)
 
     def forward(self, v_state, a_others, g_n, g_others, labels, v_obs):
@@ -700,6 +710,123 @@ def _mix(m, sg, agent_qs):
     w_final = torch.abs(sg @ m.hyper_w_final)
     b_final = m.hyper_b_final(F.relu(m.hyper_b_final_l1(sg)))
     return torch.sum(hidden * w_final, dim=-1, keepdim=True) + b_final
+
+
+# --------------------------------------------------------------------- #
+# roadway (dense, with a convolutional branch over the egocentric grid)
+# --------------------------------------------------------------------- #
+
+
+def _grid_hwc(spec):
+    return (spec["h_obs"], spec["w_obs"], spec["c_obs"])
+
+
+class ActorRoadway(nn.Module):
+    """networks.actor_staged:473-514 (``nets.py:172``): dense branches
+    over the own vector and the goal, concatenated into h2 through the
+    raw ``W_concated_h2``; at stage 2 a ``ConvBranch`` over the grid;
+    the raw bias ``b``, softmax.  The JAX package builds it at these
+    default widths."""
+
+    def __init__(self, spec: Dict[str, int], n_conv_reduced: int = 64,
+                 n_h1: int = 32, n_h2: int = 64, stage: int = 1):
+        super().__init__()
+        self.stage = stage
+        self.branch1 = _dense(spec["l_obs"], n_h1)
+        self.branch2 = _dense(spec["l_goal"], n_h1)
+        self.W_concated_h2 = nn.Parameter(torch.empty(2 * n_h1, n_h2))
+        if stage > 1:
+            self.stage2 = ConvBranch(_grid_hwc(spec), 4, (5, 3),
+                                     n_conv_reduced, n_h2)
+        self.b = nn.Parameter(torch.empty(n_h2))
+        self.out = _dense(n_h2, spec["l_action"])
+
+    def forward(self, t_obs, v_obs, goal):
+        cat = torch.cat([F.relu(self.branch1(v_obs)),
+                         F.relu(self.branch2(goal))], dim=-1)
+        h2 = cat @ self.W_concated_h2
+        if self.stage > 1:
+            h2 = h2 + self.stage2(t_obs)
+        h2 = F.relu(h2 + self.b)
+        return F.softmax(self.out(h2), dim=-1)
+
+
+class QGlobalRoadway(_QParticle):
+    """networks.Q_global_sumo:125-152 (``nets.py:267``); the others'
+    goals are an input of the reference's signature that it does not
+    use."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_1: int = 256,
+                 n_h1_2: int = 128, n_h2: int = 256, stage: int = 1):
+        super().__init__(
+            spec, (spec["n_agents"] - 1) * (spec["l_state_one"]
+                                            + spec["l_action"]),
+            n_h1_1, n_h1_2, n_h2, stage, out_bias=True)
+
+    def forward(self, s_n, g_n, a_n, s_others, a_others, g_others):
+        return self._forward(s_n, g_n, a_n,
+                             [s_others, a_others.flatten(-2)])
+
+
+class QCreditRoadway(_QParticle):
+    """networks.Q_credit_sumo:214-241 (``nets.py:288``)."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_1: int = 256,
+                 n_h1_2: int = 128, n_h2: int = 256, stage: int = 2):
+        super().__init__(spec, spec["n_agents"] * spec["l_state_one"],
+                         n_h1_1, n_h1_2, n_h2, stage, out_bias=True)
+
+    def forward(self, s_n, g_n, a_m, s_m, s_others, g_others):
+        return self._forward(s_n, g_n, a_m, [s_m, s_others])
+
+
+class VRoadwayLocal(nn.Module):
+    """networks.V_sumo_local:309-330 (``nets.py:441``): the IAC critic
+    V(o^n, g^n), a self branch over (own vector, goal) and at stage 2 a
+    ``ConvBranch`` over the grid; bias-free output."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_1: int = 64,
+                 n_conv_reduced: int = 64, n_h2: int = 64, stage: int = 1):
+        super().__init__()
+        self.stage = stage
+        self.self_branch = Branch(spec["l_obs"] + spec["l_goal"], n_h1_1,
+                                  n_h2)
+        if stage > 1:
+            self.stage2 = ConvBranch(_grid_hwc(spec), 4, (5, 3),
+                                     n_conv_reduced, n_h2)
+        self.out = nn.Linear(n_h2, 1, bias=False)
+
+    def forward(self, t_obs, v_obs, goal):
+        h2 = self.self_branch(torch.cat([v_obs, goal], dim=-1))
+        if self.stage > 1:
+            h2 = h2 + self.stage2(t_obs)
+        return self.out(F.relu(h2))
+
+
+class VRoadwayGlobal(VParticleGlobal):
+    """networks.V_sumo_global:333-353 (``nets.py:460``): the central-V
+    critic V(s, g^n), the particle one's layout over roadway's state
+    rows and goals."""
+
+
+class QmixSingleRoadway(nn.Module):
+    """networks.Qmix_single_sumo:597-614 (``nets.py:610``): one agent's
+    action values; a self branch over (own vector, goal) and a
+    ``ConvBranch`` over the grid, both always on."""
+
+    def __init__(self, spec: Dict[str, int], n_h1: int = 64,
+                 n_conv_reduced: int = 64, n_h2: int = 64):
+        super().__init__()
+        self.self_branch = Branch(spec["l_obs"] + spec["l_goal"], n_h1,
+                                  n_h2)
+        self.conv_branch = ConvBranch(_grid_hwc(spec), 4, (5, 3),
+                                      n_conv_reduced, n_h2)
+        self.out = _dense(n_h2, spec["l_action"])
+
+    def forward(self, o_others, o_self, goal):
+        h2 = self.self_branch(torch.cat([o_self, goal], dim=-1))
+        h2 = h2 + self.conv_branch(o_others)
+        return self.out(F.relu(h2))
 
 
 class QmixJoint(nn.Module):

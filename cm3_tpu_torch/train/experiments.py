@@ -1,7 +1,7 @@
 """Per-experiment episode hooks (``cm3_tpu.train.experiments``): the
 env, per-episode goals, what the driver stores, the dual buffer's
-routing predicate and the evaluation's extra metrics, for Checkers and
-particle (roadway: ROADMAP A11b).
+routing predicate and the evaluation's extra metrics, for Checkers,
+particle and roadway.
 
 Instances are laid out on a leading ``shape``: (E,) for one seed, or
 (S, E) for S seeds in lockstep, whose S x E instances the engine steps
@@ -13,6 +13,7 @@ from typing import Sequence, Union
 
 import torch
 
+from cm3_tpu_torch.algs import common
 from cm3_tpu_torch.core.tree import tree_map
 from cm3_tpu_torch.envs import base
 
@@ -37,6 +38,9 @@ class Hooks:
     n_agents: int
     l_goal: int
     has_a_prev: bool = False
+    # the dual buffer's routing threshold (the master's "threshold"; only
+    # the roadway predicate reads it)
+    threshold: float = 16.0
 
     def episode_init(self, shape: Union[int, Sequence[int]], draws=None):
         """-> (env_state, timestep, goals [*shape, N, l_goal]) for fresh
@@ -137,11 +141,82 @@ class ParticleHooks(Hooks):
                 / torch.clamp_min(acc["episodes"], 1.0)}
 
 
-HOOKS = {"checkers": CheckersHooks, "particle": ParticleHooks}
+class RoadwayHooks(Hooks):
+    """Goals are the goal lanes, one-hot over 4; with probability
+    ``prob_random`` an episode's start lanes and goal lanes are uniform
+    (train_offpolicy.py:252-277; ``experiments.py:126-185``).  Each
+    instance draws, in the JAX hooks' order, the branch uniform, the
+    lanes [N] in [0, n_lanes), the goal lanes [N] in [0, 4) and the
+    reset's depart normals [N]."""
+
+    experiment = "roadway"
+
+    def __init__(self, env):
+        self.env = env
+        self.n_agents = env.cfg.n_agents
+        self.l_goal = 4
+
+    def episode_init(self, shape, draws=None):
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        if draws is None:
+            raise ValueError("the roadway reset draws its lanes and "
+                             "departs: pass a draw source")
+        env, c = self.env, self.env.cfg
+        cars = shape + (self.n_agents,)
+        use_random = draws.uniform(shape).to(env.device) < c.prob_random
+        lanes_rand = draws.randint(cars, c.n_lanes).to(env.device)
+        goal_rand = draws.randint(cars, self.l_goal).to(env.device)
+        noise = draws.normal(cars)
+        lanes = torch.where(use_random[..., None], lanes_rand, env.lane0)
+        goal_lanes = torch.where(use_random[..., None], goal_rand,
+                                 env.goal_lane0)
+        state, ts = env.reset(dict(lanes=lanes, goal_lanes=goal_lanes),
+                              noise)
+        return state, ts, common.one_hot(goal_lanes, self.l_goal)
+
+    def is_bad_episode(self, env_state, ep_return_local):
+        # sum(r_local) < threshold (train_offpolicy.py:372)
+        return base.sum_agents(ep_return_local) < self.threshold
+
+    def eval_metrics_init(self, shape):
+        z = torch.zeros(tuple(shape), device=self.env.device)
+        return dict(speed_sum=z, speed_n=z, close=z, success=z)
+
+    def eval_metrics_step(self, acc, env_state, ts, alive):
+        """The traffic metrics over the evaluation's rollouts: the
+        normalized average speed and the close-follower count of every
+        live step, and the merge successes at episode end
+        (multicar_simple.py:117-255)."""
+        env = self.env
+        m = alive.float()
+        done_now = (alive & ts.done).float()
+        return dict(
+            speed_sum=acc["speed_sum"]
+            + torch.sum(env.avg_speed(env_state) * m, -1),
+            speed_n=acc["speed_n"] + torch.sum(m, -1),
+            close=acc["close"]
+            + torch.sum(env.count_close(env_state).float() * m, -1),
+            success=acc["success"]
+            + torch.sum(env.count_success(env_state).float() * done_now,
+                        -1))
+
+    def eval_metrics_final(self, acc, n_eval: int):
+        return {
+            "eval_avg_speed": acc["speed_sum"]
+            / torch.clamp_min(acc["speed_n"], 1.0),
+            "eval_count_close": acc["close"] / n_eval,
+            "eval_count_success": acc["success"] / n_eval,
+        }
 
 
-def make_hooks(experiment: str, env) -> Hooks:
-    if experiment not in HOOKS:
-        raise NotImplementedError(
-            f"the {experiment} hooks are not ported (ROADMAP A11b)")
-    return HOOKS[experiment](env)
+HOOKS = {"checkers": CheckersHooks, "particle": ParticleHooks,
+         "roadway": RoadwayHooks}
+
+
+def make_hooks(experiment: str, env, threshold: float = 16.0) -> Hooks:
+    """The experiment's hooks; ``threshold`` is the dual buffer's
+    routing threshold, which only roadway's predicate reads
+    (``experiments.py:188-191``)."""
+    hooks = HOOKS[experiment](env)
+    hooks.threshold = threshold
+    return hooks

@@ -36,8 +36,13 @@ not S calls), keyed by the first seed's key and the seed count; so a
 seed's stream depends on S.  Parameters are drawn per seed from its own
 key, ``root_key(base_seed + i)``, as for one seed.
 
-Not ported (ROADMAP.md): the mesh placement (A14), the dual buffer
-(A13b) and the gradient summaries (A15); each is refused.
+The dual buffer (``dual_buffer``) keeps one pair of memories per seed
+with per-seed device cursors, each seed's episodes routed into its own
+(``multiseed.py:115-117, 141``); the rows carry no ``n_bad``/``n_good``,
+as JAX's lockstep rows do not.
+
+Not ported (ROADMAP.md): the mesh placement (A14) and the gradient
+summaries (A15); each is refused.
 """
 
 from __future__ import annotations
@@ -49,7 +54,6 @@ import numpy as np
 import torch
 
 from cm3_tpu_torch.core import prng
-from cm3_tpu_torch.replay import buffer as replay
 from cm3_tpu_torch.train.offpolicy import (OffPolicyDriver, flush_eplog,
                                            init_rollout)
 from cm3_tpu_torch.train.onpolicy import OnPolicyDriver
@@ -108,7 +112,7 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
     else:
         ts = alg.init_state(keys)
         initial = np.zeros(s, np.int64)
-    buf = driver._replay_init(driver.example_transition(rs))
+    buf, rs = driver.init_replay(rs)
 
     history = []
     last_ep_flushed = initial.copy()
@@ -135,7 +139,7 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
                     >= cfg.episodes_per_train):
                 ts, metrics = driver._train_burst(ts, buf, eps_scalar, draws)
                 last_train_eps = int(episodes.min())
-                buf = replay.reset(buf)
+                buf = driver.discard(buf)
                 if eps_scalar > cfg.epsilon_end:
                     eps_scalar = max(cfg.epsilon_end,
                                      eps_scalar - cfg.epsilon_step)
@@ -167,7 +171,8 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
             }
             row.update({k: _host(v) for k, v in aux.items()
                         if k != "act_dist"})
-            row.update({k: _host(v) for k, v in metrics.items()})
+            # in key order, as JAX's metrics leave its jitted chunk
+            row.update({k: _host(v) for k, v in sorted(metrics.items())})
             if cfg.episode_log:
                 eplog, eplog_ep = _host(rs.eplog), _host(rs.eplog_ep)
                 row["_episodes"] = [

@@ -33,14 +33,29 @@ auto-reset; per update, the replay indices and what ``update`` consumes
 Feeding JAX's draws through ``prng.FedDraws`` replays a JAX chunk
 exactly.
 
-With ``AlgConfig.pg_is_clip`` on, each transition also stores ``bp``,
-the behavior policy's probability of the stored action (the eps-mixed
+An engine with a feasibility filter (roadway's ``check_actions``) has
+it applied to every action before the step, in training and in the
+evaluation, and the transition stores the action it returns
+(``offpolicy.py:260-263, 408-409``).  With ``AlgConfig.pg_is_clip`` on,
+each transition also stores ``bp``, the behavior policy's probability
+of that stored action, gathered after the filter (the eps-mixed
 policy's; the uniform 1/A on random-fill chunks), as the JAX driver
-does (``offpolicy.py:115-118, 228-231, 249-272``).
+does (``offpolicy.py:115-118, 228-231, 265-274``).
+
+The dual buffer (``TrainConfig.dual_buffer``, ``offpolicy.py:284-303``).
+Each instance stages its episode's transitions in a slab of
+``max_steps`` rows ([*L, max_steps + 1, ...]: the last row takes the
+writes past the slab, JAX's ``mode="drop"``); at every step the
+episodes that ended are flushed whole into the bad or the good memory
+by ``hooks.is_bad_episode`` (``replay.flush_episodes``), and a period
+row reads both fills (``n_bad``, ``n_good``).  The slab keeps JAX's
+truncation: it holds the master's ``max_steps`` transitions (33), so
+an episode longer than that (roadway's per-car cap is 40 steps) loses
+its tail, its terminal transition included.
 
 Not ported yet (ROADMAP.md): the K-chunk on-device schedule
 (``chunks_per_sync > 1``, A6b), the gradient summaries (``summarize``,
-A15), and the dual and shard-local replay (A13b, A14); each is refused.
+A15), and the shard-local replay (A14); each is refused.
 """
 
 from __future__ import annotations
@@ -83,6 +98,11 @@ class RolloutState:
     # stream, train_offpolicy.py:208-218,399-403); None when off
     eplog: Optional[torch.Tensor] = None
     eplog_ep: Optional[torch.Tensor] = None
+    # the dual buffer's staging slab: leaves [*L, T + 1, ...] (row T
+    # takes the writes past the slab) and each instance's episode
+    # length so far [*L] (at most T); None without the dual buffer
+    stage: Any = None
+    stage_t: Optional[torch.Tensor] = None
 
 
 def init_rollout(hooks: Hooks, n_envs: int, draws=None,
@@ -106,6 +126,20 @@ def init_rollout(hooks: Hooks, n_envs: int, draws=None,
                else None),
         eplog_ep=(zeros(per_seed + (episode_log,), dtype=torch.int64)
                   if episode_log else None))
+
+
+def init_stage(rs: RolloutState, example_transition, lead,
+               max_steps: int) -> RolloutState:
+    """``rs`` with an empty staging slab of ``max_steps`` transitions per
+    instance of ``lead`` (``offpolicy.py:94-102``)."""
+    lead = tuple(lead)
+    rs.stage = tree_map(
+        lambda x: torch.zeros(lead + (max_steps + 1,) + tuple(x.shape),
+                              dtype=x.dtype, device=x.device),
+        example_transition)
+    rs.stage_t = torch.zeros(lead, dtype=torch.int64,
+                             device=rs.episodes.device)
+    return rs
 
 
 def flush_eplog(eplog, eplog_ep, last_flushed: int, episodes_done: int):
@@ -147,9 +181,6 @@ def _eplog_write(eplog, eplog_ep, episodes, done, rows):
 class OffPolicyDriver:
 
     def __init__(self, hooks: Hooks, alg, cfg: TrainConfig):
-        if cfg.dual_buffer:
-            raise NotImplementedError(
-                "the dual replay buffer is not ported (ROADMAP A13b)")
         if cfg.replay_shards > 1:
             raise NotImplementedError(
                 "shard-local replay is not ported (ROADMAP A14)")
@@ -181,15 +212,38 @@ class OffPolicyDriver:
     # ---- replay ---- #
 
     def _replay_init(self, example):
+        if self.cfg.dual_buffer:
+            return replay.init_dual(example, self.cfg.buffer_size,
+                                    self.n_seeds)
         return replay.init(example, self.cfg.buffer_size, self.n_seeds)
+
+    def init_replay(self, rs: RolloutState):
+        """(empty replay, ``rs``) for the rollouts ``rs``; with the dual
+        buffer ``rs`` gets its staging slab."""
+        example = self.example_transition(rs)
+        buf = self._replay_init(example)
+        if self.cfg.dual_buffer:
+            rs = init_stage(rs, example, self.lead, self.cfg.max_steps)
+        return buf, rs
 
     def _replay_add(self, buf, tr):
         return replay.add_batch(buf, tr)
 
     def _replay_sample(self, buf, draws):
-        idx = draws.randint(self.lead[:-1] + (self.cfg.batch_size,),
-                            max(buf.size, 1))
-        return replay.sample(buf, idx)
+        shape = self.lead[:-1] + (self.cfg.batch_size,)
+        if self.cfg.dual_buffer:
+            idx_bad = draws.randint_below(shape,
+                                          torch.clamp_min(buf.bad.size, 1))
+            idx_good = draws.randint_below(
+                shape, torch.clamp_min(buf.good.size, 1))
+            return replay.sample_dual(buf, idx_bad, idx_good)
+        return replay.sample(buf, draws.randint(shape, max(buf.size, 1)))
+
+    @staticmethod
+    def _routed(buf):
+        """(n_bad, n_good): the dual memories' fills, summed over seeds
+        (a host sync)."""
+        return int(buf.bad.size.sum()), int(buf.good.size.sum())
 
     def example_transition(self, rs: RolloutState):
         """One instance's transition (leaves without the instance dims),
@@ -220,14 +274,42 @@ class OffPolicyDriver:
                 device=actions.device)
         return tr
 
+    def _filter(self, env_state, actions, lead):
+        """The engine's feasibility filter, where it has one."""
+        env = self.hooks.env
+        if not hasattr(env, "check_actions"):
+            return actions
+        return flat_call(env.check_actions, lead, env_state, actions)
+
+    def _stage_and_flush(self, buf, rs: RolloutState, tr, done,
+                         env_state, ep_ret_local):
+        """Stage this step's transitions at [instance, episode step] and
+        flush every episode that ended, whole, into the bad or the good
+        memory (``offpolicy.py:284-303``); returns the new episode
+        lengths."""
+        t_max = self.cfg.max_steps
+        k = len(self.lead)
+        m = rs.stage_t.numel()
+        at = (torch.arange(m, device=done.device), rs.stage_t.reshape(m))
+        tree_map(lambda slab, x: slab.view(
+            (m, t_max + 1) + slab.shape[k + 1:]).index_put_(
+                at, x.reshape((m,) + x.shape[k:])), rs.stage, tr)
+        stage_len = torch.clamp_max(rs.stage_t + 1, t_max)
+        valid = done[..., None] & (torch.arange(t_max + 1, device=done.device)
+                                   < stage_len[..., None])
+        replay.flush_episodes(buf, rs.stage, valid,
+                              self.hooks.is_bad_episode(env_state,
+                                                        ep_ret_local))
+        return torch.where(done, 0, stage_len)
+
     @torch.no_grad()
     def _step_once(self, ts_alg, rs: RolloutState, buf, epsilon, draws,
                    random_actions: bool):
-        """One lockstep env transition for all instances + buffer add +
-        auto-reset."""
+        """One lockstep env transition for all instances + buffer add (or
+        the dual buffer's staging and flush) + auto-reset."""
         hooks, env = self.hooks, self.hooks.env
         lead = self.lead
-        bp = None
+        probs = bp = None
         if random_actions:
             actions = draws.randint(lead + (hooks.n_agents,),
                                     self.alg.n_actions)
@@ -235,15 +317,25 @@ class OffPolicyDriver:
             actions, probs = self.alg.act_bp(
                 ts_alg, rs.obs, rs.goals, rs.a_prev, epsilon,
                 self.alg.act_draws(draws, lead))
-            bp = torch.gather(probs, -1, actions[..., None])[..., 0]
         else:
             actions = self.alg.act(ts_alg, rs.obs, rs.goals, rs.a_prev,
                                    epsilon, self.alg.act_draws(draws, lead))
+        # the filter's replacement is what is stepped and stored, and bp
+        # is the behavior probability of that action
+        actions = self._filter(rs.env_state, actions, lead)
+        if probs is not None:
+            bp = torch.gather(probs, -1, actions[..., None])[..., 0]
         env_state2, ts2 = flat_call(env.step, lead, rs.env_state, actions)
-        buf = self._replay_add(buf, self._transition(rs, actions, ts2, bp))
+        tr = self._transition(rs, actions, ts2, bp)
         done = ts2.done
         ep_ret_local = rs.ep_ret_local + ts2.reward_local
         ep_ret_global = rs.ep_ret_global + ts2.reward
+        stage_t = rs.stage_t
+        if self.cfg.dual_buffer:
+            stage_t = self._stage_and_flush(buf, rs, tr, done, env_state2,
+                                            ep_ret_local)
+        else:
+            buf = self._replay_add(buf, tr)
 
         # auto-reset finished instances with fresh goals
         new_state, new_ts, new_goals = hooks.episode_init(lead, draws)
@@ -267,7 +359,7 @@ class OffPolicyDriver:
             acc_ret_global=rs.acc_ret_global
             + torch.sum(ep_ret_global * d, dim=-1),
             episodes=rs.episodes + done.sum(dim=-1),
-            eplog=eplog, eplog_ep=eplog_ep)
+            eplog=eplog, eplog_ep=eplog_ep, stage=rs.stage, stage_t=stage_t)
         return rs2, buf
 
     def _chunk(self, ts_alg, buf, rs, epsilon, draws, do_train: bool,
@@ -319,8 +411,9 @@ class OffPolicyDriver:
         acts = torch.zeros(lead[:-1] + (n, n_act), device=dev)
         acc = hooks.eval_metrics_init(lead[:-1])
         for _ in range(self.cfg.max_steps):
-            actions = self.alg.act(ts_alg, obs, goals, a_prev, 0.0,
-                                   self.alg.act_draws(draws, lead))
+            actions = self._filter(env_state, self.alg.act(
+                ts_alg, obs, goals, a_prev, 0.0,
+                self.alg.act_draws(draws, lead)), lead)
             env_state, ts2 = flat_call(env.step, lead, env_state, actions)
             m = alive.float()
             ret_l = ret_l + ts2.reward_local * m[..., None]
@@ -363,7 +456,7 @@ class OffPolicyDriver:
         rs = init_rollout(self.hooks, self.n_envs, draws, cfg.episode_log)
         if initial_episodes:
             rs.episodes = torch.full_like(rs.episodes, initial_episodes)
-        buf = self._replay_init(self.example_transition(rs))
+        buf, rs = self.init_replay(rs)
 
         epsilon = max(cfg.epsilon_end, cfg.epsilon_start
                       - max(0, initial_episodes - cfg.pretrain_episodes)
@@ -409,9 +502,12 @@ class OffPolicyDriver:
                         rs.eplog.cpu().numpy(), rs.eplog_ep.cpu().numpy(),
                         last_ep_flushed, episodes_done)
                     last_ep_flushed = episodes_done
+                if cfg.dual_buffer:
+                    row["n_bad"], row["n_good"] = self._routed(buf)
                 row.update({k: float(v) for k, v in aux.items()
                             if k != "act_dist"})
-                row.update({k: float(v) for k, v in metrics.items()})
+                # in key order, as JAX's metrics leave its jitted chunk
+                row.update({k: float(v) for k, v in sorted(metrics.items())})
                 history.append(row)
                 if log_fn is not None:
                     log_fn(dict(row, _ts=ts_alg))

@@ -12,7 +12,14 @@ their replay adds and auto-resets, random actions while fewer than
 draws, per update, the replay indices and then what the algorithm's
 ``update`` consumes, as the off-policy chunk's updates do.  The ring's
 cursor and fill are host integers shared by the seeds, so discarding
-it (``replay.reset``) is setting both to 0.
+it (``replay.reset``) is setting both to 0.  With the dual buffer
+(``dual_buffer``; the paper's particle cells ``particle_s2_cross``,
+``_merge`` and ``_dual``) the rollout stages and flushes whole
+episodes as the off-policy driver does, a burst samples both memories,
+and the discard zeroes their device cursors (``replay.reset_dual``);
+the counts routed before each discard add up on the device, and the
+period row reads them as ``n_bad``/``n_good`` (``onpolicy.py:73-75,
+101-104, 136-141``).
 
 ``run`` is the single-seed host loop.  It keeps two of JAX's quirks,
 which the reference's runner shows (ROADMAP.md §C, hazard 5): its
@@ -44,6 +51,16 @@ from cm3_tpu_torch.train.offpolicy import (OffPolicyDriver, flush_eplog,
 
 
 class OnPolicyDriver(OffPolicyDriver):
+
+    def discard(self, buf, routed=None):
+        """Empty the replay after a burst; with the dual buffer, first
+        add the rows each memory holds to ``routed`` ([2] on the device:
+        bad, good) when given."""
+        if not self.cfg.dual_buffer:
+            return replay.reset(buf)
+        if routed is not None:
+            routed += torch.stack([buf.bad.size.sum(), buf.good.size.sum()])
+        return replay.reset_dual(buf)
 
     def _rollout_chunk(self, ts_alg, buf, rs, epsilon, draws,
                        random_actions: bool):
@@ -87,7 +104,9 @@ class OnPolicyDriver(OffPolicyDriver):
         draws = draws or source(prng.ROLLOUT)
         eval_draws = eval_draws or source(prng.EVAL)
         rs = init_rollout(self.hooks, self.n_envs, draws, cfg.episode_log)
-        buf = self._replay_init(self.example_transition(rs))
+        buf, rs = self.init_replay(rs)
+        # rows routed to the bad and the good memory before each discard
+        routed = torch.zeros(2, dtype=torch.int64, device=dev)
 
         epsilon = cfg.epsilon_start
         episodes_done = last_train_eps = last_logged_period = 0
@@ -113,7 +132,7 @@ class OnPolicyDriver(OffPolicyDriver):
                 t_train += time.time() - tt
                 last_train_eps = episodes_done
                 # discard the ring (train_onpolicy.py:372-377)
-                buf = replay.reset(buf)
+                buf = self.discard(buf, routed)
                 if epsilon > cfg.epsilon_end:
                     epsilon = max(cfg.epsilon_end,
                                   epsilon - cfg.epsilon_step)
@@ -139,6 +158,8 @@ class OnPolicyDriver(OffPolicyDriver):
                         rs.eplog.cpu().numpy(), rs.eplog_ep.cpu().numpy(),
                         last_ep_flushed, episodes_done)
                     last_ep_flushed = episodes_done
+                if cfg.dual_buffer:
+                    row["n_bad"], row["n_good"] = routed.tolist()
                 row.update({k: float(v) for k, v in aux.items()
                             if k != "act_dist"})
                 history.append(row)

@@ -13,16 +13,23 @@ the stage-2 graft into every seed, one autosave of the stack).  The
 files and their formats are the JAX runner's; the checkpoints are the
 port's own (``train/checkpoint.py``).
 
-The port runs Checkers and particle with each ``alg_name`` of the JAX
-runner: ``cm3``, the baselines ``coma`` and ``iac`` (central-V and the
-alpha-blend through ``use_V``/``use_Q``), and ``qmix``; ``build`` maps
-the name to the algorithm and its flags as JAX's ``build`` does, and
-picks the driver as JAX's does (``runner.py:143-146``): on-policy
-(``train/onpolicy.py``) for particle CM3, COMA and IAC, off-policy for
-Checkers and for QMIX everywhere.  The particle scenario is the
-master's ``particle_config`` (``stage2_antipodal``,
-``config_particle_stage2_merge.json``, ...; the default ``stage<N>``),
-with its ``prob_random`` and ``max_steps``.  At stage 2 from a stage-1
+The port runs Checkers, particle and roadway with each ``alg_name`` of
+the JAX runner: ``cm3``, the baselines ``coma`` and ``iac`` (central-V
+and the alpha-blend through ``use_V``/``use_Q``), and ``qmix``;
+``build`` maps the name to the algorithm and its flags as JAX's
+``build`` does, and picks the driver as JAX's does
+(``runner.py:143-146``): on-policy (``train/onpolicy.py``) for particle
+CM3, COMA and IAC, off-policy for Checkers, roadway and for QMIX
+everywhere.  The particle scenario is the master's ``particle_config``
+(``stage2_antipodal``, ``config_particle_stage2_merge.json``, ...; the
+default ``stage<N>``), with its ``prob_random`` and ``max_steps``;
+roadway's is ``roadway_stage<N>.json`` with the master's
+``prob_random``, and its snapshots default to that file's
+``save_threshold`` (``runner.py:245-248``).  The master's
+``dual_buffer`` and ``threshold`` reach the driver and the hooks as in
+JAX (``runner.py:137-142``); the master's ``max_steps`` (33) sizes the
+dual buffer's slab and the evaluation on roadway too, whose cars stop
+at 40 steps.  At stage 2 from a stage-1
 checkpoint CM3 and the baselines graft it
 (``checkpoint.stage2_init_cm3``, ``stage2_init_baseline``); QMIX
 restores it and grafts nothing, as the JAX runner does
@@ -30,9 +37,10 @@ restores it and grafts nothing, as the JAX runner does
 run resumed from its autosave restores the state but restarts its
 episode count and epsilon: only the off-policy driver takes
 ``initial_episodes`` (``runner.py:293-295``).  The runner refuses,
-naming the ROADMAP item: the roadway experiment (A11b), the dual
-buffer (A13b, refused by the driver), a ``mesh`` (A14), ``summarize``
-(A15, refused by the driver) and rendering (A15).
+naming the ROADMAP item: a ``mesh`` and ``replay_shards`` (A14, the
+latter refused by the driver), ``summarize`` (A15, refused by the
+driver), rendering (A15) and the K-chunk schedule (A6b, refused by the
+driver's ``run``).
 Learning runs in full float32: the nets pin it themselves
 (``models/nets.py:full_float32``), where the JAX runner enters
 ``jax.default_matmul_precision("float32")``.
@@ -41,7 +49,7 @@ Every function runs on ``device`` (``cuda`` unless told).
 
 Usage:
     python -m cm3_tpu_torch.train.runner \\
-        --config cm3_tpu/configs/master.json [--experiment particle \\
+        --config cm3_tpu/configs/master.json [--experiment roadway \\
         --stage 2 --alg coma --episodes 5000 --n-envs 16 --workdir DIR \\
         --multiseed --device cpu]
 """
@@ -55,7 +63,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from cm3_tpu_torch.algs.base import NOT_PORTED
 from cm3_tpu_torch.algs.baseline import Baseline
 from cm3_tpu_torch.algs.cm3 import CM3
 from cm3_tpu_torch.algs.qmix import QMIX
@@ -63,6 +70,7 @@ from cm3_tpu_torch.core import config as cfgmod
 from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.envs.checkers import Checkers
 from cm3_tpu_torch.envs.particle import Particle
+from cm3_tpu_torch.envs.roadway import Roadway
 from cm3_tpu_torch.train import checkpoint
 from cm3_tpu_torch.train.experiments import make_hooks
 from cm3_tpu_torch.train.logging import CSVLogger, stdout_log
@@ -81,17 +89,18 @@ def _nn_config(master: Dict, experiment: str, stage: int) -> cfgmod.NNConfig:
 
 
 def build_env(master: Dict, experiment: str, stage: int, device="cuda"):
-    if experiment in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {experiment} engine is not ported (ROADMAP "
-            f"{NOT_PORTED[experiment]})")
     max_steps = master.get("max_steps", 33)
+    prob_random = master.get("prob_random", 0.2)
     if experiment == "particle":
         name = master.get("particle_config", f"stage{stage}")
         name = name.replace("config_particle_", "").replace(".json", "")
         return Particle(cfgmod.particle_env_config(
-            name, prob_random=master.get("prob_random", 0.2),
-            max_steps=max_steps), device=device)
+            name, prob_random=prob_random, max_steps=max_steps),
+            device=device)
+    if experiment == "roadway":
+        return Roadway(cfgmod.roadway_env_config(stage,
+                                                 prob_random=prob_random),
+                       device=device)
     if experiment != "checkers":
         raise ValueError(experiment)
     # the reference passes the master max_steps into Checkers
@@ -161,7 +170,7 @@ def build(master: Dict, experiment: Optional[str] = None,
     tc_kwargs["buffer_size"] = int(master.get("buffer_size", 2e4))
     train_cfg = cfgmod.TrainConfig(**tc_kwargs)
 
-    hooks = make_hooks(experiment, env)
+    hooks = make_hooks(experiment, env, threshold=train_cfg.threshold)
     onpolicy = experiment == "particle" and alg_name in ("cm3", "coma",
                                                          "iac")
     driver = (OnPolicyDriver if onpolicy else OffPolicyDriver)(
@@ -203,6 +212,16 @@ def _restore_stage1_state(master: Dict, workdir: str, key, device="cuda"):
     m1["stage"] = 1
     m1.pop("particle_config", None)
     return _restore_flexible(_restore_dir(master, workdir), m1, key, device)
+
+
+def _save_threshold(master: Dict, experiment: str, stage: int):
+    """The snapshots' eval threshold: the master's ``save_threshold``,
+    else roadway's from ``roadway_stage<N>.json`` (``runner.py:245-248,
+    356-359``), else None (the experiment's rule)."""
+    if master.get("save_threshold") is None and experiment == "roadway":
+        return cfgmod.load_json(
+            f"roadway_stage{stage}.json")["save_threshold"]
+    return master.get("save_threshold")
 
 
 def _snapshot_stat(r_eval, save_threshold, experiment: str, stage: int):
@@ -284,7 +303,7 @@ def train_function(master: Dict, workdir: str = ".",
         raise FileNotFoundError(
             f"require_resume=1 but no autosave at {autosave_path}")
 
-    save_threshold = master.get("save_threshold")
+    save_threshold = _save_threshold(master, experiment, stage)
     best_good = [-np.inf]
 
     def log_fn(row):
@@ -375,7 +394,7 @@ def train_multiseed(master: Dict, workdir: str = ".",
     resume = vmapped_resume(master, workdir, alg, alg_s, device)
     experiment = master.get("experiment", "checkers")
     stage = master.get("stage", 1)
-    save_threshold = master.get("save_threshold")
+    save_threshold = _save_threshold(master, experiment, stage)
     resume_logs = bool(master.get("auto_resume", 0))
     loggers = [CSVLogger(os.path.join(workdir, "log",
                                       f"{base_dir}_{start + i}"),

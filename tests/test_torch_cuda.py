@@ -14,7 +14,12 @@ against the CPU, and a tiny run of the runner; the baselines (COMA,
 IAC, central-V, the blend) and QMIX (and its reference wiring): a fill
 and a training chunk on the card against the CPU, one seed and three,
 and the four paper cells through the runner with no fused-kernel
-launch.  They import
+launch; particle on the card against the CPU and through the runner;
+roadway and the dual buffer: the engine, a dual chunk (one seed and
+three, optax and fused) and a dual burst on the card against the CPU,
+the fused update at roadway sizes, a tiny roadway curriculum through
+the runner, and the first learning check (roadway stage 1, printed
+with ``-s``).  They import
 neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -22,6 +27,7 @@ neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 Without a CUDA device they skip."""
 
 import ctypes
+import time
 
 import numpy as np
 import pytest
@@ -444,7 +450,7 @@ def test_rollout_kernel_prng_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tau", [0.0, 0.01, 1.0])
-@pytest.mark.parametrize("n", [1, 3, 1000, 8193, 149645])
+@pytest.mark.parametrize("n", [1, 3, 1000, 8193, 39009, 149645])
 def test_polyak_kernel_matches_plain(cuda_device, n, tau):
     """The CUDA C++ Polyak kernel against the plain version, bit for bit
     (rtol 0, atol 0: both round the two products and the sum once each
@@ -1066,3 +1072,346 @@ def test_particle_runner_on_card(cuda_device, tmp_path, monkeypatch):
     for d in ("s1", "s2", "c", "q", "v_1"):
         assert checkpoint.exists(os.path.join(wd, "saved", d, "model_final"))
         assert os.path.isfile(os.path.join(wd, "log", d, "log_century.csv"))
+
+
+# --------------------------------------------------------------------- #
+# roadway and the dual buffer
+# --------------------------------------------------------------------- #
+
+# a short road at top speed: episodes of 4-6 steps, so that they end
+# inside chunks (and with a slab of 3, lose their tails)
+SHORT_ROAD = dict(init_position=(150.0, 150.0), speed=(50.0, 50.0))
+
+
+def _mod_draws(q, dev):
+    """``FedDraws`` of the queues ``q`` whose draws below a device bound
+    are the fed integers modulo it (the dual buffer's fills, the same on
+    the card and on the CPU while the runs agree)."""
+    from cm3_tpu_torch.core import prng
+
+    class ModDraws(prng.FedDraws):
+        def randint_below(self, shape, high):
+            x = self._next("randint", shape, torch.int64).to(self.device)
+            return torch.remainder(x, high[..., None])
+    return ModDraws(q["randint"], q["gumbel"], device=dev,
+                    uniforms=q["uniform"], normals=q["normal"])
+
+
+def _roadway_feed(lead, e, steps, updates, b, seed):
+    """Seeded draws for a roadway driver with the dual buffer: the first
+    reset (branch, lanes, goal lanes, depart noise), per env step of a
+    random and a policy chunk the actions and the reset's draws, per
+    update the two memories' indices (large integers) and the a'
+    noise."""
+    rng = np.random.default_rng(seed)
+    lead = tuple(lead)
+    q = {"randint": [], "gumbel": [], "uniform": [], "normal": []}
+    cars = lead + (e, 2)
+
+    def reset():
+        q["uniform"].append(rng.random(lead + (e,)).astype(np.float32))
+        q["randint"] += [rng.integers(0, 4, cars), rng.integers(0, 4, cars)]
+        q["normal"].append(rng.normal(size=cars).astype(np.float32))
+
+    reset()
+    for rand in (True, False):
+        for _ in range(steps):
+            if rand:
+                q["randint"].append(rng.integers(0, 5, cars))
+            else:
+                q["gumbel"].append(rng.gumbel(size=cars + (5,)).astype(
+                    np.float32))
+            reset()
+    for _ in range(updates):
+        q["randint"] += [rng.integers(0, 1 << 40, lead + (b,))
+                         for _ in range(2)]
+        q["gumbel"].append(rng.gumbel(size=lead + (b, 2, 5)).astype(
+            np.float32))
+    return q
+
+
+def _roadway_dual_runs(cuda_device, s=None, fused=False, e=8, b=16, u=3):
+    """CM3 on two cars with the dual buffer (a slab of 3) on the card and
+    on the CPU from the same parameters with the same fed draws: a fill
+    and a training chunk of ``u`` updates.  Per device (alg, state,
+    buffer, rollout, metrics, B1 launches)."""
+    import dataclasses
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.envs.roadway import Roadway
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
+
+    lead = () if s is None else (s,)
+    q = _roadway_feed(lead, e, 10, u, b, 7 + (s or 0))
+    eps = torch.tensor([0.1, 0.2, 0.3])[:s] if s else 0.3
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        env = Roadway(dataclasses.replace(config.roadway_env_config(2, 0.5),
+                                          **SHORT_ROAD), device=dev)
+        alg = CM3("roadway", env.spec(), config.AlgConfig(
+            n_agents=2, stage=2, fused_opt=fused), device=dev, n_seeds=s)
+        cfg = config.TrainConfig(n_envs=e, batch_size=b, buffer_size=256,
+                                 dual_buffer=True, max_steps=3,
+                                 steps_per_train=10, updates_per_chunk=u,
+                                 episode_log=16, threshold=12.0)
+        driver = OffPolicyDriver(make_hooks("roadway", env, 12.0), alg, cfg)
+        draws = _mod_draws(q, dev)
+        rs = init_rollout(driver.hooks, e, draws, 16, n_seeds=s)
+        ts = alg.init_state(0 if s is None else list(range(s)))
+        buf, rs = driver.init_replay(rs)
+        before = fused_opt.adam_polyak.launches
+        ts, buf, rs, _ = driver._chunk(ts, buf, rs, eps, draws, False, True)
+        ts, buf, rs, met = driver._chunk(ts, buf, rs, eps, draws, True,
+                                         False)
+        assert not any(draws.remaining().values()), draws.remaining()
+        torch.cuda.synchronize()
+        out[dev.type] = (alg, ts, buf, rs, met,
+                         fused_opt.adam_polyak.launches - before)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,fused", [(None, True), (None, False), (3, False),
+                                     (3, True)],
+                         ids=["fused", "optax", "seeds", "fused_seeds"])
+def test_roadway_dual_chunk_on_card_matches_cpu(cuda_device, s, fused):
+    """Roadway CM3 with the dual buffer on the card equals the CPU at
+    rtol 1e-4, atol 1e-5: both memories below their capacity and their
+    per-seed cursors, the slab, the env state (floats, sublanes, flags),
+    the networks, targets and Adam moments, the metrics; B1 runs 2
+    launches per fused update."""
+    from cm3_tpu_torch.core.tree import tree_leaves
+    out = _roadway_dual_runs(cuda_device, s, fused)
+    (alg, ts_c, buf_c, rs_c, m_c, n_c), (_, ts_h, buf_h, rs_h, m_h, n_h) = \
+        out["cuda"], out["cpu"]
+    assert (n_c, n_h) == ((2 * 3 if fused else 0), 0)
+    close = lambda a, b: torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
+                                                    atol=1e-5)
+    for k in alg.net_names():
+        close(getattr(ts_c, k).flat, getattr(ts_h, k).flat)
+        close(getattr(ts_c, k + "_tgt").flat, getattr(ts_h, k + "_tgt").flat)
+        close(getattr(ts_c, "opt_" + k).mu, getattr(ts_h, "opt_" + k).mu)
+    lead = 0 if s is None else 1
+    for rc, rh in ((buf_c.bad, buf_h.bad), (buf_c.good, buf_h.good)):
+        assert torch.equal(rc.size.cpu(), rh.size)
+        assert torch.equal(rc.insert.cpu(), rh.insert)
+        for (_, x), (_, y) in zip(tree_leaves(rc.data), tree_leaves(rh.data)):
+            close(x.narrow(lead, 0, 256), y.narrow(lead, 0, 256))
+    assert int(buf_h.bad.size.sum()) > 0 and int(buf_h.good.size.sum()) > 0
+    for (_, x), (_, y) in zip(tree_leaves(rs_c.stage),
+                              tree_leaves(rs_h.stage)):
+        close(x.narrow(lead + 1, 0, 3), y.narrow(lead + 1, 0, 3))
+    for k in ("x", "vel", "sublane", "steps", "terminal", "collided",
+              "removed"):
+        close(getattr(rs_c.env_state, k), getattr(rs_h.env_state, k))
+    assert torch.equal(rs_c.episodes.cpu(), rs_h.episodes)
+    assert torch.equal(rs_c.stage_t.cpu(), rs_h.stage_t)
+    for k in m_h:
+        close(m_c[k], m_h[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [None, 3], ids=["one_seed", "seeds"])
+def test_particle_dual_burst_on_card_matches_cpu(cuda_device, s):
+    """Particle CM3 on-policy with the dual buffer (``stage2_cross``
+    from uniform starts): a fill chunk, a policy chunk and a burst of 3
+    updates on the card equal the CPU at rtol 1e-4, atol 1e-5; the
+    discard zeroes every seed's cursors on the card."""
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.core.tree import tree_leaves
+    from cm3_tpu_torch.envs.particle import Particle
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import init_rollout
+    from cm3_tpu_torch.train.onpolicy import OnPolicyDriver
+
+    e, b, u = 8, 16, 3
+    lead = () if s is None else (s,)
+    q = _particle_feed(lead, e, 4, 10, 0, b, 1, False, 11 + (s or 0))
+    rng = np.random.default_rng(5)
+    for _ in range(u):
+        q["randint"] += [rng.integers(0, 1 << 40, lead + (b,))
+                         for _ in range(2)]
+        q["gumbel"].append(rng.gumbel(size=lead + (b, 4, 5)).astype(
+            np.float32))
+    eps = torch.tensor([0.1, 0.2, 0.3])[:s] if s else 0.3
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        env = Particle(config.particle_env_config(
+            "stage2_cross", prob_random=1.0, max_steps=7), device=dev)
+        alg = CM3("particle", env.spec(), config.AlgConfig(n_agents=4,
+                                                          stage=2),
+                  NNConfig(**PARTICLE_NN), device=dev, n_seeds=s)
+        cfg = config.TrainConfig(n_envs=e, batch_size=b, buffer_size=256,
+                                 dual_buffer=True, max_steps=7,
+                                 steps_per_train=10, epochs=u,
+                                 episode_log=16)
+        driver = OnPolicyDriver(make_hooks("particle", env), alg, cfg)
+        draws = _mod_draws(q, dev)
+        rs = init_rollout(driver.hooks, e, draws, 16, n_seeds=s)
+        ts = alg.init_state(0 if s is None else list(range(s)))
+        buf, rs = driver.init_replay(rs)
+        buf, rs = driver._rollout_chunk(ts, buf, rs, eps, draws, True)
+        buf, rs = driver._rollout_chunk(ts, buf, rs, eps, draws, False)
+        ts, met = driver._train_burst(ts, buf, eps, draws)
+        assert not any(draws.remaining().values()), draws.remaining()
+        out[dev.type] = (alg, ts, buf, rs, met, driver)
+    (alg, ts_c, buf_c, rs_c, m_c, drv), (_, ts_h, buf_h, rs_h, m_h, _) = \
+        out["cuda"], out["cpu"]
+    close = lambda a, b: torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
+                                                    atol=1e-5)
+    for k in alg.net_names():
+        close(getattr(ts_c, k).flat, getattr(ts_h, k).flat)
+        close(getattr(ts_c, "opt_" + k).mu, getattr(ts_h, "opt_" + k).mu)
+    lead_n = 0 if s is None else 1
+    for rc, rh in ((buf_c.bad, buf_h.bad), (buf_c.good, buf_h.good)):
+        assert torch.equal(rc.size.cpu(), rh.size)
+        for (_, x), (_, y) in zip(tree_leaves(rc.data), tree_leaves(rh.data)):
+            close(x.narrow(lead_n, 0, 256), y.narrow(lead_n, 0, 256))
+    for k in m_h:
+        close(m_c[k], m_h[k])
+    routed = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    drv.discard(buf_c, routed)
+    assert routed.tolist() == [int(buf_h.bad.size.sum()),
+                               int(buf_h.good.size.sum())]
+    assert not (buf_c.bad.size.any() or buf_c.good.insert.any())
+
+
+@pytest.mark.cuda
+def test_roadway_engine_on_card_matches_cpu(cuda_device):
+    """The engine on the card from the same lanes, goal lanes and depart
+    noise over 42 filtered steps of the same actions (past the 40-step
+    cap): floats at atol 1e-5, filtered actions, sublanes, counts, flags
+    and done exactly; the traffic metrics alike."""
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.envs.roadway import Roadway
+    rng = np.random.default_rng(0)
+    e = 256
+    lanes, goals = rng.integers(0, 4, (e, 2)), rng.integers(0, 4, (e, 2))
+    noise = rng.normal(size=(e, 2)).astype(np.float32)
+    acts = rng.integers(0, 5, (42, e, 2))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        env = Roadway(config.roadway_env_config(2, 0.5), device=dev)
+        st, ts = env.reset(dict(lanes=torch.tensor(lanes),
+                                goal_lanes=torch.tensor(goals)),
+                           torch.tensor(noise))
+        traj = []
+        for a in acts:
+            a = env.check_actions(st, torch.tensor(a))
+            st, ts = env.step(st, a)
+            traj.append((a, st, ts, env.avg_speed(st), env.count_close(st),
+                         env.count_success(st)))
+        out[dev.type] = traj
+    for (a_c, s_c, t_c, *m_c), (a_h, s_h, t_h, *m_h) in zip(out["cuda"],
+                                                            out["cpu"]):
+        assert torch.equal(a_c.cpu(), a_h)
+        for k in ("sublane", "steps", "terminal", "collided", "removed"):
+            assert torch.equal(getattr(s_c, k).cpu(), getattr(s_h, k)), k
+        for k in ("x", "vel"):
+            torch.testing.assert_close(getattr(s_c, k).cpu(), getattr(s_h, k),
+                                       rtol=0, atol=1e-5)
+        for k in ("self_t", "self_v"):
+            torch.testing.assert_close(t_c.obs[k].cpu(), t_h.obs[k], rtol=0,
+                                       atol=1e-5)
+        torch.testing.assert_close(t_c.reward_local.cpu(), t_h.reward_local,
+                                   rtol=0, atol=1e-5)
+        assert torch.equal(t_c.done.cpu(), t_h.done)
+        for x, y in zip(m_c, m_h):
+            torch.testing.assert_close(x.cpu(), y, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_adam_polyak_at_roadway_sizes_matches_plain(cuda_device):
+    """B1 at roadway CM3's stage-2 sizes (the actor 39,009 floats; both
+    critics, 103,041 + 102,785, in one launch) bit for bit."""
+    _hold_adam(cuda_device, [(39009, 0, 1e-4, 0)], 31)
+    _hold_adam(cuda_device, [(103041, 0, 1e-3, 0), (102785, 0, 1e-3, 0)], 32)
+
+
+@pytest.mark.cuda
+def test_roadway_runner_on_card(cuda_device, tmp_path, monkeypatch):
+    """A tiny roadway curriculum through the runner on the card: stage 1,
+    stage 2 grafted from it with the dual buffer on the fused path with
+    the actor frozen for 2 updates (B1 2 per live update, B3 per frozen
+    one), QMIX from nothing (no B1), three seeds in lockstep with the
+    dual buffer; each writes its logs and ``model_final``, and the dual
+    rows carry ``n_bad``/``n_good``."""
+    import os
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.train import checkpoint, runner
+    monkeypatch.setattr(runner, "_nn_config",
+                        lambda m, e, s: NNConfig(**PARTICLE_NN))
+    m = config.load_json("master.json")
+    m.update(experiment="roadway", n_envs=8, seed=5, N_train=40, period=20,
+             N_eval=2, pretrain_episodes=8, batch_size=16, buffer_size=512,
+             updates_per_chunk=2, dir_name="s1", dir_restore="s1",
+             prob_random=1.0)
+    wd = str(tmp_path)
+    runner.train_function(dict(m, stage=1), wd, verbose=False)
+    s2 = dict(m, stage=2, dual_buffer=1)
+    b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
+    ts, st = runner.train_function(
+        dict(s2, dir_name="s2", train_from_nothing=0, fused_opt=1,
+             actor_freeze_updates=2), wd, verbose=False)
+    assert polyak.polyak_update.launches - b3 == 2
+    assert fused_opt.adam_polyak.launches - b1 == 2 * ts.step - 2
+    assert ts.actor.flat.device.type == "cuda"
+    row = st["history"][-1]
+    assert row["n_bad"] + row["n_good"] > 0
+    b1 = fused_opt.adam_polyak.launches
+    ts, st = runner.train_function(dict(s2, dir_name="q", alg_name="qmix"),
+                                   wd, verbose=False)
+    assert st["episodes"] >= 40 and ts.step > 0
+    assert fused_opt.adam_polyak.launches == b1
+    ts, hist = runner.train_multiseed(
+        dict(s2, dir_name="v", train_from_nothing=0, vmapped_seeds=1,
+             n_seeds=3), wd)
+    assert ts.actor.flat.shape[0] == 3 and (hist[-1]["episode"] >= 40).all()
+    for d in ("s1", "s2", "q", "v_1"):
+        assert checkpoint.exists(os.path.join(wd, "saved", d, "model_final"))
+        assert os.path.isfile(os.path.join(wd, "log", d, "log_century.csv"))
+
+
+@pytest.mark.cuda
+def test_roadway_stage1_learning_check(cuda_device):
+    """The first learning check on the port, in the setting of the JAX
+    package's ``tests/test_roadway_training.py``: roadway stage 1 (one
+    car, ``prob_random`` 1.0), 8 envs, CM3 (optax), 2,000 episodes; the
+    greedy evaluation's global return over 16 episodes before and after,
+    printed beside that test's bar (> 8.5 and above the start).  It
+    reports the numbers; it asserts only that they are finite and that
+    the run trained."""
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.envs.roadway import Roadway
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
+    env_cfg = RoadwayEnvConfig(
+        n_agents=1, goal_lane=(0,), goal_pos=(190.0,), speed=(30.0,),
+        lane=(0,), init_position=(0.0,), depart_mean=(0.0,),
+        depart_stdev=0.4, prob_random=1.0)
+    env = Roadway(env_cfg, device=cuda_device)
+    alg = CM3("roadway", env.spec(), config.AlgConfig(n_agents=1, stage=1),
+              device=cuda_device)
+    cfg = config.TrainConfig(n_envs=8, batch_size=64, buffer_size=8192,
+                             pretrain_episodes=16, steps_per_train=10,
+                             period=400, N_eval=16,
+                             max_steps=env_cfg.max_step + 2,
+                             epsilon_div=400.0)
+    driver = OffPolicyDriver(make_hooks("roadway", env), alg, cfg)
+    ts = alg.init_state(prng.root_key(1))
+    ev = lambda: prng.GeneratorDraws(prng.generator(7, cuda_device))
+    _, g0, _ = driver.evaluate(ts, ev(), 16)
+    t0 = time.time()
+    ts, stats = driver.run(ts, key=0, n_episodes=2000)
+    wall = time.time() - t0
+    _, g1, _ = driver.evaluate(ts, ev(), 16)
+    g0, g1 = float(g0), float(g1)
+    print(f"\nroadway stage-1 learning check on "
+          f"{torch.cuda.get_device_name(0)}: eval global return {g0:.3f} "
+          f"-> {g1:.3f} after {stats['episodes']} episodes ({ts.step} "
+          f"updates, {wall:.1f} s); JAX's bar: > 8.5 and above the start: "
+          f"{'met' if g1 > 8.5 and g1 > g0 else 'missed'}")
+    assert np.isfinite([g0, g1]).all() and ts.step > 0

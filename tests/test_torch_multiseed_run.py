@@ -140,8 +140,7 @@ def _small_stage1():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("dual_buffer", True, "A13"), ("replay_shards", 2, "A14"),
-    ("summarize", True, "A15")])
+    ("replay_shards", 2, "A14"), ("summarize", True, "A15")])
 def test_driver_refuses_what_is_not_ported(field, value, item):
     """The JAX options the port does not run yet are refused, naming
     their ROADMAP item; so is the K-chunk schedule in ``run``."""
@@ -154,11 +153,9 @@ def test_driver_refuses_what_is_not_ported(field, value, item):
         driver.run(ta.init_state(0))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A14"),
-    (dict(onpolicy=True, cfg=dict(dual_buffer=True)), "A13")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A14")])
 def test_train_vmapped_seeds_refuses_what_is_not_ported(kw, item):
-    """A mesh, and the on-policy regime's dual buffer (A13b)."""
+    """A mesh (A14)."""
     hooks, ta = _small_stage1()
     kw = dict(kw)
     cfg = tcfg.TrainConfig(**kw.pop("cfg", {}))

@@ -72,10 +72,6 @@ def test_build_matches_jax(name):
 
 
 REFUSALS = {
-    # particle trains on the port; its dual-buffer cells wait for A13b
-    "particle": (dict(experiment="particle", dual_buffer=1), "A13"),
-    "roadway": (dict(experiment="roadway"), "A11b"),
-    "dual_buffer": (dict(dual_buffer=1), "A13"),
     "mesh": (dict(mesh=[4]), "A14"),
     "replay_shards": (dict(replay_shards=2), "A14"),
     "summarize": (dict(summarize=True), "A15"),

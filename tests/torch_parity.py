@@ -492,10 +492,39 @@ class ParticleDraws:
             self.gumbels.append(np.asarray(jax.random.gumbel(
                 k_update, (batch, self.n, self.a))))
 
+    def chunk(self, key, e, steps, random_actions, n_updates=0, batch=0,
+              sizes=0):
+        """``OffPolicyDriver._chunk`` (offpolicy.py:345-385): the env
+        steps, then each update's draws; ``sizes`` is the replay fill
+        the updates see, or (bad, good) for the dual buffer."""
+        self.rollout(key, e, steps, random_actions)
+        for k in jax.random.split(jax.random.fold_in(key, 7), n_updates):
+            if isinstance(sizes, tuple):
+                self.update_dual(k, batch, *sizes)
+            else:
+                self.update(k, batch, sizes)
+
+    def update_dual(self, key, batch, s_bad, s_good):
+        """One update on the dual buffer (``buffer.py:153-195``): the
+        bad memory's indices, the good one's, then the a' noise (none
+        for QMIX)."""
+        k_sample, k_update = jax.random.split(key)
+        k1, k2 = jax.random.split(k_sample)
+        for k, size in ((k1, s_bad), (k2, s_good)):
+            self.randints.append(np.asarray(jax.random.randint(
+                k, (batch,), 0, jnp.maximum(jnp.int32(size), 1))))
+        if not self.qmix:
+            self.gumbels.append(np.asarray(jax.random.gumbel(
+                k_update, (batch, self.n, self.a))))
+
     def burst(self, key, epochs, batch, size):
-        """``OnPolicyDriver._train_burst`` (onpolicy.py:52-62)."""
+        """``OnPolicyDriver._train_burst`` (onpolicy.py:52-62); ``size``
+        is the ring's fill, or (bad, good) for the dual buffer."""
         for k in jax.random.split(key, epochs):
-            self.update(k, batch, size)
+            if isinstance(size, tuple):
+                self.update_dual(k, batch, *size)
+            else:
+                self.update(k, batch, size)
 
     def evaluate(self, key, n_eval, max_steps):
         """``OffPolicyDriver.evaluate`` (offpolicy.py:389-432)."""
@@ -585,13 +614,22 @@ def hold_particle_seeds(kind, opts, s=3):
     noise) in the port's seed stacks against ``jax.vmap`` of JAX's
     update on four-agent particle batches, at ``hold_states``'
     tolerances; the seeds apart."""
-    eps = np.array([0.1, 0.2, 0.3], np.float32)[:s]
-    b = PARTICLE_B
     je, _ = particle_envs("stage2_antipodal", prob_random=1.0)
     ja, ta = particle_algs(kind, je.spec(), n_seeds=s, **opts)
+    hold_seeds(ja, ta, lambda rng: particle_batch(je, PARTICLE_B, rng), s)
+
+
+def hold_seeds(ja, ta, make_batch, s=3):
+    """One update of the JAX algorithm ``ja`` under ``jax.vmap`` and of
+    the port's ``ta`` (built for S seeds) from the same converted state,
+    each seed on its own batch of ``make_batch(rng)``, epsilon and a'
+    noise; states at ``hold_states``' tolerances, metrics [S] at rtol
+    1e-5 / atol 1e-6, the seeds apart."""
+    eps = np.array([0.1, 0.2, 0.3], np.float32)[:s]
     rng = np.random.default_rng(3)
-    batches = [jax.device_get(particle_batch(je, b, rng)) for _ in range(s)]
+    batches = [jax.device_get(make_batch(rng)) for _ in range(s)]
     batch = jax.tree_util.tree_map(lambda *x: np.stack(x), *batches)
+    b, n = batch["a"].shape[1:]
     jts = jax.vmap(ja.init_state)(
         jax.random.split(jax.random.PRNGKey(1), s), batch["obs"],
         batch["state"], batch["goals"])
@@ -600,7 +638,7 @@ def hold_particle_seeds(kind, opts, s=3):
     jts, jm = jax.jit(jax.vmap(ja.update))(jts, batch, jnp.asarray(eps),
                                            keys)
     noise = torch.from_numpy(np.stack(
-        [np.asarray(jax.random.gumbel(k, (b, 4, 5))) for k in keys]))
+        [np.asarray(jax.random.gumbel(k, (b, n, 5))) for k in keys]))
     tts, tm = ta.update(tts, to_torch(batch), torch.from_numpy(eps), noise)
     want = convert.state_from_jax(ta, jax.device_get(jts))
     hold_states(tts, want, ta.net_names())
@@ -610,7 +648,8 @@ def hold_particle_seeds(kind, opts, s=3):
         assert v.shape == (s,)
         np.testing.assert_allclose(v.numpy(), np.asarray(jm[k]), rtol=1e-5,
                                    atol=1e-6, err_msg=k)
-    assert not torch.equal(tts.actor.flat[0], tts.actor.flat[1])
+    first = getattr(tts, ta.net_names()[0]).flat
+    assert not torch.equal(first[0], first[1])
 
 
 def hold_particle_networks(runs, want):
@@ -620,3 +659,144 @@ def hold_particle_networks(runs, want):
     for name in want:
         assert not torch.equal(getattr(st, name).flat,
                                getattr(runs["start"], name).flat), name
+
+
+# --------------------------------------------------------------------- #
+# roadway and the dual buffer (test_torch_roadway_*.py,
+# test_torch_dual_*.py)
+# --------------------------------------------------------------------- #
+
+# the baselines' roadway critics at narrow widths (the roadway actor,
+# CM3's critics and QMIX's agent net have fixed widths in both packages)
+SMALL_ROADWAY_NN = dict(Q_units=16, V_n_others=8, V_n_h2=12)
+# a short road at top speed: cars start 40 m before the goal at 50 m/s
+# (v_max), so that episodes end in 4-6 steps (or at a collision),
+# auto-resets fall inside chunks, and the filter replaces every ACC
+# until a car has slowed down
+SHORT_ROAD = dict(init_position=(150.0, 150.0), speed=(50.0, 50.0))
+
+
+def roadway_envs(stage=2, prob_random=0.5, **over):
+    """The JAX and the port's roadway engines for
+    ``roadway_stage<stage>.json`` with ``prob_random`` and the config
+    fields ``over``."""
+    import dataclasses
+    from cm3_tpu.envs.roadway import Roadway as JaxRoadway
+    from cm3_tpu_torch.envs.roadway import Roadway as TorchRoadway
+    jc = dataclasses.replace(jcfg.roadway_env_config(stage, prob_random),
+                             **over)
+    tc = dataclasses.replace(tcfg.roadway_env_config(stage, prob_random),
+                             **over)
+    return JaxRoadway(jc), TorchRoadway(tc, device="cpu")
+
+
+def roadway_reset_draws(key, n, n_agents, n_lanes=4):
+    """What ``RoadwayHooks.episode_init`` draws for n instances from
+    ``key`` (``prng.split_batch``, then the split into four,
+    ``experiments.py:138-151``, the fourth key the reset's normal):
+    ([branch [n]] uniforms, [lanes [n, N], goal lanes [n, N]] randints,
+    [depart noise [n, N]] normals)."""
+    keys = jax.vmap(lambda i: jax.random.fold_in(key, i))(jnp.arange(n))
+
+    def one(k):
+        kr, kl, kg, ke = jax.random.split(k, 4)
+        return (jax.random.uniform(kr),
+                jax.random.randint(kl, (n_agents,), 0, n_lanes),
+                jax.random.randint(kg, (n_agents,), 0, 4),
+                jax.random.normal(ke, (n_agents,)))
+    u, lanes, goals, z = (np.asarray(x) for x in jax.vmap(one)(keys))
+    return [u], [lanes, goals], [z]
+
+
+class RoadwayDraws(ParticleDraws):
+    """``ParticleDraws`` for roadway: the reset draws the branch
+    uniform, the lanes, the goal lanes and the depart noise."""
+
+    def reset(self, key, n):
+        u, r, z = roadway_reset_draws(key, n, self.n)
+        self.uniforms += u
+        self.randints += r
+        self.normals += z
+
+
+def roadway_algs(kind, spec, n_seeds=None, **alg):
+    """The JAX and the port's CM3, Baseline or QMIX (as
+    ``particle_algs``) on roadway; the baselines' critics at
+    SMALL_ROADWAY_NN widths."""
+    n = spec["n_agents"]
+    kw = dict(n_agents=n, stage=2 if n > 1 else 1,
+              alg_name={"cm3": "cm3", "qmix": "qmix"}.get(kind, "coma"))
+    kw.update(alg)
+    jcls, tcls = {"cm3": (JaxCM3, TorchCM3), "qmix": (JaxQMIX, TorchQMIX),
+                  "baseline": (JaxBaseline, TorchBaseline)}[kind]
+    j = jcls("roadway", spec, jcfg.AlgConfig(**kw),
+             jcfg.NNConfig(**SMALL_ROADWAY_NN))
+    t = tcls("roadway", spec, tcfg.AlgConfig(**kw),
+             tcfg.NNConfig(**SMALL_ROADWAY_NN), device="cpu",
+             n_seeds=n_seeds)
+    return j, t
+
+
+def roadway_batch(env, b, rng):
+    """A replay-like batch of b real roadway transitions of ``env``
+    (JAX): random lanes and goal lanes, a few random feasible steps,
+    noisy local rewards, some terminal rows; no previous action."""
+    n = env.cfg.n_agents
+    lanes = jnp.asarray(rng.integers(0, 4, (b, n)), jnp.int32)
+    goal_lanes = jnp.asarray(rng.integers(0, 4, (b, n)), jnp.int32)
+    keys = jax.random.split(jax.random.PRNGKey(int(rng.integers(1 << 30))),
+                            b)
+    acts = jnp.asarray(rng.integers(0, 5, (4, b, n)), jnp.int32)
+    ts, a, ts2 = _roadway_steps(env)(keys, lanes, goal_lanes, acts)
+    return {"obs": ts.obs, "state": ts.state, "a": a, "r": ts2.reward,
+            "rl": ts2.reward_local + jnp.asarray(rng.normal(size=(b, n)),
+                                                 jnp.float32),
+            "obs_next": ts2.obs, "state_next": ts2.state,
+            "done": jnp.asarray(rng.random(b) < 0.3),
+            "goals": jax.nn.one_hot(goal_lanes, 4, dtype=jnp.float32)}
+
+
+_ROADWAY_STEPS = {}
+
+
+def _roadway_steps(env):
+    """A jitted reset and four filtered steps of ``env``'s config
+    (compiled once per config): -> (timestep before the last step, its
+    filtered action, timestep after)."""
+    if env.cfg not in _ROADWAY_STEPS:
+        def run(keys, lanes, goal_lanes, acts):
+            s, ts = jax.vmap(env.reset)(keys, dict(lanes=lanes,
+                                                   goal_lanes=goal_lanes))
+            check, step = jax.vmap(env.check_actions), jax.vmap(env.step)
+            for k in range(3):
+                s, ts = step(s, check(s, acts[k]))
+            a = check(s, acts[3])
+            return ts, a, step(s, a)[1]
+        _ROADWAY_STEPS[env.cfg] = jax.jit(run)
+    return _ROADWAY_STEPS[env.cfg]
+
+
+ROADWAY_B, ROADWAY_UPDATES = 16, 3
+# Roadway CM3's stage-2 state at atol 1e-5 (networks, targets, mu).  Its
+# Q_credit is 256 wide (102,785 floats), and one float's first gradient
+# in these batches is 1.2e-8, next to Adam's eps (1e-8): the two
+# packages' gradients, float32 sums in other orders, are 2.3e-10 apart
+# there (7.5e-9 at most over the network, of |g| up to 0.042), and the
+# first Adam step lr * g / (|g| + eps) turns that into 4.77e-6 (measured
+# after 1, 2 and 3 updates, optax and fused alike); every other float
+# of every roadway case is within 1e-6, as QMIX_TOL's note explains.
+ROADWAY_QC_TOL = dict(atol=1e-5)
+
+
+def roadway_case_runs(kind, stage, opts):
+    """ROADWAY_UPDATES updates of ``kind`` (``roadway_algs``) with the
+    options ``opts`` at ``stage`` (one car at 1, two at 2) in both
+    packages (``update_runs``), on batches from random lanes."""
+    je, _ = roadway_envs(stage)
+    ja, ta = roadway_algs(kind, je.spec(), **opts)
+    rng = np.random.default_rng(stage)
+    batches = [roadway_batch(je, ROADWAY_B, rng)
+               for _ in range(ROADWAY_UPDATES)]
+    out = update_runs(ja, ta, batches, gumbel=kind != "qmix")
+    out["kind"] = kind
+    return out
