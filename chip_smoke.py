@@ -4,13 +4,14 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Thirteen phases, each between progress lines with its elapsed seconds
+Fourteen phases, each between progress lines with its elapsed seconds
 and held to a time budget (30 + 45 + 20 + 20 + 90 + 10 + 95 + 60 + 40 +
-225 + 230 + 130 + 100 s = 1095 s: about twice each phase's longest time
-on an H100, 0: 4.1, 1: 21.2, 2: 3.1, 3: 3.4, 4: 41.6, 5: 0.8, 6: 46.4,
-7: 30.1, 8: 18.8, 9: 111.4, 10: 113.4, 11: 63.5, 12: 45.3 s, with at
-least 10 s a phase and 30 s for a cold ``nvcc`` build; a whole run took
-224-407 s before phase 12):
+140 + 140 + 110 + 90 + 290 s = 1180 s: about twice each phase's longest
+time on an H100, 0: 4.6, 1: 21.3, 2: 3.1, 3: 3.4, 4: 45.2, 5: 0.8, 6:
+51.3, 7: 30.1, 8: 21.4, 9: 111.4, 10: 113.4, 11: 63.5, 12: 45.3 s, with
+at least 10 s a phase and 30 s for a cold ``nvcc`` build; phases 9 and
+10 since cut to 200 stage-1 and 150 cell episodes: 57.1 and 59.3 s; phase
+13 156.1 s; a whole run 493.9 s):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -32,7 +33,11 @@ least 10 s a phase and 30 s for a cold ``nvcc`` build; a whole run took
    plain version's time and a library yardstick over the same networks
    (``torch.optim.Adam(fused=True, capturable=True).step`` plus
    ``torch._foreach_lerp_``; the port never calls it), kernel and
-   yardstick timed in turns; the same at the seed-batched path's sizes
+   yardstick timed in turns (the kernel alone through its C entry,
+   reading its step counts from device memory, with no predicate and
+   with a device predicate of 1, and through its wrapper
+   ``adam_polyak_many``, also back to back); the same at the
+   seed-batched path's sizes
    (16 seeds: segments of 16 x n floats); one CM3 update's tail as two
    launches against three, warm and cold, in turns; the kernel's
    registers and resident blocks per SM.
@@ -66,8 +71,9 @@ least 10 s a phase and 30 s for a cold ``nvcc`` build; a whole run took
    read just after; its time back to back and in CUDA graphs, after a
    PyTorch kernel, warm, cold and at n = 0, beside its memory bound, the
    plain version's and ``Tensor.lerp_``'s (kernel and ``lerp_`` in graphs
-   in turns, after a PyTorch kernel, warm and cold, with their spread);
-   registers and blocks per SM.
+   in turns, after a PyTorch kernel, warm and cold, with their spread;
+   the kernel also under a device predicate of 1); registers and blocks
+   per SM.
 6. the fused particle rollout (CUDA C++) and
 7. the fused roadway rollout (CUDA C++), each: the kernel against its
    plain version on fed actions at a ragged batch over several
@@ -115,7 +121,9 @@ least 10 s a phase and 30 s for a cold ``nvcc`` build; a whole run took
    first (shared leaves equal stage 1's bit for bit, Q_credit's equal
    Q_global's, targets equal mains), then trained with the Adam +
    Polyak and the Polyak kernels' launch counts set to 0 just before
-   and read just after (the Polyak kernel once per frozen update); the
+   and read just after (the freeze is a device predicate: B1 twice and
+   the Polyak kernel once at every update, each writing where its
+   predicate holds); the
    autosave's bytes and seconds and a period's CSV writes, timed alone;
    stage 2 resumed with ``auto_resume`` to a larger budget, starting
    at the autosave's episode count; three seeds in lockstep
@@ -132,7 +140,7 @@ least 10 s a phase and 30 s for a cold ``nvcc`` build; a whole run took
    3's tolerance; the paper's ``checkers_qmix``, ``checkers_qmix_ref``,
    ``checkers_coma`` and ``checkers_iac`` cells (16 envs, N_eval 10, a
    period of 100 episodes, stage 2 from nothing; budgets cut from
-   50,000 episodes to 300, ``CELL_*`` below) through
+   50,000 episodes to 150, ``CELL_*`` below) through
    ``runner.train_function`` in turns with CM3's stage 2 from nothing
    (the optax path, as the cells), each with the Adam + Polyak kernel's
    launch count set to 0 just before and read just after (these
@@ -158,7 +166,7 @@ least 10 s a phase and 30 s for a cold ``nvcc`` build; a whole run took
    to 0 just before and read just after (0 on the optax path, which
    the paper's cells run), the stage-1 -> stage-2 graft held on the
    card first; one fused stage 2 with the actor frozen for 20 updates
-   (B1 = 2 per update less the frozen ones, B3 = the frozen updates);
+   (B1 = 2 and B3 = 1 per update: the freeze predicates);
    three seeds in lockstep on-policy with the graft into every seed;
    an auto-resume (the state restored, the episode count restarted, as
    JAX's on-policy runner does); and one ``python -m
@@ -182,20 +190,44 @@ least 10 s a phase and 30 s for a cold ``nvcc`` build; a whole run took
    process, its graft into stage 2 held on the card, ``roadway_s2``
    (grafted, dual buffer), ``roadway_s2_stable`` (``grad_clip`` 10),
    ``roadway_qmix``, a fused ``roadway_s2`` with the actor frozen for
-   20 updates (B1 = 2 per update less the frozen ones, B3 = the frozen
-   updates), ``particle_s2_dual`` (on-policy, from nothing) and
+   20 updates (B1 = 2 and B3 = 1 per update), ``particle_s2_dual`` (on-policy, from nothing) and
    ``roadway_s2`` with three seeds in lockstep (16 envs, N_eval 10, a
    period of 100 episodes; budgets ``RD_*`` below) through
    ``runner.train_function`` / ``train_multiseed``, each with B1's
    launch count set to 0 just before and read just after.  Each run's
    episodes per second and its last row's ``n_bad``/``n_good``.
+13. the single-env cells through the runner (the K-chunk schedule,
+   ``chunks_per_sync`` = 32, ``train/offpolicy.py``): B1 (the actor's
+   launch; both critics' in one) and B3 under the device predicate 0, 1
+   and none against their plain versions bit for bit at the Checkers
+   sizes; card against CPU after one K = 6 dispatch across the fill ->
+   train boundary at full width (``checkers_s2_e1``'s settings, phase
+   3's tolerance); one K = 32 dispatch across that boundary under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) on the
+   optax path, the fused path with the actor frozen and QMIX; then the
+   paper's ``checkers_s2_e1`` (grafted from a short stage 1 of its own)
+   at its settings (n_envs 1, K = 32, N_eval 10, a period of 100
+   episodes, a fill of 50; the episodes cut, ``E1_*`` below) through
+   ``runner.train_function``, its episodes per second and host syncs
+   per episode; ``checkers_s2_e1`` at K = 1 and at K = 32 in turns,
+   100 episodes each (about 10 dispatches at K = 32); a
+   fused ``checkers_s2_e1`` with the actor frozen for 20 updates, with
+   B1's and B3's launch counts set to 0 just before and read just
+   after (B1 twice and B3 once per computed update, gated or not); and
+   ``checkers_qmix_e1`` (from nothing) through one ``python -m
+   cm3_tpu_torch.train.runner`` process.
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
 mean of the main path's two launches; B1's ``launches`` are phase 2's,
 B3's phase 9's, its training path: the actor freeze on the fused path;
 beside them ``particle_onpolicy_launches``, phase 11's fused stage 2,
-and ``roadway_launches``, phase 12's fused roadway stage 2),
+``roadway_launches``, phase 12's fused roadway stage 2, and
+``kchunk_launches``, phase 13's fused single-env run; ``pred_ms``,
+the kernel's time under a device predicate of 1; and B1's
+``wrapper_ms``, ``adam_polyak_many``'s device time after a PyTorch
+kernel as the update calls it, and ``wrapper_b2b_ms``, its time per
+call back to back, the host's dispatch included),
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device, or without the package beside it, it
@@ -291,18 +323,18 @@ SEEDS, BLOCKS, BLOCK_CHUNKS = 16, 5, 10
 STAGE1_SEEDS, STAGE1_EPISODES = 3, 500
 # the curriculum through the runner (phase 9): the paper's checkers_s1 /
 # checkers_s2 / checkers_s2_V cells (16 envs, N_eval 10, a period of 100
-# episodes) with episode budgets cut to the phase's time: stage 1 400
+# episodes) with episode budgets cut to the phase's time: stage 1 200
 # episodes (the runner alone, then OffPolicyDriver.run alone), stage 2
-# 300 with the actor frozen for its first 20 updates, the resume to 500,
+# 200 with the actor frozen for its first 20 updates, the resume to 400,
 # 3 seeds in lockstep 200 each, the V ablation 200, the CLI 100
 CURR_ENVS, CURR_N_EVAL = 16, 10
-CURR_S1, CURR_S2, CURR_RESUME, CURR_SEEDS, CURR_SEEDED = 400, 300, 500, 3, 200
+CURR_S1, CURR_S2, CURR_RESUME, CURR_SEEDS, CURR_SEEDED = 200, 200, 400, 3, 200
 CURR_V, CURR_CLI, CURR_FREEZE = 200, 100, 20
 # the baselines and QMIX (phase 10): (alg_name, AlgConfig options) of the
 # six configurations held card against CPU, their metrics, and the paper
 # cells' episode budgets cut to the phase's time (the paper's runs are
-# 50,000 episodes): each cell 300, the COMA seeds 200 each, the QMIX
-# resume to 500
+# 50,000 episodes): each cell 150, the COMA seeds 200 each, the QMIX
+# resume to 400
 OTHER_CONFIGS = {
     "qmix": ("qmix", {}), "qmix_ref": ("qmix", dict(qmix_ref_bug=True)),
     "coma": ("coma", dict(use_Q=True)),
@@ -312,7 +344,7 @@ OTHER_CONFIGS = {
 }
 CELL_METRICS = {"qmix": ("loss_mixer",), "coma": ("loss_Q", "policy_loss"),
                 "iac": ("loss_V", "policy_loss")}
-CELL_EPISODES, CELL_SEEDED, CELL_RESUME = 300, 200, 500
+CELL_EPISODES, CELL_SEEDED, CELL_RESUME = 150, 200, 400
 # particle through the runner (phase 11): the paper's particle_s1,
 # particle_s2, particle_s2_V, particle_coma and particle_qmix cells and an
 # IAC run (16 envs, N_eval 10, a period of 100 episodes; the paper's runs
@@ -342,6 +374,19 @@ RD_S1, RD_S2, RD_CELL, RD_SEEDED, RD_FREEZE = 150, 150, 100, 100, 20
 # chunk; a short road at top speed (episodes of 4-6 steps) and a slab of
 # 3 transitions, so that episodes end inside chunks and lose their tails
 RD_PAR_ENVS, RD_PAR_BATCH, RD_PAR_UPDATES, RD_SLAB = 16, 128, 4, 3
+
+# the single-env cells through the runner (phase 13): the paper's
+# checkers_s2_e1 and checkers_qmix_e1 (n_envs 1, K = 32 chunks per host
+# sync, N_eval 10, a period of 100 episodes, a fill of 50; the paper's
+# runs are 50,000 episodes) with the episodes cut to the phase's time
+# (one env runs 4.3-5 episodes/s on an H100, and a K = 32 dispatch ~10
+# episodes of ~33 steps): checkers_s2_e1 200 episodes (from a stage 1
+# of 100 at 16 envs), checkers_qmix_e1 200 through the CLI,
+# checkers_s2_e1 at K = 1 and K = 32 in turns 100 each without a fill
+# (every chunk trains, at K = 1 as at K = 32), a fused checkers_s2_e1
+# with the actor frozen for its first 20 updates 20 without a fill
+E1_K, E1_PERIOD, E1_FILL, E1_S1, E1_CELL = 32, 100, 50, 100, 200
+E1_TURN, E1_TURN_FILL, E1_FREEZE_RUN, E1_FREEZE = 100, 0, 20, 20
 
 T0 = time.time()
 
@@ -549,12 +594,25 @@ def hold_adam(dev, gen, spec, steps=5):
     return err
 
 
-def adam_call(nets):
-    """A call of ``adam_polyak_many`` over ``nets`` (from ``adam_net``):
-    one launch."""
-    from cm3_tpu_torch.ops import fused_opt
+def adam_call(nets, pred=None):
+    """One launch of the kernel over ``nets`` (from ``adam_net``) as
+    ``adam_polyak_many`` makes it, each segment reading its step count
+    from device memory and writing the advanced count to a tensor of its
+    own (made once here, where the wrapper makes new ones at every call)
+    under the bool device predicate ``pred`` (or none): the C entry
+    alone, for timing."""
+    import torch
+    from cm3_tpu_torch.ops import _nvcc, fused_opt
     items = [(st, p, t, g, LR) for st, p, t, g in nets]
-    return lambda: fused_opt.adam_polyak_many(items, TAU)
+    counts = torch.zeros(len(nets), dtype=torch.int32,
+                         device=nets[0][1].device).unbind()
+    args = fused_opt.c_args(items, counts, pred, TAU)
+    lib = _nvcc.library()
+    _nvcc.check(lib.cm3_adam_polyak(
+        *args, torch.cuda.current_stream().cuda_stream), "adam_polyak")
+    # the closure holds every buffer whose pointer the launch passes
+    return lambda: (items, counts, pred, lib.cm3_adam_polyak(
+        *args, torch.cuda.current_stream().cuda_stream))
 
 
 def after_ms(pairs, alone):
@@ -571,16 +629,24 @@ def adam_times(dev, gen, name, sizes):
     ``_foreach_lerp_`` over the same networks), each of the two also
     after a PyTorch kernel (``after_pytorch``), cold (rotating buffer
     sets) and at n = 0 (the launch floor); the plain version after a
-    PyTorch kernel; the bound.  The returned times are those after a
-    PyTorch kernel."""
+    PyTorch kernel; the wrapper ``adam_polyak_many`` as the update calls
+    it (its new count tensors made at every call), back to back and
+    after a PyTorch kernel; the bound.  The returned times are those
+    after a PyTorch kernel."""
     import torch
     from cm3_tpu_torch.ops import fused_opt
 
     nets = [adam_net(dev, gen, n) for n in sizes]
     kern = adam_call(nets)
+    one = torch.ones((), dtype=torch.bool, device=dev)
+    kern_pred = adam_call(nets, one)
+    witems = [(st, p, t, g, LR) for st, p, t, g in
+              (adam_net(dev, gen, n) for n in sizes)]
+    wrapper = lambda: fused_opt.adam_polyak_many(witems, TAU)
+    tiles = [fused_opt.bias_corrections(st.count) for st, *_ in nets]
     plain = lambda: [fused_opt.adam_polyak_plain(
-        p, t, st.mu, st.nu, g, *fused_opt.bias_corrections(st.count), LR,
-        TAU) for st, p, t, g in nets]
+        p, t, st.mu, st.nu, g, c[0], c[1], LR, TAU)
+        for (st, p, t, g), c in zip(nets, tiles)]
     lp = [torch.nn.Parameter(p.clone()) for _, p, _, _ in nets]
     for x, (*_, g) in zip(lp, nets):
         x.grad = g.clone()
@@ -597,30 +663,39 @@ def adam_times(dev, gen, name, sizes):
         BYTES_PER_ELEM * sum(sizes))
     floor = adam_call([adam_net(dev, gen, 0) for _ in sizes])
     foreign, after = after_pytorch(dev)
-    b2b = cuda_time_ms(kern, 500)
-    warm, lib, alone, a_kern, a_lib = graph_turns(
-        kern, library, foreign, after(kern), after(library))
+    b2b, w_b2b = cuda_time_ms(kern, 500), cuda_time_ms(wrapper, 500)
+    warm, lib, alone, a_kern, a_lib, a_pred, a_wrap = graph_turns(
+        kern, library, foreign, after(kern), after(library), after(kern_pred),
+        after(wrapper))
     colds, floors = graph_turns((cold, per_graph), floor)
     a_plain, alone_p = graph_turns(after(plain), foreign)
     kern_ms, lib_ms = after_ms(a_kern, alone), after_ms(a_lib, alone)
+    pred_ms, wrap_ms = after_ms(a_pred, alone), after_ms(a_wrap, alone)
     plain_ms = after_ms(a_plain, alone_p)
     bound, bound_by = flat_bound(sum(sizes), BYTES_PER_ELEM, OPS_PER_ELEM)
     med = statistics.median
     log(f"  adam_polyak {name} (n = {' + '.join(map(str, sizes))}, one "
-        f"launch): back to back {b2b * 1e3:.2f} us; in CUDA graphs (median "
+        f"launch, (c1, c2) computed from the device's step count): back to "
+        f"back {b2b * 1e3:.2f} us, through the wrapper {w_b2b * 1e3:.2f} "
+        f"us; in CUDA graphs (median "
         f"and range of {2 * TURNS}, in turns): warm {us_spread(warm)}, "
         f"library Adam(fused, capturable)+_foreach_lerp_ {us_spread(lib)}; "
         f"after a PyTorch kernel ({us_spread(alone)} alone): kernel "
-        f"{kern_ms * 1e3:.2f} us more (pair {us_spread(a_kern)}), library "
+        f"{kern_ms * 1e3:.2f} us more (pair {us_spread(a_kern)}), with a "
+        f"device predicate (1) {pred_ms * 1e3:.2f} us more (pair "
+        f"{us_spread(a_pred)}), the wrapper {wrap_ms * 1e3:.2f} us more "
+        f"(pair {us_spread(a_wrap)}), library "
         f"{lib_ms * 1e3:.2f} us more (pair {us_spread(a_lib)}), plain "
         f"{plain_ms * 1e3:.2f} us more; cold {us_spread(colds)}, floor "
         f"(n = 0) {us_spread(floors)}; bound {bound * 1e3:.3f} us "
         f"({bound_by}: {BYTES_PER_ELEM} B and {OPS_PER_ELEM} operations x "
         f"{sum(sizes)} at {HBM_BPS / 1e12} TB/s and {F32_FLOPS / 1e12} "
         f"TFLOP/s), share warm {bound / med(warm):.3f}, after a PyTorch "
-        f"kernel {bound / kern_ms:.3f}, cold {bound / med(colds):.3f}")
+        f"kernel {bound / kern_ms:.3f}, with the predicate "
+        f"{bound / pred_ms:.3f}, cold {bound / med(colds):.3f}")
     return {"ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound, "bound_by": bound_by}
+            "bound_ms": bound, "bound_by": bound_by, "pred_ms": pred_ms,
+            "wrapper_ms": wrap_ms, "wrapper_b2b_ms": w_b2b}
 
 
 def phase_kernel(dev):
@@ -699,7 +774,8 @@ def phase_kernel(dev):
     mean = lambda k: (actor[k] + critics[k]) / 2
     return {"max_abs_err": err, "bound_by": bound_by,
             **{k: mean(k) for k in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms")}}
+                                    "bound_ms", "pred_ms", "wrapper_ms",
+                                    "wrapper_b2b_ms")}}
 
 
 # ------------------------------------------------------------------ #
@@ -1099,7 +1175,7 @@ def phase_curriculum(dev):
                                               "model_final"))
         periods = len(st1["history"])
         wall1, wall_d = sum(walls["runner"]) / 2, sum(walls["driver"]) / 2
-        log(f"  stage 1: {ts1.step} updates, {st1['episodes']} episodes, "
+        log(f"  stage 1: {int(ts1.step)} updates, {st1['episodes']} episodes, "
             f"{len(st1['history'])} period rows")
         log(f"  the runner's overhead: {wall1 - wall_d:.3f} s a run of "
             f"{periods} periods (means of 2 in turns: {wall1:.2f} against "
@@ -1121,11 +1197,13 @@ def phase_curriculum(dev):
             lambda: runner.train_function(s2, wd, verbose=False,
                                           device=dev))
         b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
-        frozen = min(CURR_FREEZE, ts2.step)
-        log(f"  stage 2: {ts2.step} updates; adam_polyak {b1} launches, "
-            f"polyak {b3} launches ({frozen} frozen updates)")
-        assert b1 == 2 * ts2.step - frozen and b1 > 0, b1
-        assert b3 == frozen > 0, b3
+        steps = int(ts2.step)
+        frozen = min(CURR_FREEZE, steps)
+        log(f"  stage 2: {steps} updates; adam_polyak {b1} launches, "
+            f"polyak {b3} launches ({frozen} frozen updates; both under "
+            "the device's freeze predicates at every update)")
+        assert b1 == 2 * steps and b1 > 0, b1
+        assert b3 == steps > frozen > 0, b3
         for name in ("actor", "qg", "qc"):
             assert torch.isfinite(getattr(ts2, name).flat).all(), name
 
@@ -1168,7 +1246,7 @@ def phase_curriculum(dev):
         assert first // 100 > start // 100 and st3["episodes"] >= CURR_RESUME
         assert len(_rows(wd, "ck_s2")) == before + len(st3["history"])
         log(f"  resume: started at episode {start} (the autosave's), first "
-            f"period row at {first}, {ts3.step - ts2.step} more updates")
+            f"period row at {first}, {int(ts3.step - ts2.step)} more updates")
 
         # 4. three seeds in lockstep, the stage-2 graft into every seed
         sv = dict(s2, dir_name="ck_s2_seeds", vmapped_seeds=1,
@@ -1379,7 +1457,7 @@ def phase_baselines(dev):
             for k in CELL_METRICS.get(m["alg_name"], ()):
                 assert np.isfinite([r[k] for r in rows]).all(), k
             rates.setdefault(who, []).append(st["episodes"] / wall)
-            log(f"  {who}: {ts.step} updates, adam_polyak {b1} launches, "
+            log(f"  {who}: {int(ts.step)} updates, adam_polyak {b1} launches, "
                 f"last row episode {rows[-1]['episode']}, r_eval_global "
                 f"{rows[-1]['r_eval_global']:.3f}")
         cm3_rate = statistics.mean(rates["cm3"])
@@ -1709,7 +1787,7 @@ def phase_particle_runner(dev):
             rows = st["history"]
             assert rows and all(np.isfinite(r["r_eval_local"]).all()
                                 for r in rows)
-            log(f"    {ts.step} updates, {_onpolicy_times(st)}; last row: "
+            log(f"    {int(ts.step)} updates, {_onpolicy_times(st)}; last row: "
                 f"episode {rows[-1]['episode']}, r_eval_global "
                 f"{rows[-1]['r_eval_global']:.3f}, eval_reach_rate "
                 f"{rows[-1]['eval_reach_rate']:.3f}; adam_polyak "
@@ -1733,11 +1811,13 @@ def phase_particle_runner(dev):
         tsf, _ = run(f"particle_s2, fused, actor frozen {PT_FREEZE} updates",
                      fused)
         b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
-        frozen = min(PT_FREEZE, tsf.step)
-        assert b1 == 2 * tsf.step - frozen and b1 > 0, (b1, tsf.step)
-        assert b3 == frozen > 0, b3
-        log(f"  fused stage 2: {tsf.step} updates, adam_polyak {b1} launches "
-            f"= 2 x {tsf.step} - {frozen} frozen, polyak {b3}")
+        steps = int(tsf.step)
+        frozen = min(PT_FREEZE, steps)
+        assert b1 == 2 * steps and b1 > 0, (b1, steps)
+        assert b3 == steps > frozen > 0, b3
+        log(f"  fused stage 2: {steps} updates ({frozen} frozen), "
+            f"adam_polyak {b1} launches = 2 x {steps}, polyak {b3} = "
+            f"{steps} (the freeze predicates at every update)")
 
         # 5. the V ablation, COMA, IAC (on-policy) and QMIX (off-policy)
         for name, m in cells.items():
@@ -1778,9 +1858,9 @@ def phase_particle_runner(dev):
             s2, auto_resume=1, require_resume=1, N_train=PT_RESUME))
         assert ts5.step > start["ts"].step > 0
         assert st5["history"][0]["episode"] // 100 == 1
-        log(f"  resume: the autosave's state at step {start['ts'].step} "
+        log(f"  resume: the autosave's state at step {int(start['ts'].step)} "
             f"(episode {start['episodes']}), the count restarted: first row "
-            f"at {st5['history'][0]['episode']}, step {ts5.step} after")
+            f"at {st5['history'][0]['episode']}, step {int(ts5.step)} after")
 
         # 8. the CLI in a process of its own
         cfg = os.path.join(wd, "cli_master.json")
@@ -2031,7 +2111,7 @@ def phase_roadway_runner(dev):
             traffic = (f", eval_avg_speed {row['eval_avg_speed']:.3f}, "
                        f"eval_count_success {row['eval_count_success']:.2f}"
                        if "eval_avg_speed" in row else "")
-            log(f"    {ts.step} updates; last row: episode "
+            log(f"    {int(ts.step)} updates; last row: episode "
                 f"{row['episode']}, r_eval_global "
                 f"{row['r_eval_global']:.3f}{traffic}{extra}; adam_polyak "
                 f"{fused_opt.adam_polyak.launches}, polyak "
@@ -2079,12 +2159,13 @@ def phase_roadway_runner(dev):
             if m.get("fused_opt"):
                 b1 = fused_opt.adam_polyak.launches
                 b3 = polyak.polyak_update.launches
-                frozen = min(RD_FREEZE, ts.step)
-                assert b1 == 2 * ts.step - frozen and b1 > 0, (b1, ts.step)
-                assert b3 == frozen > 0, b3
-                log(f"  fused roadway_s2: {ts.step} updates, adam_polyak "
-                    f"{b1} launches = 2 x {ts.step} - {frozen} frozen, "
-                    f"polyak {b3}")
+                steps = int(ts.step)
+                frozen = min(RD_FREEZE, steps)
+                assert b1 == 2 * steps and b1 > 0, (b1, steps)
+                assert b3 == steps > frozen > 0, b3
+                log(f"  fused roadway_s2: {steps} updates ({frozen} frozen), "
+                    f"adam_polyak {b1} launches = 2 x {steps}, polyak {b3} "
+                    f"= {steps} (the freeze predicates at every update)")
             else:
                 assert fused_opt.adam_polyak.launches == 0, name
 
@@ -2108,6 +2189,266 @@ def phase_roadway_runner(dev):
 # ------------------------------------------------------------------ #
 # the CUDA C++ build
 # ------------------------------------------------------------------ #
+
+
+# ------------------------------------------------------------------ #
+# the single-env cells through the runner (the K-chunk schedule)
+# ------------------------------------------------------------------ #
+
+
+def _e1_masters():
+    """master.json with the paper's checkers_s2_e1 and checkers_qmix_e1
+    settings (scripts/reproduce_paper.py:536-552: n_envs 1, one update
+    per 10 env steps, K = 32 chunks per host sync, N_eval 10), the
+    period, the fill and the budgets cut (``E1_*``), and the short stage
+    1 (16 envs, a period of 100) that checkers_s2_e1 grafts."""
+    from cm3_tpu_torch.core import config
+    m = config.load_json("master.json")
+    m.update(experiment="checkers", N_eval=10, period=100)
+    s1 = dict(m, stage=1, n_envs=16, dir_name="ck_s1", N_train=E1_S1)
+    e1 = dict(m, stage=2, n_envs=1, chunks_per_sync=E1_K, period=E1_PERIOD,
+              pretrain_episodes=E1_FILL)
+    s2 = dict(e1, dir_name="ck_s2e1", dir_restore="ck_s1",
+              train_from_nothing=0, N_train=E1_CELL)
+    qm = dict(e1, alg_name="qmix", dir_name="ck_qme1", train_from_nothing=1,
+              N_train=E1_CELL)
+    return s1, s2, qm
+
+
+def _e1_program(master, dev, **over):
+    """(driver, alg, state, replay, rollout, draws) of ``master`` (with
+    the TrainConfig fields ``over``) on ``dev``, the state from SEED (the
+    same weights on every device)."""
+    import dataclasses
+    from cm3_tpu_torch.core import prng
+    from cm3_tpu_torch.train import runner
+    from cm3_tpu_torch.train.offpolicy import init_rollout
+    driver, alg, _, cfg = runner.build(master, device=dev)
+    driver.cfg = dataclasses.replace(cfg, **over)
+    draws = prng.GeneratorDraws(prng.generator(
+        prng.for_purpose(prng.root_key(SEED), prng.ROLLOUT), dev))
+    rs = init_rollout(driver.hooks, 1, draws)
+    buf, rs = driver.init_replay(rs)
+    return driver, alg, alg.init_state(prng.root_key(SEED)), buf, rs, draws
+
+
+def _sync_free(dev, name, master):
+    """One K-chunk dispatch that crosses the fill -> train boundary under
+    ``torch.cuda.set_sync_debug_mode("error")``, after a dispatch of two
+    chunks that warms every kernel and workspace (a fill chunk computes
+    what a training chunk does): the chunks it trained."""
+    import dataclasses
+    import torch
+    driver, _, ts, buf, rs, draws = _e1_program(master, dev)
+    ts, buf, rs, _ = driver._chunks_scanned(ts, buf, rs, draws, 2)
+    episodes = int(rs.episodes)
+    driver.cfg = dataclasses.replace(driver.cfg,
+                                     pretrain_episodes=episodes + 2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts, buf, rs, m = driver._chunks_scanned(ts, buf, rs, draws, E1_K)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    trained = int(m["trained_chunks"])
+    assert 0 < trained < E1_K, (name, trained)
+    log(f"  {name}: one K = {E1_K} dispatch across the fill -> train "
+        f"boundary (episodes {episodes} -> {int(rs.episodes)}, {trained} "
+        "chunks trained) with no host sync (set_sync_debug_mode error)")
+    return trained
+
+
+def _e1_parity(device, master, k_chunks=6):
+    """Card against CPU after one K-chunk dispatch that crosses the fill
+    -> train boundary (the first episode, 33 steps, ends in the fourth
+    chunk: pretrain_episodes 1), from the same state with the same fed
+    draws: (max abs difference, chunks trained)."""
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.core import prng
+    rng = np.random.default_rng(SEED + 13)
+    b = master["batch_size"]
+    rand, gumbel = [], []
+    for c in range(k_chunks):
+        for _ in range(STEPS):
+            gumbel.append(rng.gumbel(size=(1, 2, 5)).astype(np.float32))
+            rand.append(rng.integers(0, 5, (1, 2)))
+        rand.append(rng.integers(0, STEPS * (c + 1), b))
+        gumbel.append(rng.gumbel(size=(b, 2, 5)).astype(np.float32))
+    out = {}
+    for dev in (device, "cpu"):
+        driver, alg, ts, buf, rs, _ = _e1_program(master, dev,
+                                                  pretrain_episodes=1)
+        draws = prng.FedDraws(rand, gumbel, device=dev)
+        out[dev] = driver._chunks_scanned(ts, buf, rs, draws, k_chunks)
+        assert not any(draws.remaining().values())
+    (ts_c, _, rs_c, m_c), (ts_h, _, rs_h, m_h) = out[device], out["cpu"]
+    worst = 0.0
+    for name in alg.net_names():
+        o_c, o_h = getattr(ts_c, "opt_" + name), getattr(ts_h, "opt_" + name)
+        for got, want in ((getattr(ts_c, name).flat, getattr(ts_h, name).flat),
+                          (getattr(ts_c, name + "_tgt").flat,
+                           getattr(ts_h, name + "_tgt").flat),
+                          (o_c.mu, o_h.mu), (o_c.nu, o_h.nu)):
+            torch.testing.assert_close(got.cpu(), want, rtol=PARITY_RTOL,
+                                       atol=PARITY_ATOL)
+            worst = max(worst, float((got.cpu() - want).abs().max()))
+        assert int(o_c.count) == int(o_h.count)
+    for k in m_h:
+        torch.testing.assert_close(m_c[k].cpu(), m_h[k], rtol=PARITY_RTOL,
+                                   atol=PARITY_ATOL)
+    trained = int(m_h["trained_chunks"])
+    assert int(rs_c.episodes) == int(rs_h.episodes) >= 1
+    assert int(ts_c.step) == int(ts_h.step) == trained > 0
+    assert trained < k_chunks
+    return worst, trained
+
+
+def _hold_gated_kernels(dev):
+    """B1 and B3 under the device predicate 0, 1 and none against their
+    plain versions at the Checkers sizes, bit for bit (rtol 0, atol 0),
+    for 3 steps: the actor's launch and both critics' in one."""
+    import torch
+    from cm3_tpu_torch.algs import common
+    from cm3_tpu_torch.ops import fused_opt, polyak
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    err = 0.0
+    for apply in (None, 0, 1):
+        pred = (None if apply is None else
+                torch.full((), apply, dtype=torch.bool, device=dev))
+        for sizes in ([MAIN_SIZES["actor"]],
+                      [MAIN_SIZES["Q_global"], MAIN_SIZES["Q_credit"]]):
+            nets = [adam_net(dev, gen, n, count=3) for n in sizes]
+            ref = [(common.AdamState(st.mu.clone(), st.nu.clone(), st.count),
+                    p.clone(), t.clone()) for st, p, t, _ in nets]
+            for _ in range(3):
+                for *_, g in nets:
+                    g.normal_(generator=gen).mul_(1e-3)
+                fused_opt.adam_polyak_many(
+                    [(st, p, t, g, LR) for st, p, t, g in nets], TAU,
+                    apply=pred)
+                for (rst, rp, rt), (*_, g) in zip(ref, nets):
+                    tile = common.advance(rst, pred)
+                    fused_opt.adam_polyak_plain(rp, rt, rst.mu, rst.nu, g,
+                                                tile[0], tile[1], LR, TAU,
+                                                apply=pred)
+            err = max(err, assert_bit_equal(
+                [(a, b) for (st, p, t, _), (rst, rp, rt) in zip(nets, ref)
+                 for a, b in ((p, rp), (t, rt), (st.mu, rst.mu),
+                              (st.nu, rst.nu), (st.count, rst.count))],
+                f"adam_polyak {sizes}, predicate {apply}"))
+            assert all(int(st.count) == 3 + 3 * (1 if apply is None else
+                                                 apply) for st, *_ in nets)
+        t = torch.randn(MAIN_SIZES["actor"], device=dev, generator=gen)
+        m = torch.randn(MAIN_SIZES["actor"], device=dev, generator=gen)
+        want = polyak.polyak_update_plain(t.clone(), m, TAU, pred)
+        polyak.polyak_update(t, m, TAU, pred)
+        err = max(err, assert_bit_equal([(t, want)],
+                                         f"polyak, predicate {apply}"))
+    log("  adam_polyak (actor; both critics in one launch) and polyak at the "
+        "Checkers sizes under the device predicate 0, 1 and none: kernel == "
+        "plain bit for bit (rtol 0, atol 0) over 3 steps, the counts "
+        "advanced by the predicate")
+    return err
+
+
+def phase_e1(dev):
+    import tempfile
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.ops import fused_opt, polyak
+    from cm3_tpu_torch.train import runner
+
+    err = _hold_gated_kernels(dev)
+    s1, s2, qm = _e1_masters()
+    worst, trained = _e1_parity(dev, s2)
+    log(f"  checkers_s2_e1: card == CPU after one K = 6 dispatch across the "
+        f"fill -> train boundary ({trained} chunks trained; rtol "
+        f"{PARITY_RTOL}, atol {PARITY_ATOL}); max abs difference {worst:.3g}")
+    fused = dict(s2, fused_opt=1, actor_freeze_updates=E1_FREEZE)
+    for name, m in (("checkers_s2_e1, optax", s2),
+                    (f"checkers_s2_e1, fused, actor frozen {E1_FREEZE}",
+                     fused), ("checkers_qmix_e1", qm)):
+        _sync_free(dev, name, m)
+
+    with tempfile.TemporaryDirectory() as wd:
+        _timed_run(f"stage 1 for the graft ({s1['n_envs']} envs)",
+                   lambda: runner.train_function(s1, wd, verbose=False,
+                                                 device=dev))
+        (ts, st), wall = _timed_run(
+            f"checkers_s2_e1 (n_envs 1, K = {E1_K}, grafted)",
+            lambda: runner.train_function(s2, wd, verbose=False, device=dev))
+        rate = st["episodes"] / wall
+        row = st["history"][-1]
+        assert st["episodes"] >= E1_CELL and int(ts.step) > 0
+        assert np.isfinite([row["r_eval_global"]]).all()
+        log(f"    {int(ts.step)} updates, {st['dispatches']} host syncs "
+            f"of the episode count ({st['dispatches'] / st['episodes']:.3f}"
+            f" an episode); last row: episode {row['episode']}, "
+            f"trained_chunks {row['trained_chunks']:.0f}, epsilon "
+            f"{row['epsilon']:.4f}, r_eval_global "
+            f"{row['r_eval_global']:.3f}")
+
+        # K = 1 against K = 32 in turns, training from the first chunk
+        turns = {1: [], E1_K: []}
+        for k in (1, E1_K, E1_K, 1):
+            m = dict(s2, chunks_per_sync=k, N_train=E1_TURN,
+                     pretrain_episodes=E1_TURN_FILL,
+                     dir_name=f"ck_s2e1_k{k}_{len(turns[k])}")
+            (ts, st), wall = _timed_run(
+                f"checkers_s2_e1 at K = {k}",
+                lambda: runner.train_function(m, wd, verbose=False,
+                                              device=dev))
+            turns[k].append((st["episodes"] / wall,
+                             st["dispatches"] / st["episodes"]))
+        log(f"  K = 1 vs K = {E1_K} in turns: episodes/s "
+            + ", ".join(f"K = {k}: {[round(r, 2) for r, _ in v]}"
+                        for k, v in turns.items())
+            + "; host syncs an episode "
+            + ", ".join(f"K = {k}: {[round(s, 3) for _, s in v]}"
+                        for k, v in turns.items()))
+
+        # the fused path with the actor frozen across dispatches: B1 twice
+        # and B3 once per computed update (gated or not)
+        torch.cuda.synchronize()
+        fused_opt.adam_polyak.launches = 0
+        polyak.polyak_update.launches = 0
+        m = dict(fused, dir_name="ck_s2e1_fused", N_train=E1_FREEZE_RUN,
+                 pretrain_episodes=E1_TURN_FILL)
+        (ts, st), _ = _timed_run(
+            f"checkers_s2_e1, fused, actor frozen {E1_FREEZE} updates",
+            lambda: runner.train_function(m, wd, verbose=False, device=dev))
+        b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
+        computed = st["dispatches"] * E1_K
+        assert b1 == 2 * computed and b3 == computed, (b1, b3, computed)
+        assert int(ts.step) > E1_FREEZE
+        assert int(ts.opt_actor.count) == int(ts.step) - E1_FREEZE
+        log(f"    {computed} updates computed in {st['dispatches']} "
+            f"dispatches, {int(ts.step)} applied ({E1_FREEZE} with the actor "
+            f"frozen): adam_polyak {b1} launches = 2 x {computed}, polyak "
+            f"{b3} = {computed}")
+
+        # checkers_qmix_e1 through the CLI in a process of its own
+        cfg = os.path.join(wd, "cli_master.json")
+        with open(cfg, "w") as f:
+            json.dump(qm, f)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cm3_tpu_torch.train.runner", "--config",
+             cfg, "--workdir", wd],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"),
+            capture_output=True, text=True, timeout=300)
+        wall = time.time() - t0
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        rows = _rows(wd, qm["dir_name"])
+        assert rows, "the CLI wrote no period row"
+        done = int(rows[-1].split(",")[0])
+        log(f"  checkers_qmix_e1 (n_envs 1, K = {E1_K}, from nothing) through "
+            f"python -m cm3_tpu_torch.train.runner: exit 0 in {wall:.2f} s "
+            f"(its start included), >= {done} episodes, >= "
+            f"{done / wall:.1f} episodes/s, {len(rows)} period rows")
+    return {"err": err, "b1": b1, "b3": b3, "rate": rate, "turns": turns}
 
 
 def phase_build():
@@ -2315,6 +2656,8 @@ def phase_polyak(dev):
     n = MAIN_SIZES["actor"]
     t, m = view(n), view(n)
     kern = lambda: polyak.polyak_update(t, m, TAU)
+    one = torch.ones((), dtype=torch.bool, device=dev)
+    kern_pred = lambda: polyak.polyak_update(t, m, TAU, one)
     plain = lambda: polyak.polyak_update_plain(t, m, TAU)
     lib = lambda: t.lerp_(m, TAU)
 
@@ -2327,13 +2670,15 @@ def phase_polyak(dev):
     floor = lambda: polyak.polyak_update(e, e, TAU)
     foreign, after = after_pytorch(dev)
     b2b = cuda_time_ms(kern, 500)
-    alone, a_kern, a_lerp = graph_turns(foreign, after(kern), after(lib))
+    alone, a_kern, a_lerp, a_pred = graph_turns(
+        foreign, after(kern), after(lib), after(kern_pred))
     warm, lerp = graph_turns(kern, lib)
     colds, lerp_colds = graph_turns(
         cold(lambda t, m: polyak.polyak_update(t, m, TAU)),
         cold(lambda t, m: t.lerp_(m, TAU)))
     floors, a_plain, alone_p = graph_turns(floor, after(plain), foreign)
     kern_ms, lerp_ms = after_ms(a_kern, alone), after_ms(a_lerp, alone)
+    pred_ms = after_ms(a_pred, alone)
     plain_ms = after_ms(a_plain, alone_p)
     bound, bound_by = flat_bound(n, POLYAK_BYTES_PER_ELEM,
                                  POLYAK_OPS_PER_ELEM)
@@ -2342,8 +2687,9 @@ def phase_polyak(dev):
         f"to back {b2b * 1e3:.2f} us/launch; in CUDA graphs (median and range "
         f"of {2 * TURNS}, in turns with lerp_): after a PyTorch kernel "
         f"({us_spread(alone)} alone) kernel {kern_ms * 1e3:.2f} us more "
-        f"(pair {us_spread(a_kern)}), lerp_ {lerp_ms * 1e3:.2f} us more "
-        f"(pair {us_spread(a_lerp)}); warm {us_spread(warm)}, lerp_ "
+        f"(pair {us_spread(a_kern)}), with a device predicate (1) "
+        f"{pred_ms * 1e3:.2f} us more (pair {us_spread(a_pred)}), lerp_ "
+        f"{lerp_ms * 1e3:.2f} us more (pair {us_spread(a_lerp)}); warm {us_spread(warm)}, lerp_ "
         f"{us_spread(lerp)}; cold {us_spread(colds)}, lerp_ "
         f"{us_spread(lerp_colds)}; floor (n = 0) {us_spread(floors)}; plain "
         f"after a PyTorch kernel {plain_ms * 1e3:.2f} us more; bound "
@@ -2353,7 +2699,7 @@ def phase_polyak(dev):
     log_flat_occupancy(polyak)
     return {"launches": launches, "max_abs_err": err, "ms": kern_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": lerp_ms}
+            "library_ms": lerp_ms, "pred_ms": pred_ms}
 
 
 # ------------------------------------------------------------------ #
@@ -2593,16 +2939,18 @@ def main():
         ("6 fused particle rollout", 95, phase_particle, dev),
         ("7 fused roadway rollout", 60, phase_roadway, dev),
         ("8 seed-batched training", 40, phase_seeded, dev),
-        ("9 the curriculum through the runner", 225, phase_curriculum, dev),
-        ("10 the baselines and QMIX", 230, phase_baselines, dev),
-        ("11 particle through the runner", 130, phase_particle_runner, dev),
-        ("12 roadway and the dual buffer through the runner", 100,
+        ("9 the curriculum through the runner", 140, phase_curriculum, dev),
+        ("10 the baselines and QMIX", 140, phase_baselines, dev),
+        ("11 particle through the runner", 110, phase_particle_runner, dev),
+        ("12 roadway and the dual buffer through the runner", 90,
          phase_roadway_runner, dev),
+        ("13 the single-env cells through the runner", 290, phase_e1, dev),
     ]
     out = {name.split()[0]: run_phase(name, budget, fn, *args)
            for name, budget, fn, *args in phases}
-    kern, launches, rollout, soft, particle, roadway, frozen, pt, rd = (
-        out[k] for k in ("1", "2", "4", "5", "6", "7", "9", "11", "12"))
+    kern, launches, rollout, soft, particle, roadway, frozen, pt, rd, e1 = (
+        out[k] for k in ("1", "2", "4", "5", "6", "7", "9", "11", "12",
+                         "13"))
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2612,7 +2960,11 @@ def main():
              source="cm3_tpu_torch/csrc/flat_update.cu",
              replaces="cm3_tpu/ops/fused_opt.py:100", launches=launches,
              particle_onpolicy_launches=pt["b1"], roadway_launches=rd["b1"],
-             **{k: kern[k] for k in keys[1:]}),
+             kchunk_launches=e1["b1"], pred_ms=kern["pred_ms"],
+             wrapper_ms=kern["wrapper_ms"],
+             wrapper_b2b_ms=kern["wrapper_b2b_ms"],
+             **{k: max(kern[k], e1["err"]) if k == "max_abs_err" else kern[k]
+                for k in keys[1:]}),
         dict(name="checkers_rollout", route="cuda",
              source="cm3_tpu_torch/csrc/checkers_rollout.cu",
              replaces="cm3_tpu/ops/checkers_rollout.py:75",
@@ -2621,7 +2973,9 @@ def main():
              source="cm3_tpu_torch/csrc/flat_update.cu",
              replaces="cm3_tpu/ops/polyak.py:58", launches=frozen,
              particle_onpolicy_launches=pt["b3"], roadway_launches=rd["b3"],
-             **{k: soft[k] for k in keys[1:]}),
+             kchunk_launches=e1["b3"], pred_ms=soft["pred_ms"],
+             **{k: max(soft[k], e1["err"]) if k == "max_abs_err" else soft[k]
+                for k in keys[1:]}),
         dict(name="particle_rollout", route="cuda",
              source="cm3_tpu_torch/csrc/particle_rollout.cu",
              replaces="cm3_tpu/ops/particle_rollout.py:64",

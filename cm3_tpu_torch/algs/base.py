@@ -32,6 +32,20 @@ from cm3_tpu_torch.models import nets
 EXPERIMENTS = ("checkers", "particle", "roadway")
 
 
+class StepCounted:
+    """Base of the algorithms' state dataclasses: ``step`` (the updates
+    taken) is a 0-dim int32 tensor on the device of the state's first
+    network, one for every seed, which the update advances on the
+    device (by its gate, when it has one) into a new tensor, as JAX's
+    state carries its traced step.  An int assigned to it becomes one."""
+
+    def __setattr__(self, name, value):
+        if name == "step":
+            first = getattr(self, next(iter(self.__dataclass_fields__)))
+            value = common.counter(value, first.flat.device)
+        object.__setattr__(self, name, value)
+
+
 class SeededAlgorithm:
     """Runs on ``device`` (``cuda`` unless told); with ``n_seeds`` (1
     included) it trains that many independent seeds in lockstep in seed
@@ -169,15 +183,21 @@ class SeededAlgorithm:
                 "ignore", message="grad and param do not obey")
             loss.backward()
 
-    def _optax_step(self, *steps, lr_scale=None):
+    def _optax_step(self, *steps, lr_scale=None, apply=None):
         """The optax-order Adam step (``common.adam_apply``, with the
         global-norm clip ``grad_clip``) and the soft target update for
         each (opt_state, net, tgt, lr) of ``steps``: one call per
-        network, as JAX makes one optax update per network."""
+        network, as JAX makes one optax update per network.  Where the
+        0-dim device predicate ``apply`` is false nothing changes."""
         for opt, net, tgt, lr in steps:
             common.adam_apply(opt, net.flat, net.flat_grad, lr,
-                              self.cfg.grad_clip, lr_scale)
-            common.soft_update(tgt.flat, net.flat, self.cfg.tau)
+                              self.cfg.grad_clip, lr_scale, apply)
+            common.soft_update(tgt.flat, net.flat, self.cfg.tau, apply)
+
+    @staticmethod
+    def _count_update(ts, gate):
+        """``ts.step`` advanced on the device: by one, or by the gate."""
+        ts.step = ts.step + (1 if gate is None else gate)
 
     # ---- draws ---- #
 

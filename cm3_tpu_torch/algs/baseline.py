@@ -55,10 +55,11 @@ from cm3_tpu_torch.models import nets
 
 
 @dataclasses.dataclass
-class BaselineState:
+class BaselineState(base.StepCounted):
     """The JAX ``BaselineState``'s fields; ``v``, ``v_tgt`` and
     ``opt_v`` are None without ``use_V``, ``q``, ``q_tgt`` and ``opt_q``
-    without COMA.  ``step`` counts updates on the host."""
+    without COMA.  ``step`` counts updates on the device
+    (``base.StepCounted``)."""
 
     actor: Any
     actor_tgt: Any
@@ -69,7 +70,7 @@ class BaselineState:
     opt_actor: common.AdamState
     opt_v: Optional[common.AdamState]
     opt_q: Optional[common.AdamState]
-    step: int = 0
+    step: torch.Tensor = 0
 
 
 class Baseline(base.ActorCritic):
@@ -247,14 +248,15 @@ class Baseline(base.ActorCritic):
 
     @nets.full_float32()
     def update(self, ts: BaselineState, batch: Dict[str, Any], epsilon,
-               gumbel) -> tuple:
+               gumbel, gate=None) -> tuple:
         """One baseline learning step, in place on ``ts``'s buffers.
 
         batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
         (dicts), a [B, N] int, r [B], rl [B, N], state_next, obs_next,
         done [B], goals [B, N, G], a_prev [B, N] (Checkers).  ``gumbel``
         is the [B, N, A] noise that samples the target policy's a'
-        (COMA).
+        (COMA).  ``gate`` (a 0-dim bool tensor, optional) applies every
+        network's step only where it holds, the step count's too.
         Returns (ts, metrics); the metrics are device scalars ([S] with
         seeds)."""
         if not (self.use_v or self.use_q):
@@ -280,7 +282,7 @@ class Baseline(base.ActorCritic):
                                           h(ts.q), batch, y_v, v_next, y_q)
         self._backward(loss_v.sum() + loss_q.sum())
         with torch.no_grad():
-            self._optax_step(*critics)
+            self._optax_step(*critics, apply=gate)
 
         # ---- policy gradient with the POST-update critic ----
         ts.actor.flat_grad.zero_()
@@ -289,8 +291,8 @@ class Baseline(base.ActorCritic):
         self._backward(loss_pi.sum())
         with torch.no_grad():
             self._optax_step((ts.opt_actor, ts.actor, ts.actor_tgt,
-                              cfg.lr_actor))
-        ts.step += 1
+                              cfg.lr_actor), apply=gate)
+        self._count_update(ts, gate)
         metrics = {}
         if self.use_v:
             metrics["loss_V"] = loss_v.detach()

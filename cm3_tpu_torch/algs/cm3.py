@@ -33,7 +33,18 @@ order:
   * each network's Adam step and soft target update; for the first
     ``actor_freeze_updates`` updates the actor and its Adam state stay
     as they are and only its target moves, toward the frozen actor
-    (``cm3.py:624-635``).
+    (``cm3.py:624-635``): a predicate on the device's step count gates
+    the actor's step and the target's move, so the policy loss and its
+    backward run at every update, as JAX's do.
+
+``update(..., gate=...)`` applies the whole update only where the 0-dim
+device predicate ``gate`` holds (the fill chunks of a K-chunk dispatch,
+``train/offpolicy.py``): every network, target, Adam state and the step
+keep their values where it is false, by selects and kernel predicates,
+as JAX's driver drops a gated-off update with ``jnp.where``
+(``cm3_tpu/train/offpolicy.py:376-384``).  The step and the Adam counts
+live on the device, so no part of an update needs a value from the
+host.
 
 Two optimizer paths, as in the JAX package (``_opt_step``,
 ``cm3.py:120-143``):
@@ -49,11 +60,12 @@ Two optimizer paths, as in the JAX package (``_opt_step``,
     its lr) in one launch and the actor in another: two launches per
     update for n = 2 and for n = 1 alike (the JAX package makes one
     call per network).  Like JAX's, it refuses ``grad_clip`` and the
-    anneal.  While the actor is frozen its launch is left out and the
-    target's soft update is the Polyak kernel (``ops.polyak``): the
-    kernel computes the JAX update's ``common.soft_update`` itself, so
-    the host decides from its step count which of the two runs, where
-    JAX selects with ``jnp.where``.
+    anneal (JAX's kernel takes a static lr; ``cm3.py:111-118``).  With
+    ``actor_freeze_updates`` the actor's launch carries the predicate
+    "live" and the frozen target's soft update is the Polyak kernel
+    (``ops.polyak``) under the predicate "frozen": both launch at every
+    update and one of them writes, where JAX selects with
+    ``jnp.where``.  Without a freeze the Polyak kernel never launches.
 
 Seeds in lockstep (``n_seeds=S``).  Each network is a
 ``nets.SeedStack``: one flat [S, n] buffer.  Every step of the update
@@ -86,7 +98,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from cm3_tpu_torch.algs import base, common
@@ -96,13 +107,14 @@ from cm3_tpu_torch.ops import fused_opt, polyak
 
 
 @dataclasses.dataclass
-class CM3State:
+class CM3State(base.StepCounted):
     """Each network is an ``nn.Module`` whose parameters are views into
     its flat buffer ``module.flat`` (``nets.flatten_parameters``), or
     with seeds a ``nets.SeedStack``.  ``qc``, ``qc_tgt`` and ``opt_qc``
     are None without Q_credit (n_agents == 1 or ``use_Q_credit`` off),
     ``v``, ``v_tgt`` and ``opt_v`` without V (n_agents == 1 or
-    ``use_V`` off).  ``step`` counts updates on the host."""
+    ``use_V`` off).  ``step`` counts updates on the device
+    (``base.StepCounted``)."""
 
     actor: Any
     actor_tgt: Any
@@ -116,7 +128,7 @@ class CM3State:
     v: Any = None
     v_tgt: Any = None
     opt_v: Optional[common.AdamState] = None
-    step: int = 0
+    step: torch.Tensor = 0
 
 
 class CM3(base.ActorCritic):
@@ -136,7 +148,8 @@ class CM3(base.ActorCritic):
         if alg.fused_opt and alg.actor_lr_anneal_updates:
             raise ValueError(
                 "fused_opt is incompatible with actor_lr_anneal_updates "
-                "(the fused kernel's lr is static; use the optax path)")
+                "(the fused kernel's lr is static, as JAX's; use the optax "
+                "path)")
         self.use_credit = alg.n_agents > 1 and alg.use_Q_credit
         self.use_v = alg.n_agents > 1 and alg.use_V
 
@@ -412,43 +425,52 @@ class CM3(base.ActorCritic):
 
     # ---- the learning update ---- #
 
-    def _actor_lr_scale(self, step: int):
-        """clip(1 - (step - K) / N, 0, 1) in float32 for the actor's lr
-        anneal over N updates after a freeze of K (``cm3.py:611-619``),
-        or None when it is off."""
+    def _actor_lr_scale(self, step: torch.Tensor):
+        """clip(1 - (step - K) / N, 0, 1) in float32 on the device for
+        the actor's lr anneal over N updates after a freeze of K
+        (``cm3.py:611-619``), from the device's step count, or None when
+        it is off."""
         n = self.cfg.actor_lr_anneal_updates
         if not n:
             return None
-        lived = np.float32(step - self.cfg.actor_freeze_updates)
-        return float(np.clip(np.float32(1.0) - lived / np.float32(n),
-                             np.float32(0.0), np.float32(1.0)))
+        lived = (step - self.cfg.actor_freeze_updates).float()
+        span = torch.full((), float(n), device=step.device)
+        return torch.clamp(1.0 - lived / span, 0.0, 1.0)
 
-    def _opt_step(self, *steps, lr_scale=None):
+    def _opt_step(self, *steps, lr_scale=None, apply=None):
         """Adam apply + soft target update for the networks of ``steps``,
-        each (opt_state, net, tgt, lr): one fused kernel launch over all
-        their flat buffers (``ops/fused_opt.py``), or the optax-order
-        update per network (``common.adam_apply``)."""
+        each (opt_state, net, tgt, lr), where the 0-dim device predicate
+        ``apply`` holds (always without one): one fused kernel launch
+        over all their flat buffers (``ops/fused_opt.py``), or the
+        optax-order update per network (``common.adam_apply``)."""
         if self.cfg.fused_opt:
-            fused_opt.adam_polyak_many(
-                [(opt, net.flat, tgt.flat, net.flat_grad, lr)
-                 for opt, net, tgt, lr in steps], self.cfg.tau)
+            items = [(opt, net.flat, tgt.flat, net.flat_grad, lr)
+                     for opt, net, tgt, lr in steps]
+            # an ungated update passes (items, tau) alone, so a stand-in
+            # for the wrapper that takes only those (tests/test_torch_cm3.py
+            # counts the calls with one) still serves it
+            if apply is None:
+                fused_opt.adam_polyak_many(items, self.cfg.tau)
+            else:
+                fused_opt.adam_polyak_many(items, self.cfg.tau, apply=apply)
             return
-        self._optax_step(*steps, lr_scale=lr_scale)
+        self._optax_step(*steps, lr_scale=lr_scale, apply=apply)
 
-    def _frozen_target_step(self, tgt, net):
-        """The actor target's soft update toward the frozen actor: the
-        Polyak kernel on the fused path (over the [S, n] buffer viewed
-        flat with seeds), ``common.soft_update`` on the optax path, as
-        the JAX update computes it (``cm3.py:631``)."""
+    def _frozen_target_step(self, tgt, net, apply):
+        """The actor target's soft update toward the frozen actor where
+        the 0-dim device predicate ``apply`` holds: the Polyak kernel on
+        the fused path (over the [S, n] buffer viewed flat with seeds),
+        ``common.soft_update`` on the optax path, as the JAX update
+        computes it (``cm3.py:631``)."""
         if self.cfg.fused_opt:
             polyak.polyak_update(tgt.flat.view(-1), net.flat.view(-1),
-                                 self.cfg.tau)
+                                 self.cfg.tau, apply)
         else:
-            common.soft_update(tgt.flat, net.flat, self.cfg.tau)
+            common.soft_update(tgt.flat, net.flat, self.cfg.tau, apply)
 
     @nets.full_float32()
     def update(self, ts: CM3State, batch: Dict[str, Any], epsilon,
-               gumbel) -> tuple:
+               gumbel, gate=None) -> tuple:
         """One CM3 learning step, in place on ``ts``'s buffers.
 
         batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
@@ -456,7 +478,9 @@ class CM3(base.ActorCritic):
         goals [B,N,G], a_prev [B,N] (Checkers) and, for ``pg_is_clip``,
         bp [B,N].
         ``gumbel`` is the [B, N, A] noise that samples the target-policy
-        actions a'.  Returns (ts,
+        actions a'.  ``epsilon`` is a float, or a 0-dim float32 tensor on
+        the device ([S] with seeds).  ``gate`` (a 0-dim bool tensor,
+        optional) applies the update only where it holds.  Returns (ts,
         metrics); the metrics are device scalars ([S] with seeds;
         reading them syncs)."""
         cfg = self.cfg
@@ -481,28 +505,30 @@ class CM3(base.ActorCritic):
         self._backward(loss_qg.sum() + loss_qc.sum() + loss_v.sum())
         q_actual = q.detach()
         with torch.no_grad():
-            self._opt_step(*critics)
+            self._opt_step(*critics, apply=gate)
 
         # ---- policy gradient (:699-773); the actor frozen for the
-        # first actor_freeze_updates updates (:624-635), decided on the
-        # host from the step count ----
-        live = ts.step >= cfg.actor_freeze_updates
+        # first actor_freeze_updates updates (:624-635) by predicates on
+        # the device's step count: the actor's step where it is live,
+        # its target's move toward it where it is frozen ----
+        live, frozen = gate, None
+        if cfg.actor_freeze_updates:
+            held = ts.step >= cfg.actor_freeze_updates
+            live = held if gate is None else gate & held
+            frozen = ~held if gate is None else gate & ~held
         ts.actor.flat_grad.zero_()
-        with torch.set_grad_enabled(live):
-            loss_pi, ent, w_mean = self._map(
-                self._policy_loss, h(ts.actor),
-                h(ts.qg if self.n_agents == 1 else ts.qc), h(ts.v), batch,
-                q_actual, eps)
-        if live:
-            self._backward(loss_pi.sum())
+        loss_pi, ent, w_mean = self._map(
+            self._policy_loss, h(ts.actor),
+            h(ts.qg if self.n_agents == 1 else ts.qc), h(ts.v), batch,
+            q_actual, eps)
+        self._backward(loss_pi.sum())
         with torch.no_grad():
-            if live:
-                self._opt_step(
-                    (ts.opt_actor, ts.actor, ts.actor_tgt, cfg.lr_actor),
-                    lr_scale=self._actor_lr_scale(ts.step))
-            else:
-                self._frozen_target_step(ts.actor_tgt, ts.actor)
-        ts.step += 1
+            self._opt_step(
+                (ts.opt_actor, ts.actor, ts.actor_tgt, cfg.lr_actor),
+                lr_scale=self._actor_lr_scale(ts.step), apply=live)
+            if frozen is not None:
+                self._frozen_target_step(ts.actor_tgt, ts.actor, frozen)
+        self._count_update(ts, gate)
         metrics = {"loss_Q_global": loss_qg.detach()}
         if self.use_credit:
             metrics["loss_Q_credit"] = loss_qc.detach()

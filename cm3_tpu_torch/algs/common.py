@@ -10,11 +10,29 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 # TF1 AdamOptimizer defaults (reference; ``common.adam``): beta1, beta2, eps
 B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def counter(value, device) -> torch.Tensor:
+    """``value`` (an int, or a tensor) as a 0-dim int32 tensor on
+    ``device``, the form of an Adam count and of a state's ``step``: such
+    a tensor is returned as it is, anything else converted.  A state on
+    the ``meta`` device (shapes only) keeps its counts on the CPU, where
+    they can be read.  Counts are never changed in place (an update
+    makes a new tensor), so two states may share one."""
+    device = torch.device(device)
+    if device.type == "meta":
+        device = torch.device("cpu")
+    if isinstance(value, torch.Tensor):
+        if (value.dtype == torch.int32 and value.dim() == 0
+                and value.device == device):
+            return value
+        return value.detach().to(device=device,
+                                 dtype=torch.int32).reshape(())
+    return torch.full((), int(value), dtype=torch.int32, device=device)
 
 
 @dataclasses.dataclass
@@ -22,18 +40,26 @@ class AdamState:
     """One network's Adam state over its flat parameter vector: the
     ``optax.flatten(optax.adam)`` state of the JAX package, with flat
     ``mu``/``nu`` in ``ravel_pytree`` order ([n], or [S, n] for S seeds
-    in lockstep) and ``count`` the number of steps taken.  ``count`` is
-    a host integer, the same for every seed: the host knows it, so the
-    bias corrections cost no device round trip.  ``clipped`` records
-    whether the optimizer clips the global norm first: in the JAX
-    package that changes the optax chain's state structure, so a
-    checkpoint taken with the clip off does not restore into a state
-    with it on, nor the other way round (``train/checkpoint.py``)."""
+    in lockstep) and ``count`` the number of steps taken, a 0-dim int32
+    tensor on the buffers' device, one for every seed (an int assigned
+    to it becomes one).  The update advances it on the device, by one or
+    by its predicate, into a new tensor, so a gated update needs no host
+    round trip and a state that shares the old count keeps it.
+    ``clipped`` records whether the optimizer clips the global norm
+    first: in the JAX package that changes the optax chain's state
+    structure, so a checkpoint taken with the clip off does not restore
+    into a state with it on, nor the other way round
+    (``train/checkpoint.py``)."""
 
     mu: torch.Tensor
     nu: torch.Tensor
-    count: int = 0
+    count: torch.Tensor = 0
     clipped: bool = False
+
+    def __setattr__(self, name, value):
+        if name == "count":
+            value = counter(value, self.mu.device)
+        object.__setattr__(self, name, value)
 
 
 def adam_init(flat: torch.Tensor, clipped: bool = False) -> AdamState:
@@ -47,14 +73,50 @@ def adam_init(flat: torch.Tensor, clipped: bool = False) -> AdamState:
                      clipped=clipped)
 
 
-def bias_corrections(count: int):
-    """(1 - b1^t, 1 - b2^t) in float32 for the step after ``count``
-    steps (t = count + 1), as optax computes them from its incremented
-    count."""
-    t = np.float32(count + 1)
-    one = np.float32(1.0)
-    return (float(one - np.power(np.float32(B1), t)),
-            float(one - np.power(np.float32(B2), t)))
+_BETAS = {}
+
+
+def _betas(device) -> torch.Tensor:
+    """(b1, b2) in float32 on ``device``, made once per device by fills
+    (a copy from the host would synchronize)."""
+    device = torch.device(device)
+    if device not in _BETAS:
+        b = torch.full((2,), B1, dtype=torch.float32, device=device)
+        b[1] = B2
+        _BETAS[device] = b
+    return _BETAS[device]
+
+
+def corrections_at(t: torch.Tensor) -> torch.Tensor:
+    """The tile [..., 2] of (1 - b1^t, 1 - b2^t) in float32 on ``t``'s
+    device, for the int32 step numbers ``t`` [...]: what the optax
+    update and B1's plain version divide the moments by (B1's kernel
+    computes the same from the count with CUDA's ``powf``, which
+    ``torch.pow`` calls on the card).  PyTorch's float32 power equals
+    XLA's here (every t in 1..30,000 on the CPU), as the TPU wrapper
+    computes it from its traced count
+    (``cm3_tpu/ops/fused_opt.py:84-88``)."""
+    return 1.0 - torch.pow(_betas(t.device), t[..., None])
+
+
+def bias_corrections(count) -> torch.Tensor:
+    """The tile (1 - b1^t, 1 - b2^t) for the step after ``count`` steps
+    (t = count + 1), as optax computes them from its incremented count:
+    a [2] float32 tensor on the count's device (the CPU for an int)."""
+    if not isinstance(count, torch.Tensor):
+        count = counter(count, "cpu")
+    return corrections_at(count + 1)
+
+
+def advance(st: AdamState, apply=None) -> torch.Tensor:
+    """Advance ``st.count`` by one, or by the 0-dim predicate ``apply``
+    (bool or int32, on the device), and return the bias corrections'
+    tile of the step it counts: the update's (c1, c2) where ``apply``
+    holds.  Where it does not, the tile belongs to the last step taken
+    (0 at count 0, which divides to Inf) and the caller discards what it
+    computes: a gated-off update never writes."""
+    st.count = st.count + (1 if apply is None else apply)
+    return corrections_at(st.count)
 
 
 def ieee_sqrt(x):
@@ -76,7 +138,7 @@ def clip_by_global_norm(g: torch.Tensor, max_norm: float) -> torch.Tensor:
 
 
 def adam_apply(st: AdamState, params: torch.Tensor, grads: torch.Tensor,
-               lr: float, clip: float = 0.0, lr_scale=None):
+               lr: float, clip: float = 0.0, lr_scale=None, apply=None):
     """One ``common.adam(lr, clip)`` step (optax's order and rounding)
     applied to the flat ``params`` in place, advancing ``st`` in place:
 
@@ -85,31 +147,48 @@ def adam_apply(st: AdamState, params: torch.Tensor, grads: torch.Tensor,
         u   <- -lr * (mu/c1) / (sqrt(nu/c2) + eps) [* lr_scale]
         p   <- p + u
 
-    with c1 = 1-b1^t, c2 = 1-b2^t after the count is incremented.
-    ``lr_scale`` (a float32 value, optional) scales the step as the
-    JAX update does for the actor's lr anneal.  Plain PyTorch ops; the
-    JAX package runs this as plain XLA, not as a kernel."""
+    with c1 = 1-b1^t, c2 = 1-b2^t after the count is incremented
+    (``advance``).  ``lr_scale`` (a float32 value or 0-dim tensor,
+    optional) scales the step as the JAX update does for the actor's lr
+    anneal.  ``apply`` (a 0-dim bool tensor, optional) gates the step on
+    the device: where it is false the params, the moments and the count
+    keep their values bit for bit, by selects (the step computed, which
+    may be NaN or Inf, is dropped, as JAX's ``jnp.where`` over the
+    state drops it).  Plain PyTorch ops; the JAX package runs this as
+    plain XLA, not as a kernel."""
     if clip and clip > 0.0:
         grads = clip_by_global_norm(grads, clip)
-    mu = (1.0 - B1) * grads + B1 * st.mu
-    nu = (1.0 - B2) * (grads * grads) + B2 * st.nu
-    c1, c2 = (torch.full((), c, dtype=torch.float32, device=params.device)
-              for c in bias_corrections(st.count))
-    upd = (mu / c1) / (ieee_sqrt(nu / c2) + EPS)
+    tile = advance(st, apply)
+    mu = (1.0 - B1) * grads
+    nu = (1.0 - B2) * (grads * grads)
+    if apply is None:
+        mu = torch.add(mu, B1 * st.mu, out=st.mu)
+        nu = torch.add(nu, B2 * st.nu, out=st.nu)
+    else:
+        mu = mu + B1 * st.mu
+        nu = nu + B2 * st.nu
+    upd = (mu / tile[0]) / (ieee_sqrt(nu / tile[1]) + EPS)
     upd = (-lr) * upd
     if lr_scale is not None:
         upd = upd * lr_scale
-    params.add_(upd)
-    st.mu.copy_(mu)
-    st.nu.copy_(nu)
-    st.count += 1
+    if apply is None:
+        params.add_(upd)
+        return
+    torch.where(apply, params + upd, params, out=params)
+    torch.where(apply, mu, st.mu, out=st.mu)
+    torch.where(apply, nu, st.nu, out=st.nu)
 
 
-def soft_update(target: torch.Tensor, main: torch.Tensor, tau: float):
+def soft_update(target: torch.Tensor, main: torch.Tensor, tau: float,
+                apply=None):
     """Polyak target update t <- tau*m + (1-tau)*t, in place on flat
-    buffers (reference alg_credit.py:162-225)."""
-    target.copy_(tau * main + (1.0 - tau) * target)
-    return target
+    buffers (reference alg_credit.py:162-225); where the 0-dim predicate
+    ``apply`` is false, ``target`` keeps its values (a select)."""
+    new = tau * main
+    keep = (1.0 - tau) * target
+    if apply is None:
+        return torch.add(new, keep, out=target)
+    return torch.where(apply, new + keep, target, out=target)
 
 
 def one_hot(x, n):

@@ -43,15 +43,15 @@ from cm3_tpu_torch.models import nets
 
 
 @dataclasses.dataclass
-class QmixState:
+class QmixState(base.StepCounted):
     """``qmix``: the agent net and the mixer in one flat buffer (a
     flattened ``nets.QmixJoint``, or with seeds its ``SeedStack``);
-    ``step`` counts updates on the host."""
+    ``step`` counts updates on the device (``base.StepCounted``)."""
 
     qmix: Any
     qmix_tgt: Any
     opt_qmix: common.AdamState
-    step: int = 0
+    step: torch.Tensor = 0
 
 
 class QMIX(base.SeededAlgorithm):
@@ -161,13 +161,17 @@ class QMIX(base.SeededAlgorithm):
 
     @nets.full_float32()
     def update(self, ts: QmixState, batch: Dict[str, Any], epsilon,
-               draws) -> tuple:
+               draws, gate=None) -> tuple:
         """One QMIX learning step, in place on ``ts``'s buffers.
 
         batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
         (dicts), a [B, N] int, rl [B, N], state_next, obs_next, done
         [B], goals [B, N, G], a_prev [B, N] (Checkers).  ``epsilon``
-        and ``draws`` are unused (the driver's interface).  Returns (ts,
+        and ``draws`` are unused (the driver's interface).  ``gate`` (a
+        0-dim bool tensor, optional) applies the step only where it
+        holds: the agent nets and the mixer, as one network, keep their
+        parameters, targets, Adam state and the step where it is false,
+        as JAX's driver drops a gated-off update.  Returns (ts,
         metrics); the metrics are device scalars ([S] with seeds)."""
         h = self._handle
         with torch.no_grad():
@@ -177,6 +181,6 @@ class QMIX(base.SeededAlgorithm):
         self._backward(loss.sum())
         with torch.no_grad():
             self._optax_step((ts.opt_qmix, ts.qmix, ts.qmix_tgt,
-                              self.cfg.lr_Q))
-        ts.step += 1
+                              self.cfg.lr_Q), apply=gate)
+        self._count_update(ts, gate)
         return ts, {"loss_mixer": loss.detach()}

@@ -6,9 +6,21 @@
 //      mu' = b1*mu + (1-b1)*g          nu' = b2*nu + ((1-b2)*g)*g
 //      p'  = p - lr*((mu'/c1) / (sqrt(nu'/c2) + eps))
 //      t'  = tau*p' + (1-tau)*t
-//    with each segment's own c1, c2 and lr, and tau shared.
+//    with each segment's own lr, its bias corrections c1 = 1 - b1^t and
+//    c2 = 1 - b2^t of the step t = count + 1 computed in the kernel from
+//    the segment's step count in device memory (which the kernel also
+//    advances), and tau shared.
 //  * B3, cm3_polyak: t <- tau*m + (1-tau)*t over one buffer (replaces
 //    _polyak_flat, cm3_tpu/ops/polyak.py:45).
+//
+// Each B1 segment and the B3 buffer may carry a device predicate (a bool;
+// null for none): where it is false the launch writes nothing but B1's
+// unchanged count, so an update that a device-side gate turns off (the fill
+// chunks of a K-chunk dispatch, an actor while it is frozen) needs no value
+// from the host and leaves every buffer and count bit for bit as it was.
+// B1 reads a segment's count from one tensor and writes count + (predicate)
+// to another, so that no block reads a count that another has written and
+// a state that shares the old count keeps it.
 //
 // Both are streams, 36 and 12 bytes an element, at sizes (1.8-10.4 MB)
 // where the launch and the first loads' latency cost as much as the
@@ -56,8 +68,11 @@ struct AdamSegment {
   float* mu;
   float* nu;
   const float* g;
-  int n;            // floats
-  float c1, c2, lr;
+  const int* count;  // the steps taken before this one, in device memory
+  int* count_out;    // count + (predicate), written by the first thread
+  const bool* pred;  // false: write nothing but count_out; null: always
+  int n;             // floats
+  float lr;
   int first_block;  // the segment's first block; blocks ascend with segments
 };
 
@@ -65,14 +80,21 @@ struct AdamTable {
   AdamSegment seg[kMaxSegments];
   int count;
   float tau, keep;  // keep = 1 - tau, rounded once on the host
+  float b1, b2;     // kB1, kB2 as launch arguments: powf of a runtime base,
+                    // as PyTorch's torch.pow computes the plain version's
 };
 
 struct PolyakSegment {
   float* t;
   const float* m;
+  const bool* pred;  // false: write nothing; null: always write
   int n;
   float tau, keep;
 };
+
+__device__ __forceinline__ bool off(const bool* pred) {
+  return pred != nullptr && !*pred;
+}
 
 bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
@@ -122,10 +144,30 @@ __device__ __forceinline__ int thread_in(int first_block) {
          + static_cast<int>(threadIdx.x);
 }
 
+// The segment's step, as the plain version takes it (algs/common.py:
+// advance): its count advanced by the predicate, written once, by the
+// segment's first thread; and the bias corrections c1 = 1 - b1^t and
+// c2 = 1 - b2^t of the step t = count + 1, each rounded on its own, which
+// every thread computes for itself.  False where the predicate turns the
+// segment off.
+__device__ __forceinline__ bool segment_step(const AdamSegment& s,
+                                             const AdamTable& tab, float& c1,
+                                             float& c2) {
+  const int steps = *s.count;
+  const bool live = !off(s.pred);
+  if (static_cast<int>(blockIdx.x) == s.first_block && threadIdx.x == 0)
+    *s.count_out = steps + (live ? 1 : 0);
+  const float t = static_cast<float>(steps + 1);
+  c1 = __fsub_rn(1.0f, powf(tab.b1, t));
+  c2 = __fsub_rn(1.0f, powf(tab.b2, t));
+  return live;
+}
+
 __device__ __forceinline__ void adam_scalar(const AdamSegment& s, int i,
-                                            float tau, float keep) {
+                                            float c1, float c2, float tau,
+                                            float keep) {
   float p = s.p[i], t = s.t[i], m = s.mu[i], v = s.nu[i];
-  adam1(p, t, m, v, s.g[i], s.c1, s.c2, s.lr, tau, keep);
+  adam1(p, t, m, v, s.g[i], c1, c2, s.lr, tau, keep);
   s.p[i] = p;
   s.t[i] = t;
   s.mu[i] = m;
@@ -138,36 +180,48 @@ __global__ void __launch_bounds__(kThreads)
   const AdamSegment s = block_segment(tab);
   const int i = thread_in(s.first_block);
   const int n4 = s.n / 4;
+  // all five loads in flight before the count's powers and the first use
+  float4 p{}, t{}, m{}, v{}, g{};
+  float4* p4 = reinterpret_cast<float4*>(s.p) + i;
+  float4* t4 = reinterpret_cast<float4*>(s.t) + i;
+  float4* m4 = reinterpret_cast<float4*>(s.mu) + i;
+  float4* v4 = reinterpret_cast<float4*>(s.nu) + i;
   if (i < n4) {
-    float4* p4 = reinterpret_cast<float4*>(s.p) + i;
-    float4* t4 = reinterpret_cast<float4*>(s.t) + i;
-    float4* m4 = reinterpret_cast<float4*>(s.mu) + i;
-    float4* v4 = reinterpret_cast<float4*>(s.nu) + i;
-    // all five loads in flight before the first use
-    float4 p = *p4, t = *t4, m = *m4, v = *v4;
-    const float4 g = *(reinterpret_cast<const float4*>(s.g) + i);
-    adam1(p.x, t.x, m.x, v.x, g.x, s.c1, s.c2, s.lr, tab.tau, tab.keep);
-    adam1(p.y, t.y, m.y, v.y, g.y, s.c1, s.c2, s.lr, tab.tau, tab.keep);
-    adam1(p.z, t.z, m.z, v.z, g.z, s.c1, s.c2, s.lr, tab.tau, tab.keep);
-    adam1(p.w, t.w, m.w, v.w, g.w, s.c1, s.c2, s.lr, tab.tau, tab.keep);
+    p = *p4;
+    t = *t4;
+    m = *m4;
+    v = *v4;
+    g = *(reinterpret_cast<const float4*>(s.g) + i);
+  }
+  float c1, c2;
+  // the whole block: one segment, one predicate
+  if (!segment_step(s, tab, c1, c2)) return;
+  if (i < n4) {
+    adam1(p.x, t.x, m.x, v.x, g.x, c1, c2, s.lr, tab.tau, tab.keep);
+    adam1(p.y, t.y, m.y, v.y, g.y, c1, c2, s.lr, tab.tau, tab.keep);
+    adam1(p.z, t.z, m.z, v.z, g.z, c1, c2, s.lr, tab.tau, tab.keep);
+    adam1(p.w, t.w, m.w, v.w, g.w, c1, c2, s.lr, tab.tau, tab.keep);
     *p4 = p;
     *t4 = t;
     *m4 = m;
     *v4 = v;
   }
-  if (i < s.n % 4) adam_scalar(s, n4 * 4 + i, tab.tau, tab.keep);
+  if (i < s.n % 4) adam_scalar(s, n4 * 4 + i, c1, c2, tab.tau, tab.keep);
 }
 
 // Any alignment: one float a thread.
 __global__ void __launch_bounds__(kThreads)
     adam_polyak_any_kernel(const AdamTable tab) {
   const AdamSegment s = block_segment(tab);
+  float c1, c2;
+  if (!segment_step(s, tab, c1, c2)) return;
   const int i = thread_in(s.first_block);
-  if (i < s.n) adam_scalar(s, i, tab.tau, tab.keep);
+  if (i < s.n) adam_scalar(s, i, c1, c2, tab.tau, tab.keep);
 }
 
 __global__ void __launch_bounds__(kThreads)
     polyak_kernel(const PolyakSegment s) {
+  if (off(s.pred)) return;
   const int i = thread_in(0);
   const int n4 = s.n / 4;
   if (i < n4) {
@@ -188,6 +242,7 @@ __global__ void __launch_bounds__(kThreads)
 
 __global__ void __launch_bounds__(kThreads)
     polyak_any_kernel(const PolyakSegment s) {
+  if (off(s.pred)) return;
   const int i = thread_in(0);
   if (i < s.n) s.t[i] = polyak1(s.t[i], s.m[i], s.tau, s.keep);
 }
@@ -195,35 +250,42 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // B1 over `count` (1..4) segments of fewer than 2^31 floats each, in one
-// launch on `stream`: ptrs is (p, t, mu, nu, g) per segment, n its floats,
-// hyper (c1, c2, lr) per segment; keep = 1 - tau rounded once by the
-// caller.  In place.
+// launch on `stream`: ptrs is (p, t, mu, nu, g, step count, new step count,
+// pred) per segment (the counts 0-dim int32 tensors in device memory, two
+// different ones; pred its device bool predicate or null), n its floats,
+// lr its learning rate; keep = 1 - tau rounded once by the caller.  In
+// place, but for the count, which goes to the new tensor.
 extern "C" int cm3_adam_polyak(int count, void* const* ptrs,
-                               const long long* n, const float* hyper,
+                               const long long* n, const float* lr,
                                float tau, float keep, cudaStream_t stream) {
   if (count < 1 || count > kMaxSegments)
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int k = 0; k < count; ++k)
+    if (n[k] < 0 || n[k] > INT_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
   bool vec = true;
-  for (int k = 0; k < 5 * count; ++k) vec = vec && aligned16(ptrs[k]);
+  for (int k = 0; k < count; ++k)
+    for (int j = 0; j < 5; ++j) vec = vec && aligned16(ptrs[8 * k + j]);
   AdamTable tab{};
   tab.count = count;
   tab.tau = tau;
   tab.keep = keep;
+  tab.b1 = kB1;
+  tab.b2 = kB2;
   int blocks = 0;
   for (int k = 0; k < count; ++k) {
-    if (n[k] < 0 || n[k] > INT_MAX)
-      return static_cast<int>(cudaErrorInvalidValue);
-    void* const* q = ptrs + 5 * k;
+    void* const* q = ptrs + 8 * k;
     AdamSegment& s = tab.seg[k];
     s.p = static_cast<float*>(q[0]);
     s.t = static_cast<float*>(q[1]);
     s.mu = static_cast<float*>(q[2]);
     s.nu = static_cast<float*>(q[3]);
     s.g = static_cast<const float*>(q[4]);
+    s.count = static_cast<const int*>(q[5]);
+    s.count_out = static_cast<int*>(q[6]);
+    s.pred = static_cast<const bool*>(q[7]);
     s.n = static_cast<int>(n[k]);
-    s.c1 = hyper[3 * k];
-    s.c2 = hyper[3 * k + 1];
-    s.lr = hyper[3 * k + 2];
+    s.lr = lr[k];
     s.first_block = blocks;
     blocks += blocks_for(s.n, vec);
   }
@@ -234,11 +296,12 @@ extern "C" int cm3_adam_polyak(int count, void* const* ptrs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B3 over one buffer of fewer than 2^31 floats on `stream`, in place on t.
+// B3 over one buffer of fewer than 2^31 floats on `stream`, in place on t,
+// where the device bool predicate `pred` (null for none) holds.
 extern "C" int cm3_polyak(float* t, const float* m, long long n, float tau,
-                          float keep, cudaStream_t stream) {
+                          float keep, const bool* pred, cudaStream_t stream) {
   if (n < 0 || n > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const PolyakSegment seg{t, m, static_cast<int>(n), tau, keep};
+  const PolyakSegment seg{t, m, pred, static_cast<int>(n), tau, keep};
   const bool vec = aligned16(t) && aligned16(m);
   const int blocks = blocks_for(seg.n, vec);
   if (vec)

@@ -68,11 +68,11 @@ SIGNATURES = {
     "cm3_checkers_rollout_occupancy": ([_I, _I, _P], _I),
     "cm3_particle_rollout_occupancy": ([_I, _I, _P], _I),
     "cm3_roadway_rollout_occupancy": ([_I, _I, _P], _I),
-    # count, (p, t, mu, nu, g) pointers per segment, sizes, (c1, c2, lr)
-    # per segment, tau, 1 - tau, stream
+    # count, (p, t, mu, nu, g, step count, new step count, predicate)
+    # pointers per segment, sizes, lr per segment, tau, 1 - tau, stream
     "cm3_adam_polyak": ([_I, _P, _P, _P, _F, _F, _P], _I),
-    # t, m, n, tau, 1 - tau, stream
-    "cm3_polyak": ([_P, _P, _LL, _F, _F, _P], _I),
+    # t, m, n, tau, 1 - tau, predicate, stream
+    "cm3_polyak": ([_P, _P, _LL, _F, _F, _P, _P], _I),
     # out: registers, blocks per SM, threads, local bytes
     "cm3_adam_polyak_occupancy": ([_P], _I),
     "cm3_polyak_occupancy": ([_P], _I),
@@ -205,4 +205,15 @@ def check(code: int, what: str):
     if code != 0:
         text = library().cm3_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {text}")
+
+
+def predicate(apply, device, what: str):
+    """A kernel's device predicate as the kernels read it: ``apply`` (a
+    0-dim bool or integer tensor on ``device``) as a bool tensor, itself
+    when it is one (no launch)."""
+    if apply.dim() != 0 or apply.device != device:
+        raise ValueError(f"{what}: the predicate must be a 0-dim tensor on "
+                         f"{device}, got {tuple(apply.shape)} on "
+                         f"{apply.device}")
+    return apply.bool()
 

@@ -23,8 +23,10 @@ issue both 16-byte loads of their four elements before using them, a
 block for every 128 groups, so the whole buffer is in flight at once;
 a buffer whose pointers are not both 16-byte aligned takes a second
 kernel, one float a thread, and the first threads take the n % 4
-floats after the last 16-byte group.  tau and 1 - tau are float32
-scalars (1 - tau rounded once on the host, as the plain version rounds
+floats after the last 16-byte group.  An optional device predicate
+(a bool; the update's gate) turns the launch off where it is false: the
+kernel then writes nothing, so a gated-off soft update needs no value
+from the host.  tau and 1 - tau are float32 scalars (1 - tau rounded once on the host, as the plain version rounds
 it), and each product and the sum round on their own (``__fmul_rn``,
 ``__fadd_rn``), so the kernel equals the plain version bit for bit.
 Its yardstick is ``torch.Tensor.lerp_``, which computes the same
@@ -42,15 +44,21 @@ import torch
 from cm3_tpu_torch.ops import _nvcc
 
 
-def polyak_update_plain(tgt, main, tau: float):
-    """The kernel's math in plain PyTorch, in place on ``tgt``."""
-    tgt.copy_(tau * main + (1.0 - tau) * tgt)
+def polyak_update_plain(tgt, main, tau: float, apply=None):
+    """The kernel's math in plain PyTorch, in place on ``tgt``; where the
+    0-dim predicate ``apply`` (bool or int32) is false, ``tgt`` keeps
+    its values (a select)."""
+    new = tau * main + (1.0 - tau) * tgt
+    if apply is not None:
+        new = torch.where(apply.bool(), new, tgt)
+    tgt.copy_(new)
     return tgt
 
 
-def polyak_update(tgt, main, tau: float):
+def polyak_update(tgt, main, tau: float, apply=None):
     """``tgt <- tau * main + (1 - tau) * tgt`` over flat float32
-    tensors, in place.  The port's counterpart of
+    tensors, in place, where the 0-dim device predicate ``apply`` (bool
+    or int32; always without one) holds.  The port's counterpart of
     ``cm3_tpu.ops.polyak.polyak_update``.  Returns ``tgt``."""
     for name, x in (("tgt", tgt), ("main", main)):
         if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
@@ -62,14 +70,18 @@ def polyak_update(tgt, main, tau: float):
                          "device")
     tau = float(tau)
     if tgt.device.type == "cpu":
-        return polyak_update_plain(tgt, main, tau)
+        return polyak_update_plain(tgt, main, tau, apply)
     if tgt.device.type != "cuda":
         raise RuntimeError(f"polyak_update: no kernel for device {tgt.device}")
+    pred = None if apply is None else _nvcc.predicate(apply, tgt.device,
+                                                      "polyak_update")
     lib = _nvcc.library()
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         code = lib.cm3_polyak(tgt.data_ptr(), main.data_ptr(), tgt.numel(),
-                              tau, 1.0 - tau, stream)
+                              tau, 1.0 - tau,
+                              None if pred is None else pred.data_ptr(),
+                              stream)
     _nvcc.check(code, "polyak_update")
     polyak_update.launches += 1
     return tgt

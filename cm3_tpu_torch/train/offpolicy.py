@@ -53,8 +53,27 @@ truncation: it holds the master's ``max_steps`` transitions (33), so
 an episode longer than that (roadway's per-car cap is 40 steps) loses
 its tail, its terminal transition included.
 
-Not ported yet (ROADMAP.md): the K-chunk on-device schedule
-(``chunks_per_sync > 1``, A6b), the gradient summaries (``summarize``,
+The K-chunk schedule (``TrainConfig.chunks_per_sync`` = K > 1,
+``_chunks_scanned``, ``offpolicy.py:188-213``).  ``run`` then dispatches
+K chunks with no host sync between them and reads the episode count
+once after them.  Each chunk takes its regime from the device's live
+episode count: the gate ``episodes >= pretrain_episodes`` and epsilon
+(float32, JAX's formula).  Where the gate is false the chunk is a fill
+chunk: the policy's actions are computed and replaced by random ones
+(``bp`` the uniform 1/A), and its updates are computed and dropped (the
+algorithms' ``update(..., gate=)``: selects and kernel predicates, the
+step and the Adam counts kept on the device), their metrics zeroed, as
+JAX's ``_chunk(gate=)`` does (``offpolicy.py:233-276, 345-385``).  Such
+a chunk asks the draw source for the policy's draws, then for the
+random actions, as JAX splits ``k_act`` and ``k_rand``.  A dispatch's
+metrics are its last chunk's plus ``trained`` (that chunk's gate) and
+``trained_chunks`` (how many of its chunks trained).  The resume
+warm-up stays host-paced, and the host's epsilon is not updated after
+a dispatch that began in the fill phase, as in JAX (``:472-497``).
+Seeds in lockstep (``train/multiseed.py``) ignore ``chunks_per_sync``,
+as JAX's ``train_vmapped_seeds`` does.
+
+Not ported yet (ROADMAP.md): the gradient summaries (``summarize``,
 A15), and the shard-local replay (A14); each is refused.
 """
 
@@ -304,15 +323,18 @@ class OffPolicyDriver:
 
     @torch.no_grad()
     def _step_once(self, ts_alg, rs: RolloutState, buf, epsilon, draws,
-                   random_actions: bool):
+                   random_actions: bool, policy_gate=None):
         """One lockstep env transition for all instances + buffer add (or
-        the dual buffer's staging and flush) + auto-reset."""
+        the dual buffer's staging and flush) + auto-reset.
+        ``policy_gate`` (a 0-dim bool tensor, optional): where it is
+        false the policy's actions are replaced by random ones, the
+        fill regime of a K-chunk dispatch (``offpolicy.py:233-276``)."""
         hooks, env = self.hooks, self.hooks.env
         lead = self.lead
+        shape = lead + (hooks.n_agents,)
         probs = bp = None
         if random_actions:
-            actions = draws.randint(lead + (hooks.n_agents,),
-                                    self.alg.n_actions)
+            actions = draws.randint(shape, self.alg.n_actions)
         elif self._store_bp:
             actions, probs = self.alg.act_bp(
                 ts_alg, rs.obs, rs.goals, rs.a_prev, epsilon,
@@ -320,11 +342,17 @@ class OffPolicyDriver:
         else:
             actions = self.alg.act(ts_alg, rs.obs, rs.goals, rs.a_prev,
                                    epsilon, self.alg.act_draws(draws, lead))
+        if policy_gate is not None and not random_actions:
+            actions = torch.where(policy_gate, actions,
+                                  draws.randint(shape, self.alg.n_actions))
         # the filter's replacement is what is stepped and stored, and bp
-        # is the behavior probability of that action
+        # is the behavior probability of that action (the uniform 1/A
+        # where the gate took random actions)
         actions = self._filter(rs.env_state, actions, lead)
         if probs is not None:
             bp = torch.gather(probs, -1, actions[..., None])[..., 0]
+            if policy_gate is not None:
+                bp = torch.where(policy_gate, bp, 1.0 / self.alg.n_actions)
         env_state2, ts2 = flat_call(env.step, lead, rs.env_state, actions)
         tr = self._transition(rs, actions, ts2, bp)
         done = ts2.done
@@ -363,15 +391,19 @@ class OffPolicyDriver:
         return rs2, buf
 
     def _chunk(self, ts_alg, buf, rs, epsilon, draws, do_train: bool,
-               random_actions: bool):
+               random_actions: bool, gate=None):
         """steps_per_train lockstep env steps, then (``do_train``)
-        updates_per_chunk learning updates.  ``epsilon`` is a float, or
-        [S] with seeds.  Returns (ts_alg, buf, rs, metrics of the last
-        update)."""
+        updates_per_chunk learning updates.  ``epsilon`` is a float, a
+        0-dim device tensor, or [S] with seeds.  ``gate`` (a 0-dim bool
+        tensor, optional): where it is false this is a fill chunk,
+        random actions and updates computed but not applied, their
+        metrics zeroed and ``trained`` (the gate as a float) added
+        (``offpolicy.py:345-385``).  Returns (ts_alg, buf, rs, metrics of
+        the last update)."""
         epsilon = self._seed_epsilon(epsilon)
         for _ in range(self.cfg.steps_per_train):
             rs, buf = self._step_once(ts_alg, rs, buf, epsilon, draws,
-                                      random_actions)
+                                      random_actions, policy_gate=gate)
         metrics = {}
         if do_train:
             n_upd = self.cfg.updates_per_chunk or self.n_envs
@@ -380,7 +412,40 @@ class OffPolicyDriver:
                 batch = self._replay_sample(buf, draws)
                 ts_alg, metrics = self.alg.update(
                     ts_alg, batch, epsilon,
-                    self.alg.update_draws(draws, lead))
+                    self.alg.update_draws(draws, lead), gate=gate)
+            if gate is not None:
+                metrics = {k: torch.where(gate, v, torch.zeros_like(v))
+                           for k, v in metrics.items()}
+                metrics["trained"] = gate.float()
+        return ts_alg, buf, rs, metrics
+
+    @staticmethod
+    def _device_epsilon(cfg, episodes):
+        """Epsilon of the episode counts ``episodes`` (a device tensor),
+        float32 in JAX's formula (``offpolicy.py:199-203``):
+        max(end, start - max(0, episodes - pretrain) * step)."""
+        lived = torch.clamp_min(episodes - cfg.pretrain_episodes, 0)
+        return torch.clamp_min(
+            cfg.epsilon_start - lived.float() * cfg.epsilon_step,
+            cfg.epsilon_end)
+
+    def _chunks_scanned(self, ts_alg, buf, rs, draws, k_chunks: int):
+        """K chunks in one dispatch with the schedule on the device
+        (``offpolicy.py:188-213``): each chunk's fill/train gate and
+        epsilon come from the live episode count, so a dispatch that
+        straddles the fill -> train boundary acts as K host-paced chunks
+        would.  No host sync: nothing here reads a device value.
+        Returns (ts_alg, buf, rs, the last chunk's metrics with
+        ``trained_chunks``)."""
+        trained = None
+        for _ in range(k_chunks):
+            gate = rs.episodes >= self.cfg.pretrain_episodes
+            ts_alg, buf, rs, metrics = self._chunk(
+                ts_alg, buf, rs, self._device_epsilon(self.cfg, rs.episodes),
+                draws, True, False, gate=gate)
+            trained = (metrics["trained"] if trained is None
+                       else trained + metrics["trained"])
+        metrics["trained_chunks"] = trained
         return ts_alg, buf, rs, metrics
 
     # -------------------------------------------------------------- #
@@ -437,16 +502,15 @@ class OffPolicyDriver:
         schedule (the replay ring restarts empty and is warmed with
         policy rollouts for pretrain_episodes first).  The draws come
         from ``key`` (rollouts and evaluations from their own purposes),
-        or from the draw sources ``draws`` and ``eval_draws``.  Returns
-        (ts_alg, final stats dict)."""
+        or from the draw sources ``draws`` and ``eval_draws``.  With
+        ``chunks_per_sync`` = K > 1 the fill and training chunks go K to
+        a dispatch (``_chunks_scanned``).  Returns (ts_alg, final stats
+        dict); ``dispatches`` in it counts the host syncs of the episode
+        count, one per dispatch."""
         cfg = self.cfg
         if self.n_seeds is not None:
             raise ValueError("run trains one seed; seeds in lockstep train "
                              "through multiseed.train_vmapped_seeds")
-        if cfg.chunks_per_sync != 1:
-            raise NotImplementedError(
-                "the K-chunk schedule (chunks_per_sync > 1) is not ported "
-                "(ROADMAP A6b)")
         n_episodes = n_episodes or cfg.N_train
         dev = self.hooks.env.device
         source = lambda purpose: prng.GeneratorDraws(prng.generator(
@@ -466,6 +530,7 @@ class OffPolicyDriver:
         history = []
         t0 = time.time()
         episodes_done = initial_episodes
+        dispatches = 0
         while episodes_done < n_episodes:
             if episodes_done < cfg.pretrain_episodes:
                 pretrain, train, rand = True, False, True      # random fill
@@ -473,9 +538,17 @@ class OffPolicyDriver:
                 pretrain, train, rand = True, False, False     # warm-up
             else:
                 pretrain, train, rand = False, True, False
-            ts_alg, buf, rs, metrics = self._chunk(ts_alg, buf, rs, epsilon,
-                                                   draws, train, rand)
-            episodes_done = int(rs.episodes)  # one host sync per chunk
+            # K chunks with the regime on the device, from the fill phase
+            # on; the resume warm-up (policy actions, no updates) stays
+            # host-paced
+            if cfg.chunks_per_sync > 1 and (train or rand):
+                ts_alg, buf, rs, metrics = self._chunks_scanned(
+                    ts_alg, buf, rs, draws, cfg.chunks_per_sync)
+            else:
+                ts_alg, buf, rs, metrics = self._chunk(
+                    ts_alg, buf, rs, epsilon, draws, train, rand)
+            dispatches += 1
+            episodes_done = int(rs.episodes)  # one host sync per dispatch
             if not pretrain:
                 epsilon = max(cfg.epsilon_end, cfg.epsilon_start
                               - (episodes_done - cfg.pretrain_episodes)
@@ -516,4 +589,5 @@ class OffPolicyDriver:
                 t0 = time.time()
 
         return ts_alg, dict(episodes=episodes_done, history=history,
-                            buffer=buf, rollout=rs, epsilon=epsilon)
+                            buffer=buf, rollout=rs, epsilon=epsilon,
+                            dispatches=dispatches)

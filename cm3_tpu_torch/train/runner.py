@@ -39,8 +39,11 @@ episode count and epsilon: only the off-policy driver takes
 ``initial_episodes`` (``runner.py:293-295``).  The runner refuses,
 naming the ROADMAP item: a ``mesh`` and ``replay_shards`` (A14, the
 latter refused by the driver), ``summarize`` (A15, refused by the
-driver), rendering (A15) and the K-chunk schedule (A6b, refused by the
-driver's ``run``).
+driver) and rendering (A15).  The master's ``chunks_per_sync`` reaches
+the off-policy driver as in JAX: the paper's single-env cells
+(``checkers_s2_e1``, ``checkers_qmix_e1``: ``n_envs`` 1, K = 32) run K
+chunks per host sync (``train/offpolicy.py``); seeds in lockstep and
+the on-policy driver ignore it, as JAX's do.
 Learning runs in full float32: the nets pin it themselves
 (``models/nets.py:full_float32``), where the JAX runner enters
 ``jax.default_matmul_precision("float32")``.

@@ -26,8 +26,9 @@ episodes exactly; reward sums bit for bit for Checkers and roadway, and
 for the particle game to the tolerance of ``chip_smoke.py``'s CPU
 comparison where a contact term's ``exp``/``log1p`` differ.  The flat
 updates' entries (``cm3_adam_polyak``, ``cm3_polyak``) run over ragged
-sizes, views at offsets of 1-3 floats and several segments in one
-launch, and are held against the plain versions bit for bit.  Exits
+sizes, views at offsets of 1-3 floats, several segments in one launch
+and device predicates of 0, 1 and none, and are held against the plain
+versions bit for bit, the step counts too.  Exits
 non-zero on a mismatch.  Builds under a temporary directory and writes
 nothing else.
 """
@@ -210,10 +211,11 @@ def hold_flat(what, got, want):
     return ok
 
 
-def adam_case(lib, gen, segments, tau=0.01, steps=5):
+def adam_case(lib, gen, segments, tau=0.01, steps=5, apply=None):
     """``cm3_adam_polyak`` over ``segments`` (n, offsets of p, t, mu, nu
     and g, step count, lr) in one launch per step, against the plain
-    version per segment; fresh gradients each step."""
+    version per segment; fresh gradients each step; ``apply`` the
+    predicate (None, 0 or 1) of every segment."""
     items, ref = [], []
     for n, offs, count, lr in segments:
         p, t, mu, nu, g = (view(gen, n, off) for off in offs)
@@ -225,27 +227,33 @@ def adam_case(lib, gen, segments, tau=0.01, steps=5):
         for (_, _, _, g, _) in items:
             g.copy_(torch.from_numpy(
                 gen.standard_normal(g.numel()).astype(np.float32)))
-        code = lib.cm3_adam_polyak(*fused_opt.c_args(items, tau), None)
+        on = None if apply is None else torch.tensor(bool(apply))
+        counts = torch.empty(len(items), dtype=torch.int32).unbind()
+        code = lib.cm3_adam_polyak(
+            *fused_opt.c_args(items, counts, on, tau), None)
         if code != 0:
             raise RuntimeError(f"cm3_adam_polyak returned {code}")
-        for st, *_ in items:
-            st.count += 1
-        fused_opt.adam_polyak_many(ref, tau)
+        for (st, *_), count in zip(items, counts):
+            st.count = count
+        fused_opt.adam_polyak_many(ref, tau, on)
     flat = lambda its: [x for st, p, t, _, _ in its
-                        for x in (p, t, st.mu, st.nu)]
+                        for x in (p, t, st.mu, st.nu, st.count)]
     return hold_flat(
         f"adam_polyak, {len(segments)} segment(s) (n, offsets, count, lr) "
-        f"{segments}, {steps} steps", flat(items), flat(ref))
+        f"{segments}, predicate {apply}, {steps} steps", flat(items),
+        flat(ref))
 
 
-def polyak_case(lib, gen, n, offs, tau):
+def polyak_case(lib, gen, n, offs, tau, apply=None):
     t, m = (view(gen, n, off) for off in offs)
-    want = polyak.polyak_update_plain(t.clone(), m, tau)
+    on = None if apply is None else torch.tensor(bool(apply))
+    want = polyak.polyak_update_plain(t.clone(), m, tau, on)
     code = lib.cm3_polyak(t.data_ptr(), m.data_ptr(), n, tau, 1.0 - tau,
-                          None)
+                          None if on is None else on.data_ptr(), None)
     if code != 0:
         raise RuntimeError(f"cm3_polyak returned {code}")
-    return hold_flat(f"polyak n={n} offsets {offs} tau {tau}", [t], [want])
+    return hold_flat(f"polyak n={n} offsets {offs} tau {tau} predicate "
+                     f"{apply}", [t], [want])
 
 
 def flat_cases(lib, gen):
@@ -269,6 +277,14 @@ def flat_cases(lib, gen):
         for offs in ((0, 0), (1, 0), (0, 3)):
             for tau in (0.0, 0.01, 1.0):
                 ok &= polyak_case(lib, gen, n, offs, tau)
+    # the device predicates: 0 writes nothing (the plain version's
+    # update at count 0 divides by c1 = 0 and is dropped), 1 writes
+    for apply in (0, 1):
+        ok &= adam_case(lib, gen, [(8193, aligned, 0, 1e-3),
+                                   (1003, (0, 1, 0, 0, 0), 5, 1e-4)],
+                        apply=apply)
+        for offs in ((0, 0), (1, 0)):
+            ok &= polyak_case(lib, gen, 1003, offs, 0.01, apply)
     return ok
 
 

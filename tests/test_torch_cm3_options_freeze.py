@@ -3,9 +3,10 @@ actor frozen for the first two of three updates (before, at and after
 the window's end) on the optax path and on the fused path (the Polyak
 kernel's plain version moving the actor target while frozen, with
 Q_credit or with V beside Q_global), and a freeze of one update before
-the actor's lr anneal; then the fused path's calls: the actor left out
-of the fused kernel and its target moved by the Polyak kernel while
-frozen."""
+the actor's lr anneal; then the fused path's calls: at every update the
+actor's fused launch and the Polyak call over its target, each under a
+device predicate, the first writing where the actor is live and the
+second where it is frozen."""
 
 import pytest
 
@@ -45,16 +46,22 @@ def test_freeze_takes_effect(runs):
 @pytest.mark.parametrize("runs", ["freeze_fused", "freeze_fused_v"],
                          indirect=True)
 def test_fused_freeze_leaves_the_actor_out(runs):
-    """On the fused path a frozen update makes one fused launch, over
-    the critics only (Q_global and Q_credit, or Q_global and V), and
-    one Polyak call over the actor's target; a live update makes the
-    critics' launch and the actor's."""
+    """On the fused path every update makes the critics' launch
+    (Q_global and Q_credit, or Q_global and V; no predicate), the
+    actor's and one Polyak call over the actor's target, the last two
+    under the device's freeze predicates: while frozen the actor's
+    launch is left out by its predicate (off) and the Polyak call
+    writes; once live the actor's launch writes and the Polyak call is
+    off."""
     st = runs["states"][0][1]
     critics = [st.qg.flat.numel()] + [
         getattr(st, n).flat.numel() for n in ("qc", "v")
         if getattr(st, n) is not None]
     actor = st.actor.flat.numel()
-    frozen = [("adam", critics), ("polyak", [actor])]
+    frozen = [("adam", critics, None), ("adam", [actor], False),
+              ("polyak", [actor], True)]
     assert runs["alg"].cfg.actor_freeze_updates == 2
     assert runs["calls"][:2] == [frozen, frozen]
-    assert runs["calls"][2] == [("adam", critics), ("adam", [actor])]
+    assert runs["calls"][2] == [("adam", critics, None),
+                                ("adam", [actor], True),
+                                ("polyak", [actor], False)]

@@ -143,14 +143,20 @@ def _small_stage1():
     ("replay_shards", 2, "A14"), ("summarize", True, "A15")])
 def test_driver_refuses_what_is_not_ported(field, value, item):
     """The JAX options the port does not run yet are refused, naming
-    their ROADMAP item; so is the K-chunk schedule in ``run``."""
+    their ROADMAP item; the K-chunk schedule in ``run`` no longer is: a
+    tiny run at K = 4 trains (its draws and its parity with JAX's are in
+    ``test_torch_kchunk*.py``)."""
     from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
     hooks, ta = _small_stage1()
     with pytest.raises(NotImplementedError, match=item):
         OffPolicyDriver(hooks, ta, tcfg.TrainConfig(**{field: value}))
-    driver = OffPolicyDriver(hooks, ta, tcfg.TrainConfig(chunks_per_sync=4))
-    with pytest.raises(NotImplementedError, match="A6b"):
-        driver.run(ta.init_state(0))
+    driver = OffPolicyDriver(hooks, ta, tcfg.TrainConfig(
+        chunks_per_sync=4, n_envs=2, max_steps=5, steps_per_train=5,
+        pretrain_episodes=2, period=8, N_eval=1, batch_size=8,
+        buffer_size=64, updates_per_chunk=1))
+    ts, stats = driver.run(ta.init_state(0), n_episodes=8)
+    assert stats["episodes"] == 8 and stats["dispatches"] == 1
+    assert stats["history"][0]["trained_chunks"] == 3.0 and ts.step == 3
 
 
 @pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A14")])

@@ -108,7 +108,7 @@ def qmix_act_draws(key, shape, n_actions):
 
 
 def chunk_draws(key, n_envs, n_agents, n_actions, steps, random_actions,
-                n_updates=0, batch=0, sizes=(), qmix=False):
+                n_updates=0, batch=0, sizes=(), qmix=False, gated=False):
     """The draws ``OffPolicyDriver._chunk`` makes from ``key``
     (offpolicy.py:242-248,369-371), as (randints, gumbels) in the order
     the port's driver asks for them; for one agent, each step's
@@ -116,13 +116,17 @@ def chunk_draws(key, n_envs, n_agents, n_actions, steps, random_actions,
     update (jax.random.randint's bound).  With ``qmix`` the policy's
     steps draw QMIX's override (random actions among the randints, and
     uniforms) and the updates draw nothing: (randints, gumbels,
-    uniforms), the gumbels empty."""
+    uniforms), the gumbels empty.  ``gated``: a chunk of a K-chunk
+    dispatch (``_chunk(..., gate=)``), whose policy steps draw the
+    policy's draws from ``k_act`` and then random actions from
+    ``k_rand``, both whatever the gate."""
     randints, gumbels, uniforms = [], [], []
     for k in jax.random.split(key, steps):
         k_act, k_rand, k_reset = jax.random.split(k, 3)
+        rand = lambda: randints.append(np.asarray(jax.random.randint(
+            k_rand, (n_envs, n_agents), 0, n_actions)))
         if random_actions:
-            randints.append(np.asarray(jax.random.randint(
-                k_rand, (n_envs, n_agents), 0, n_actions)))
+            rand()
         elif qmix:
             rand_a, u = qmix_act_draws(k_act, (n_envs, n_agents), n_actions)
             randints.append(rand_a)
@@ -130,6 +134,8 @@ def chunk_draws(key, n_envs, n_agents, n_actions, steps, random_actions,
         else:
             gumbels.append(np.asarray(jax.random.gumbel(
                 k_act, (n_envs, n_agents, n_actions))))
+        if gated and not random_actions:
+            rand()
         if n_agents == 1:
             randints.append(goal_draws(k_reset, n_envs))
     ks = jax.random.split(jax.random.fold_in(key, 7), n_updates)
@@ -141,6 +147,24 @@ def chunk_draws(key, n_envs, n_agents, n_actions, steps, random_actions,
             gumbels.append(np.asarray(jax.random.gumbel(
                 k_update, (batch, n_agents, n_actions))))
     return (randints, gumbels, uniforms) if qmix else (randints, gumbels)
+
+
+def kchunk_draws(key, k_chunks, n_envs, n_agents, n_actions, steps,
+                 n_updates, batch, size, capacity, qmix=False):
+    """The draws of one K-chunk dispatch (``_chunks_scanned``, JAX's
+    ``_chunk_train_k``) from ``key``: each chunk's ``chunk_draws``
+    (gated) from its key of ``jax.random.split(key, k_chunks)``, in the
+    port's order; ``size`` is the ring's fill before the dispatch, which
+    grows by ``n_envs`` rows a step up to ``capacity``.  Returns (the
+    draws' lists as ``chunk_draws``', the fill after the dispatch)."""
+    out = None
+    for k in jax.random.split(key, k_chunks):
+        size = min(size + steps * n_envs, capacity)
+        d = chunk_draws(k, n_envs, n_agents, n_actions, steps, False,
+                        n_updates, batch, [size] * n_updates, qmix=qmix,
+                        gated=True)
+        out = d if out is None else tuple(a + b for a, b in zip(out, d))
+    return out, size
 
 
 def eval_draws(key, n_eval, n_agents, n_actions, max_steps):
@@ -255,7 +279,8 @@ def option_runs(name, n, opts):
     unless they say fused_opt) in both packages from the same converted
     state, on the same batches and a' noise: after each, the JAX state
     converted, the port's state, both metrics, and the port's optimizer
-    calls (the fused kernel's segment sizes, the Polyak calls' sizes)."""
+    calls (the fused kernel's segment sizes, the Polyak calls' sizes,
+    each with its predicate's value: None without one)."""
     je, _ = envs(n_agents=n)
     kw = dict(fused_opt=False)
     kw.update(opts)
@@ -272,11 +297,15 @@ def option_runs(name, n, opts):
     with pytest.MonkeyPatch.context() as mp:
         many, soft = fused_opt.adam_polyak_many, polyak.polyak_update
         calls = []
-        mp.setattr(fused_opt, "adam_polyak_many", lambda items, tau: (
-            calls.append(("adam", [p.numel() for _, p, *_ in items])),
-            many(items, tau)))
-        mp.setattr(polyak, "polyak_update", lambda t, m, tau: (
-            calls.append(("polyak", [t.numel()])), soft(t, m, tau))[1])
+        on = lambda apply: None if apply is None else bool(apply)
+        mp.setattr(fused_opt, "adam_polyak_many",
+                   lambda items, tau, apply=None: (
+                       calls.append(("adam", [p.numel() for _, p, *_ in items],
+                                     on(apply))),
+                       many(items, tau, apply)))
+        mp.setattr(polyak, "polyak_update", lambda t, m, tau, apply=None: (
+            calls.append(("polyak", [t.numel()], on(apply))),
+            soft(t, m, tau, apply))[1])
         for i, batch in enumerate(batches):
             key = jax.random.PRNGKey(5 + i)
             jts, jm = upd(jts, batch, 0.2, key)
