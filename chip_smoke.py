@@ -4,14 +4,16 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Fourteen phases, each between progress lines with its elapsed seconds
-and held to a time budget (30 + 45 + 20 + 20 + 90 + 10 + 95 + 60 + 40 +
-140 + 140 + 110 + 90 + 290 s = 1180 s: about twice each phase's longest
-time on an H100, 0: 4.6, 1: 21.3, 2: 3.1, 3: 3.4, 4: 45.2, 5: 0.8, 6:
-51.3, 7: 30.1, 8: 21.4, 9: 111.4, 10: 113.4, 11: 63.5, 12: 45.3 s, with
-at least 10 s a phase and 30 s for a cold ``nvcc`` build; phases 9 and
-10 since cut to 200 stage-1 and 150 cell episodes: 57.1 and 59.3 s; phase
-13 156.1 s; a whole run 493.9 s):
+Fifteen phases, each between progress lines with its elapsed seconds
+and held to a time budget (30 + 45 + 20 + 20 + 90 + 10 + 75 + 60 + 40 +
+120 + 120 + 110 + 90 + 290 + 60 s = 1180 s: about twice each phase's
+longest time on an H100, 0: 4.6, 1: 21.8, 2: 3.1, 3: 3.4, 4: 45.2, 5:
+1.2, 6: 51.3, 7: 32.5, 8: 21.4, 9: 111.4, 10: 113.4, 11: 63.5, 12: 45.3
+s, with at least 10 s a phase and 30 s for a cold ``nvcc`` build;
+phases 9 and 10 since cut to 200 stage-1 and 150 cell episodes: 83.6
+and 85.4 s at most, so 120 s is 1.44x and 1.41x them; phase 13 200.7 s
+at most (290 s: 1.44x); phase 6's 75 s 1.46x its 51.3 s; phase 14
+36.8 s (60 s, the most it may have); a whole run 493.9-661.3 s):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -216,6 +218,29 @@ at least 10 s a phase and 30 s for a cold ``nvcc`` build; phases 9 and
    after (B1 twice and B3 once per computed update, gated or not); and
    ``checkers_qmix_e1`` (from nothing) through one ``python -m
    cm3_tpu_torch.train.runner`` process.
+14. the tools: the paper's ``checkers_s2`` at full width (16 envs,
+   N_eval 10, a period of 100 episodes, fused, the actor frozen for 20
+   updates; grafted from a stage-1 checkpoint of fresh parameters; 200
+   episodes, ``TL_EPISODES``) through ``runner.train_function`` with
+   ``summarize`` and again without, deterministic cuDNN, B1's and B3's
+   launches counted in each (the snapshots add 2 and 1 each): the
+   state and the CSV rows equal at phase 3's tolerance; the event file
+   decoded here (``read_events``: each record's length and data CRC
+   checked with a CRC32C of its own, the Events' steps, tags, scalar
+   values and histogram counts), every histogram's count its leaf's
+   size, the tags those of the same run on the CPU (one update a chunk,
+   one period); a snapshot's seconds and a period's writer seconds
+   (one seed, three seeds); three seeds in lockstep with summaries (100
+   episodes each): three event files that decode; ``--render-only``
+   through one ``python -m cm3_tpu_torch.train.runner`` process from
+   the first run's ``model_final`` (two SVGs, each parsed as XML with
+   an ``<animate>``) and one particle and one roadway episode through
+   ``render_episodes``; the live viewer on 127.0.0.1 (``/list`` names
+   the SVGs, ``..`` and a symlink out of the root get 404); roadway
+   with ``occlusion=True`` on the card against the CPU over 42 filtered
+   steps of 256 instances (the shadows exactly, every value within
+   1e-5), ``avg_speeds``, ``count_remaining`` and ``global_tensor``
+   alike.
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
@@ -387,6 +412,12 @@ RD_PAR_ENVS, RD_PAR_BATCH, RD_PAR_UPDATES, RD_SLAB = 16, 128, 4, 3
 # with the actor frozen for its first 20 updates 20 without a fill
 E1_K, E1_PERIOD, E1_FILL, E1_S1, E1_CELL = 32, 100, 50, 100, 200
 E1_TURN, E1_TURN_FILL, E1_FREEZE_RUN, E1_FREEZE = 100, 0, 20, 20
+
+# the tools (phase 14): the paper's checkers_s2 (16 envs, N_eval 10, a
+# period of 100 episodes, fused, the actor frozen for its first 20
+# updates) with summaries, 200 episodes (and the same without), and three
+# seeds in lockstep with summaries, 100 episodes each
+TL_EPISODES, TL_SEEDED = 200, 100
 
 T0 = time.time()
 
@@ -2908,6 +2939,393 @@ def phase_roadway(dev):
 
 
 # ------------------------------------------------------------------ #
+# the tools
+# ------------------------------------------------------------------ #
+
+
+def _crc_table32c():
+    """CRC32C's (Castagnoli's) table, built here: the event files'
+    framing is checked against this copy, not the writer's."""
+    tbl = []
+    for n in range(256):
+        c = n
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 if c & 1 else 0)
+        tbl.append(c)
+    return tbl
+
+
+_CRC32C = _crc_table32c()
+
+
+def _masked(data):
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc = _CRC32C[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    crc ^= 0xFFFFFFFF
+    return ((crc >> 15) | (crc << 17)) + 0xA282EAD8 & 0xFFFFFFFF
+
+
+def _proto_fields(buf):
+    """(field number, wire type, value) of a protobuf message: varints
+    as ints, fixed64 / fixed32 as bytes, length-delimited as bytes."""
+    i, out = 0, []
+    while i < len(buf):
+        key, i = _varint_at(buf, i)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            v, i = _varint_at(buf, i)
+        elif wire == 1:
+            v, i = buf[i:i + 8], i + 8
+        elif wire == 5:
+            v, i = buf[i:i + 4], i + 4
+        elif wire == 2:
+            n, i = _varint_at(buf, i)
+            v, i = buf[i:i + n], i + n
+        else:
+            raise ValueError(f"wire type {wire}")
+        out.append((field, wire, v))
+    return out
+
+
+def _varint_at(buf, i):
+    shift = v = 0
+    while True:
+        b = buf[i]
+        i += 1
+        v |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return v, i
+
+
+def read_events(log_dir):
+    """The one TensorBoard event file in ``log_dir``, decoded without
+    TensorBoard: each TFRecord's length and data CRCs checked, each
+    Event's (step, [(tag, kind, scalar value or histogram num)]); the
+    first record is the file version.  Returns (records, events)."""
+    import struct
+    files = [f for f in os.listdir(log_dir)
+             if f.startswith("events.out.tfevents.")]
+    assert len(files) == 1, files
+    with open(os.path.join(log_dir, files[0]), "rb") as f:
+        data = f.read()
+    i, events, version = 0, [], None
+    while i < len(data):
+        hdr = data[i:i + 8]
+        (n,) = struct.unpack("<Q", hdr)
+        assert struct.unpack("<I", data[i + 8:i + 12])[0] == _masked(hdr)
+        body = data[i + 12:i + 12 + n]
+        assert struct.unpack("<I", data[i + 12 + n:i + 16 + n])[0] == \
+            _masked(body), "a record's data CRC fails"
+        i += 16 + n
+        step, values = 0, []
+        for field, _, v in _proto_fields(body):
+            if field == 2:
+                step = v
+            elif field == 3:
+                version = bytes(v)
+            elif field == 5:
+                for _, _, val in _proto_fields(v):
+                    tag, kind, x = None, None, None
+                    for fv, _, vv in _proto_fields(val):
+                        if fv == 1:
+                            tag = bytes(vv).decode()
+                        elif fv == 2:
+                            kind, x = "scalar", struct.unpack("<f", vv)[0]
+                        elif fv == 5:
+                            kind = "histo"
+                            x = [struct.unpack("<d", hv)[0] for hf, _, hv
+                                 in _proto_fields(vv) if hf == 3][0]
+                    values.append((tag, kind, x))
+        events.append((step, values))
+    assert version == b"brain.Event:2" and not events[0][1]
+    return len(events), events[1:]
+
+
+def _tools_masters():
+    """master.json with the paper's checkers_s2 settings at full width
+    (16 envs, N_eval 10, a period of 100 episodes, fused, the actor
+    frozen for its first 20 updates), summaries on, grafted from a
+    stage-1 checkpoint of fresh parameters."""
+    s1, s2, _ = _curriculum_masters()
+    s1 = dict(s1, dir_name="tl_s1")
+    s2 = dict(s2, dir_name="tl_s2", dir_restore="tl_s1", N_train=TL_EPISODES,
+              summarize=1)
+    return s1, s2
+
+
+def _event_tags(events):
+    """The tags of each period (the events of one step), in order."""
+    steps = sorted({s for s, _ in events})
+    return [[t for s, vals in events if s == step for t, _, _ in vals]
+            for step in steps]
+
+
+def _hold_tools_run(wd, d, ts, grads):
+    """The run's event file: CRCs, and every histogram's count equal to
+    its leaf's size (the state's, the gradients').  Returns (records,
+    the tags of each period, the periods' steps)."""
+    from cm3_tpu_torch import convert
+    n_records, events = read_events(os.path.join(wd, "log", d))
+    sizes = {"vars/" + k: v.size for k, v in convert.jax_leaves(ts)}
+    sizes.update({"grads/" + k: v.size
+                  for k, v in convert.jax_grad_leaves(ts, grads)})
+    for _, vals in events:
+        for tag, kind, x in vals:
+            if kind == "histo":
+                assert x == sizes[tag], (tag, x, sizes.get(tag))
+    return n_records, _event_tags(events), sorted({s for s, _ in events})
+
+
+def phase_tools(dev):
+    import tempfile
+    import xml.etree.ElementTree as ET
+    import http.client
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.ops import fused_opt, polyak
+    from cm3_tpu_torch.train import checkpoint, runner, tboard
+    from cm3_tpu_torch.utils import live_viewer
+
+    s1, s2 = _tools_masters()
+    out = {}
+    # the two stage-2 runs compared below: deterministic convolutions
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        with tempfile.TemporaryDirectory() as wd:
+            _, alg1, _, _ = runner.build(s1, device=dev)
+            checkpoint.save(os.path.join(wd, "saved", "tl_s1",
+                                         "model_final"),
+                            alg1.init_state(prng.root_key(s1["seed"])))
+            # 1. checkers_s2 with summaries, then the same without, B1
+            # and B3 counted in each
+            runs = {}
+            for on in (1, 0):
+                m = dict(s2, summarize=on,
+                         dir_name="tl_s2" if on else "tl_s2_off")
+                torch.cuda.synchronize()
+                fused_opt.adam_polyak.launches = 0
+                polyak.polyak_update.launches = 0
+                (ts, st), wall = _timed_run(
+                    f"checkers_s2 (fused, frozen {CURR_FREEZE}), summarize "
+                    f"{on}", lambda: runner.train_function(
+                        m, wd, verbose=False, device=dev))
+                torch.cuda.synchronize()
+                runs[on] = (ts, st, fused_opt.adam_polyak.launches,
+                            polyak.polyak_update.launches, wall)
+            (ts_on, st_on, b1_on, b3_on, w_on) = runs[1]
+            (ts_off, st_off, b1_off, b3_off, w_off) = runs[0]
+            snaps = sum("_grads" in r for r in st_on["history"])
+            log(f"  summaries: {snaps} gradient snapshots; adam_polyak "
+                f"{b1_on} launches against {b1_off} without (+{b1_on - b1_off}"
+                f"), polyak {b3_on} against {b3_off} (+{b3_on - b3_off}); "
+                f"{w_on:.2f} s against {w_off:.2f} s")
+            assert snaps == len(st_on["history"]) >= 1
+            assert b1_on - b1_off == 2 * snaps and b3_on - b3_off == snaps
+            assert int(ts_on.step) == int(ts_off.step) > CURR_FREEZE
+            # summaries change no training: phase 3's tolerance
+            alg2 = runner.build(s2, device=dev)[1]
+            for name in alg2.net_names():
+                for sfx in ("", "_tgt"):
+                    torch.testing.assert_close(
+                        getattr(ts_on, name + sfx).flat,
+                        getattr(ts_off, name + sfx).flat, rtol=1e-4,
+                        atol=1e-5)
+                torch.testing.assert_close(
+                    getattr(ts_on, "opt_" + name).mu,
+                    getattr(ts_off, "opt_" + name).mu, rtol=1e-4, atol=1e-5)
+            rows_on, rows_off = _rows(wd, "tl_s2"), _rows(wd, "tl_s2_off")
+            assert len(rows_on) == len(rows_off) == len(st_on["history"])
+            for a, b in zip(rows_on, rows_off):
+                np.testing.assert_allclose(
+                    np.array(a.split(","), float)[:-1],
+                    np.array(b.split(","), float)[:-1], rtol=1e-4, atol=1e-5)
+            # the event file, decoded here
+            n_rec, tags, steps = _hold_tools_run(
+                wd, "tl_s2", ts_on, st_on["history"][-1]["_grads"])
+            assert steps == [r["episode"] for r in st_on["history"]]
+            assert all(any(t.startswith("grads/") for t in tt) for tt in tags)
+            # the same run's tags on the CPU (one update a chunk: the
+            # tags do not depend on it), its first period
+            cpu = dict(s2, N_train=s2["period"], updates_per_chunk=1,
+                       dir_name="tl_s2_cpu")
+            t0 = time.time()
+            runner.train_function(cpu, wd, verbose=False, device="cpu")
+            _, cpu_events = read_events(os.path.join(wd, "log",
+                                                     "tl_s2_cpu"))
+            cpu_tags = _event_tags(cpu_events)
+            assert cpu_tags[0] == tags[0], "the card's tags are not the CPU's"
+            log(f"  event file: {n_rec} records, CRCs hold, {len(tags[0])} "
+                f"events a period at {steps} ({sum(t.startswith('vars/') for t in tags[0])} "
+                f"vars, {sum(t.startswith('grads/') for t in tags[0])} grads "
+                f"histograms), each histogram's count its leaf's size; the "
+                f"tags equal the CPU run's ({time.time() - t0:.2f} s)")
+
+            # a period's host cost of the summaries: the snapshot (its
+            # device work included) and the writer, one seed
+            row = dict(st_on["history"][-1])
+            grads = row["_grads"]
+            drv = runner.build(s2, device=dev)[0]
+            snap_s = []
+            for i in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                drv._grad_snapshot(ts_on, st_on["buffer"], 0.05,
+                                   drv.snapshot_source(7, i, dev))
+                torch.cuda.synchronize()
+                snap_s.append(time.perf_counter() - t0)
+            tb = tboard.SummaryWriter(os.path.join(wd, "timing"))
+            write_s = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                runner.write_summaries(tb, row, ts_on, grads)
+                write_s.append(time.perf_counter() - t0)
+            tb.close()
+            nbytes = os.path.getsize(os.path.join(
+                wd, "timing", os.listdir(os.path.join(wd, "timing"))[0]))
+            out["snapshot_s"] = statistics.median(snap_s)
+            out["write_s"] = statistics.median(write_s)
+            log(f"  a period's summaries, one seed: the snapshot "
+                f"{out['snapshot_s'] * 1e3:.2f} ms (median of 5, synced), "
+                f"the writer {out['write_s']:.3f} s (median of 3; "
+                f"{nbytes // 3} bytes a period)")
+
+            # 2. three seeds in lockstep with summaries
+            sv = dict(s2, dir_name="tl_seeds", vmapped_seeds=1, n_seeds=3,
+                      N_train=TL_SEEDED)
+            (ts_v, hist_v), _ = _timed_run(
+                "3 seeds in lockstep, summarize 1",
+                lambda: runner.train_multiseed(sv, wd, device=dev))
+            for i in range(3):
+                n_rec, ev = read_events(os.path.join(wd, "log",
+                                                     f"tl_seeds_{i + 1}"))
+                tags_i = _event_tags(ev)
+                assert tags_i and all(any(t.startswith("grads/")
+                                          for t in tt) for tt in tags_i)
+            tb3 = [tboard.SummaryWriter(os.path.join(wd, "timing3", str(i)))
+                   for i in range(3)]
+            row3 = hist_v[-1]
+            t0 = time.perf_counter()
+            for i in range(3):
+                r_i = {k: (np.asarray(v)[i] if np.ndim(v) >= 1
+                           and np.shape(v)[0] == 3 else v)
+                       for k, v in row3.items() if not k.startswith("_")}
+                runner.write_summaries(tb3[i], r_i, ts_v, row3["_grads"],
+                                       seed=i)
+            out["write3_s"] = time.perf_counter() - t0
+            for w in tb3:
+                w.close()
+            log(f"  lockstep: 3 event files decode, CRCs hold, grads/ at "
+                f"every row; a period's writers for 3 seeds "
+                f"{out['write3_s']:.3f} s")
+
+            # 3. --render-only in a process of its own, from run 1's
+            # model_final; particle and roadway from fresh states
+            cfg = os.path.join(wd, "tools_master.json")
+            with open(cfg, "w") as f:
+                json.dump(s2, f)
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-m", "cm3_tpu_torch.train.runner",
+                 "--config", cfg, "--workdir", wd, "--render-only",
+                 "--render-episodes", "2"],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"),
+                capture_output=True, text=True, timeout=120)
+            assert proc.returncode == 0, proc.stderr[-2000:]
+            paths = proc.stdout.strip().splitlines()[-2:]
+            for p in paths:
+                assert any(e.tag.endswith("animate")
+                           for e in ET.parse(p).getroot().iter()), p
+            others = []
+            for exp, extra in (("particle", dict(
+                    particle_config="stage2_antipodal")), ("roadway", {})):
+                mm = dict(s2, experiment=exp, dir_name="tl_" + exp,
+                          fused_opt=0, actor_freeze_updates=0, **extra)
+                _, alg_x, _, _ = runner.build(mm, device=dev)
+                others += runner.render_episodes(
+                    mm, alg_x.init_state(prng.root_key(3)), wd, 1,
+                    device=dev)
+            for p in others:
+                assert any(e.tag.endswith("animate")
+                           for e in ET.parse(p).getroot().iter()), p
+            log(f"  render: --render-only exited 0 in {time.time() - t0:.2f}"
+                f" s (with particle and roadway) with "
+                f"{[os.path.relpath(p, wd) for p in paths + others]}")
+
+            # 4. the live viewer over the render root
+            root = os.path.join(wd, "render")
+            os.symlink(os.path.join(wd, "tools_master.json"),
+                       os.path.join(root, "leak.svg"))
+            srv, port = live_viewer.serve_background(root, 0)
+            try:
+                def get(path):
+                    c = http.client.HTTPConnection("127.0.0.1", port,
+                                                   timeout=10)
+                    c.request("GET", path)
+                    r = c.getresponse()
+                    return r.status, r.read()
+                listed = sorted(e["path"] for e in json.loads(
+                    get("/list")[1]))
+                want = sorted(os.path.relpath(p, root)
+                              for p in paths + others)
+                assert listed == want, (listed, want)
+                assert get("/" + want[0])[0] == 200
+                for bad in ("/../tools_master.json", "/tl_s2/../../x.svg",
+                            "/leak.svg"):
+                    assert get(bad)[0] == 404, bad
+            finally:
+                srv.shutdown()
+                srv.server_close()
+            log(f"  live viewer: /list names the {len(listed)} SVGs; '..' "
+                "and a symlink out of the root get 404")
+
+        # 5. roadway with occlusion: the card against the CPU over a
+        # filtered 42-step episode, and the traffic surfaces
+        import dataclasses
+        from cm3_tpu_torch.envs.roadway import Roadway
+        rng = np.random.default_rng(0)
+        e = 256
+        lanes, goals = rng.integers(0, 4, (e, 2)), rng.integers(0, 4, (e, 2))
+        noise = rng.normal(size=(e, 2)).astype(np.float32)
+        acts = rng.integers(0, 5, (42, e, 2))
+        traj = {}
+        for d in (dev, torch.device("cpu")):
+            env = Roadway(dataclasses.replace(
+                config.roadway_env_config(2, 0.5), occlusion=True), device=d)
+            st, ts = env.reset(dict(lanes=torch.tensor(lanes),
+                                    goal_lanes=torch.tensor(goals)),
+                               torch.tensor(noise))
+            traj[d.type] = []
+            for a in acts:
+                a = env.check_actions(st, torch.tensor(a))
+                st, ts = env.step(st, a)
+                traj[d.type].append((ts.obs["self_t"], env.avg_speeds(st),
+                                     env.count_remaining(st),
+                                     env.global_tensor(st, a)))
+        shadowed, err = 0, 0.0
+        for c, h in zip(traj["cuda"], traj["cpu"]):
+            assert torch.equal(c[0][..., 0].cpu() == -1.0,
+                               h[0][..., 0] == -1.0)
+            shadowed += int((h[0][..., 0] == -1.0).sum())
+            for x, y in zip(c, h):
+                err = max(err, float((x.cpu().float() - y.float()).abs()
+                                     .max()))
+        assert shadowed > 0 and err <= 1e-5, (shadowed, err)
+        log(f"  occlusion: {shadowed} shadowed cells over 42 filtered steps "
+            f"of {e} roadway instances, the card's grids and traffic "
+            f"surfaces within {err:.3g} of the CPU's (shadows exactly)")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            cudnn
+    return out
+
+
+# ------------------------------------------------------------------ #
 
 
 def main():
@@ -2936,15 +3354,16 @@ def main():
         ("3 card vs CPU", 20, phase_parity, dev),
         ("4 fused Checkers rollout", 90, phase_rollout, dev),
         ("5 polyak", 10, phase_polyak, dev),
-        ("6 fused particle rollout", 95, phase_particle, dev),
+        ("6 fused particle rollout", 75, phase_particle, dev),
         ("7 fused roadway rollout", 60, phase_roadway, dev),
         ("8 seed-batched training", 40, phase_seeded, dev),
-        ("9 the curriculum through the runner", 140, phase_curriculum, dev),
-        ("10 the baselines and QMIX", 140, phase_baselines, dev),
+        ("9 the curriculum through the runner", 120, phase_curriculum, dev),
+        ("10 the baselines and QMIX", 120, phase_baselines, dev),
         ("11 particle through the runner", 110, phase_particle_runner, dev),
         ("12 roadway and the dual buffer through the runner", 90,
          phase_roadway_runner, dev),
         ("13 the single-env cells through the runner", 290, phase_e1, dev),
+        ("14 the tools", 60, phase_tools, dev),
     ]
     out = {name.split()[0]: run_phase(name, budget, fn, *args)
            for name, budget, fn, *args in phases}

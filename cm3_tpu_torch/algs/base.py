@@ -18,6 +18,7 @@ the instances' leading shape ([E] or [S, E]; for an update [B] or
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Dict, Optional, Sequence, Union
 
@@ -68,6 +69,8 @@ class SeededAlgorithm:
         self.n_seeds = n_seeds
         # forward templates for the seed-stacked networks
         self._tmpl = {}
+        # the gradient snapshot's copy of the state, made at its first use
+        self._scratch = None
 
     def for_seeds(self, n_seeds: Optional[int]):
         """The same algorithm for ``n_seeds`` seeds in lockstep (None:
@@ -198,6 +201,43 @@ class SeededAlgorithm:
     def _count_update(ts, gate):
         """``ts.step`` advanced on the device: by one, or by the gate."""
         ts.step = ts.step + (1 if gate is None else gate)
+
+    # ---- the gradient snapshot ---- #
+
+    @torch.no_grad()
+    def _copy_into(self, dst, src):
+        """``src``'s values into the state ``dst`` of the same shapes: the
+        buffers by ``copy_``, the counts (0-dim tensors an update never
+        writes in place) by reference."""
+        for f in dataclasses.fields(src):
+            name, value = f.name, getattr(src, f.name)
+            if value is None or name == "step":
+                continue
+            if name.startswith("opt_"):
+                opt = getattr(dst, name)
+                opt.mu.copy_(value.mu)
+                opt.nu.copy_(value.nu)
+                opt.count = value.count
+            else:
+                getattr(dst, name).flat.copy_(value.flat)
+        dst.step = src.step
+
+    def grad_snapshot(self, ts, batch, epsilon, update_draws):
+        """The raw gradients of one update of ``ts`` on ``batch``
+        (``metrics["grads"]`` of ``update(..., with_grads=True)``), the
+        update's result dropped, as the JAX drivers' ``_grad_snapshot``
+        drops it (``offpolicy.py:181-186``).  The port's update writes
+        its state in place, so it runs on a copy of ``ts`` (a scratch
+        state kept between calls): ``ts`` is not written.  A gated-off
+        update would not do: the policy gradient reads the critics
+        AFTER their step (the post-update Q_credit / Q_global / V, and
+        COMA's post-update critic), which JAX's snapshot takes."""
+        if self._scratch is None:
+            self._scratch = self.empty_state()
+        self._copy_into(self._scratch, ts)
+        _, metrics = self.update(self._scratch, batch, epsilon,
+                                 update_draws, with_grads=True)
+        return metrics["grads"]
 
     # ---- draws ---- #
 

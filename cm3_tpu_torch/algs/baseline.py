@@ -248,7 +248,7 @@ class Baseline(base.ActorCritic):
 
     @nets.full_float32()
     def update(self, ts: BaselineState, batch: Dict[str, Any], epsilon,
-               gumbel, gate=None) -> tuple:
+               gumbel, gate=None, with_grads: bool = False) -> tuple:
         """One baseline learning step, in place on ``ts``'s buffers.
 
         batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
@@ -258,7 +258,9 @@ class Baseline(base.ActorCritic):
         (COMA).  ``gate`` (a 0-dim bool tensor, optional) applies every
         network's step only where it holds, the step count's too.
         Returns (ts, metrics); the metrics are device scalars ([S] with
-        seeds)."""
+        seeds).  ``with_grads`` adds ``metrics["grads"]``: the raw
+        gradients of ``Policy``, ``V`` and ``Q`` (``baseline.py:371-377``),
+        flat, cloned before the optimizer reads them."""
         if not (self.use_v or self.use_q):
             raise ValueError("a baseline without a critic: COMA needs "
                              "n_agents > 1, or set use_V")
@@ -281,6 +283,12 @@ class Baseline(base.ActorCritic):
         loss_v, loss_q, v_adv = self._map(self._critic_losses, h(ts.v),
                                           h(ts.q), batch, y_v, v_next, y_q)
         self._backward(loss_v.sum() + loss_q.sum())
+        grads = {}
+        if with_grads:
+            if self.use_v:
+                grads["V"] = ts.v.flat_grad.clone()
+            if self.use_q:
+                grads["Q"] = ts.q.flat_grad.clone()
         with torch.no_grad():
             self._optax_step(*critics, apply=gate)
 
@@ -289,6 +297,8 @@ class Baseline(base.ActorCritic):
         loss_pi = self._map(self._policy_loss, h(ts.actor), h(ts.q), batch,
                             v_adv, eps)
         self._backward(loss_pi.sum())
+        if with_grads:
+            grads["Policy"] = ts.actor.flat_grad.clone()
         with torch.no_grad():
             self._optax_step((ts.opt_actor, ts.actor, ts.actor_tgt,
                               cfg.lr_actor), apply=gate)
@@ -299,4 +309,6 @@ class Baseline(base.ActorCritic):
         if self.use_q:
             metrics["loss_Q"] = loss_q.detach()
         metrics["policy_loss"] = loss_pi.detach()
+        if with_grads:
+            metrics["grads"] = grads
         return ts, metrics

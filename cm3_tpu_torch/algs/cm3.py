@@ -470,7 +470,7 @@ class CM3(base.ActorCritic):
 
     @nets.full_float32()
     def update(self, ts: CM3State, batch: Dict[str, Any], epsilon,
-               gumbel, gate=None) -> tuple:
+               gumbel, gate=None, with_grads: bool = False) -> tuple:
         """One CM3 learning step, in place on ``ts``'s buffers.
 
         batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
@@ -482,7 +482,11 @@ class CM3(base.ActorCritic):
         the device ([S] with seeds).  ``gate`` (a 0-dim bool tensor,
         optional) applies the update only where it holds.  Returns (ts,
         metrics); the metrics are device scalars ([S] with seeds;
-        reading them syncs)."""
+        reading them syncs).  ``with_grads`` adds ``metrics["grads"]``,
+        each network's raw gradient under JAX's name (``Policy``,
+        ``Q_global``, ``Q_credit``, ``V``; ``cm3.py:637-643``), flat in
+        the port's layout ([S, n] with seeds), cloned before the
+        optimizer reads it."""
         cfg = self.cfg
         h = self._handle
         eps = self._epsilon(epsilon)
@@ -503,6 +507,13 @@ class CM3(base.ActorCritic):
             self._critic_losses, h(ts.qg), h(ts.qc), h(ts.v), batch, y_g,
             y_c, y_v)
         self._backward(loss_qg.sum() + loss_qc.sum() + loss_v.sum())
+        grads = {}
+        if with_grads:
+            grads["Q_global"] = ts.qg.flat_grad.clone()
+            if self.use_credit:
+                grads["Q_credit"] = ts.qc.flat_grad.clone()
+            if self.use_v:
+                grads["V"] = ts.v.flat_grad.clone()
         q_actual = q.detach()
         with torch.no_grad():
             self._opt_step(*critics, apply=gate)
@@ -522,6 +533,8 @@ class CM3(base.ActorCritic):
             h(ts.qg if self.n_agents == 1 else ts.qc), h(ts.v), batch,
             q_actual, eps)
         self._backward(loss_pi.sum())
+        if with_grads:
+            grads["Policy"] = ts.actor.flat_grad.clone()
         with torch.no_grad():
             self._opt_step(
                 (ts.opt_actor, ts.actor, ts.actor_tgt, cfg.lr_actor),
@@ -539,4 +552,6 @@ class CM3(base.ActorCritic):
         if cfg.pg_ent_coef:
             metrics["policy_entropy"] = ent.detach()
         metrics["policy_loss"] = loss_pi.detach()
+        if with_grads:
+            metrics["grads"] = grads
         return ts, metrics

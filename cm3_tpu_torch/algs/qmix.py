@@ -161,7 +161,7 @@ class QMIX(base.SeededAlgorithm):
 
     @nets.full_float32()
     def update(self, ts: QmixState, batch: Dict[str, Any], epsilon,
-               draws, gate=None) -> tuple:
+               draws, gate=None, with_grads: bool = False) -> tuple:
         """One QMIX learning step, in place on ``ts``'s buffers.
 
         batch fields are [B, ...] ([S, B, ...] with seeds): state/obs
@@ -172,15 +172,28 @@ class QMIX(base.SeededAlgorithm):
         holds: the agent nets and the mixer, as one network, keep their
         parameters, targets, Adam state and the step where it is false,
         as JAX's driver drops a gated-off update.  Returns (ts,
-        metrics); the metrics are device scalars ([S] with seeds)."""
+        metrics); the metrics are device scalars ([S] with seeds).
+        ``with_grads`` adds ``metrics["grads"]``: the joint network's raw
+        gradient split into ``Agent`` and ``Mixer`` (``qmix.py:221-222``;
+        the agent nets' leaves come first in the flat buffer), cloned
+        before the optimizer reads it."""
         h = self._handle
         with torch.no_grad():
             y = self._map(self._target, h(ts.qmix_tgt), h(ts.qmix), batch)
         ts.qmix.flat_grad.zero_()
         loss = self._map(self._loss, h(ts.qmix), batch, y)
         self._backward(loss.sum())
+        grads = None
+        if with_grads:
+            g = ts.qmix.flat_grad.clone()
+            joint = ts.qmix if self.n_seeds is None else ts.qmix.module
+            n_agent = joint.agent_size()
+            grads = {"Agent": g[..., :n_agent], "Mixer": g[..., n_agent:]}
         with torch.no_grad():
             self._optax_step((ts.opt_qmix, ts.qmix, ts.qmix_tgt,
                               self.cfg.lr_Q), apply=gate)
         self._count_update(ts, gate)
-        return ts, {"loss_mixer": loss.detach()}
+        metrics = {"loss_mixer": loss.detach()}
+        if with_grads:
+            metrics["grads"] = grads
+        return ts, metrics

@@ -24,11 +24,20 @@ the pair (agent, mixer), the order of JAX's one flat Adam state
 A JAX state of seeds in lockstep (``jax.vmap(alg.init_state)``, every
 leaf with a leading seed axis) loads into the port's seed-stacked
 state (``n_seeds=S``), row by row.
+
+The other way, for the TensorBoard writer (``train/tboard.py``):
+``jax_leaves`` gives a port state's float leaves under the names and
+in the order that ``jax.tree_util.tree_leaves_with_path`` gives the
+JAX state of the same algorithm, each in flax layout (QMIX's joint
+network split into ``agent`` / ``mixer``, the Adam moments as JAX's
+flat vectors), and ``jax_grad_leaves`` the same for the gradients of
+``update(..., with_grads=True)``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -49,6 +58,15 @@ def _flax_shape(path, torch_shape):
 def _to_torch_layout(path, arr):
     if path[-1] == "kernel" and arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)
+    if path[-1] == "kernel" and arr.ndim == 2:
+        return arr.T
+    return arr
+
+
+def _to_flax_layout(path, arr):
+    """``_to_torch_layout``'s inverse."""
+    if path[-1] == "kernel" and arr.ndim == 4:           # OIHW -> HWIO
+        return arr.transpose(2, 3, 1, 0)
     if path[-1] == "kernel" and arr.ndim == 2:
         return arr.T
     return arr
@@ -155,3 +173,129 @@ def state_from_jax(alg, jts):
     steps = np.asarray(jts.step).reshape(-1)
     st.step = int(steps[0])
     return st
+
+
+# --------------------------------------------------------------------- #
+# the other way: a port state's values under JAX's names and layouts
+# --------------------------------------------------------------------- #
+
+# the networks that JAX's ``update(..., with_grads=True)`` names in
+# ``metrics["grads"]``: state field (and QMIX's part of the joint net)
+GRAD_NETS = {"Policy": ("actor", None), "Q_global": ("qg", None),
+             "Q_credit": ("qc", None), "V": ("v", None), "Q": ("q", None),
+             "Agent": ("qmix", "agent"), "Mixer": ("qmix", "mixer")}
+
+
+def _template(net):
+    return net.module if isinstance(net, nets.SeedStack) else net
+
+
+def _flax_leaves(module, vec, prefix):
+    """(tag, leaf in flax layout) of the flat host vector ``vec`` over
+    ``module``'s parameters, in ``ravel_pytree`` order."""
+    off = 0
+    for name, p in nets.ordered_parameters(module):
+        k = p.numel()
+        path = nets.flax_path(name)
+        yield prefix + "/".join(path), _to_flax_layout(
+            path, vec[off:off + k].reshape(tuple(p.shape)))
+        off += k
+
+
+def _flax_flat(module, vec):
+    """A flat host vector in the port's layout -> the same values in
+    flax layout, ``ravel_pytree`` order (JAX's flat Adam moments)."""
+    return np.concatenate([leaf.reshape(-1) for _, leaf
+                           in _flax_leaves(module, vec, "")])
+
+
+def _host_rows(tensors, seed):
+    """One device -> host copy of ``tensors`` (row ``seed`` of each, if
+    given): a list of float32 host vectors."""
+    rows = [(t if seed is None else t[seed]).reshape(-1) for t in tensors]
+    host = torch.cat(rows).detach().cpu().numpy()
+    out, off = [], 0
+    for r in rows:
+        out.append(host[off:off + r.numel()])
+        off += r.numel()
+    return out
+
+
+def _net_fields(ts):
+    """(JAX field name, module template, flat buffer) of every network
+    and target of ``ts`` in the JAX state's field order (QMIX's joint
+    network split into its agent nets and mixer, the fields of JAX's
+    ``QmixState``), then (``opt_<name>`` path, template, mu, nu) of
+    every Adam state."""
+    params, opts = [], []
+    if hasattr(ts, "qmix"):
+        tmpl = _template(ts.qmix)
+        n_agent = tmpl.agent_size()
+        for part, sl in (("agent", slice(None, n_agent)),
+                         ("mixer", slice(n_agent, None))):
+            for suffix in ("", "_tgt"):
+                flat = getattr(ts, "qmix" + suffix).flat[..., sl]
+                params.append((part + suffix, getattr(tmpl, part), flat))
+        opts.append(("opt", tmpl, ts.opt_qmix))
+        return params, opts
+    names = [f.name for f in dataclasses.fields(ts)
+             if f.name != "step" and not f.name.startswith("opt_")
+             and not f.name.endswith("_tgt")]
+    # JAX's field order: each network then its target, the optimizers
+    # after them all (CM3State: actor, qg, qc, v; BaselineState:
+    # actor, v, q)
+    order = {"actor": 0, "qg": 1, "qc": 2, "v": 3, "q": 4}
+    for name in sorted(names, key=order.__getitem__):
+        if getattr(ts, name) is None:
+            continue
+        for suffix in ("", "_tgt"):
+            net = getattr(ts, name + suffix)
+            params.append((name + suffix, _template(net), net.flat))
+    for name in sorted(names, key=order.__getitem__):
+        if getattr(ts, name) is not None:
+            opts.append(("opt_" + name, _template(getattr(ts, name)),
+                         getattr(ts, "opt_" + name)))
+    return params, opts
+
+
+def jax_leaves(ts, seed: Optional[int] = None):
+    """(name, host float32 array) of every float leaf that JAX's
+    ``jax.tree_util.tree_leaves_with_path`` finds in the JAX state of
+    the same algorithm, in its order and under ``tboard.log_train_state``'s
+    names: ``actor/params/conv/kernel`` (flax layout), ...,
+    ``opt_actor/0/mu`` (``opt_actor/1/0/mu`` with the global-norm clip,
+    an optax chain), ...; the int leaves (``step``, the Adam counts)
+    are skipped as JAX's writer skips them.  ``seed`` picks one seed of
+    a seed-stacked state.  The state is read to the host in one copy."""
+    params, opts = _net_fields(ts)
+    tensors = [flat for _, _, flat in params]
+    for _, _, opt in opts:
+        tensors += [opt.mu, opt.nu]
+    host = _host_rows(tensors, seed)
+    out = []
+    for (name, tmpl, _), vec in zip(params, host):
+        out += list(_flax_leaves(tmpl, vec, name + "/params/"))
+    for i, (name, tmpl, opt) in enumerate(opts):
+        idx = "1/0" if opt.clipped else "0"
+        mu, nu = host[len(params) + 2 * i:len(params) + 2 * i + 2]
+        out.append((f"{name}/{idx}/mu", _flax_flat(tmpl, mu)))
+        out.append((f"{name}/{idx}/nu", _flax_flat(tmpl, nu)))
+    return out
+
+
+def jax_grad_leaves(ts, grads, seed: Optional[int] = None):
+    """(name, host float32 array in flax layout) of the gradients
+    ``grads`` (``metrics["grads"]`` of ``update(..., with_grads=True)``
+    of ``ts``'s algorithm: JAX's name -> flat gradient in the port's
+    layout, [n] or [S, n]) as JAX's writer names its ``metrics["grads"]``
+    leaves, in its sorted-key order: ``Policy/params/conv/kernel``, ...;
+    in one host copy."""
+    names = sorted(grads)
+    host = _host_rows([grads[n] for n in names], seed)
+    out = []
+    for name, vec in zip(names, host):
+        field, part = GRAD_NETS[name]
+        tmpl = _template(getattr(ts, field))
+        tmpl = tmpl if part is None else getattr(tmpl, part)
+        out += list(_flax_leaves(tmpl, vec, name + "/params/"))
+    return out

@@ -28,11 +28,18 @@ over the other cars; and the vector [vel / 29, delta_sublane / 16,
 distance to goal].  The global state has a row [(x - 100) / 200,
 (y + 6.4) / 12.8, vel / 29] per car.
 
+With ``occlusion`` on, ``occlude`` (the ray-cast shadows,
+``roadway.py:72-176``) runs on every ego grid before the off-road
+fill, as in JAX (``roadway.py:384-393``).
+
 ``check_actions`` is the TTC feasibility filter (``roadway.py:236-268``):
 an infeasible action becomes the first feasible one in index order.
 The drivers apply it before every step and store what it returns.
 ``avg_speed``, ``count_close`` and ``count_success`` are the traffic
-metrics the evaluation reports (``roadway.py:426-492``).
+metrics the evaluation reports (``roadway.py:426-492``);
+``avg_speeds``, ``count_remaining`` and ``global_tensor`` are the
+reference's other traffic surfaces (``roadway.py:435-452, 494-537``),
+which no training path calls.
 
 Rounding.  The operations follow the JAX engine's order, each rounded
 apart; a division by a constant divides by a 0-dim float32 tensor on the
@@ -43,11 +50,6 @@ and divides by a constant as a product with its reciprocal, so a
 position can be an ulp off, and ``round()`` of a quotient that sits on
 a half-integer can then pick the next grid cell or head-start step
 (``tests/test_torch_roadway_engine.py`` counts each such cell).
-
-Not ported (ROADMAP A15): the ray-cast occlusion (``occlusion=True`` is
-refused; it is off in every shipped config), ``occlude``,
-``global_tensor``, ``avg_speeds`` and ``count_remaining``, which no
-training path calls.
 """
 
 from __future__ import annotations
@@ -59,6 +61,93 @@ import torch
 from cm3_tpu_torch.core.config import RoadwayEnvConfig
 from cm3_tpu_torch.envs import base
 from cm3_tpu_torch.envs.roadway_soa import ACC, DEC, LEFT, RIGHT
+
+
+def _cummax_incl(x, dim=-1):
+    """Whether any of x[..0], .., x[..i] along ``dim`` holds."""
+    return torch.cumsum(x.int(), dim=dim) > 0
+
+
+def _cummax_excl(x, dim=-1):
+    """Whether any of x[..0], .., x[..i-1] along ``dim`` holds."""
+    x = x.int()
+    return (torch.cumsum(x, dim=dim) - x) > 0
+
+
+def _quadrant(quad, skip_first=True, carry=None):
+    """The shadow mask of one quadrant sweep over ``quad`` [..., rows,
+    cols], oriented so that rows and columns increase away from the ego:
+    row by row (the carry is the previous row after its occlusion), a
+    cell is shadowed strictly beyond the row's first trigger, an
+    occupied cell or a free cell whose carried neighbour is occupied
+    (not on the first row with ``skip_first``)."""
+    prev = torch.zeros_like(quad[..., 0, :]) if carry is None else carry
+    out = []
+    for i in range(quad.shape[-2]):
+        row = quad[..., i, :]
+        toward = (row == 0.0) & (prev == 1.0)
+        if skip_first and i == 0:
+            toward = torch.zeros_like(toward)
+        sh = _cummax_excl((row == 1.0) | toward)
+        prev = torch.where(sh, -1.0, row)
+        out.append(sh)
+    return torch.stack(out, dim=-2)
+
+
+def occlude(occ, relspeed, *, back: int, front: int, num_ego_cells: int,
+            c_self: int):
+    """Ray-cast shadow occlusion on egocentric grid pairs [..., rows,
+    cols] (``roadway.py:72-176``; the reference's ``Observation.occlude``,
+    ``observation.py:180-303``).  From the ego cell block (rows
+    ``r_lo+1..r_hi-1`` at column ``c_self``, ``r_hi = back + 1``,
+    ``r_lo = back - num_ego_cells``):
+
+      * along the ego column (forward rows >= ``r_hi``, backward rows <=
+        ``r_lo``), everything at and beyond the first occupied -> free
+        falling edge is shadowed;
+      * along the ego rows, left and right of ``c_self``, everything
+        strictly beyond the first occupied cell;
+      * in the four quadrants, sweeping rows away from the ego, what
+        ``_quadrant`` shadows: the top sweeps and the bottom-right skip
+        the carried trigger on their first row; the bottom-left sweep
+        starts one row lower (at ``r_lo - 1``), never skips, and carries
+        the ORIGINAL row ``r_lo`` in, the reference's quirk that JAX
+        keeps.
+
+    Shadowed cells: occupancy -1, relspeed 0.  The quadrant sweeps are
+    loops over their ~6 rows.  ``front`` is unused (JAX's signature)."""
+    del front
+    r_hi = back + 1
+    r_lo = back - num_ego_cells
+    shadow = torch.zeros(occ.shape, dtype=torch.bool, device=occ.device)
+
+    def column_sweep(seg):                 # [..., k] occupancy values
+        prev = torch.cat([torch.zeros_like(seg[..., :1]), seg[..., :-1]],
+                         dim=-1)
+        return _cummax_incl((prev == 1.0) & (seg == 0.0))
+
+    # the ego column, forward and backward (rows r_lo, r_lo - 1, ..., 0)
+    shadow[..., r_hi:, c_self] = column_sweep(occ[..., r_hi:, c_self])
+    shadow[..., :r_lo + 1, c_self] = column_sweep(
+        occ[..., :r_lo + 1, c_self].flip(-1)).flip(-1)
+    # the ego rows, right and left of the ego column
+    ego_rows = occ[..., r_lo + 1:r_hi, :]
+    shadow[..., r_lo + 1:r_hi, c_self + 1:] = _cummax_excl(
+        ego_rows[..., c_self + 1:] == 1.0)
+    shadow[..., r_lo + 1:r_hi, :c_self] = _cummax_excl(
+        ego_rows[..., :c_self].flip(-1) == 1.0).flip(-1)
+    # the quadrants: top-right, top-left, bottom-right, bottom-left
+    shadow[..., r_hi:, c_self + 1:] |= _quadrant(occ[..., r_hi:, c_self + 1:])
+    shadow[..., r_hi:, :c_self] |= _quadrant(
+        occ[..., r_hi:, :c_self].flip(-1)).flip(-1)
+    shadow[..., :r_lo + 1, c_self + 1:] |= _quadrant(
+        occ[..., :r_lo + 1, c_self + 1:].flip(-2)).flip(-2)
+    if r_lo >= 1:
+        shadow[..., :r_lo, :c_self] |= _quadrant(
+            occ[..., :r_lo, :c_self].flip(-2, -1), skip_first=False,
+            carry=occ[..., r_lo, :c_self].flip(-1)).flip(-2, -1)
+    return (torch.where(shadow, -1.0, occ),
+            torch.where(shadow, 0.0, relspeed))
 
 
 @dataclasses.dataclass
@@ -76,10 +165,6 @@ class RoadwayState:
 class Roadway(base.Env):
 
     def __init__(self, cfg: RoadwayEnvConfig, device="cuda"):
-        if cfg.occlusion:
-            raise NotImplementedError(
-                "the roadway observation's occlusion is not ported "
-                "(ROADMAP A15)")
         self.cfg = cfg
         self.device = torch.device(device)
         c = cfg
@@ -266,6 +351,13 @@ class Roadway(base.Env):
         blank = -vel[..., :, None, None] / self._v25
         relspeed = torch.where(occupancy > 0, relsp_fill,
                                blank.expand(occupancy.shape))
+        # the optional ray-cast occlusion, before the off-road fill
+        # (observation.py:113-114)
+        if c.occlusion:
+            occupancy, relspeed = occlude(
+                occupancy, relspeed, back=back,
+                front=c.obs_rows - back - 1, num_ego_cells=num_cells,
+                c_self=c.obs_left)
 
         # off-road columns occupied
         l_sub = state.sublane[..., :, None] + (c.obs_left - self._cols)
@@ -330,3 +422,54 @@ class Roadway(base.Env):
                      & (state.sublane == state.goal_lane * spl + spl // 2)
                      & (state.x >= self._goal_pos))
         return (must_merge & succeeded).long().sum(dim=-1)
+
+    def avg_speeds(self, state: RoadwayState):
+        """Per-road-section mean speeds / v_threshold, [*L, 6]
+        (``roadway.py:435-452``): on the one straight edge only section
+        2 (lane 0) and section 5 (every other lane) can hold cars; an
+        empty section reports 1.0."""
+        live = ~state.removed
+        sec = torch.where(state.sublane // self.cfg.sublanes_per_lane == 0,
+                          2, 5)
+        out = []
+        for s in range(6):
+            m = (live & (sec == s)).float()
+            cnt = base.sum_agents(m)
+            mean = base.sum_agents(state.vel * m) / torch.clamp_min(cnt, 1.0)
+            out.append(torch.where(cnt > 0, mean / self._v_thr, 1.0))
+        return torch.stack(out, dim=-1)
+
+    def count_remaining(self, state: RoadwayState):
+        """Live cars still on lane 0, [*L] (``roadway.py:494-499``)."""
+        lane = state.sublane // self.cfg.sublanes_per_lane
+        return ((~state.removed) & (lane == 0)).long().sum(dim=-1)
+
+    def global_tensor(self, state: RoadwayState, last_actions=None):
+        """The whole road as an [*L, n_rows, n_cols, 4] grid in absolute
+        coordinates: occupancy, speed / 29, left and right signal
+        (``roadway.py:501-537``); the signals are the cars' last actions
+        LEFT / RIGHT (zero without ``last_actions``)."""
+        c = self.cfg
+        rows, cols = c.n_rows, c.n_cols
+        live = ~state.removed
+        num_cells = int(round(c.car_length / c.res_forward))
+        row_hi = torch.round(state.x / self._res_fwd).long()
+        col = torch.round(torch.abs(self._y(state.sublane))
+                          / self._sub_res).long()
+        rr = torch.arange(rows, device=self.device)
+        in_row = ((rr >= (row_hi - num_cells)[..., None])
+                  & (rr < row_hi[..., None]))              # [*L, N, rows]
+        in_col = torch.arange(cols, device=self.device) == col[..., None]
+        cell = (in_row[..., :, None] & in_col[..., None, :]
+                & live[..., None, None])                   # [*L, N, r, c]
+        occupancy = cell.any(dim=-3).float()
+        speed = torch.where(cell, (state.vel / self._v29)[..., None, None],
+                            0.0).amax(dim=-3)
+        if last_actions is None:
+            sig_l = sig_r = torch.zeros_like(occupancy)
+        else:
+            a = torch.as_tensor(last_actions, device=self.device)
+            sig_l = (cell & (a == LEFT)[..., None, None]).any(dim=-3).float()
+            sig_r = (cell & (a == RIGHT)[..., None, None]).any(
+                dim=-3).float()
+        return torch.stack([occupancy, speed, sig_l, sig_r], dim=-1)

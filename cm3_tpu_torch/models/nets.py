@@ -845,6 +845,10 @@ class QmixJoint(nn.Module):
     def forward(self, part: str, *args):
         return getattr(self, part)(*args)
 
+    def agent_size(self) -> int:
+        """The agent nets' floats: the flat buffer's first part."""
+        return sum(p.numel() for p in self.agent.parameters())
+
 
 # --------------------------------------------------------------------- #
 # flat parameter buffers

@@ -41,8 +41,16 @@ with per-seed device cursors, each seed's episodes routed into its own
 (``multiseed.py:115-117, 141``); the rows carry no ``n_bad``/``n_good``,
 as JAX's lockstep rows do not.
 
-Not ported (ROADMAP.md): the mesh placement (A14) and the gradient
-summaries (A15); each is refused.
+Gradient summaries (``summarize``, ``multiseed.py:159-163, 250-257``):
+after the fill (on-policy: also only while the rings hold rows) a
+period row carries ``_grads``, every seed's raw gradients of one
+dropped update on a fresh sample ([S, n] each), the update of the seed
+stack run on a copy of the state (``alg.grad_snapshot``) with each
+seed's epsilon; its draws come from the evaluation purpose of the draw
+key folded with 1,000,000 + the period's index, so they take nothing
+from the training or the evaluation draws.
+
+Not ported (ROADMAP.md): the mesh placement (A14), refused.
 """
 
 from __future__ import annotations
@@ -74,7 +82,7 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
                         log_fn: Optional[Callable[[Dict], None]] = None,
                         mesh=None, onpolicy: bool = False,
                         resume: Optional[Tuple[Any, np.ndarray]] = None,
-                        draws=None, eval_draws=None):
+                        draws=None, eval_draws=None, snapshot_draws=None):
     """Train ``n_seeds`` independent replicas in lockstep, off-policy
     or (``onpolicy``) on-policy.  Returns (the seed-stacked state,
     per-period history).
@@ -85,9 +93,9 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
     ``resume`` is (seed-stacked state, per-seed episode counts [S]),
     e.g. from an autosave or a curriculum graft; the state is trained in
     place.
-    ``draws`` and ``eval_draws`` (draw sources) replace the ones made
-    from the seeds' keys.  ``mesh`` is the JAX package's and is
-    refused."""
+    ``draws``, ``eval_draws`` and ``snapshot_draws`` (draw sources; the
+    last serves every gradient snapshot) replace the ones made from the
+    seeds' keys.  ``mesh`` is the JAX package's and is refused."""
     if mesh is not None:
         raise NotImplementedError(
             "placing the seed axis over a mesh is not ported (ROADMAP A14)")
@@ -100,8 +108,9 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
     dev = hooks.env.device
 
     keys = [prng.root_key(base_seed + i) for i in range(s)]
+    draw_key = prng.fold_in(keys[0], s)
     source = lambda purpose: prng.GeneratorDraws(prng.generator(
-        prng.for_purpose(prng.fold_in(keys[0], s), purpose), dev))
+        prng.for_purpose(draw_key, purpose), dev))
     draws = draws or source(prng.ROLLOUT)
     eval_draws = eval_draws or source(prng.EVAL)
     rs = init_rollout(hooks, cfg.n_envs, draws, cfg.episode_log, n_seeds=s)
@@ -180,6 +189,14 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
                                 int(last_ep_flushed[i]), int(episodes[i]))
                     for i in range(s)]
                 last_ep_flushed = episodes.copy()
+            if cfg.summarize and not fill and (not onpolicy
+                                               or driver.filled(buf) > 0):
+                row["_grads"] = driver._grad_snapshot(
+                    ts, buf, torch.as_tensor(row["epsilon"],
+                                             dtype=torch.float32,
+                                             device=dev),
+                    snapshot_draws or driver.snapshot_source(
+                        draw_key, period_idx, dev))
             history.append(row)
             if log_fn is not None:
                 log_fn(dict(row, _ts=ts))

@@ -73,8 +73,19 @@ a dispatch that began in the fill phase, as in JAX (``:472-497``).
 Seeds in lockstep (``train/multiseed.py``) ignore ``chunks_per_sync``,
 as JAX's ``train_vmapped_seeds`` does.
 
-Not ported yet (ROADMAP.md): the gradient summaries (``summarize``,
-A15), and the shard-local replay (A14); each is refused.
+Gradient summaries (``TrainConfig.summarize``, ``offpolicy.py:140-143,
+181-186, 527-530``).  Each period row after the fill carries
+``_grads``: the raw gradients of one extra update on a fresh replay
+sample whose result is dropped (``alg.grad_snapshot``: the update runs
+on a copy of the state, so training is not changed), for the runner's
+TensorBoard histograms.  Its draws (the sample's indices, then what
+``update`` consumes) come from their own stream per period, the
+evaluation purpose's key folded with 1,000,000 + the period's index, as
+JAX's keys come from ``fold_in(k_eval, 1_000_000 + period_idx)``; so
+they take nothing from the training or the evaluation draws, and a run
+with summaries on gives the rows and the state of one with them off.
+
+Not ported yet (ROADMAP.md): the shard-local replay (A14), refused.
 """
 
 from __future__ import annotations
@@ -203,9 +214,6 @@ class OffPolicyDriver:
         if cfg.replay_shards > 1:
             raise NotImplementedError(
                 "shard-local replay is not ported (ROADMAP A14)")
-        if cfg.summarize:
-            raise NotImplementedError(
-                "gradient summaries are not ported (ROADMAP A15)")
         self.hooks = hooks
         self.alg = alg
         self.cfg = cfg
@@ -257,6 +265,24 @@ class OffPolicyDriver:
                 shape, torch.clamp_min(buf.good.size, 1))
             return replay.sample_dual(buf, idx_bad, idx_good)
         return replay.sample(buf, draws.randint(shape, max(buf.size, 1)))
+
+    def _grad_snapshot(self, ts_alg, buf, epsilon, draws):
+        """The raw gradients of one update on a fresh replay sample whose
+        result is dropped (``offpolicy.py:181-186``); ``draws`` gives the
+        sample's indices, then the update's draws."""
+        batch = self._replay_sample(buf, draws)
+        lead = self.lead[:-1] + (self.cfg.batch_size,)
+        return self.alg.grad_snapshot(ts_alg, batch, epsilon,
+                                      self.alg.update_draws(draws, lead))
+
+    @staticmethod
+    def snapshot_source(key: int, period_idx: int, device):
+        """The draw source of period ``period_idx``'s gradient snapshot:
+        the evaluation purpose of ``key`` folded with 1,000,000 + the
+        period's index (``offpolicy.py:528-530``)."""
+        return prng.GeneratorDraws(prng.generator(prng.fold_in(
+            prng.for_purpose(key, prng.EVAL), 1_000_000 + period_idx),
+            device))
 
     @staticmethod
     def _routed(buf):
@@ -496,13 +522,16 @@ class OffPolicyDriver:
 
     def run(self, ts_alg, key: int = 0, n_episodes: Optional[int] = None,
             log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
-            initial_episodes: int = 0, draws=None, eval_draws=None):
+            initial_episodes: int = 0, draws=None, eval_draws=None,
+            snapshot_draws=None):
         """Host training loop of one seed until ``n_episodes`` completed
         episodes.  ``initial_episodes`` resumes the episode/epsilon
         schedule (the replay ring restarts empty and is warmed with
         policy rollouts for pretrain_episodes first).  The draws come
         from ``key`` (rollouts and evaluations from their own purposes),
-        or from the draw sources ``draws`` and ``eval_draws``.  With
+        or from the draw sources ``draws`` and ``eval_draws``; with
+        ``summarize`` the gradient snapshots' from ``snapshot_source``,
+        or all from the draw source ``snapshot_draws``.  With
         ``chunks_per_sync`` = K > 1 the fill and training chunks go K to
         a dispatch (``_chunks_scanned``).  Returns (ts_alg, final stats
         dict); ``dispatches`` in it counts the host syncs of the episode
@@ -577,6 +606,10 @@ class OffPolicyDriver:
                     last_ep_flushed = episodes_done
                 if cfg.dual_buffer:
                     row["n_bad"], row["n_good"] = self._routed(buf)
+                if cfg.summarize and not pretrain:
+                    row["_grads"] = self._grad_snapshot(
+                        ts_alg, buf, epsilon, snapshot_draws
+                        or self.snapshot_source(key, period_idx, dev))
                 row.update({k: float(v) for k, v in aux.items()
                             if k != "act_dist"})
                 # in key order, as JAX's metrics leave its jitted chunk

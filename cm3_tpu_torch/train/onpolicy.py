@@ -33,6 +33,10 @@ resumed run restarts its episode count and epsilon
 after the chunk's or the burst's episode count or metrics reach the
 host.
 
+With ``summarize`` a period row carries ``_grads``, the off-policy
+driver's gradient snapshot, where the ring holds rows and the episodes
+are past ``pretrain_episodes`` (``onpolicy.py:139-145``).
+
 Seeds in lockstep run through ``train/multiseed.py`` with
 ``onpolicy=True``.
 """
@@ -62,6 +66,13 @@ class OnPolicyDriver(OffPolicyDriver):
             routed += torch.stack([buf.bad.size.sum(), buf.good.size.sum()])
         return replay.reset_dual(buf)
 
+    def filled(self, buf) -> int:
+        """The rows the ring holds (both memories' with the dual buffer,
+        summed over seeds; a host sync there)."""
+        if self.cfg.dual_buffer:
+            return sum(self._routed(buf))
+        return int(buf.size)
+
     def _rollout_chunk(self, ts_alg, buf, rs, epsilon, draws,
                        random_actions: bool):
         """``steps_per_train`` lockstep env steps with their replay adds
@@ -86,7 +97,7 @@ class OnPolicyDriver(OffPolicyDriver):
 
     def run(self, ts_alg, key: int = 0, n_episodes: Optional[int] = None,
             log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
-            draws=None, eval_draws=None):
+            draws=None, eval_draws=None, snapshot_draws=None):
         """Host training loop of one seed until ``n_episodes`` completed
         episodes (``onpolicy.py:64-158``): a rollout chunk, then a burst
         once ``episodes_per_train`` more episodes are done (after the
@@ -160,6 +171,11 @@ class OnPolicyDriver(OffPolicyDriver):
                     last_ep_flushed = episodes_done
                 if cfg.dual_buffer:
                     row["n_bad"], row["n_good"] = routed.tolist()
+                if (cfg.summarize and self.filled(buf) > 0
+                        and episodes_done > cfg.pretrain_episodes):
+                    row["_grads"] = self._grad_snapshot(
+                        ts_alg, buf, epsilon, snapshot_draws
+                        or self.snapshot_source(key, period_idx, dev))
                 row.update({k: float(v) for k, v in aux.items()
                             if k != "act_dist"})
                 history.append(row)

@@ -36,10 +36,18 @@ restores it and grafts nothing, as the JAX runner does
 (``runner.py:208-214, 398-404``).  As in the JAX runner, an on-policy
 run resumed from its autosave restores the state but restarts its
 episode count and epsilon: only the off-policy driver takes
-``initial_episodes`` (``runner.py:293-295``).  The runner refuses,
-naming the ROADMAP item: a ``mesh`` and ``replay_shards`` (A14, the
-latter refused by the driver), ``summarize`` (A15, refused by the
-driver) and rendering (A15).  The master's ``chunks_per_sync`` reaches
+``initial_episodes`` (``runner.py:293-295``).  With ``summarize`` the
+runner writes TensorBoard event files (``train/tboard.py``) as JAX's
+does (``runner.py:221-223, 256-270, 367-370, 430-457``): one writer in
+``log/<dir_name>`` (with seeds in lockstep one per seed directory),
+and per period row every numeric scalar but ``episode``,
+``r_eval_local/agent_<i>``, the state's ``vars/...`` and the gradient
+snapshot's ``grads/...`` histograms, then a flush.  ``render_episodes``
+(and the CLI's ``--render-episodes K`` / ``--render-only``) writes
+greedy episodes as animated SVGs (``envs/render.py``) under
+``render/<dir_name>``.  The runner refuses, naming the ROADMAP item: a
+``mesh`` and ``replay_shards`` (A14, the latter refused by the
+driver).  The master's ``chunks_per_sync`` reaches
 the off-policy driver as in JAX: the paper's single-env cells
 (``checkers_s2_e1``, ``checkers_qmix_e1``: ``n_envs`` 1, K = 32) run K
 chunks per host sync (``train/offpolicy.py``); seeds in lockstep and
@@ -54,7 +62,7 @@ Usage:
     python -m cm3_tpu_torch.train.runner \\
         --config cm3_tpu/configs/master.json [--experiment roadway \\
         --stage 2 --alg coma --episodes 5000 --n-envs 16 --workdir DIR \\
-        --multiseed --device cpu]
+        --multiseed --device cpu] [--render-episodes K] [--render-only]
 """
 
 from __future__ import annotations
@@ -74,7 +82,8 @@ from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.envs.checkers import Checkers
 from cm3_tpu_torch.envs.particle import Particle
 from cm3_tpu_torch.envs.roadway import Roadway
-from cm3_tpu_torch.train import checkpoint
+from cm3_tpu_torch.envs import render as rndr
+from cm3_tpu_torch.train import checkpoint, tboard
 from cm3_tpu_torch.train.experiments import make_hooks
 from cm3_tpu_torch.train.logging import CSVLogger, stdout_log
 from cm3_tpu_torch.train.multiseed import train_vmapped_seeds
@@ -289,6 +298,9 @@ def train_function(master: Dict, workdir: str = ".",
     os.makedirs(save_dir, exist_ok=True)
     logger = CSVLogger(log_dir, hooks.n_agents,
                        resume=bool(master.get("auto_resume", 0)))
+    # the TensorBoard stream when summarize (config.json:64; the
+    # FileWriter at train_offpolicy.py:176, emission at :350-356)
+    tb = tboard.SummaryWriter(log_dir) if master.get("summarize") else None
 
     # ---- elastic resume from the rolling autosave ----
     initial_episodes = 0
@@ -315,6 +327,8 @@ def train_function(master: Dict, workdir: str = ".",
         logger.log_period(row)
         if verbose:
             stdout_log(row)
+        if tb is not None:
+            write_summaries(tb, row, row["_ts"], row.get("_grads"))
         # snapshots on a threshold crossing that is also a new best (a
         # vectorized run crosses hundreds of times once converged)
         good, stat = _snapshot_stat(row["r_eval_local"], save_threshold,
@@ -332,8 +346,28 @@ def train_function(master: Dict, workdir: str = ".",
         run_kwargs["initial_episodes"] = initial_episodes
     ts, stats = driver.run(ts, key, n_episodes=n_episodes, log_fn=log_fn,
                            **run_kwargs)
+    if tb is not None:
+        tb.close()
     checkpoint.save(os.path.join(save_dir, "model_final"), ts)
     return ts, stats
+
+
+def write_summaries(tb, row, ts, grads=None, seed=None):
+    """One period's events (``runner.py:256-270``): every int or float
+    of ``row`` but ``episode`` as a scalar, ``r_eval_local/agent_<i>``,
+    the state's histograms under ``vars/``, the gradient snapshot's
+    under ``grads/``, then a flush; ``seed`` picks one seed of a
+    seed-stacked state and gradients."""
+    step = int(row["episode"])
+    for k, v in row.items():
+        if isinstance(v, (int, float)) and k != "episode":
+            tb.scalar(k, float(v), step)
+    for i, r in enumerate(np.asarray(row["r_eval_local"]).ravel()):
+        tb.scalar(f"r_eval_local/agent_{i}", float(r), step)
+    tboard.log_train_state(tb, ts, step, seed=seed)
+    if grads is not None:
+        tboard.log_grads(tb, ts, grads, step, seed=seed)
+    tb.flush()
 
 
 def _vmapped_autosave(master: Dict, workdir: str) -> str:
@@ -399,10 +433,14 @@ def train_multiseed(master: Dict, workdir: str = ".",
     stage = master.get("stage", 1)
     save_threshold = _save_threshold(master, experiment, stage)
     resume_logs = bool(master.get("auto_resume", 0))
-    loggers = [CSVLogger(os.path.join(workdir, "log",
-                                      f"{base_dir}_{start + i}"),
-                         hooks.n_agents, resume=resume_logs)
-               for i in range(n_seeds)]
+    log_dirs = [os.path.join(workdir, "log", f"{base_dir}_{start + i}")
+                for i in range(n_seeds)]
+    loggers = [CSVLogger(d, hooks.n_agents, resume=resume_logs)
+               for d in log_dirs]
+    # per-seed TensorBoard streams when summarize, with the state's and
+    # the gradients' histograms as for one seed
+    tbs = [tboard.SummaryWriter(d) if master.get("summarize") else None
+           for d in log_dirs]
     save_dirs = [os.path.join(workdir, "saved", f"{base_dir}_{start + i}")
                  for i in range(n_seeds)]
     for d in save_dirs:
@@ -412,6 +450,7 @@ def train_multiseed(master: Dict, workdir: str = ".",
 
     def log_fn(row):
         _ts = row.pop("_ts")
+        _grads = row.pop("_grads", None)
         _eps = row.pop("_episodes", None)
         for i in range(n_seeds):
             r_i = {k: (np.asarray(v)[i] if np.ndim(v) >= 1
@@ -421,6 +460,8 @@ def train_multiseed(master: Dict, workdir: str = ".",
             if _eps is not None:
                 loggers[i].log_episodes(*_eps[i])
             loggers[i].log_period(r_i)
+            if tbs[i] is not None:
+                write_summaries(tbs[i], r_i, _ts, _grads, seed=i)
             good, stat = _snapshot_stat(np.asarray(row["r_eval_local"][i]),
                                         save_threshold, experiment, stage)
             if good and stat > best_good[i]:
@@ -435,10 +476,50 @@ def train_multiseed(master: Dict, workdir: str = ".",
         hooks, alg_s, train_cfg, n_seeds=n_seeds, base_seed=base_seed,
         n_episodes=n_episodes, log_fn=log_fn,
         onpolicy=isinstance(driver, OnPolicyDriver), resume=resume)
+    for tb in tbs:
+        if tb is not None:
+            tb.close()
     for i in range(n_seeds):
         checkpoint.save(os.path.join(save_dirs[i], "model_final"),
                         checkpoint.seed_state(alg, ts, i))
     return ts, history
+
+
+def render_episodes(master: Dict, ts, workdir: str = ".",
+                    n_episodes: int = 3, restore: bool = False,
+                    device="cuda"):
+    """Write ``n_episodes`` greedy-policy episodes as animated SVG files
+    ``workdir/render/<dir_name>/episode_<i>.svg`` (``runner.py:502-541``),
+    the headless counterpart of the reference's pyglet episode viewer;
+    returns their paths.  Pass ``ts=None`` with ``restore=True`` to
+    render the checkpoint ``saved/<dir_name>/<model_name>``
+    (``model_final`` by default) in the port's format.  Episode ``i``
+    draws from the rollout purpose of the seed's key folded with
+    777,000 + i."""
+    experiment = master.get("experiment", "checkers")
+    _, alg, hooks, _ = build(master, device=device)
+    key = prng.root_key(master.get("seed", 12341))
+    dir_name = master.get("dir_name", "try")
+    if ts is None and restore:
+        ts = checkpoint.restore(
+            os.path.join(workdir, "saved", dir_name,
+                         master.get("model_name", "model_final")),
+            alg.empty_state())
+    env_cfg = hooks.env.cfg
+    max_steps = getattr(env_cfg, "max_steps", None) or env_cfg.max_step
+    out_dir = os.path.join(workdir, "render", dir_name)
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i in range(n_episodes):
+        draws = prng.GeneratorDraws(prng.generator(prng.fold_in(
+            prng.for_purpose(key, prng.ROLLOUT), 777_000 + i),
+            hooks.env.device))
+        states = rndr.collect_episode(hooks, alg, ts, draws, max_steps)
+        path = os.path.join(out_dir, f"episode_{i}.svg")
+        with open(path, "w") as f:
+            f.write(rndr.render_episode_svg(experiment, states, env_cfg))
+        paths.append(path)
+    return paths
 
 
 def main(argv=None):
@@ -454,13 +535,12 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (default cuda)")
     p.add_argument("--render-episodes", type=int, default=0, metavar="K",
-                   help="not ported (ROADMAP A15)")
+                   help="after training (or, with --render-only, from the "
+                   "saved model_final) write K greedy episodes as animated "
+                   "SVGs under workdir/render/<dir_name>/")
     p.add_argument("--render-only", action="store_true",
-                   help="not ported (ROADMAP A15)")
+                   help="skip training; restore model_final and render")
     args = p.parse_args(argv)
-    if args.render_episodes or args.render_only:
-        raise NotImplementedError("rendering episodes is not ported "
-                                  "(ROADMAP A15)")
 
     master = cfgmod.load_json(args.config)
     if args.experiment:
@@ -472,11 +552,21 @@ def main(argv=None):
     if args.alg:
         master["alg_name"] = args.alg
 
+    if args.render_only:
+        print("\n".join(render_episodes(master, None, args.workdir,
+                                        args.render_episodes or 3,
+                                        restore=True, device=args.device)))
+        return
+
     if args.multiseed:
         train_multiseed(master, args.workdir, args.episodes, args.device)
     else:
-        train_function(master, args.workdir, args.episodes,
-                       device=args.device)
+        ts, _ = train_function(master, args.workdir, args.episodes,
+                               device=args.device)
+        if args.render_episodes:
+            print("\n".join(render_episodes(master, ts, args.workdir,
+                                            args.render_episodes,
+                                            device=args.device)))
 
 
 if __name__ == "__main__":

@@ -19,7 +19,10 @@ roadway and the dual buffer: the engine, a dual chunk (one seed and
 three, optax and fused) and a dual burst on the card against the CPU,
 the fused update at roadway sizes, a tiny roadway curriculum through
 the runner, and the first learning check (roadway stage 1, printed
-with ``-s``).  They import
+with ``-s``); the tools: the update's gradients (one seed and three)
+against the CPU, the gradient snapshot leaving the state bit for bit
+with its launches, and roadway's occluded observation and traffic
+surfaces against the CPU.  They import
 neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1586,3 +1589,150 @@ def test_kchunk_dispatch_on_card_matches_cpu(cuda_device, monkeypatch, kind,
     for k in m_h:
         torch.testing.assert_close(m_c[k].cpu(), m_h[k], rtol=1e-4,
                                    atol=1e-5)
+
+
+# --------------------------------------------------------------------- #
+# the tools: the gradient snapshot and roadway's occlusion
+# --------------------------------------------------------------------- #
+
+
+def _grad_program(dev, n_seeds, **alg_kw):
+    """CM3 stage 2 at small width on ``dev`` (fused unless ``alg_kw``
+    says otherwise), a state trained one update, and a batch of 32 real
+    transitions (and its a' noise) from a seeded numpy stream, the same
+    on every device."""
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.envs.checkers import Checkers
+    from cm3_tpu_torch.train.experiments import flat_call, make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
+
+    b = 32
+    lead = (b,) if n_seeds is None else (n_seeds, b)
+    rng = np.random.default_rng(1)
+    nn = config.NNConfig(Q_conv_f=2, Q_n_h1_1=16, Q_n_h1_2=8, Q_n_h2=16,
+                         A_conv_f=2, A_n_h1=16, A_n_h2=12)
+    env = Checkers(config.CheckersEnvConfig(n_agents=2, max_steps=7),
+                   device=dev)
+    alg = CM3("checkers", env.spec(), config.AlgConfig(
+        n_agents=2, stage=2, **dict(dict(fused_opt=True), **alg_kw)), nn,
+        device=dev, n_seeds=n_seeds)
+    drv = OffPolicyDriver(make_hooks("checkers", env), alg,
+                          config.TrainConfig(n_envs=b))
+    rs = init_rollout(drv.hooks, b, n_seeds=n_seeds)
+    a = torch.tensor(rng.integers(0, 5, lead + (2,)), device=dev)
+    ts_next = flat_call(env.step, lead, rs.env_state, a)[1]
+    batch = drv._transition(rs, a, ts_next)
+    noise = lambda: torch.tensor(rng.gumbel(size=lead + (2, 5)).astype(
+        np.float32), device=dev)
+    eps = 0.2 if n_seeds is None else torch.tensor(
+        [0.1, 0.2, 0.3][:n_seeds], device=dev)
+    ts = alg.init_state(prng.root_key(0) if n_seeds is None
+                        else [prng.root_key(i) for i in range(n_seeds)])
+    ts, _ = alg.update(ts, batch, eps, noise())
+    return alg, ts, batch, eps, noise()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_seeds", [None, 3], ids=["one_seed", "three"])
+def test_update_grads_on_card_match_cpu(cuda_device, n_seeds):
+    """``update(..., with_grads=True)``'s raw gradients (``Policy``,
+    ``Q_global``, ``Q_credit``) on the card equal the CPU's at rtol 1e-4,
+    atol 1e-5 (float32 sums in other orders, after one Adam step)."""
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        alg, ts, batch, eps, z = _grad_program(dev, n_seeds)
+        out[dev.type] = alg.update(ts, batch, eps, z, with_grads=True)[1]
+    g_c, g_h = out["cuda"]["grads"], out["cpu"]["grads"]
+    assert sorted(g_c) == sorted(g_h) == ["Policy", "Q_credit", "Q_global"]
+    for k in g_h:
+        assert g_c[k].shape == g_h[k].shape
+        torch.testing.assert_close(g_c[k].cpu(), g_h[k], rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze", [0, 5])
+def test_snapshot_leaves_state_on_card(cuda_device, freeze, monkeypatch):
+    """``grad_snapshot`` on the card: every network, target, Adam moment,
+    Adam count and the step bit for bit as before; it launches B1 twice
+    (the critics, the actor) and with the actor frozen B3 once, on its
+    own copy of the state; its gradients equal the next real update's
+    bit for bit under deterministic cuDNN (its default convolution
+    backward adds in a varying order)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    alg, ts, batch, eps, z = _grad_program(cuda_device, None,
+                                           actor_freeze_updates=freeze)
+    names = [f for f in ts.__dataclass_fields__ if f != "step"
+             and getattr(ts, f) is not None]
+    before = {}
+    for f in names:
+        v = getattr(ts, f)
+        before[f] = ((v.mu.clone(), v.nu.clone(), v.count)
+                     if f.startswith("opt_") else (v.flat.clone(),))
+    step = ts.step
+    b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
+    grads = alg.grad_snapshot(ts, batch, eps, z)
+    torch.cuda.synchronize()
+    assert fused_opt.adam_polyak.launches - b1 == 2
+    assert polyak.polyak_update.launches - b3 == (1 if freeze else 0)
+    assert ts.step is step
+    for f in names:
+        v = getattr(ts, f)
+        now = ((v.mu, v.nu, v.count) if f.startswith("opt_")
+               else (v.flat,))
+        for x, y in zip(now, before[f]):
+            assert torch.equal(x, y), f
+        if f.startswith("opt_"):
+            assert v.count is before[f][2], f
+    _, m = alg.update(ts, batch, eps, z, with_grads=True)
+    for k in grads:
+        assert torch.equal(grads[k], m["grads"][k]), k
+
+
+@pytest.mark.cuda
+def test_occluded_roadway_observation_on_card_matches_cpu(cuda_device):
+    """``occlusion=True`` on the card from the same lanes, goal lanes and
+    depart noise over 42 filtered steps: the occluded grids and every
+    other output as ``test_roadway_engine_on_card_matches_cpu`` holds
+    them (the shadow masks, -1 cells, exactly), with cells shadowed; the
+    traffic surfaces ``avg_speeds``, ``count_remaining`` and
+    ``global_tensor`` alike."""
+    import dataclasses
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.envs.roadway import Roadway
+    rng = np.random.default_rng(0)
+    e = 256
+    lanes, goals = rng.integers(0, 4, (e, 2)), rng.integers(0, 4, (e, 2))
+    noise = rng.normal(size=(e, 2)).astype(np.float32)
+    acts = rng.integers(0, 5, (42, e, 2))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        env = Roadway(dataclasses.replace(config.roadway_env_config(2, 0.5),
+                                          occlusion=True), device=dev)
+        st, ts = env.reset(dict(lanes=torch.tensor(lanes),
+                                goal_lanes=torch.tensor(goals)),
+                           torch.tensor(noise))
+        traj = []
+        for a in acts:
+            a = env.check_actions(st, torch.tensor(a))
+            st, ts = env.step(st, a)
+            traj.append((a, st, ts, env.avg_speeds(st),
+                         env.count_remaining(st), env.global_tensor(st, a)))
+        out[dev.type] = traj
+    shadowed = 0
+    for (a_c, s_c, t_c, *m_c), (a_h, s_h, t_h, *m_h) in zip(out["cuda"],
+                                                            out["cpu"]):
+        assert torch.equal(a_c.cpu(), a_h)
+        for k in ("sublane", "steps", "terminal", "collided", "removed"):
+            assert torch.equal(getattr(s_c, k).cpu(), getattr(s_h, k)), k
+        assert torch.equal(t_c.obs["self_t"][..., 0].cpu() == -1.0,
+                           t_h.obs["self_t"][..., 0] == -1.0)
+        shadowed += int((t_h.obs["self_t"][..., 0] == -1.0).sum())
+        for k in ("self_t", "self_v"):
+            torch.testing.assert_close(t_c.obs[k].cpu(), t_h.obs[k], rtol=0,
+                                       atol=1e-5)
+        for x, y in zip(m_c, m_h):
+            torch.testing.assert_close(x.cpu(), y, rtol=0, atol=1e-6)
+    assert shadowed > 0

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``cm3_tpu_torch``, not
-``chip_smoke.py`` and not the port's scripts import JAX, flax, optax or
-``cm3_tpu``, none of them imports Triton (every kernel is CUDA C++,
-built by ``nvcc``), and importing the whole package loads neither JAX
-nor Triton."""
+``chip_smoke.py`` and not the port's scripts import JAX, flax, optax,
+orbax, TensorBoard (the event files are hand-encoded) or ``cm3_tpu``,
+none of them imports Triton (every kernel is CUDA C++, built by
+``nvcc``), and importing the whole package loads neither JAX nor
+Triton."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cm3_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorboard",
+             "cm3_tpu")
 
 
 def _sources():

@@ -140,12 +140,13 @@ def _small_stage1():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("replay_shards", 2, "A14"), ("summarize", True, "A15")])
+    ("replay_shards", 2, "A14")])
 def test_driver_refuses_what_is_not_ported(field, value, item):
     """The JAX options the port does not run yet are refused, naming
     their ROADMAP item; the K-chunk schedule in ``run`` no longer is: a
     tiny run at K = 4 trains (its draws and its parity with JAX's are in
-    ``test_torch_kchunk*.py``)."""
+    ``test_torch_kchunk*.py``).  ``summarize`` runs:
+    ``test_driver_runs_summarize``."""
     from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
     hooks, ta = _small_stage1()
     with pytest.raises(NotImplementedError, match=item):
@@ -167,3 +168,26 @@ def test_train_vmapped_seeds_refuses_what_is_not_ported(kw, item):
     cfg = tcfg.TrainConfig(**kw.pop("cfg", {}))
     with pytest.raises(NotImplementedError, match=item):
         multiseed.train_vmapped_seeds(hooks, ta, cfg, 2, 0, **kw)
+
+
+def test_driver_runs_summarize():
+    """``summarize`` (once refused, ROADMAP A15): a tiny K = 2 run (a
+    row after the dispatch that began in the fill, without ``_grads``,
+    and one after training, with them) and the same in lockstep; the
+    rows after training carry every network's gradients (their parity
+    with JAX's: ``test_torch_summaries*.py``)."""
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
+    hooks, ta = _small_stage1()
+    kw = dict(summarize=True, n_envs=2, max_steps=5, steps_per_train=5,
+              pretrain_episodes=2, period=4, N_eval=1, batch_size=8,
+              buffer_size=64, updates_per_chunk=1, N_train=8)
+    driver = OffPolicyDriver(hooks, ta, tcfg.TrainConfig(
+        chunks_per_sync=2, **kw))
+    ts, stats = driver.run(ta.init_state(0))
+    rows = stats["history"]
+    assert [sorted(r.get("_grads", {})) for r in rows] == [
+        [], ["Policy", "Q_global"]]
+    _, th = multiseed.train_vmapped_seeds(hooks, ta, tcfg.TrainConfig(**kw),
+                                          2, 7)
+    assert sorted(th[-1]["_grads"]) == ["Policy", "Q_global"]
+    assert th[-1]["_grads"]["Policy"].shape == (2, ts.actor.flat.numel())

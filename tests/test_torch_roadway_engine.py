@@ -281,10 +281,26 @@ def test_filter_and_step_match_golden_engine():
         assert done
 
 
-def test_occlusion_is_refused():
+def test_occlusion_runs():
+    """``occlusion=True`` (once refused, ROADMAP A15) shadows the grid:
+    a car straight ahead of another hides the cells behind it, which
+    read -1 with a relative speed of 0 (parity with JAX's:
+    ``test_torch_roadway_extras.py``)."""
     cfg = dataclasses.replace(tcfg.roadway_env_config(2), occlusion=True)
-    with pytest.raises(NotImplementedError, match="A15"):
-        Roadway(cfg, device="cpu")
+    env = Roadway(cfg, device="cpu")
+    i64 = lambda *v: torch.tensor([v])
+    flags = torch.zeros((1, 2), dtype=torch.bool)
+    st = RoadwayState(x=torch.tensor([[50.0, 60.0]]), sublane=i64(6, 6),
+                      vel=torch.tensor([[20.0, 20.0]]), steps=i64(0, 0),
+                      goal_lane=i64(1, 1), terminal=flags, collided=flags,
+                      removed=flags)
+    _, ts = env.step(st, i64(0, 0))
+    grid = ts.obs["self_t"][0, 0]                    # the car behind
+    shadow = grid[..., 0] == -1.0
+    assert shadow.any() and (grid[..., 1][shadow] == 0.0).all()
+    plain = Roadway(tcfg.roadway_env_config(2), device="cpu")
+    assert not (plain.step(st, i64(0, 0))[1].obs["self_t"][..., 0]
+                == -1.0).any()
 
 
 # --------------------------------------------------------------------- #

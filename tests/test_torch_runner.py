@@ -74,7 +74,6 @@ def test_build_matches_jax(name):
 REFUSALS = {
     "mesh": (dict(mesh=[4]), "A14"),
     "replay_shards": (dict(replay_shards=2), "A14"),
-    "summarize": (dict(summarize=True), "A15"),
 }
 
 
@@ -85,11 +84,34 @@ def test_refusals_name_their_items(name):
         runner.build(_master(over), device="cpu")
 
 
+def test_summarize_builds():
+    """``summarize`` (once refused, ROADMAP A15) reaches the driver; the
+    event files it makes are held in ``test_torch_summaries_runner.py``."""
+    driver, *_ = runner.build(_master(summarize=True), device="cpu")
+    assert driver.cfg.summarize
+
+
 @pytest.mark.parametrize("flag", [["--render-only"],
                                   ["--render-episodes", "2"]])
-def test_rendering_is_refused(flag):
-    with pytest.raises(NotImplementedError, match="A15"):
-        runner.main(["--device", "cpu"] + flag)
+def test_rendering_flags_run(flag, tmp_path, small_nets, capsys):
+    """The rendering flags (once refused, ROADMAP A15) write their SVGs:
+    ``--render-episodes`` after a tiny run, ``--render-only`` (three by
+    default) from a saved ``model_final``."""
+    m = _master(SMALL, N_train=4, period=4, pretrain_episodes=2)
+    cfg = tmp_path / "m.json"
+    cfg.write_text(json.dumps(m))
+    wd = str(tmp_path / "wd")
+    base = ["--config", str(cfg), "--workdir", wd, "--device", "cpu"]
+    if flag == ["--render-only"]:
+        runner.main(base)
+        capsys.readouterr()
+    runner.main(base + flag)
+    paths = capsys.readouterr().out.strip().splitlines()
+    n = 3 if flag == ["--render-only"] else 2
+    assert paths[-n:] == [os.path.join(wd, "render", "s1",
+                                       f"episode_{i}.svg")
+                          for i in range(n)]
+    assert all(os.path.getsize(p) > 0 for p in paths[-n:])
 
 
 # --------------------------------------------------------------------- #
