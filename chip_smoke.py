@@ -4,16 +4,14 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Fifteen phases, each between progress lines with its elapsed seconds
-and held to a time budget (30 + 45 + 20 + 20 + 90 + 10 + 75 + 60 + 40 +
-120 + 120 + 110 + 90 + 290 + 60 s = 1180 s: about twice each phase's
-longest time on an H100, 0: 4.6, 1: 21.8, 2: 3.1, 3: 3.4, 4: 45.2, 5:
-1.2, 6: 51.3, 7: 32.5, 8: 21.4, 9: 111.4, 10: 113.4, 11: 63.5, 12: 45.3
-s, with at least 10 s a phase and 30 s for a cold ``nvcc`` build;
-phases 9 and 10 since cut to 200 stage-1 and 150 cell episodes: 83.6
-and 85.4 s at most, so 120 s is 1.44x and 1.41x them; phase 13 200.7 s
-at most (290 s: 1.44x); phase 6's 75 s 1.46x its 51.3 s; phase 14
-36.8 s (60 s, the most it may have); a whole run 493.9-661.3 s):
+Sixteen phases, each between progress lines with its elapsed seconds
+and held to a time budget (30 + 45 + 10 + 10 + 73 + 10 + 80 + 48 + 37 +
+120 + 112 + 93 + 67 + 311 + 73 + 61 s = 1180 s: about 1.46x each
+phase's longest cold time on an H100 over PR 15's and PR 16's runs, 0:
+5.0, 1: 26.3, 2: 3.6, 3: 5.3, 4: 50.2, 5: 1.2, 6: 54.6, 7: 33.2, 8:
+25.6, 9: 82.2, 10: 76.8, 11: 63.5, 12: 45.7, 13: 213.4, 14: 50.3, 15:
+41.1 s, with at least 10 s a phase and 30 s for a cold ``nvcc`` build;
+a whole run 493.9-753.8 s):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -241,6 +239,27 @@ at most (290 s: 1.44x); phase 6's 75 s 1.46x its 51.3 s; phase 14
    steps of 256 instances (the shadows exactly, every value within
    1e-5), ``avg_speeds``, ``count_remaining`` and ``global_tensor``
    alike.
+15. shard-local replay and the MPE suite: card against CPU (phase 3's
+   tolerance) after a fill and a training chunk of phase 2's program
+   with the replay in 4 shards (each update's indices per shard, below
+   its fill) and after roadway's dual chunk with both memories in 2
+   shards, one seed and three; the paper's ``checkers_s2`` (phase 9's
+   settings, grafted from a stage-1 checkpoint of fresh parameters; 100
+   episodes) with ``replay_shards`` 4 and 1 in turns through
+   ``runner.train_function``, its episodes per second, B1's and B3's
+   launches counted in the sharded run (its main path: 2 and 1 an
+   update); one K = 32 dispatch of 4 envs in 4 shards under
+   ``set_sync_debug_mode("error")``; ``roadway_s2`` (grafted, dual
+   buffer) with ``replay_shards`` 2, 100 episodes, its row's
+   ``n_bad``/``n_good`` (summed over the shards); and each of the nine
+   MPE scenarios (``envs/mpe.py``) at 65,536 instances for 25 steps on
+   the index path and on the multi-head path, timed (env-steps/s), then
+   again with every step of the first 4,096 instances repeated on the
+   CPU from the card's state before it with the same draws: state,
+   observations and rewards at rtol / atol 1e-5, a collision flag that
+   differs accepted only within 1e-5 of its threshold, |d - (s_i +
+   s_j)| (the observations and rewards of such an instance are then
+   not compared at that step).
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
@@ -248,7 +267,8 @@ mean of the main path's two launches; B1's ``launches`` are phase 2's,
 B3's phase 9's, its training path: the actor freeze on the fused path;
 beside them ``particle_onpolicy_launches``, phase 11's fused stage 2,
 ``roadway_launches``, phase 12's fused roadway stage 2, and
-``kchunk_launches``, phase 13's fused single-env run; ``pred_ms``,
+``kchunk_launches``, phase 13's fused single-env run, and
+``shards_launches``, phase 15's sharded ``checkers_s2``; ``pred_ms``,
 the kernel's time under a device predicate of 1; and B1's
 ``wrapper_ms``, ``adam_polyak_many``'s device time after a PyTorch
 kernel as the update calls it, and ``wrapper_b2b_ms``, its time per
@@ -418,6 +438,19 @@ E1_TURN, E1_TURN_FILL, E1_FREEZE_RUN, E1_FREEZE = 100, 0, 20, 20
 # updates) with summaries, 200 episodes (and the same without), and three
 # seeds in lockstep with summaries, 100 episodes each
 TL_EPISODES, TL_SEEDED = 200, 100
+
+# shard-local replay and MPE (phase 15): the plain ring in 4 shards
+# (Checkers, card vs CPU at phase 2's sizes; checkers_s2 through the
+# runner, 100 episodes, in turns with 1 shard; one K = 32 dispatch of 4
+# envs), the dual buffer in 2 (roadway card vs CPU; roadway_s2 100
+# episodes); the nine MPE scenarios at 65,536 instances for 25 steps a
+# path, the first 4,096 held to the CPU one step at a time: float32 at
+# rtol / atol 1e-5 (CUDA's expf and log1pf against the CPU's, an ulp
+# apart, in the contact force and the boundary penalty), a collision
+# flag that differs accepted within 1e-5 of its threshold
+SH_SHARDS, SH_DUAL_SHARDS, SH_EPISODES = 4, 2, 100
+MPE_B, MPE_STEPS, MPE_CHECK = 1 << 16, 25, 4096
+MPE_RTOL, MPE_ATOL, MPE_COLL_TOL = 1e-5, 1e-5, 1e-5
 
 T0 = time.time()
 
@@ -1596,15 +1629,17 @@ class _ParticleFeed:
                 size=shape + (self.a,)).astype(np.float32))
         self.reset(e)
 
-    def update(self, b, size=None):
+    def update(self, b, size=None, shards=1):
         """One update's draws: the replay indices below ``size``, or with
         the dual buffer (``size`` None) the two memories' indices as
-        large integers that ``_ModDraws`` takes modulo each fill."""
+        large integers that ``_ModDraws`` takes modulo each fill, per
+        shard ([D, b/D]) with ``shards``."""
         import numpy as np
         if size is None:
+            idx = (b,) if shards == 1 else (shards, b // shards)
             for _ in range(2):
                 self.q["randint"].append(self.rng.integers(
-                    0, 1 << 40, self.lead + (b,)))
+                    0, 1 << 40, self.lead + idx))
         else:
             self.q["randint"].append(self.rng.integers(0, size,
                                                        self.lead + (b,)))
@@ -1934,9 +1969,8 @@ def _dual_pairs(alg, ts_c, ts_h, buf_c, buf_h, rs_c, rs_h, m_c, m_h,
                    getattr(ts_h, k + "_tgt").flat),
                   (getattr(ts_c, "opt_" + k).mu, getattr(ts_h, "opt_" + k).mu),
                   (getattr(ts_c, "opt_" + k).nu, getattr(ts_h, "opt_" + k).nu)]
-    lead = len(rs_h.episodes.shape)
     for ring_c, ring_h in ((buf_c.bad, buf_h.bad), (buf_c.good, buf_h.good)):
-        cap = ring_h.capacity
+        cap, lead = ring_h.capacity, ring_h.insert.dim()
         pairs += [(ring_c.size, ring_h.size), (ring_c.insert, ring_h.insert)]
         pairs += [(x.narrow(lead, 0, cap), y.narrow(lead, 0, cap))
                   for (_, x), (_, y) in zip(tree_leaves(ring_c.data),
@@ -1953,7 +1987,7 @@ def _dual_pairs(alg, ts_c, ts_h, buf_c, buf_h, rs_c, rs_h, m_c, m_h,
     return pairs
 
 
-def dual_parity(device, kind, n_seeds=None):
+def dual_parity(device, kind, n_seeds=None, shards=1):
     """The dual buffer on the card and on the CPU from the same seeded
     state with the same fed draws, at full width: for ``kind`` "roadway"
     CM3 off-policy on two cars (a short road at top speed, a slab of 3
@@ -1961,8 +1995,9 @@ def dual_parity(device, kind, n_seeds=None):
     for one seed, with B1's launches counted, optax for seeds), a fill
     and a training chunk of 4 updates; for "particle" CM3 on-policy
     (``stage2_cross`` from uniform starts), a fill chunk, a policy chunk
-    and a burst of 24 updates.  Held at phase 3's tolerance.  Returns
-    (largest difference, B1 launches, (n_bad, n_good) on the card)."""
+    and a burst of 24 updates; the replay in ``shards`` shards.  Held at
+    phase 3's tolerance.  Returns (largest difference, B1 launches,
+    (n_bad, n_good) on the card)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1985,7 +2020,7 @@ def dual_parity(device, kind, n_seeds=None):
         for _ in range(steps):
             feed.step(e, rand)
     for _ in range(RD_PAR_UPDATES if road else PT_PAR_EPOCHS):
-        feed.update(b)
+        feed.update(b, shards=shards)
     m = config.load_json("master.json")
     eps = torch.tensor([0.1, 0.2, 0.3])[:n_seeds] if n_seeds else 0.3
     out = {}
@@ -1998,14 +2033,15 @@ def dual_parity(device, kind, n_seeds=None):
             cfg = config.TrainConfig(
                 n_envs=e, batch_size=b, buffer_size=512, dual_buffer=True,
                 max_steps=RD_SLAB, steps_per_train=steps, episode_log=16,
-                updates_per_chunk=RD_PAR_UPDATES, threshold=12.0)
+                updates_per_chunk=RD_PAR_UPDATES, threshold=12.0,
+                replay_shards=shards)
         else:
             env = Particle(config.particle_env_config(
                 "stage2_cross", prob_random=1.0, max_steps=7), device=dev)
             cfg = config.TrainConfig(
                 n_envs=e, batch_size=b, buffer_size=512, dual_buffer=True,
                 max_steps=7, steps_per_train=steps, episode_log=16,
-                epochs=PT_PAR_EPOCHS)
+                epochs=PT_PAR_EPOCHS, replay_shards=shards)
         n = env.spec()["n_agents"]
         alg = CM3(kind, env.spec(), config.AlgConfig(
             n_agents=n, stage=2, fused_opt=road and n_seeds is None),
@@ -2048,7 +2084,8 @@ def dual_parity(device, kind, n_seeds=None):
     assert ts_c.step == updates and min(routed) > 0, routed
     want_b1 = 2 * updates if alg.cfg.fused_opt else 0
     assert b1 == want_b1, (kind, n_seeds, b1, want_b1)
-    log(f"  {kind} dual{'' if n_seeds is None else f', {n_seeds} seeds'} "
+    log(f"  {kind} dual{'' if n_seeds is None else f', {n_seeds} seeds'}"
+        f"{'' if shards == 1 else f', {shards} shards'} "
         f"({'fused' if alg.cfg.fused_opt else 'optax'}): card == CPU after "
         + ("a fill and a training chunk" if road else
            "a fill chunk, a policy chunk and a burst") +
@@ -2258,7 +2295,7 @@ def _e1_program(master, dev, **over):
     driver.cfg = dataclasses.replace(cfg, **over)
     draws = prng.GeneratorDraws(prng.generator(
         prng.for_purpose(prng.root_key(SEED), prng.ROLLOUT), dev))
-    rs = init_rollout(driver.hooks, 1, draws)
+    rs = init_rollout(driver.hooks, driver.n_envs, draws)
     buf, rs = driver.init_replay(rs)
     return driver, alg, alg.init_state(prng.root_key(SEED)), buf, rs, draws
 
@@ -3328,6 +3365,266 @@ def phase_tools(dev):
 # ------------------------------------------------------------------ #
 
 
+# ------------------------------------------------------------------ #
+# shard-local replay and the MPE suite
+# ------------------------------------------------------------------ #
+
+
+def sharded_parity(device):
+    """The full-width Checkers stage-2 program (phase 2's, fused) with
+    ``SH_SHARDS`` replay shards on the card and on the CPU from the same
+    state with the same fed draws (each update's indices per shard,
+    below its fill): a fill and a training chunk, held at phase 3's
+    tolerance.  Returns (largest difference, B1 launches on the card)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cm3_tpu_torch import bench
+    from cm3_tpu_torch.core import prng
+    from cm3_tpu_torch.core.tree import tree_leaves
+    from cm3_tpu_torch.ops import fused_opt
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
+
+    d = SH_SHARDS
+    rng = np.random.default_rng(SEED + 15)
+    fill = [rng.integers(0, 5, (N_ENVS, 2)) for _ in range(STEPS)]
+    act = [rng.gumbel(size=(N_ENVS, 2, 5)).astype(np.float32)
+           for _ in range(STEPS)]
+    per_shard = 2 * STEPS * N_ENVS // d
+    idx = [rng.integers(0, per_shard, (d, BATCH // d))
+           for _ in range(UPDATES)]
+    upd = [rng.gumbel(size=(BATCH, 2, 5)).astype(np.float32)
+           for _ in range(UPDATES)]
+    out = {}
+    for dev in (device, "cpu"):
+        base, ts, _, rs, _ = bench.train_program(None, N_ENVS, True, dev,
+                                                 seed=SEED)
+        driver = OffPolicyDriver(base.hooks, base.alg, dataclasses.replace(
+            base.cfg, replay_shards=d))
+        buf = driver._replay_init(driver.example_transition(rs))
+        draws = prng.FedDraws(fill + idx, act + upd, device=dev)
+        before = fused_opt.adam_polyak.launches
+        ts, buf, rs, _ = driver._chunk(ts, buf, rs, EPSILON, draws, False,
+                                       True)
+        ts, buf, rs, m = driver._chunk(ts, buf, rs, EPSILON, draws, True,
+                                       False)
+        assert draws.remaining() == {"randint": 0, "gumbel": 0}
+        out[dev] = (ts, buf, rs, m, fused_opt.adam_polyak.launches - before)
+    (ts_c, buf_c, rs_c, m_c, b1), (ts_h, buf_h, rs_h, m_h, _) = \
+        out[device], out["cpu"]
+    assert b1 == 2 * UPDATES, b1
+    assert buf_h.size.tolist() == [per_shard] * d, buf_h.size
+    assert torch.equal(buf_c.size.cpu(), buf_h.size)
+    assert torch.equal(buf_c.insert.cpu(), buf_h.insert)
+    pairs = []
+    for name in ("actor", "actor_tgt", "qg", "qg_tgt", "qc", "qc_tgt"):
+        pairs.append((getattr(ts_c, name).flat, getattr(ts_h, name).flat))
+        if not name.endswith("_tgt"):
+            o_c, o_h = (getattr(t, "opt_" + name) for t in (ts_c, ts_h))
+            pairs += [(o_c.mu, o_h.mu), (o_c.nu, o_h.nu)]
+    pairs += [(x.narrow(1, 0, per_shard), y.narrow(1, 0, per_shard))
+              for (_, x), (_, y) in zip(tree_leaves(buf_c.data),
+                                        tree_leaves(buf_h.data))]
+    pairs += [(m_c[k], m_h[k]) for k in m_h]
+    worst = 0.0
+    for got, want in pairs:
+        torch.testing.assert_close(got.cpu(), want, rtol=PARITY_RTOL,
+                                   atol=PARITY_ATOL)
+        if got.is_floating_point():
+            worst = max(worst, float((got.cpu() - want).abs().max()))
+    assert int(rs_c.episodes) == int(rs_h.episodes)
+    log(f"  Checkers stage 2, {d} replay shards of {BUFFER // d} rows "
+        f"(fused, full width, {N_ENVS} envs): card == CPU after a fill and "
+        f"a training chunk of {UPDATES} updates ({BATCH // d} rows from "
+        f"each shard; rtol {PARITY_RTOL}, atol {PARITY_ATOL}); max abs "
+        f"difference {worst:.3g}; shard fills {buf_c.size.tolist()}; "
+        f"adam_polyak {b1} launches")
+    return worst, b1
+
+
+def _shard_masters():
+    """The paper's checkers_s2 (phase 9's: 16 envs, N_eval 10, a period
+    of 100 episodes, fused, the actor frozen for 20 updates) grafted from
+    a stage-1 checkpoint of fresh parameters, and roadway_s2 (grafted,
+    dual buffer) likewise, each run with ``replay_shards``."""
+    s1, s2, _ = _curriculum_masters()
+    s1 = dict(s1, dir_name="sh_s1")
+    s2 = dict(s2, dir_name="sh_s2", dir_restore="sh_s1", N_train=SH_EPISODES)
+    r1, r2, _, _ = _roadway_masters()
+    r1 = dict(r1, dir_name="sh_rd_s1")
+    r2 = dict(r2, dir_name="sh_rd_s2", dir_restore="sh_rd_s1",
+              N_train=SH_EPISODES, replay_shards=SH_DUAL_SHARDS)
+    return s1, s2, r1, r2
+
+
+def mpe_scenario(dev, name, i):
+    """One MPE scenario at ``MPE_B`` instances for ``MPE_STEPS`` steps on
+    each path (index: moves and comm symbols; multi-head: soft force
+    vectors and comm vectors), from one reset drawn on the card: the
+    steps timed alone (env-steps/s), then again with each step of the
+    first ``MPE_CHECK`` instances repeated on the CPU from the card's
+    state before it (the same draws), held at ``MPE_RTOL``/``MPE_ATOL``:
+    positions, velocities, comm state, steps and done always; the
+    observations and rewards of the instances whose collision flags
+    agree (a flag that differs must lie within ``MPE_COLL_TOL`` of its
+    threshold, |d - (s_i + s_j)|).  Returns {path: (env-steps/s, flags
+    that differ, largest difference)}."""
+    import torch
+    from cm3_tpu_torch.core import prng
+    from cm3_tpu_torch.envs import mpe
+
+    env_c = mpe.MPEEnv(name, max_steps=MPE_STEPS, device=dev)
+    env_h = mpe.MPEEnv(name, max_steps=MPE_STEPS, device="cpu")
+    sc, w = env_h.scenario, env_h.scenario.world
+    n = w.n_agents
+    draws = prng.GeneratorDraws(prng.generator(
+        prng.fold_in(prng.root_key(SEED), 150 + i), dev))
+    reset = env_c.draw_reset((MPE_B,), draws)
+    out = {}
+    for path in ("index", "multihead"):
+        if path == "index":
+            acts = [(draws.randint((MPE_B, n), 5),
+                     draws.randint((MPE_B, n), max(w.dim_c, 1)))
+                    for _ in range(MPE_STEPS)]
+            step = lambda env, s, a: env.step(s, *a)
+        else:
+            acts = [(draws.uniform((MPE_B, n, 5)),
+                     draws.uniform((MPE_B, n, w.dim_c)) if w.dim_c
+                     else None) for _ in range(MPE_STEPS)]
+            step = lambda env, s, a: env.step_multihead(s, *a)
+        s, _ = env_c.reset(reset)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in acts:
+            s, _ = step(env_c, s, a)
+        torch.cuda.synchronize()
+        rate = MPE_B * MPE_STEPS / (time.perf_counter() - t0)
+        assert bool(s.steps.eq(MPE_STEPS).all())
+
+        head = lambda x: None if x is None else x[:MPE_CHECK].cpu()
+        cut = lambda st: mpe.MPEState(**{f: head(getattr(st, f)) for f in (
+            "pos", "vel", "c", "goal", "steps")})
+        s, o = env_c.reset(reset)
+        s_h, o_h = env_h.reset({k: head(v) for k, v in reset.items()})
+        for x, y in zip((s.pos, o[0], o[1]), (s_h.pos, o_h[0], o_h[1])):
+            torch.testing.assert_close(head(x), y, rtol=MPE_RTOL,
+                                       atol=MPE_ATOL)
+        flips = worst = 0
+        dmin = mpe._consts(w, torch.device("cpu"))["dist_min"]
+        for a in acts:
+            prev = cut(s)
+            s, (obs, rew, done) = step(env_c, s, a)
+            s_h, (obs_h, rew_h, done_h) = step(
+                env_h, prev, tuple(head(x) for x in a))
+            got = cut(s)
+            flip = sc._collide_mat(got) != sc._collide_mat(s_h)
+            if flip.any():
+                _, d = mpe._pair_deltas(s_h.pos)
+                near = (d - dmin).abs()[flip]
+                assert bool((near < MPE_COLL_TOL).all()), (
+                    name, path, float(near.max()))
+                flips += int(flip.sum())
+            same = ~flip.flatten(-2).any(-1)
+            pairs = [(got.pos, s_h.pos), (got.vel, s_h.vel),
+                     (got.c, s_h.c), (head(obs)[same], obs_h[same]),
+                     (head(rew)[same], rew_h[same])]
+            for x, y in pairs:
+                torch.testing.assert_close(x, y, rtol=MPE_RTOL,
+                                           atol=MPE_ATOL)
+                worst = max(worst, float((x - y).abs().max()))
+            assert torch.equal(got.steps, s_h.steps)
+            assert torch.equal(head(done), done_h)
+        out[path] = (rate, flips, worst)
+    return out
+
+
+def phase_shards_mpe(dev):
+    import tempfile
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.core import prng
+    from cm3_tpu_torch.envs import mpe
+    from cm3_tpu_torch.ops import fused_opt, polyak
+    from cm3_tpu_torch.train import checkpoint, runner
+
+    # 1. card against CPU: the plain ring in 4 shards, the dual buffer in 2
+    worst = {"checkers_shards": sharded_parity(dev)[0]}
+    for s in (None, PAR_SEEDS):
+        worst[f"roadway_dual_shards{'' if s is None else '_seeds'}"] = \
+            dual_parity(dev, "roadway", s, shards=SH_DUAL_SHARDS)[0]
+
+    s1, s2, r1, r2 = _shard_masters()
+    rates, counts = {}, {}
+    with tempfile.TemporaryDirectory() as wd:
+        for m in (s1, r1):
+            _, alg1, _, _ = runner.build(m, device=dev)
+            checkpoint.save(os.path.join(wd, "saved", m["dir_name"],
+                                         "model_final"),
+                            alg1.init_state(prng.root_key(m["seed"])))
+        # 2. checkers_s2 with 4 shards and with 1, in turns; B1 and B3
+        # counted in the sharded run (its main path)
+        for d in (SH_SHARDS, 1):
+            m = dict(s2, replay_shards=d, dir_name=f"sh_s2_d{d}")
+            torch.cuda.synchronize()
+            fused_opt.adam_polyak.launches = 0
+            polyak.polyak_update.launches = 0
+            (ts, st), wall = _timed_run(
+                f"checkers_s2 (fused, frozen {CURR_FREEZE}), replay_shards "
+                f"{d}", lambda: runner.train_function(m, wd, verbose=False,
+                                                      device=dev))
+            torch.cuda.synchronize()
+            rates[f"checkers_s2_D{d}"] = st["episodes"] / wall
+            steps = int(ts.step)
+            counts[d] = (fused_opt.adam_polyak.launches,
+                         polyak.polyak_update.launches)
+            assert counts[d] == (2 * steps, steps), (counts[d], steps)
+            assert steps > CURR_FREEZE
+            assert np.isfinite(st["history"][-1]["r_eval_local"]).all()
+            if d > 1:
+                assert tuple(st["buffer"].size.shape) == (d,)
+                log(f"    shard fills {st['buffer'].size.tolist()}; "
+                    f"{steps} updates; adam_polyak {counts[d][0]} launches "
+                    f"= 2 x {steps}, polyak {counts[d][1]} = {steps}")
+        # 3. one K = 32 dispatch with the shards and no host sync
+        k = dict(s2, n_envs=SH_SHARDS, replay_shards=SH_SHARDS,
+                 chunks_per_sync=E1_K)
+        _sync_free(dev, f"checkers_s2, {SH_SHARDS} envs in {SH_SHARDS} "
+                   "shards", k)
+        # 4. roadway_s2 with the dual buffer in 2 shards
+        torch.cuda.synchronize()
+        (ts, st), wall = _timed_run(
+            f"roadway_s2 (grafted, dual buffer), replay_shards "
+            f"{SH_DUAL_SHARDS}", lambda: runner.train_function(
+                r2, wd, verbose=False, device=dev))
+        row = st["history"][-1]
+        buf = st["buffer"]
+        assert (row["n_bad"], row["n_good"]) == (int(buf.bad.size.sum()),
+                                                 int(buf.good.size.sum()))
+        rates["roadway_s2_D2"] = st["episodes"] / wall
+        log(f"    n_bad {row['n_bad']}, n_good {row['n_good']} (shards: "
+            f"bad {buf.bad.size.tolist()}, good {buf.good.size.tolist()})")
+
+    # 5. the nine MPE scenarios at 65,536 instances
+    mpe_out = {}
+    for i, name in enumerate(sorted(mpe.SCENARIOS)):
+        mpe_out[name] = mpe_scenario(dev, name, i)
+        log(f"  MPE {name}: " + "; ".join(
+            f"{p} {r:.4g} env-steps/s, card == CPU on {MPE_CHECK} "
+            f"instances one step at a time (max abs difference {e:.3g}; "
+            f"{f} collision flags differ, each within {MPE_COLL_TOL} of "
+            "its threshold)"
+            for p, (r, f, e) in mpe_out[name].items()))
+    log("  episodes/s: " + json.dumps({k: round(v, 2)
+                                       for k, v in rates.items()}))
+    log("  card == CPU, max abs differences: " + json.dumps(
+        {k: float(f"{v:.3g}") for k, v in worst.items()}))
+    b1, b3 = counts[SH_SHARDS]
+    return {"b1": b1, "b3": b3,
+            "err": max(worst.values()),
+            "mpe_steps_per_s": {k: {p: round(v[0]) for p, v in o.items()}
+                                for k, o in mpe_out.items()}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3350,26 +3647,27 @@ def main():
     phases = [
         ("0 build", 30, phase_build),
         ("1 kernel vs plain", 45, phase_kernel, dev),
-        ("2 the slice", 20, phase_slice, dev),
-        ("3 card vs CPU", 20, phase_parity, dev),
-        ("4 fused Checkers rollout", 90, phase_rollout, dev),
+        ("2 the slice", 10, phase_slice, dev),
+        ("3 card vs CPU", 10, phase_parity, dev),
+        ("4 fused Checkers rollout", 73, phase_rollout, dev),
         ("5 polyak", 10, phase_polyak, dev),
-        ("6 fused particle rollout", 75, phase_particle, dev),
-        ("7 fused roadway rollout", 60, phase_roadway, dev),
-        ("8 seed-batched training", 40, phase_seeded, dev),
+        ("6 fused particle rollout", 80, phase_particle, dev),
+        ("7 fused roadway rollout", 48, phase_roadway, dev),
+        ("8 seed-batched training", 37, phase_seeded, dev),
         ("9 the curriculum through the runner", 120, phase_curriculum, dev),
-        ("10 the baselines and QMIX", 120, phase_baselines, dev),
-        ("11 particle through the runner", 110, phase_particle_runner, dev),
-        ("12 roadway and the dual buffer through the runner", 90,
+        ("10 the baselines and QMIX", 112, phase_baselines, dev),
+        ("11 particle through the runner", 93, phase_particle_runner, dev),
+        ("12 roadway and the dual buffer through the runner", 67,
          phase_roadway_runner, dev),
-        ("13 the single-env cells through the runner", 290, phase_e1, dev),
-        ("14 the tools", 60, phase_tools, dev),
+        ("13 the single-env cells through the runner", 311, phase_e1, dev),
+        ("14 the tools", 73, phase_tools, dev),
+        ("15 shard-local replay and MPE", 61, phase_shards_mpe, dev),
     ]
     out = {name.split()[0]: run_phase(name, budget, fn, *args)
            for name, budget, fn, *args in phases}
-    kern, launches, rollout, soft, particle, roadway, frozen, pt, rd, e1 = (
-        out[k] for k in ("1", "2", "4", "5", "6", "7", "9", "11", "12",
-                         "13"))
+    (kern, launches, rollout, soft, particle, roadway, frozen, pt, rd, e1,
+     sh) = (out[k] for k in ("1", "2", "4", "5", "6", "7", "9", "11", "12",
+                             "13", "15"))
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3379,8 +3677,8 @@ def main():
              source="cm3_tpu_torch/csrc/flat_update.cu",
              replaces="cm3_tpu/ops/fused_opt.py:100", launches=launches,
              particle_onpolicy_launches=pt["b1"], roadway_launches=rd["b1"],
-             kchunk_launches=e1["b1"], pred_ms=kern["pred_ms"],
-             wrapper_ms=kern["wrapper_ms"],
+             kchunk_launches=e1["b1"], shards_launches=sh["b1"],
+             pred_ms=kern["pred_ms"], wrapper_ms=kern["wrapper_ms"],
              wrapper_b2b_ms=kern["wrapper_b2b_ms"],
              **{k: max(kern[k], e1["err"]) if k == "max_abs_err" else kern[k]
                 for k in keys[1:]}),
@@ -3392,7 +3690,8 @@ def main():
              source="cm3_tpu_torch/csrc/flat_update.cu",
              replaces="cm3_tpu/ops/polyak.py:58", launches=frozen,
              particle_onpolicy_launches=pt["b3"], roadway_launches=rd["b3"],
-             kchunk_launches=e1["b3"], pred_ms=soft["pred_ms"],
+             kchunk_launches=e1["b3"], shards_launches=sh["b3"],
+             pred_ms=soft["pred_ms"],
              **{k: max(soft[k], e1["err"]) if k == "max_abs_err" else soft[k]
                 for k in keys[1:]}),
         dict(name="particle_rollout", route="cuda",

@@ -236,11 +236,11 @@ class TrainConfig:
     predicate (roadway's reads ``threshold``, which the runner hands
     the hooks); ``prob_random``, ``seed``, ``n_seeds`` and ``dir_name``
     are carried from the master config as the JAX runner carries them,
-    and the drivers do not read them.
-
-    ``replay_shards > 1``, ``chunks_per_sync > 1`` and ``summarize`` are
-    the JAX package's options that the port does not run yet; the
-    driver refuses them (ROADMAP.md names the item of each)."""
+    and the drivers do not read them.  ``summarize`` adds gradient
+    snapshots to the period rows (and the runner's TensorBoard files),
+    ``chunks_per_sync`` = K > 1 runs K chunks per host sync, and
+    ``replay_shards`` = D > 1 keeps D shard-local replay rings on the
+    one device, as in JAX."""
 
     N_train: int = 50000
     period: int = 100
@@ -269,11 +269,12 @@ class TrainConfig:
     # eval threshold of the snapshots (None: the experiment's rule)
     save_threshold: Optional[float] = None
     dir_name: str = "try"
-    # TensorBoard gradient summaries (not ported: ROADMAP A15)
+    # TensorBoard gradient summaries
     summarize: bool = False
-    # training chunks per host sync (only 1 is ported: ROADMAP A6b)
+    # training chunks per host sync
     chunks_per_sync: int = 1
-    # per-device replay shards (only 1 is ported: ROADMAP A14)
+    # shard-local replay rings (n_envs, batch_size and buffer_size
+    # divisible by it)
     replay_shards: int = 1
     # rows of the sampled per-episode return ring flushed per period
     # (the reference's log.csv stream); 0 disables

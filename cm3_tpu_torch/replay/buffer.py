@@ -1,5 +1,5 @@
-"""On-device replay (``cm3_tpu.replay.buffer``): the plain ring and the
-dual bad/good buffer.
+"""On-device replay (``cm3_tpu.replay.buffer``): the plain ring, the
+dual bad/good buffer and shard-local replay.
 
 The plain ring is a dict of fixed-capacity device tensors plus two host
 integers, the insert cursor and the fill.  The host knows both (every
@@ -15,24 +15,45 @@ Sampling is uniform WITH replacement (the reference samples without;
 documented in the JAX package): ``sample`` takes the row indices, which
 the driver draws from its draw source in [0, max(size, 1)).
 
+A ring with device cursors (``DeviceRing``): leaves [*P, capacity + 1,
+...] and int64 cursor and fill tensors [*P], one ring per index of the
+leading shape P.  An add (``add_masked``, which ``add_batch(...,
+valid=)`` and ``add_episode`` reach) packs the valid rows densely in
+row order at each ring's cursor (the offsets are a prefix sum of the
+mask, ``buffer.py:47-72``) and writes them with one scatter per leaf;
+the invalid rows land in the spare row past the capacity (JAX's
+``mode="drop"``), and the cursors move by the valid count, on the
+device.  So how many rows an add puts into each ring may depend on the
+data, and no add or sample reads a cursor on the host: keeping host
+cursors instead would take a device-to-host sync at every env step,
+which stalls the host's launch queue on a path that is bound by
+launching (and would freeze a value into a CUDA graph).
+
 The dual buffer (``init_dual``, ``flush_episodes``, ``sample_dual``,
-``reset_dual``; ``buffer.py:101-195``) keeps two such memories, "bad"
+``reset_dual``; ``buffer.py:101-195``) keeps two such rings, "bad"
 (episodes the hooks' predicate routes there: a collision, a return
-below the threshold) and "good", and the driver flushes every episode
-that ended at a step into one of them whole.  How many rows a flush
-adds depends on the data, and differs between the seeds of a lockstep
-run.  So each memory's cursor and fill are device int64 tensors, [S]
-with seeds or [] for one seed, never host integers: an add packs the
-valid rows densely in row order at each seed's cursor (``add_masked``:
-the offsets are a prefix sum of the mask) and writes them with one
-scatter per leaf into a ring with one spare row past its capacity,
-where the invalid rows land (JAX's ``mode="drop"``); the cursors move
-by the valid count, on the device.  Keeping host cursors instead would
-take a device-to-host sync at every env step, which stalls the host's
-launch queue on a path that is bound by launching; only a period row's
-``n_bad``/``n_good`` read the fills on the host.  ``sample_dual``
-takes its two index draws below the device-held fills (the draw
-source's ``randint_below``) and mixes them 50/50 with JAX's fallbacks.
+below the threshold) and "good", with P = [] or [S]; the driver flushes
+every episode that ended at a step into one of them whole, and only a
+period row's ``n_bad``/``n_good`` read the fills on the host.
+``sample_dual`` takes its two index draws below the device-held fills
+(the draw source's ``randint_below``) and mixes them 50/50 with JAX's
+fallbacks.
+
+Shard-local replay (``init_sharded``, ``add_batch_sharded``,
+``sample_sharded`` and the dual buffer's ``*_sharded``;
+``buffer.py:197-257``, ``TrainConfig.replay_shards`` = D): each of D
+shards is a ring of capacity/D rows, the shard axis one more leading
+dimension of the device rings, P = [D] or [S, D] with seeds.  JAX maps
+the single-ring operation over the shard axis; here the shard axis is
+part of P.  An add of E instances' rows puts instance i into shard
+i // (E/D) (``[E, ...] -> [D, E/D, ...]``), and a sample takes batch/D
+rows from each shard, each drawn uniformly below that shard's own fill
+(the draws come per shard, [*P, batch/D]: JAX splits its key into D
+and draws one ``randint`` per shard), merged shard-major into the
+batch (``[D, batch/D] -> [batch]``).  So the draws are uniform per
+shard, not over the union of the shards, as JAX documents
+(``buffer.py:190-193``).  E, the batch and the capacity must be
+divisible by D (``ValueError``, where JAX asserts).
 """
 
 from __future__ import annotations
@@ -69,14 +90,23 @@ def _ring_dim(state: ReplayState) -> int:
     return 0 if state.n_seeds is None else 1
 
 
-def capacity_of(state: ReplayState) -> int:
+def capacity_of(state) -> int:
+    if isinstance(state, DeviceRing):
+        return state.capacity
     return next(tree_leaves(state.data))[1].shape[_ring_dim(state)]
 
 
-def add_batch(state: ReplayState, transitions) -> ReplayState:
+def add_batch(state, transitions, valid: Optional[torch.Tensor] = None):
     """Append E transitions (leaves [E, ...], or [S, E, ...] with seeds)
     at the cursor, wrapping around the ring (replay_buffer.py:11-16);
-    in place."""
+    in place.  With ``valid`` ([*P, E] bool) only the valid rows are
+    added, packed densely (``buffer.py:47-72``): that needs a ring with
+    device cursors (``init_ring``), since the count is the data's."""
+    if isinstance(state, DeviceRing):
+        return add_masked(state, transitions, valid)
+    if valid is not None:
+        raise ValueError("a masked add needs device cursors: use a "
+                         "DeviceRing (init_ring)")
     d = _ring_dim(state)
     cap = capacity_of(state)
     e = next(tree_leaves(transitions))[1].shape[d]
@@ -96,42 +126,61 @@ def add_batch(state: ReplayState, transitions) -> ReplayState:
     return state
 
 
-def reset(state: ReplayState) -> ReplayState:
+def reset(state):
     """Empty the ring (cursor and fill to 0; the rows stay and are
     overwritten), as the on-policy driver discards it after a burst
     (``cm3_tpu/train/onpolicy.py:100-107``); in place."""
-    state.insert = state.size = 0
+    if isinstance(state, DeviceRing):
+        state.insert.zero_()
+        state.size.zero_()
+    else:
+        state.insert = state.size = 0
     return state
 
 
-def sample(state: ReplayState, idx: torch.Tensor):
+def sample(state, idx: torch.Tensor):
     """The rows ``idx`` (replay_buffer.py:28-37): [B] -> leaves [B, ...];
-    with seeds [S, B] -> leaves [S, B, ...], row idx[s, b] of seed s."""
+    with seeds [S, B] -> leaves [S, B, ...], row idx[s, b] of seed s
+    (a ``DeviceRing``: [*P, B] -> [*P, B, ...])."""
+    if isinstance(state, DeviceRing):
+        where = _lead_index(state, idx)
+        return tree_map(lambda buf: buf[where], state.data)
     if state.n_seeds is None:
         return tree_map(lambda buf: buf[idx], state.data)
     seed = torch.arange(state.n_seeds, device=idx.device)[:, None]
     return tree_map(lambda buf: buf[seed, idx], state.data)
 
 
+def sample_subsequence(state, start: torch.Tensor, length: int):
+    """``length`` consecutive rows from ``start`` ([*P]), wrapping around
+    the ring (``buffer.py:83-92``, the reference's unused episode
+    sampler on the flat ring: a window may span episodes).  ``start`` is
+    drawn uniformly in [0, max(size - length + 1, 1)).  Leaves [*P,
+    length, ...]."""
+    idx = (start[..., None] + torch.arange(length, device=start.device)) \
+        % capacity_of(state)
+    return sample(state, idx)
+
+
 # --------------------------------------------------------------------- #
-# the dual (bad/good episode) buffer
+# rings with device cursors: the dual buffer's memories and the shards
 # --------------------------------------------------------------------- #
 
 
 @dataclasses.dataclass
 class DeviceRing:
-    """One memory of the dual buffer: leaves [*P, capacity + 1, ...]
-    (P = [] or [S]), whose last row takes the rows an add drops;
-    ``insert`` and ``size`` int64 device tensors [*P]."""
+    """Rings with device cursors: leaves [*P, capacity + 1, ...] (P = []
+    one ring, [S] one per seed, [D] shards, [S, D] both), whose last row
+    takes the rows an add drops; ``insert`` and ``size`` int64 device
+    tensors [*P]."""
 
     data: Any
     insert: torch.Tensor
     size: torch.Tensor
-    n_seeds: Optional[int] = None
 
     @property
     def capacity(self) -> int:
-        return next(tree_leaves(self.data))[1].shape[_ring_dim(self)] - 1
+        return next(tree_leaves(self.data))[1].shape[self.insert.dim()] - 1
 
 
 @dataclasses.dataclass
@@ -140,50 +189,81 @@ class DualReplayState:
     good: DeviceRing
 
 
-def _device_ring(example_transition, capacity: int,
-                 n_seeds: Optional[int]) -> DeviceRing:
-    per_seed = () if n_seeds is None else (n_seeds,)
+def init_ring(example_transition, capacity: int, lead=()) -> DeviceRing:
+    """Empty rings of ``capacity`` rows each, one per index of ``lead``,
+    on the example's device with its dtypes."""
+    lead = tuple(lead)
     data = tree_map(
-        lambda x: torch.zeros(per_seed + (capacity + 1,) + tuple(x.shape),
+        lambda x: torch.zeros(lead + (capacity + 1,) + tuple(x.shape),
                               dtype=x.dtype, device=x.device),
         example_transition)
     dev = next(tree_leaves(data))[1].device
-    zeros = lambda: torch.zeros(per_seed, dtype=torch.int64, device=dev)
-    return DeviceRing(data=data, insert=zeros(), size=zeros(),
-                      n_seeds=n_seeds)
+    zeros = lambda: torch.zeros(lead, dtype=torch.int64, device=dev)
+    return DeviceRing(data=data, insert=zeros(), size=zeros())
+
+
+def _seeds(n_seeds: Optional[int]):
+    return () if n_seeds is None else (n_seeds,)
 
 
 def init_dual(example_transition, capacity: int,
               n_seeds: Optional[int] = None) -> DualReplayState:
     """Two empty memories of ``capacity`` rows each (per seed)."""
-    return DualReplayState(
-        bad=_device_ring(example_transition, capacity, n_seeds),
-        good=_device_ring(example_transition, capacity, n_seeds))
+    lead = _seeds(n_seeds)
+    return DualReplayState(bad=init_ring(example_transition, capacity, lead),
+                           good=init_ring(example_transition, capacity,
+                                          lead))
 
 
-def _seed_index(ring: DeviceRing, idx: torch.Tensor):
-    if ring.n_seeds is None:
-        return (idx,)
-    seed = torch.arange(ring.n_seeds, device=idx.device)[:, None]
-    return (seed.expand_as(idx), idx)
+def _lead_index(ring: DeviceRing, idx: torch.Tensor):
+    """The index tuple of rows ``idx`` [*P, R]: row idx[p, r] of ring p."""
+    lead = tuple(ring.insert.shape)
+    out = []
+    for i, n in enumerate(lead):
+        view = [1] * idx.dim()
+        view[i] = n
+        out.append(torch.arange(n, device=idx.device).view(view).expand_as(
+            idx))
+    return tuple(out) + (idx,)
 
 
-def add_masked(ring: DeviceRing, rows, valid: torch.Tensor) -> DeviceRing:
+def add_masked(ring: DeviceRing, rows,
+               valid: Optional[torch.Tensor] = None) -> DeviceRing:
     """Append the rows of ``rows`` (leaves [*P, R, ...]) where ``valid``
-    [*P, R] holds, packed densely in row order at each seed's cursor and
-    wrapping around its ring (``buffer.py:47-72``); the other rows go to
-    the spare row.  In place, without a host sync.  As in JAX, a flush
-    of more valid rows than the capacity overwrites within itself."""
+    [*P, R] holds (every row without it), packed densely in row order
+    at each ring's cursor and wrapping around it (``buffer.py:47-72``);
+    the other rows go to the spare row.  In place, without a host sync.
+    As in JAX, an add of more valid rows than the capacity overwrites
+    within itself."""
     cap = ring.capacity
-    v = valid.long()
-    offsets = torch.cumsum(v, dim=-1) - v
-    idx = torch.where(valid, (ring.insert[..., None] + offsets) % cap, cap)
-    where = _seed_index(ring, idx)
+    if valid is None:
+        r = next(tree_leaves(rows))[1].shape[ring.insert.dim()]
+        offsets = torch.arange(r, device=ring.insert.device)
+        idx = (ring.insert[..., None] + offsets) % cap
+        n_added = r
+    else:
+        v = valid.long()
+        offsets = torch.cumsum(v, dim=-1) - v
+        idx = torch.where(valid, (ring.insert[..., None] + offsets) % cap,
+                          cap)
+        n_added = v.sum(dim=-1)
+    where = _lead_index(ring, idx)
     tree_map(lambda buf, x: buf.index_put_(where, x), ring.data, rows)
-    n_added = v.sum(dim=-1)
     ring.insert.copy_((ring.insert + n_added) % cap)
     ring.size.copy_(torch.clamp_max(ring.size + n_added, cap))
     return ring
+
+
+def add_episode(state: DualReplayState, transitions, valid: torch.Tensor,
+                is_bad: torch.Tensor) -> DualReplayState:
+    """Route one episode's transitions (leaves [*P, T, ...], mask
+    ``valid`` [*P, T]) into the bad memory where ``is_bad`` [*P] holds,
+    else into the good one (``buffer.py:111-120``,
+    replay_buffer_dual.py:14-24).  In place."""
+    bad = is_bad[..., None]
+    add_masked(state.bad, transitions, valid & bad)
+    add_masked(state.good, transitions, valid & ~bad)
+    return state
 
 
 def flush_episodes(state: DualReplayState, stage, valid: torch.Tensor,
@@ -207,9 +287,8 @@ def flush_episodes(state: DualReplayState, stage, valid: torch.Tensor,
 def reset_dual(state: DualReplayState) -> DualReplayState:
     """Empty both memories (the on-policy burst's discard,
     ``train_onpolicy.py:372-377``); in place."""
-    for ring in (state.bad, state.good):
-        ring.insert.zero_()
-        ring.size.zero_()
+    reset(state.bad)
+    reset(state.good)
     return state
 
 
@@ -229,8 +308,8 @@ def sample_dual(state: DualReplayState, idx_bad: torch.Tensor,
     from1 = torch.where(s2 == 0, b, from1)
     from1 = torch.where(s1 == 0, 0, from1)
     use1 = torch.arange(b, device=idx_bad.device) < from1[..., None]
-    w1 = _seed_index(state.bad, idx_bad)
-    w2 = _seed_index(state.good, idx_good)
+    w1 = _lead_index(state.bad, idx_bad)
+    w2 = _lead_index(state.good, idx_good)
 
     def pick(b1, b2):
         r1, r2 = b1[w1], b2[w2]
@@ -238,3 +317,84 @@ def sample_dual(state: DualReplayState, idx_bad: torch.Tensor,
         return torch.where(mask, r1, r2)
 
     return tree_map(pick, state.bad.data, state.good.data)
+
+
+# --------------------------------------------------------------------- #
+# shard-local replay: one more leading dimension, the shard axis
+# --------------------------------------------------------------------- #
+
+
+def check_shards(shards: int, **sizes: int) -> None:
+    """Raise ``ValueError`` unless every size is divisible by ``shards``
+    (``buffer.py:201, 214, 230, 253``)."""
+    for name, n in sizes.items():
+        if n % shards:
+            raise ValueError(f"{name} {n} is not divisible by "
+                             f"{shards} replay shards")
+
+
+def _shard_leading(x: torch.Tensor, k: int, shards: int) -> torch.Tensor:
+    """[*Q, E, ...] -> [*Q, D, E/D, ...] (Q the first k dims)."""
+    e = x.shape[k]
+    check_shards(shards, instances=e)
+    return x.reshape(x.shape[:k] + (shards, e // shards) + x.shape[k + 1:])
+
+
+def _merge_leading(x: torch.Tensor, k: int) -> torch.Tensor:
+    """[*Q, D, b, ...] -> [*Q, D*b, ...] (Q the first k dims)."""
+    return x.reshape(x.shape[:k] + (x.shape[k] * x.shape[k + 1],)
+                     + x.shape[k + 2:])
+
+
+def init_sharded(example_transition, capacity: int, shards: int,
+                 n_seeds: Optional[int] = None) -> DeviceRing:
+    """``shards`` empty rings of capacity/D rows each (per seed)."""
+    check_shards(shards, capacity=capacity)
+    return init_ring(example_transition, capacity // shards,
+                     _seeds(n_seeds) + (shards,))
+
+
+def add_batch_sharded(ring: DeviceRing, transitions, shards: int,
+                      valid: Optional[torch.Tensor] = None) -> DeviceRing:
+    """Append E instances' transitions (leaves [*S, E, ...]), instance i
+    into shard i // (E/D), each shard's at its own cursor; with
+    ``valid`` [*S, E] only the valid ones.  In place."""
+    k = ring.insert.dim() - 1
+    rows = tree_map(lambda x: _shard_leading(x, k, shards), transitions)
+    v = None if valid is None else _shard_leading(valid, k, shards)
+    return add_masked(ring, rows, v)
+
+
+def sample_sharded(ring: DeviceRing, idx: torch.Tensor):
+    """Rows ``idx`` [*S, D, B/D] of each shard (each drawn below that
+    shard's fill) -> leaves [*S, B, ...], shard-major."""
+    k = ring.insert.dim() - 1
+    return tree_map(lambda x: _merge_leading(x, k), sample(ring, idx))
+
+
+def init_dual_sharded(example_transition, capacity: int, shards: int,
+                      n_seeds: Optional[int] = None) -> DualReplayState:
+    return DualReplayState(
+        bad=init_sharded(example_transition, capacity, shards, n_seeds),
+        good=init_sharded(example_transition, capacity, shards, n_seeds))
+
+
+def flush_episodes_sharded(state: DualReplayState, stage,
+                           valid: torch.Tensor, is_bad: torch.Tensor,
+                           shards: int) -> DualReplayState:
+    """``flush_episodes`` of E instances (``stage`` [*S, E, T, ...],
+    ``valid`` [*S, E, T], ``is_bad`` [*S, E]) into their shards."""
+    k = state.bad.insert.dim() - 1
+    shard = lambda x: _shard_leading(x, k, shards)
+    return flush_episodes(state, tree_map(shard, stage), shard(valid),
+                          shard(is_bad))
+
+
+def sample_dual_sharded(state: DualReplayState, idx_bad: torch.Tensor,
+                        idx_good: torch.Tensor):
+    """``sample_dual`` in each shard (indices [*S, D, B/D], each drawn
+    below its shard's memory's fill) -> leaves [*S, B, ...],
+    shard-major."""
+    k = state.bad.insert.dim() - 1
+    return tree_map(lambda x: _merge_leading(x, k),
+                    sample_dual(state, idx_bad, idx_good))

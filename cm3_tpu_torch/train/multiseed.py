@@ -50,7 +50,11 @@ seed's epsilon; its draws come from the evaluation purpose of the draw
 key folded with 1,000,000 + the period's index, so they take nothing
 from the training or the evaluation draws.
 
-Not ported (ROADMAP.md): the mesh placement (A14), refused.
+Shard-local replay (``replay_shards`` = D): each seed's replay is D
+shards, the rings' leading shape [S, D] (``train/offpolicy.py``), as
+JAX maps the sharded buffer over seeds (``multiseed.py:107-120``).
+
+Not ported (ROADMAP.md): the mesh placement (A14b), refused.
 """
 
 from __future__ import annotations
@@ -98,7 +102,8 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
     seeds' keys.  ``mesh`` is the JAX package's and is refused."""
     if mesh is not None:
         raise NotImplementedError(
-            "placing the seed axis over a mesh is not ported (ROADMAP A14)")
+            "placing the seed axis over a mesh is not ported (ROADMAP "
+            "A14b)")
     if alg.n_seeds != n_seeds:
         alg = alg.for_seeds(n_seeds)
     driver = (OnPolicyDriver if onpolicy else OffPolicyDriver)(hooks, alg,

@@ -85,7 +85,20 @@ JAX's keys come from ``fold_in(k_eval, 1_000_000 + period_idx)``; so
 they take nothing from the training or the evaluation draws, and a run
 with summaries on gives the rows and the state of one with them off.
 
-Not ported yet (ROADMAP.md): the shard-local replay (A14), refused.
+Shard-local replay (``TrainConfig.replay_shards`` = D > 1,
+``offpolicy.py:145-180``): the replay is D rings of ``buffer_size``/D
+rows with device cursors (``replay.init_sharded``; the dual buffer's
+memories alike), instance i's rows go into shard i // (n_envs/D), and a
+minibatch takes ``batch_size``/D rows from each shard, drawn per shard
+below its own fill (``draws.randint_below`` over [*P, D, batch/D]; for
+the dual buffer all shards' bad-memory indices, then all shards' good
+ones).  ``n_envs``,
+``batch_size`` and ``buffer_size`` must be divisible by D
+(``ValueError``).  A period row's ``n_bad``/``n_good`` sum the shards.
+
+``eval_hooks`` (``offpolicy.py:107-112``): the evaluation's episodes
+come from these hooks (their engine, goals and eval metrics) when
+given, else from the training hooks.
 """
 
 from __future__ import annotations
@@ -210,11 +223,14 @@ def _eplog_write(eplog, eplog_ep, episodes, done, rows):
 
 class OffPolicyDriver:
 
-    def __init__(self, hooks: Hooks, alg, cfg: TrainConfig):
+    def __init__(self, hooks: Hooks, alg, cfg: TrainConfig,
+                 eval_hooks: Optional[Hooks] = None):
         if cfg.replay_shards > 1:
-            raise NotImplementedError(
-                "shard-local replay is not ported (ROADMAP A14)")
+            replay.check_shards(cfg.replay_shards, n_envs=cfg.n_envs,
+                                batch_size=cfg.batch_size,
+                                buffer_size=cfg.buffer_size)
         self.hooks = hooks
+        self.eval_hooks = eval_hooks or hooks
         self.alg = alg
         self.cfg = cfg
         self.n_envs = cfg.n_envs
@@ -239,10 +255,16 @@ class OffPolicyDriver:
     # ---- replay ---- #
 
     def _replay_init(self, example):
-        if self.cfg.dual_buffer:
-            return replay.init_dual(example, self.cfg.buffer_size,
-                                    self.n_seeds)
-        return replay.init(example, self.cfg.buffer_size, self.n_seeds)
+        cfg, d = self.cfg, self.cfg.replay_shards
+        if cfg.dual_buffer:
+            if d > 1:
+                return replay.init_dual_sharded(example, cfg.buffer_size, d,
+                                                self.n_seeds)
+            return replay.init_dual(example, cfg.buffer_size, self.n_seeds)
+        if d > 1:
+            return replay.init_sharded(example, cfg.buffer_size, d,
+                                       self.n_seeds)
+        return replay.init(example, cfg.buffer_size, self.n_seeds)
 
     def init_replay(self, rs: RolloutState):
         """(empty replay, ``rs``) for the rollouts ``rs``; with the dual
@@ -254,16 +276,33 @@ class OffPolicyDriver:
         return buf, rs
 
     def _replay_add(self, buf, tr):
+        d = self.cfg.replay_shards
+        if d > 1:
+            return replay.add_batch_sharded(buf, tr, d)
         return replay.add_batch(buf, tr)
 
+    def _replay_flush(self, buf, stage, valid, is_bad):
+        d = self.cfg.replay_shards
+        if d > 1:
+            return replay.flush_episodes_sharded(buf, stage, valid, is_bad,
+                                                 d)
+        return replay.flush_episodes(buf, stage, valid, is_bad)
+
     def _replay_sample(self, buf, draws):
-        shape = self.lead[:-1] + (self.cfg.batch_size,)
-        if self.cfg.dual_buffer:
-            idx_bad = draws.randint_below(shape,
-                                          torch.clamp_min(buf.bad.size, 1))
-            idx_good = draws.randint_below(
-                shape, torch.clamp_min(buf.good.size, 1))
+        """A minibatch of ``batch_size`` rows (per seed); its indices
+        from ``draws``, below each ring's (shard's, memory's) fill."""
+        cfg, d = self.cfg, self.cfg.replay_shards
+        shape = self.lead[:-1] + ((d, cfg.batch_size // d) if d > 1
+                                  else (cfg.batch_size,))
+        below = lambda ring: draws.randint_below(
+            shape, torch.clamp_min(ring.size, 1))
+        if cfg.dual_buffer:
+            idx_bad, idx_good = below(buf.bad), below(buf.good)
+            if d > 1:
+                return replay.sample_dual_sharded(buf, idx_bad, idx_good)
             return replay.sample_dual(buf, idx_bad, idx_good)
+        if d > 1:
+            return replay.sample_sharded(buf, below(buf))
         return replay.sample(buf, draws.randint(shape, max(buf.size, 1)))
 
     def _grad_snapshot(self, ts_alg, buf, epsilon, draws):
@@ -287,7 +326,7 @@ class OffPolicyDriver:
     @staticmethod
     def _routed(buf):
         """(n_bad, n_good): the dual memories' fills, summed over seeds
-        (a host sync)."""
+        and shards (a host sync)."""
         return int(buf.bad.size.sum()), int(buf.good.size.sum())
 
     def example_transition(self, rs: RolloutState):
@@ -319,9 +358,9 @@ class OffPolicyDriver:
                 device=actions.device)
         return tr
 
-    def _filter(self, env_state, actions, lead):
+    @staticmethod
+    def _filter(env, env_state, actions, lead):
         """The engine's feasibility filter, where it has one."""
-        env = self.hooks.env
         if not hasattr(env, "check_actions"):
             return actions
         return flat_call(env.check_actions, lead, env_state, actions)
@@ -342,9 +381,9 @@ class OffPolicyDriver:
         stage_len = torch.clamp_max(rs.stage_t + 1, t_max)
         valid = done[..., None] & (torch.arange(t_max + 1, device=done.device)
                                    < stage_len[..., None])
-        replay.flush_episodes(buf, rs.stage, valid,
-                              self.hooks.is_bad_episode(env_state,
-                                                        ep_ret_local))
+        self._replay_flush(buf, rs.stage, valid,
+                           self.hooks.is_bad_episode(env_state,
+                                                     ep_ret_local))
         return torch.where(done, 0, stage_len)
 
     @torch.no_grad()
@@ -374,7 +413,7 @@ class OffPolicyDriver:
         # the filter's replacement is what is stepped and stored, and bp
         # is the behavior probability of that action (the uniform 1/A
         # where the gate took random actions)
-        actions = self._filter(rs.env_state, actions, lead)
+        actions = self._filter(env, rs.env_state, actions, lead)
         if probs is not None:
             bp = torch.gather(probs, -1, actions[..., None])[..., 0]
             if policy_gate is not None:
@@ -484,10 +523,10 @@ class OffPolicyDriver:
         per-agent return [N], mean global return, aux), each with a
         leading [S] with seeds.  aux carries "act_dist", the per-agent
         action distribution [N, A] (evaluate.py:193-200), and the hooks'
-        eval metrics.  ``draws`` gives the goals where they are random,
-        then per step what the algorithm's ``act`` consumes
-        (``alg.act_draws``)."""
-        hooks = self.hooks
+        eval metrics, all from ``eval_hooks``.  ``draws`` gives the goals
+        where they are random, then per step what the algorithm's ``act``
+        consumes (``alg.act_draws``)."""
+        hooks = self.eval_hooks
         env = hooks.env
         n = hooks.n_agents
         n_act = self.alg.n_actions
@@ -502,7 +541,7 @@ class OffPolicyDriver:
         acts = torch.zeros(lead[:-1] + (n, n_act), device=dev)
         acc = hooks.eval_metrics_init(lead[:-1])
         for _ in range(self.cfg.max_steps):
-            actions = self._filter(env_state, self.alg.act(
+            actions = self._filter(env, env_state, self.alg.act(
                 ts_alg, obs, goals, a_prev, 0.0,
                 self.alg.act_draws(draws, lead)), lead)
             env_state, ts2 = flat_call(env.step, lead, env_state, actions)

@@ -12,8 +12,10 @@ their replay adds and auto-resets, random actions while fewer than
 draws, per update, the replay indices and then what the algorithm's
 ``update`` consumes, as the off-policy chunk's updates do.  The ring's
 cursor and fill are host integers shared by the seeds, so discarding
-it (``replay.reset``) is setting both to 0.  With the dual buffer
-(``dual_buffer``; the paper's particle cells ``particle_s2_cross``,
+it (``replay.reset``) is setting both to 0; with shard-local replay
+(``replay_shards``) it zeroes the [*P, D] device cursors.  With the
+dual buffer (``dual_buffer``; the paper's particle cells
+``particle_s2_cross``,
 ``_merge`` and ``_dual``) the rollout stages and flushes whole
 episodes as the off-policy driver does, a burst samples both memories,
 and the discard zeroes their device cursors (``replay.reset_dual``);
@@ -68,10 +70,13 @@ class OnPolicyDriver(OffPolicyDriver):
 
     def filled(self, buf) -> int:
         """The rows the ring holds (both memories' with the dual buffer,
-        summed over seeds; a host sync there)."""
+        summed over seeds and shards; a host sync where they are device
+        tensors)."""
         if self.cfg.dual_buffer:
             return sum(self._routed(buf))
-        return int(buf.size)
+        if isinstance(buf, replay.DeviceRing):
+            return int(buf.size.sum())
+        return buf.size
 
     def _rollout_chunk(self, ts_alg, buf, rs, epsilon, draws,
                        random_actions: bool):

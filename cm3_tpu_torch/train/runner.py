@@ -45,9 +45,11 @@ and per period row every numeric scalar but ``episode``,
 snapshot's ``grads/...`` histograms, then a flush.  ``render_episodes``
 (and the CLI's ``--render-episodes K`` / ``--render-only``) writes
 greedy episodes as animated SVGs (``envs/render.py``) under
-``render/<dir_name>``.  The runner refuses, naming the ROADMAP item: a
-``mesh`` and ``replay_shards`` (A14, the latter refused by the
-driver).  The master's ``chunks_per_sync`` reaches
+``render/<dir_name>``.  The master's ``replay_shards`` reaches the
+drivers as in JAX (shard-local replay on the one device,
+``train/offpolicy.py``), and a ``mesh`` key is ignored, as JAX's
+``build`` keeps only ``TrainConfig``'s fields
+(``runner.py:137-140``).  The master's ``chunks_per_sync`` reaches
 the off-policy driver as in JAX: the paper's single-env cells
 (``checkers_s2_e1``, ``checkers_qmix_e1``: ``n_envs`` 1, K = 32) run K
 chunks per host sync (``train/offpolicy.py``); seeds in lockstep and
@@ -139,9 +141,6 @@ def build(master: Dict, experiment: Optional[str] = None,
     experiment = experiment or master.get("experiment", "checkers")
     stage = stage or master.get("stage", 1)
     alg_name = select_alg_name(master)
-    if master.get("mesh"):
-        raise NotImplementedError("a device mesh is not ported (ROADMAP "
-                                  "A14)")
     env = build_env(master, experiment, stage, device)
     alg_cfg = cfgmod.AlgConfig(
         alg_name=alg_name, stage=stage, n_agents=env.spec()["n_agents"],

@@ -22,7 +22,10 @@ the runner, and the first learning check (roadway stage 1, printed
 with ``-s``); the tools: the update's gradients (one seed and three)
 against the CPU, the gradient snapshot leaving the state bit for bit
 with its launches, and roadway's occluded observation and traffic
-surfaces against the CPU.  They import
+surfaces against the CPU; shard-local replay: the Checkers chunk (2 and
+4 shards) and the roadway dual chunk (2 shards, one seed and three) on
+the card against the CPU; and a step of each of the nine MPE scenarios
+on both paths against the CPU.  They import
 neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -197,11 +200,13 @@ def test_flat_update_entries_refuse_sizes_past_int32(cuda_device):
                           None) == 1
 
 
-def _small_chunks(cuda_device, **alg_kw):
+def _small_chunks(cuda_device, shards=1, **alg_kw):
     """A fill and a training chunk at small width on the card and on
     the CPU with the same fed draws (``alg_kw``: more ``AlgConfig``
-    options): the CM3 states and the fused kernel's launches on each
-    (with ``alg_kw`` also the Polyak kernel's)."""
+    options; ``shards``: the replay in that many shards, each update's
+    indices drawn per shard): the CM3 states and the fused kernel's
+    launches on each (with ``alg_kw`` also the Polyak kernel's), and
+    under ``"buf_<device>"`` the replay."""
     from cm3_tpu_torch.algs.cm3 import CM3
     from cm3_tpu_torch.core import config, prng
     from cm3_tpu_torch.core.tree import tree_map
@@ -213,7 +218,9 @@ def _small_chunks(cuda_device, **alg_kw):
     rng = np.random.default_rng(0)
     fill = [rng.integers(0, 5, (e, 2)) for _ in range(10)]
     act = [rng.gumbel(size=(e, 2, 5)).astype(np.float32) for _ in range(10)]
-    idx = [rng.integers(0, 20 * e, b) for _ in range(u)]
+    idx = [rng.integers(0, 20 * e // shards,
+                        b if shards == 1 else (shards, b // shards))
+           for _ in range(u)]
     upd = [rng.gumbel(size=(b, 2, 5)).astype(np.float32) for _ in range(u)]
     nn = config.NNConfig(Q_conv_f=2, Q_n_h1_1=16, Q_n_h1_2=8, Q_n_h2=16,
                          A_conv_f=2, A_n_h1=16, A_n_h2=12)
@@ -225,7 +232,7 @@ def _small_chunks(cuda_device, **alg_kw):
                   config.AlgConfig(n_agents=2, stage=2, fused_opt=True,
                                    **alg_kw), nn, device=dev)
         cfg = config.TrainConfig(n_envs=e, batch_size=b, buffer_size=512,
-                                 updates_per_chunk=u)
+                                 updates_per_chunk=u, replay_shards=shards)
         drv = OffPolicyDriver(make_hooks("checkers", env), alg, cfg)
         rs = init_rollout(drv.hooks, e)
         ts = alg.init_state(prng.root_key(0))
@@ -241,6 +248,7 @@ def _small_chunks(cuda_device, **alg_kw):
         out[dev.type] = (ts, fused_opt.adam_polyak.launches - before)
         if alg_kw:
             out[dev.type] += (polyak.polyak_update.launches - soft,)
+        out["buf_" + dev.type] = buf
     return out, u
 
 
@@ -282,6 +290,28 @@ def test_small_chunk_in_full_float32_under_default_flags(cuda_device):
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
     _hold_chunks(*out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_chunk_on_card_matches_cpu(cuda_device, shards):
+    """The same chunk with the replay in 2 and 4 shards (each update
+    draws b/D rows below each shard's fill, on the device): the state at
+    rtol 1e-4, atol 1e-5, 2 launches per update, every shard's cursors
+    (20 x 16 / D rows each) exactly and its rows at the same tolerance
+    (the policy chunk's observations come from the nets' actions)."""
+    from cm3_tpu_torch.core.tree import tree_leaves
+    out, u = _small_chunks(cuda_device, shards=shards)
+    _hold_chunks(out, u)
+    ring_c, ring_h = out["buf_cuda"], out["buf_cpu"]
+    assert ring_h.size.tolist() == [20 * 16 // shards] * shards
+    assert torch.equal(ring_c.size.cpu(), ring_h.size)
+    assert torch.equal(ring_c.insert.cpu(), ring_h.insert)
+    for (_, x), (_, y) in zip(tree_leaves(ring_c.data),
+                              tree_leaves(ring_h.data)):
+        torch.testing.assert_close(x.narrow(1, 0, ring_h.capacity).cpu(),
+                                   y.narrow(1, 0, ring_h.capacity),
+                                   rtol=1e-4, atol=1e-5)
 
 
 def _seeded_chunks(cuda_device, n_agents, fused, s=3, e=8, b=16, u=3):
@@ -1103,12 +1133,12 @@ def _mod_draws(q, dev):
                     uniforms=q["uniform"], normals=q["normal"])
 
 
-def _roadway_feed(lead, e, steps, updates, b, seed):
+def _roadway_feed(lead, e, steps, updates, b, seed, shards=1):
     """Seeded draws for a roadway driver with the dual buffer: the first
     reset (branch, lanes, goal lanes, depart noise), per env step of a
     random and a policy chunk the actions and the reset's draws, per
-    update the two memories' indices (large integers) and the a'
-    noise."""
+    update the two memories' indices (large integers; per shard with
+    ``shards``) and the a' noise."""
     rng = np.random.default_rng(seed)
     lead = tuple(lead)
     q = {"randint": [], "gumbel": [], "uniform": [], "normal": []}
@@ -1128,19 +1158,21 @@ def _roadway_feed(lead, e, steps, updates, b, seed):
                 q["gumbel"].append(rng.gumbel(size=cars + (5,)).astype(
                     np.float32))
             reset()
+    idx = (b,) if shards == 1 else (shards, b // shards)
     for _ in range(updates):
-        q["randint"] += [rng.integers(0, 1 << 40, lead + (b,))
+        q["randint"] += [rng.integers(0, 1 << 40, lead + idx)
                          for _ in range(2)]
         q["gumbel"].append(rng.gumbel(size=lead + (b, 2, 5)).astype(
             np.float32))
     return q
 
 
-def _roadway_dual_runs(cuda_device, s=None, fused=False, e=8, b=16, u=3):
-    """CM3 on two cars with the dual buffer (a slab of 3) on the card and
-    on the CPU from the same parameters with the same fed draws: a fill
-    and a training chunk of ``u`` updates.  Per device (alg, state,
-    buffer, rollout, metrics, B1 launches)."""
+def _roadway_dual_runs(cuda_device, s=None, fused=False, e=8, b=16, u=3,
+                       shards=1):
+    """CM3 on two cars with the dual buffer (a slab of 3; in ``shards``
+    shards) on the card and on the CPU from the same parameters with the
+    same fed draws: a fill and a training chunk of ``u`` updates.  Per
+    device (alg, state, buffer, rollout, metrics, B1 launches)."""
     import dataclasses
     from cm3_tpu_torch.algs.cm3 import CM3
     from cm3_tpu_torch.core import config
@@ -1149,7 +1181,7 @@ def _roadway_dual_runs(cuda_device, s=None, fused=False, e=8, b=16, u=3):
     from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
 
     lead = () if s is None else (s,)
-    q = _roadway_feed(lead, e, 10, u, b, 7 + (s or 0))
+    q = _roadway_feed(lead, e, 10, u, b, 7 + (s or 0), shards)
     eps = torch.tensor([0.1, 0.2, 0.3])[:s] if s else 0.3
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
@@ -1160,7 +1192,8 @@ def _roadway_dual_runs(cuda_device, s=None, fused=False, e=8, b=16, u=3):
         cfg = config.TrainConfig(n_envs=e, batch_size=b, buffer_size=256,
                                  dual_buffer=True, max_steps=3,
                                  steps_per_train=10, updates_per_chunk=u,
-                                 episode_log=16, threshold=12.0)
+                                 episode_log=16, threshold=12.0,
+                                 replay_shards=shards)
         driver = OffPolicyDriver(make_hooks("roadway", env, 12.0), alg, cfg)
         draws = _mod_draws(q, dev)
         rs = init_rollout(driver.hooks, e, draws, 16, n_seeds=s)
@@ -1187,8 +1220,23 @@ def test_roadway_dual_chunk_on_card_matches_cpu(cuda_device, s, fused):
     per-seed cursors, the slab, the env state (floats, sublanes, flags),
     the networks, targets and Adam moments, the metrics; B1 runs 2
     launches per fused update."""
+    _hold_dual_runs(_roadway_dual_runs(cuda_device, s, fused), s, fused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [None, 3], ids=["one_seed", "seeds"])
+def test_sharded_dual_chunk_on_card_matches_cpu(cuda_device, s):
+    """The same with both memories in 2 shards (the fused path for one
+    seed, optax for three): every shard's cursors and rows, the rest as
+    above."""
+    out = _roadway_dual_runs(cuda_device, s, s is None, shards=2)
+    assert tuple(out["cpu"][2].bad.size.shape) == (() if s is None
+                                                   else (s,)) + (2,)
+    _hold_dual_runs(out, s, s is None)
+
+
+def _hold_dual_runs(out, s, fused):
     from cm3_tpu_torch.core.tree import tree_leaves
-    out = _roadway_dual_runs(cuda_device, s, fused)
     (alg, ts_c, buf_c, rs_c, m_c, n_c), (_, ts_h, buf_h, rs_h, m_h, n_h) = \
         out["cuda"], out["cpu"]
     assert (n_c, n_h) == ((2 * 3 if fused else 0), 0)
@@ -1202,8 +1250,9 @@ def test_roadway_dual_chunk_on_card_matches_cpu(cuda_device, s, fused):
     for rc, rh in ((buf_c.bad, buf_h.bad), (buf_c.good, buf_h.good)):
         assert torch.equal(rc.size.cpu(), rh.size)
         assert torch.equal(rc.insert.cpu(), rh.insert)
+        k = rh.insert.dim()
         for (_, x), (_, y) in zip(tree_leaves(rc.data), tree_leaves(rh.data)):
-            close(x.narrow(lead, 0, 256), y.narrow(lead, 0, 256))
+            close(x.narrow(k, 0, rh.capacity), y.narrow(k, 0, rh.capacity))
     assert int(buf_h.bad.size.sum()) > 0 and int(buf_h.good.size.sum()) > 0
     for (_, x), (_, y) in zip(tree_leaves(rs_c.stage),
                               tree_leaves(rs_h.stage)):
@@ -1736,3 +1785,68 @@ def test_occluded_roadway_observation_on_card_matches_cpu(cuda_device):
         for x, y in zip(m_c, m_h):
             torch.testing.assert_close(x.cpu(), y, rtol=0, atol=1e-6)
     assert shadowed > 0
+
+
+# --------------------------------------------------------------------- #
+# the MPE suite
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["simple", "simple_adversary",
+                                  "simple_crypto", "simple_push",
+                                  "simple_reference",
+                                  "simple_speaker_listener", "simple_spread",
+                                  "simple_tag", "simple_world_comm"])
+def test_mpe_step_on_card_matches_cpu(cuda_device, name):
+    """512 instances of each MPE scenario, 10 steps a path (index and
+    multi-head), every step repeated on the CPU from the card's state
+    before it with the same draws: positions, velocities, comm state,
+    steps and done at rtol / atol 1e-5 (CUDA's expf and log1pf are an
+    ulp from the CPU's in the contact force and the boundary penalty);
+    observations and rewards likewise where the collision flags agree,
+    and a flag that differs lies within 1e-5 of its threshold."""
+    from cm3_tpu_torch.core import prng
+    from cm3_tpu_torch.envs import mpe
+    b, steps = 512, 10
+    env_c = mpe.MPEEnv(name, max_steps=8, device=cuda_device)
+    env_h = mpe.MPEEnv(name, max_steps=8, device="cpu")
+    sc, w = env_h.scenario, env_h.scenario.world
+    draws = prng.GeneratorDraws(prng.generator(5, cuda_device))
+    reset = env_c.draw_reset((b,), draws)
+    cpu = lambda st: mpe.MPEState(**{f: getattr(st, f).cpu() for f in (
+        "pos", "vel", "c", "goal", "steps")})
+    dmin = mpe._consts(w, torch.device("cpu"))["dist_min"]
+    flips = 0
+    for path in ("index", "multihead"):
+        s, _ = env_c.reset(reset)
+        for _ in range(steps):
+            if path == "index":
+                a = (draws.randint((b, w.n_agents), 5),
+                     draws.randint((b, w.n_agents), max(w.dim_c, 1)))
+                step = lambda env, st, x: env.step(st, *x)
+            else:
+                a = (draws.uniform((b, w.n_agents, 5)),
+                     draws.uniform((b, w.n_agents, w.dim_c)) if w.dim_c
+                     else None)
+                step = lambda env, st, x: env.step_multihead(st, *x)
+            prev = cpu(s)
+            s, (obs, rew, done) = step(env_c, s, a)
+            s_h, (obs_h, rew_h, done_h) = step(
+                env_h, prev, tuple(None if x is None else x.cpu()
+                                   for x in a))
+            got = cpu(s)
+            flip = sc._collide_mat(got) != sc._collide_mat(s_h)
+            if flip.any():
+                _, d = mpe._pair_deltas(s_h.pos)
+                assert bool(((d - dmin).abs()[flip] < 1e-5).all())
+                flips += int(flip.sum())
+            same = ~flip.flatten(-2).any(-1)
+            for x, y in ((got.pos, s_h.pos), (got.vel, s_h.vel),
+                         (got.c, s_h.c), (obs.cpu()[same], obs_h[same]),
+                         (rew.cpu()[same], rew_h[same])):
+                torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+            assert torch.equal(got.steps, s_h.steps)
+            assert torch.equal(done.cpu(), done_h)
+        assert bool(done.all())
+    print(f"{name}: {flips} collision flags differ")

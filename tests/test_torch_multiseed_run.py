@@ -140,21 +140,25 @@ def _small_stage1():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("replay_shards", 2, "A14")])
-def test_driver_refuses_what_is_not_ported(field, value, item):
-    """The JAX options the port does not run yet are refused, naming
-    their ROADMAP item; the K-chunk schedule in ``run`` no longer is: a
-    tiny run at K = 4 trains (its draws and its parity with JAX's are in
-    ``test_torch_kchunk*.py``).  ``summarize`` runs:
+    ("replay_shards", 2, "A14a")])
+def test_driver_runs_what_was_refused(field, value, item):
+    """The JAX options the port once refused run, each ported by its
+    ROADMAP item: a tiny run with shard-local replay at D = 2 (its
+    parity with JAX's: ``test_torch_sharded_*.py``) and the K-chunk
+    schedule at K = 4 (``test_torch_kchunk*.py``); ``summarize``:
     ``test_driver_runs_summarize``."""
     from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
     hooks, ta = _small_stage1()
-    with pytest.raises(NotImplementedError, match=item):
-        OffPolicyDriver(hooks, ta, tcfg.TrainConfig(**{field: value}))
+    small = dict(n_envs=2, max_steps=5, steps_per_train=5,
+                 pretrain_episodes=2, period=8, N_eval=1, batch_size=8,
+                 buffer_size=64, updates_per_chunk=1)
     driver = OffPolicyDriver(hooks, ta, tcfg.TrainConfig(
-        chunks_per_sync=4, n_envs=2, max_steps=5, steps_per_train=5,
-        pretrain_episodes=2, period=8, N_eval=1, batch_size=8,
-        buffer_size=64, updates_per_chunk=1))
+        **{field: value}, **small))
+    ts, stats = driver.run(ta.init_state(0), n_episodes=8)
+    assert stats["episodes"] == 8 and ts.step == 3
+    assert tuple(stats["buffer"].size.shape) == (value,)
+    driver = OffPolicyDriver(hooks, ta, tcfg.TrainConfig(
+        chunks_per_sync=4, **small))
     ts, stats = driver.run(ta.init_state(0), n_episodes=8)
     assert stats["episodes"] == 8 and stats["dispatches"] == 1
     assert stats["history"][0]["trained_chunks"] == 3.0 and ts.step == 3
@@ -162,7 +166,7 @@ def test_driver_refuses_what_is_not_ported(field, value, item):
 
 @pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A14")])
 def test_train_vmapped_seeds_refuses_what_is_not_ported(kw, item):
-    """A mesh (A14)."""
+    """A mesh (A14b)."""
     hooks, ta = _small_stage1()
     kw = dict(kw)
     cfg = tcfg.TrainConfig(**kw.pop("cfg", {}))

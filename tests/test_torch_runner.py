@@ -1,8 +1,9 @@
 """The port's runner and CLI (``cm3_tpu_torch.train.runner``) on the CPU:
-``build`` against JAX's ``build`` on the same masters; the refusals,
-each naming its ROADMAP item (the baselines and QMIX are in
-``test_torch_baseline_runner.py``); ``train_function`` end to end at narrow
-widths, with the files it writes; the stage-1 -> stage-2 graft; the
+``build`` against JAX's ``build`` on the same masters; the masters
+once refused (a ``mesh`` key, ``replay_shards``), which now train (the
+baselines and QMIX are in ``test_torch_baseline_runner.py``);
+``train_function`` end to end at narrow widths, with the files it
+writes; the stage-1 -> stage-2 graft; the
 autosave's ``auto_resume`` and ``require_resume``; ``train_multiseed``
 one seed after another and in lockstep (``vmapped_seeds``) with the
 graft into every seed; and ``main`` with ``--device cpu``."""
@@ -71,17 +72,34 @@ def test_build_matches_jax(name):
         assert getattr(th.env.cfg, f.name) == getattr(jh.env.cfg, f.name)
 
 
-REFUSALS = {
-    "mesh": (dict(mesh=[4]), "A14"),
-    "replay_shards": (dict(replay_shards=2), "A14"),
+# masters once refused: a mesh key (fault C1: JAX's build keeps only
+# TrainConfig's fields, so the key is ignored) and shard-local replay
+# (ROADMAP A14a)
+ONCE_REFUSED = {
+    "mesh": dict(mesh=[4]),
+    "replay_shards": dict(replay_shards=2),
 }
 
 
-@pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_refusals_name_their_items(name):
-    over, item = REFUSALS[name]
-    with pytest.raises(NotImplementedError, match=item):
-        runner.build(_master(over), device="cpu")
+@pytest.mark.parametrize("name", sorted(ONCE_REFUSED))
+def test_once_refused_masters_train(name, tmp_path, small_nets):
+    """Such a master builds the TrainConfig JAX's ``build`` makes of it
+    and trains a few episodes through ``train_function``: period rows
+    with losses, ``model_final``; with ``replay_shards`` the driver's
+    replay is two shards."""
+    m = _master(SMALL, N_train=24, period=12, **ONCE_REFUSED[name])
+    jtc = jrunner.build(m)[3]
+    td, _, _, ttc = runner.build(m, device="cpu")
+    for f in dataclasses.fields(ttc):
+        assert getattr(ttc, f.name) == getattr(jtc, f.name), f.name
+    ts, stats = runner.train_function(m, str(tmp_path), verbose=False,
+                                      device="cpu")
+    assert stats["episodes"] >= 24 and ts.step > 0
+    assert "policy_loss" in stats["history"][-1]
+    assert os.path.isdir(os.path.join(str(tmp_path), "saved", "s1",
+                                      "model_final"))
+    if name == "replay_shards":
+        assert tuple(stats["buffer"].size.shape) == (2,)
 
 
 def test_summarize_builds():

@@ -107,13 +107,41 @@ def qmix_act_draws(key, shape, n_actions):
             np.asarray(jax.random.uniform(k2, shape)))
 
 
+def sharded_indices(key, batch, sizes):
+    """The replay indices JAX's ``sample_sharded`` draws from ``key``
+    (``buffer.py:229-234``): ``jax.random.split(key, D)``, then per
+    shard batch/D below its fill ``sizes[d]``; [D, batch/D]."""
+    sizes = np.asarray(sizes)
+    keys = jax.random.split(key, len(sizes))
+    return np.stack([np.asarray(jax.random.randint(
+        k, (batch // len(sizes),), 0, max(int(n), 1)))
+        for k, n in zip(keys, sizes)])
+
+
+def sharded_dual_indices(key, batch, s_bad, s_good):
+    """The indices JAX's ``sample_dual_sharded`` draws from ``key``
+    (``buffer.py:251-257``): per shard the bad memory's and the good
+    one's (``sample_dual``'s split); -> (bad [D, b], good [D, b]) in the
+    order the port asks for them."""
+    s_bad, s_good = np.asarray(s_bad), np.asarray(s_good)
+    b = batch // len(s_bad)
+    out = ([], [])
+    for k, n1, n2 in zip(jax.random.split(key, len(s_bad)), s_bad, s_good):
+        k1, k2 = jax.random.split(k)
+        for lst, kk, n in ((out[0], k1, n1), (out[1], k2, n2)):
+            lst.append(np.asarray(jax.random.randint(kk, (b,), 0,
+                                                     max(int(n), 1))))
+    return np.stack(out[0]), np.stack(out[1])
+
+
 def chunk_draws(key, n_envs, n_agents, n_actions, steps, random_actions,
                 n_updates=0, batch=0, sizes=(), qmix=False, gated=False):
     """The draws ``OffPolicyDriver._chunk`` makes from ``key``
     (offpolicy.py:242-248,369-371), as (randints, gumbels) in the order
     the port's driver asks for them; for one agent, each step's
     auto-reset goals too.  ``sizes`` is the replay fill seen by each
-    update (jax.random.randint's bound).  With ``qmix`` the policy's
+    update (jax.random.randint's bound), or with shard-local replay the
+    shards' fills [D] (``sharded_indices``).  With ``qmix`` the policy's
     steps draw QMIX's override (random actions among the randints, and
     uniforms) and the updates draw nothing: (randints, gumbels,
     uniforms), the gumbels empty.  ``gated``: a chunk of a K-chunk
@@ -141,8 +169,11 @@ def chunk_draws(key, n_envs, n_agents, n_actions, steps, random_actions,
     ks = jax.random.split(jax.random.fold_in(key, 7), n_updates)
     for k, size in zip(ks, sizes):
         k_sample, k_update = jax.random.split(k)
-        randints.append(np.asarray(jax.random.randint(
-            k_sample, (batch,), 0, jnp.maximum(jnp.int32(size), 1))))
+        if np.ndim(size):
+            randints.append(sharded_indices(k_sample, batch, size))
+        else:
+            randints.append(np.asarray(jax.random.randint(
+                k_sample, (batch,), 0, jnp.maximum(jnp.int32(size), 1))))
         if not qmix:
             gumbels.append(np.asarray(jax.random.gumbel(
                 k_update, (batch, n_agents, n_actions))))
@@ -513,10 +544,13 @@ class ParticleDraws:
 
     def update(self, key, batch, size):
         """One update of a burst or chunk: the replay indices, then the
-        update's a' noise (none for QMIX)."""
+        update's a' noise (none for QMIX); ``size`` [D] for shards."""
         k_sample, k_update = jax.random.split(key)
-        self.randints.append(np.asarray(jax.random.randint(
-            k_sample, (batch,), 0, jnp.maximum(jnp.int32(size), 1))))
+        if np.ndim(size):
+            self.randints.append(sharded_indices(k_sample, batch, size))
+        else:
+            self.randints.append(np.asarray(jax.random.randint(
+                k_sample, (batch,), 0, jnp.maximum(jnp.int32(size), 1))))
         if not self.qmix:
             self.gumbels.append(np.asarray(jax.random.gumbel(
                 k_update, (batch, self.n, self.a))))
@@ -536,12 +570,16 @@ class ParticleDraws:
     def update_dual(self, key, batch, s_bad, s_good):
         """One update on the dual buffer (``buffer.py:153-195``): the
         bad memory's indices, the good one's, then the a' noise (none
-        for QMIX)."""
+        for QMIX); the fills [D] for shards."""
         k_sample, k_update = jax.random.split(key)
-        k1, k2 = jax.random.split(k_sample)
-        for k, size in ((k1, s_bad), (k2, s_good)):
-            self.randints.append(np.asarray(jax.random.randint(
-                k, (batch,), 0, jnp.maximum(jnp.int32(size), 1))))
+        if np.ndim(s_bad):
+            self.randints += list(sharded_dual_indices(k_sample, batch,
+                                                       s_bad, s_good))
+        else:
+            k1, k2 = jax.random.split(k_sample)
+            for k, size in ((k1, s_bad), (k2, s_good)):
+                self.randints.append(np.asarray(jax.random.randint(
+                    k, (batch,), 0, jnp.maximum(jnp.int32(size), 1))))
         if not self.qmix:
             self.gumbels.append(np.asarray(jax.random.gumbel(
                 k_update, (batch, self.n, self.a))))
