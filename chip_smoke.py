@@ -4,14 +4,16 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Sixteen phases, each between progress lines with its elapsed seconds
+Seventeen phases, each between progress lines with its elapsed seconds
 and held to a time budget (30 + 45 + 10 + 10 + 73 + 10 + 80 + 48 + 37 +
-120 + 112 + 93 + 67 + 311 + 73 + 61 s = 1180 s: about 1.46x each
+120 + 112 + 93 + 67 + 251 + 73 + 61 + 60 s = 1180 s: about 1.46x each
 phase's longest cold time on an H100 over PR 15's and PR 16's runs, 0:
 5.0, 1: 26.3, 2: 3.6, 3: 5.3, 4: 50.2, 5: 1.2, 6: 54.6, 7: 33.2, 8:
-25.6, 9: 82.2, 10: 76.8, 11: 63.5, 12: 45.7, 13: 213.4, 14: 50.3, 15:
-41.1 s, with at least 10 s a phase and 30 s for a cold ``nvcc`` build;
-a whole run 493.9-753.8 s):
+25.6, 9: 82.2, 10: 76.8, 11: 63.5, 12: 45.7, 13: 213.4 (before its K = 1
+/ K = 32 turns were cut from 100 episodes each to 50, ~40 s less), 14:
+50.3, 15: 41.1 s, with at least 10 s a phase and 30 s for a cold
+``nvcc`` build; phase 16 got the 60 s taken from phase 13; a whole run
+493.9-753.8 s):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -210,7 +212,7 @@ a whole run 493.9-753.8 s):
    episodes, a fill of 50; the episodes cut, ``E1_*`` below) through
    ``runner.train_function``, its episodes per second and host syncs
    per episode; ``checkers_s2_e1`` at K = 1 and at K = 32 in turns,
-   100 episodes each (about 10 dispatches at K = 32); a
+   50 episodes each (about 5 dispatches at K = 32); a
    fused ``checkers_s2_e1`` with the actor frozen for 20 updates, with
    B1's and B3's launch counts set to 0 just before and read just
    after (B1 twice and B3 once per computed update, gated or not); and
@@ -260,6 +262,30 @@ a whole run 493.9-753.8 s):
    differs accepted only within 1e-5 of its threshold, |d - (s_i +
    s_j)| (the observations and rewards of such an instance are then
    not compared at that step).
+16. multi-process runs (``cm3_tpu_torch/parallel/``): phase 2's program
+   (fused) with the replay in 2 shards over two ranks sharing the card,
+   each a process of its own (``chip_smoke.py --mp-rank``) joined over
+   gloo with CUDA tensors (NCCL refuses two ranks on one GPU), placed
+   with ``mesh.shard_driver_state``: 128 envs and B = 64 a rank, the
+   learner replicated, each backward's gradient all-reduced; after 2
+   fill and 2 training chunks the ranks' states the same bytes and
+   equal to the single-process run on the card at phase 3's tolerance,
+   B1's launches and the collectives counted (2 an update each), a
+   rank's chunk ms and the bytes an update all-reduces; stage 1 with 2
+   seeds over the two ranks (``train_vmapped_seeds(mesh=)``, 64 envs a
+   seed, two period rows of 64 episodes after a fill of 64, deterministic
+   cuDNN): rows the same on both ranks and equal to the single-process
+   2-seed run's, each rank's seed equal to its twin there (at rtol 1e-3 /
+   atol 1e-4: stacks of 1 and 2 seeds sum their grouped convolutions in
+   other orders, which drift over the run; the witness, with no mesh: a
+   one-seed stack against a two-seed stack of one seed, state and draw
+   stream, held at that tolerance, while a rank's seed against its
+   neighbour's twin and against its own untrained state must fail it);
+   then at world
+   size 1 over NCCL in this process (a TCP store on a free local port)
+   the one-ring program with the mesh equal to it without, bit for bit
+   under deterministic cuDNN, and a training chunk with and without the
+   mesh timed in turns (the cost of the collectives at W = 1).
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
@@ -267,8 +293,9 @@ mean of the main path's two launches; B1's ``launches`` are phase 2's,
 B3's phase 9's, its training path: the actor freeze on the fused path;
 beside them ``particle_onpolicy_launches``, phase 11's fused stage 2,
 ``roadway_launches``, phase 12's fused roadway stage 2, and
-``kchunk_launches``, phase 13's fused single-env run, and
-``shards_launches``, phase 15's sharded ``checkers_s2``; ``pred_ms``,
+``kchunk_launches``, phase 13's fused single-env run,
+``shards_launches``, phase 15's sharded ``checkers_s2``, and
+``multiprocess_launches``, phase 16's on one of two ranks; ``pred_ms``,
 the kernel's time under a device predicate of 1; and B1's
 ``wrapper_ms``, ``adam_polyak_many``'s device time after a PyTorch
 kernel as the update calls it, and ``wrapper_b2b_ms``, its time per
@@ -427,11 +454,11 @@ RD_PAR_ENVS, RD_PAR_BATCH, RD_PAR_UPDATES, RD_SLAB = 16, 128, 4, 3
 # (one env runs 4.3-5 episodes/s on an H100, and a K = 32 dispatch ~10
 # episodes of ~33 steps): checkers_s2_e1 200 episodes (from a stage 1
 # of 100 at 16 envs), checkers_qmix_e1 200 through the CLI,
-# checkers_s2_e1 at K = 1 and K = 32 in turns 100 each without a fill
+# checkers_s2_e1 at K = 1 and K = 32 in turns 50 each without a fill
 # (every chunk trains, at K = 1 as at K = 32), a fused checkers_s2_e1
 # with the actor frozen for its first 20 updates 20 without a fill
 E1_K, E1_PERIOD, E1_FILL, E1_S1, E1_CELL = 32, 100, 50, 100, 200
-E1_TURN, E1_TURN_FILL, E1_FREEZE_RUN, E1_FREEZE = 100, 0, 20, 20
+E1_TURN, E1_TURN_FILL, E1_FREEZE_RUN, E1_FREEZE = 50, 0, 20, 20
 
 # the tools (phase 14): the paper's checkers_s2 (16 envs, N_eval 10, a
 # period of 100 episodes, fused, the actor frozen for its first 20
@@ -451,6 +478,29 @@ TL_EPISODES, TL_SEEDED = 200, 100
 SH_SHARDS, SH_DUAL_SHARDS, SH_EPISODES = 4, 2, 100
 MPE_B, MPE_STEPS, MPE_CHECK = 1 << 16, 25, 4096
 MPE_RTOL, MPE_ATOL, MPE_COLL_TOL = 1e-5, 1e-5, 1e-5
+
+# multi-process runs (phase 16): phase 2's program (fused, 256 envs, 10
+# env steps then 8 updates on B = 128, buffer 20000) with the replay in 2
+# shards over two ranks sharing the card (gloo with CUDA tensors: NCCL
+# refuses two ranks on one GPU; 128 envs and B = 64 a rank), 2 fill and
+# MP_HOLD training chunks held against the single-process run, then
+# MP_TIMED timed ones; stage 1 with 2 seeds over the ranks (64 envs a
+# seed, a fill of 64 episodes, two period rows of 64: few updates, so
+# that seed stacks of 1 and 2, whose grouped convolutions sum in other
+# orders, stay within phase 3's tolerance); and at world size 1 over NCCL
+# the one-ring program with the mesh and without it, MP_TURNS training
+# chunks each in turns
+MP_SHARDS, MP_HOLD, MP_TIMED, MP_TURNS, MP_RANK_TIMEOUT = 2, 2, 4, 5, 50
+MP_SEEDS, MP_SEED_ENVS, MP_SEED_PERIOD = 2, 64, 64
+# a rank's seed against its twin in the single-process run: a stack of 1
+# seed and one of 2 run their grouped convolutions in other orders, which
+# drift apart over the run's ~30 updates.  On an H100 (700 W) under
+# deterministic cuDNN the rank reads 2.08e-5 from its twin, and a
+# one-seed stack reads the same 2.08e-5 from a two-seed stack of the same
+# seed with no mesh; a wrong rank reads 0.518 (its neighbour's twin) and
+# 0.0192 (its own seed untrained).  The limit lies between (the rows are
+# held at phase 3's tolerance)
+MP_SEED_RTOL, MP_SEED_ATOL = 1e-3, 1e-4
 
 T0 = time.time()
 
@@ -3625,6 +3675,370 @@ def phase_shards_mpe(dev):
                                 for k, o in mpe_out.items()}}
 
 
+# ------------------------------------------------------------------ #
+# multi-process runs
+# ------------------------------------------------------------------ #
+
+
+def _free_port():
+    import socket
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def _mp_program(dev, shards, mesh=None):
+    """Phase 2's program with the replay in ``shards`` shards (one ring
+    at 1): (driver, state, replay, rollout state, draw source) of the
+    whole run, or on a data ``mesh`` this rank's block of it (the draw
+    source stays the run's: the driver takes its block of each draw)."""
+    import dataclasses
+    from cm3_tpu_torch import bench
+    from cm3_tpu_torch.parallel import mesh as meshlib
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
+    driver, ts, _, rs, draws = bench.train_program(None, N_ENVS, True, dev,
+                                                   seed=SEED)
+    driver = OffPolicyDriver(driver.hooks, driver.alg, dataclasses.replace(
+        driver.cfg, replay_shards=shards))
+    buf, rs = driver.init_replay(rs)
+    if mesh is not None:
+        ts, buf, rs = meshlib.shard_driver_state(mesh, ts, buf, rs, N_ENVS,
+                                                 shards)
+    return [driver, ts, buf, rs, draws]
+
+
+def _mp_chunk(prog, train):
+    driver, ts, buf, rs, draws = prog
+    prog[1:4] = driver._chunk(ts, buf, rs, EPSILON, draws, train,
+                              not train)[:3]
+    return prog
+
+
+def _mp_state(ts, names):
+    out = {}
+    for name in names:
+        out[name] = getattr(ts, name).flat.cpu()
+        out[name + "_tgt"] = getattr(ts, name + "_tgt").flat.cpu()
+        out[name + ".mu"] = getattr(ts, "opt_" + name).mu.cpu()
+        out[name + ".nu"] = getattr(ts, "opt_" + name).nu.cpu()
+    return out
+
+
+def _mp_data(dev, mesh, shards=MP_SHARDS):
+    """2 fill chunks, then MP_HOLD training chunks with B1's launches and
+    the collectives counted, the state after them (host copies), then
+    MP_TIMED timed training chunks: a dict of them, the chunks' ms and
+    the bytes one update all-reduces."""
+    import torch
+    from cm3_tpu_torch.ops import fused_opt
+    from cm3_tpu_torch.parallel import mesh as meshlib
+    prog = _mp_program(dev, shards, mesh)
+    for _ in range(2):
+        _mp_chunk(prog, False)
+    torch.cuda.synchronize()
+    fused_opt.adam_polyak.launches = 0
+    meshlib.COUNTS.clear()
+    for _ in range(MP_HOLD):
+        _mp_chunk(prog, True)
+    torch.cuda.synchronize()
+    driver, ts = prog[:2]
+    out = {"launches": fused_opt.adam_polyak.launches,
+           "counts": dict(meshlib.COUNTS),
+           "state": _mp_state(ts, driver.alg.net_names()),
+           "episodes": int(prog[3].episodes), "ms": [],
+           "allreduce_bytes": 4 * sum(
+               getattr(ts, k).flat.numel() for k in driver.alg.net_names())}
+    for _ in range(MP_TIMED):
+        t0 = time.perf_counter()
+        _mp_chunk(prog, True)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _mp_stage1(dev):
+    """(hooks, algorithm, TrainConfig) of stage 1 (one agent, optax) as
+    phase 16 trains its seeds."""
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config
+    from cm3_tpu_torch.envs.checkers import Checkers
+    from cm3_tpu_torch.train.experiments import make_hooks
+    env = Checkers(config.checkers_env_config(1, max_steps=33), device=dev)
+    alg = CM3("checkers", env.spec(), config.AlgConfig(n_agents=1, stage=1),
+              config.checkers_nn_config(1), device=dev)
+    cfg = config.TrainConfig(n_envs=MP_SEED_ENVS, updates_per_chunk=UPDATES,
+                             pretrain_episodes=MP_SEED_PERIOD,
+                             period=MP_SEED_PERIOD,
+                             N_train=2 * MP_SEED_PERIOD, max_steps=33)
+    return make_hooks("checkers", env), alg, cfg
+
+
+def _mp_train_seeds(dev, n_seeds, **kw):
+    """``train_vmapped_seeds`` of ``_mp_stage1``'s program under
+    deterministic cuDNN: (the networks, [S, n] each, on the host; the
+    period rows without their durations)."""
+    import torch
+    from cm3_tpu_torch.train.multiseed import train_vmapped_seeds
+    hooks, alg, cfg = _mp_stage1(dev)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ts, rows = train_vmapped_seeds(hooks, alg, cfg, n_seeds, SEED, **kw)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return ({n: getattr(ts, n).flat.cpu() for n in alg.net_names()},
+            [{k: v for k, v in r.items() if k != "duration_s"}
+             for r in rows])
+
+
+def _mp_seeds(dev, mesh):
+    """Stage 1 with MP_SEEDS seeds (over the seed ``mesh``): this rank's
+    seeds' networks and the period rows."""
+    return _mp_train_seeds(dev, MP_SEEDS, mesh=mesh)
+
+
+class _TwinDraws:
+    """The draws of a stack of two equal seeds: each [2, ...] draw is
+    ``source``'s [1, ...] draw twice, so both seeds take the draws that a
+    one-seed stack takes from a source of the same key."""
+
+    def __init__(self, source):
+        self.source = source
+
+    def _twice(self, fn, shape, *args):
+        import torch
+        x = fn((1,) + tuple(shape[1:]), *args)
+        return torch.cat([x, x])
+
+    def randint(self, shape, high):
+        return self._twice(self.source.randint, shape, high)
+
+    def randint_below(self, shape, high):
+        return self._twice(self.source.randint_below, shape, high[:1])
+
+    def gumbel(self, shape):
+        return self._twice(self.source.gumbel, shape)
+
+    def uniform(self, shape, low=0.0, high=1.0):
+        return self._twice(self.source.uniform, shape, low, high)
+
+    def normal(self, shape):
+        return self._twice(self.source.normal, shape)
+
+
+def _mp_seed_witness(dev):
+    """Seed 0 of ``_mp_seeds``' program with no mesh, from one state and
+    one stream of draws, trained as a stack of one seed and as both
+    seeds of a stack of two equal ones: (the one-seed stack's networks,
+    the two-seed stack's)."""
+    import numpy as np
+    from cm3_tpu_torch.core import prng
+    alg = _mp_stage1(dev)[1]
+    key = prng.root_key(SEED)
+    out = []
+    for s, wrap in ((1, lambda d: d), (2, _TwinDraws)):
+        draws = [wrap(prng.GeneratorDraws(prng.generator(prng.for_purpose(
+            prng.fold_in(key, MP_SEEDS), purpose), dev)))
+            for purpose in (prng.ROLLOUT, prng.EVAL)]
+        out.append(_mp_train_seeds(
+            dev, s, draws=draws[0], eval_draws=draws[1],
+            resume=(alg.for_seeds(s).init_state([key] * s),
+                    np.zeros(s, np.int64)))[0])
+    return out
+
+
+def mp_rank(spec_path, rank):
+    """One of phase 16's two ranks on the card (gloo), in a process of
+    its own: the data axis in 2 shards, then seeds over the ranks; its
+    results written beside the spec."""
+    import torch
+    from cm3_tpu_torch.parallel import dist
+    from cm3_tpu_torch.parallel import mesh as meshlib
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.initialize(f"localhost:{spec['port']}", 2, rank, device="cuda:0",
+                    backend="gloo")
+    data = _mp_data(dev, meshlib.make_mesh(2))
+    seeds = _mp_seeds(dev, meshlib.make_mesh(2, axis="seed"))
+    torch.save({"data": data, "seeds": seeds},
+               os.path.join(spec["dir"], f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _mp_close(got, want, what, rtol=PARITY_RTOL, atol=PARITY_ATOL):
+    """Two trees of tensors, arrays and numbers: integers exactly, floats
+    at phase 3's tolerance unless told; -> the largest float
+    difference."""
+    import numpy as np
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), what
+        return max([_mp_close(got[k], want[k], f"{what}/{k}", rtol, atol)
+                    for k in want] or [0.0])
+    if isinstance(want, (list, tuple)):
+        assert len(got) == len(want), what
+        return max([_mp_close(g, w, f"{what}[{i}]", rtol, atol)
+                    for i, (g, w) in enumerate(zip(got, want))] or [0.0])
+    g, w = np.asarray(got), np.asarray(want)
+    if not np.issubdtype(w.dtype, np.floating):
+        np.testing.assert_array_equal(g, w, err_msg=what)
+        return 0.0
+    np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=what)
+    return float(np.abs(g - w).max()) if g.size else 0.0
+
+
+def _mp_within(a, b, rtol, atol):
+    """Whether two dicts of float tensors agree at a tolerance, and the
+    largest difference."""
+    import numpy as np
+    return (all(np.allclose(a[k].numpy(), b[k].numpy(), rtol=rtol,
+                            atol=atol) for k in b),
+            max(float((a[k] - b[k]).abs().max()) for k in b))
+
+
+def _mp_bits(a, b, what):
+    """Two dicts of tensors the same bytes."""
+    import torch
+    for k in a:
+        assert torch.equal(a[k], b[k]), f"{what}: {k}"
+
+
+def phase_multiprocess(dev):
+    import tempfile
+    import torch
+    import torch.distributed as tdist
+    from cm3_tpu_torch.parallel import mesh as meshlib
+
+    held = 2 * UPDATES * MP_HOLD
+    # two ranks sharing the card over gloo with CUDA tensors
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"port": _free_port(), "dir": tmp}, f)
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-rank", spec,
+             str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MP_RANK_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            assert p.returncode == 0, f"rank {r} failed:\n{out[-3000:]}"
+        wall = time.time() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    d0, d1 = (r["data"] for r in ranks)
+    _mp_bits(d0["state"], d1["state"], "the ranks' states")
+    for d in (d0, d1):
+        assert d["launches"] == held, d["launches"]
+        assert d["counts"]["grad"] == held, d["counts"]
+    single = _mp_data(dev, None)
+    assert single["launches"] == held and single["counts"] == {}
+    assert d0["episodes"] == single["episodes"]
+    worst = _mp_close(d0["state"], single["state"], "2 ranks")
+    (s0, rows0), (s1, rows1) = (r["seeds"] for r in ranks)
+    assert _mp_close(rows1, rows0, "rows") == 0.0 and len(rows0) == 2
+    seeds_single, rows = _mp_seeds(dev, None)
+    row_worst = _mp_close(rows0, rows, "seed rows")
+    seed_worst = max(
+        _mp_close(st, {k: v[r:r + 1] for k, v in seeds_single.items()},
+                  f"seed {r}", MP_SEED_RTOL, MP_SEED_ATOL)
+        for r, st in enumerate((s0, s1)))
+    # the witness of that drift, with no mesh: a one-seed stack against a
+    # two-seed stack of the same seed, state and draws; and what a wrong
+    # rank reads (its neighbour's twin; its own seed untrained), which
+    # the tolerance must refuse
+    one, two = _mp_seed_witness(dev)
+    halves = all(torch.equal(v[0], v[1]) for v in two.values())
+    witness = _mp_close(one, {k: v[:1] for k, v in two.items()},
+                        "one seed against two", MP_SEED_RTOL, MP_SEED_ATOL)
+    from cm3_tpu_torch.core import prng
+    alg1 = _mp_stage1(dev)[1].for_seeds(1)
+    untrained = alg1.init_state([prng.root_key(SEED)])
+    wrong = {
+        "neighbour's twin": _mp_within(
+            s0, {k: v[1:2] for k, v in seeds_single.items()},
+            MP_SEED_RTOL, MP_SEED_ATOL),
+        "untrained": _mp_within(
+            s0, {n: getattr(untrained, n).flat.cpu()
+                 for n in alg1.net_names()}, MP_SEED_RTOL, MP_SEED_ATOL)}
+    for what, (ok, _) in wrong.items():
+        assert not ok, f"rank 0's seed passes against {what}"
+    med = statistics.median
+    log(f"  two ranks on the card (gloo, CUDA tensors; {N_ENVS // 2} envs "
+        f"and B = {BATCH // 2} a rank, {MP_SHARDS} shards): {wall:.1f} s "
+        f"with the processes' start; the ranks' states the same bytes; "
+        f"== the single-process run after 2 fill and {MP_HOLD} training "
+        f"chunks (rtol {PARITY_RTOL}, atol {PARITY_ATOL}; max abs "
+        f"difference {worst:.3g}); adam_polyak {d0['launches']} launches a "
+        f"rank (2 an update); collectives a rank {d0['counts']}; "
+        f"{d0['allreduce_bytes']} bytes all-reduced an update; a rank's "
+        f"training chunk {med(d0['ms']):.2f} / {med(d1['ms']):.2f} ms "
+        f"(median of {MP_TIMED}), the single-process chunk "
+        f"{med(single['ms']):.2f} ms")
+    log(f"  seeds over the two ranks (stage 1, optax, {MP_SEEDS} seeds x "
+        f"{MP_SEED_ENVS} envs, {len(rows0)} period rows): rows the same on "
+        f"both ranks and == the single-process {MP_SEEDS}-seed run's (phase "
+        f"3's tolerance, max abs difference {row_worst:.3g}), each rank's "
+        f"seed == its twin (rtol {MP_SEED_RTOL}, atol {MP_SEED_ATOL}; max "
+        f"abs difference {seed_worst:.3g}); episodes "
+        f"{rows0[-1]['episode'].tolist()}; no mesh, a one-seed stack "
+        f"against a two-seed stack of the same seed: max abs difference "
+        f"{witness:.3g} (the stack's two seeds the same bytes: {halves}); "
+        f"refused as wrong: "
+        + ", ".join(f"{k} (max abs difference {d:.3g})"
+                    for k, (_, d) in wrong.items()))
+
+    # world size 1 over NCCL in this process
+    tdist.init_process_group("nccl", init_method="tcp://localhost:"
+                             f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = meshlib.make_mesh(1)
+        torch.backends.cudnn.deterministic = True
+        try:
+            plain, meshed = _mp_data(dev, None, 1), _mp_data(dev, mesh, 1)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        _mp_bits(meshed["state"], plain["state"], "world size 1")
+        assert meshed["launches"] == plain["launches"] == held
+        assert meshed["counts"]["grad"] == held, meshed["counts"]
+        progs = {"mesh": _mp_program(dev, 1, mesh),
+                 "no mesh": _mp_program(dev, 1)}
+        for prog in progs.values():
+            for train in (False, False, True):
+                _mp_chunk(prog, train)
+        turns = {k: [] for k in progs}
+        for i in range(MP_TURNS):
+            for k in (("mesh", "no mesh") if i % 2 == 0
+                      else ("no mesh", "mesh")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _mp_chunk(progs[k], True)
+                torch.cuda.synchronize()
+                turns[k].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        tdist.destroy_process_group()
+    log(f"  world size 1 over NCCL, one ring: == no mesh bit for bit "
+        f"(deterministic cuDNN) after 2 fill and {MP_HOLD} training chunks; "
+        f"adam_polyak {meshed['launches']} launches; collectives "
+        f"{meshed['counts']}; training chunk in turns ({MP_TURNS} each): "
+        + ", ".join(f"{k} median {med(v):.2f} ms (min {min(v):.2f}, max "
+                    f"{max(v):.2f})" for k, v in turns.items()))
+    return {"b1": d0["launches"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3638,6 +4052,8 @@ def main():
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mp-rank"]:
+        return mp_rank(sys.argv[2], int(sys.argv[3]))
     # the Checkers nets are convolutional; learning runs pin float32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3659,15 +4075,16 @@ def main():
         ("11 particle through the runner", 93, phase_particle_runner, dev),
         ("12 roadway and the dual buffer through the runner", 67,
          phase_roadway_runner, dev),
-        ("13 the single-env cells through the runner", 311, phase_e1, dev),
+        ("13 the single-env cells through the runner", 251, phase_e1, dev),
         ("14 the tools", 73, phase_tools, dev),
         ("15 shard-local replay and MPE", 61, phase_shards_mpe, dev),
+        ("16 multi-process runs", 60, phase_multiprocess, dev),
     ]
     out = {name.split()[0]: run_phase(name, budget, fn, *args)
            for name, budget, fn, *args in phases}
     (kern, launches, rollout, soft, particle, roadway, frozen, pt, rd, e1,
-     sh) = (out[k] for k in ("1", "2", "4", "5", "6", "7", "9", "11", "12",
-                             "13", "15"))
+     sh, mp) = (out[k] for k in ("1", "2", "4", "5", "6", "7", "9", "11",
+                                 "12", "13", "15", "16"))
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3678,6 +4095,7 @@ def main():
              replaces="cm3_tpu/ops/fused_opt.py:100", launches=launches,
              particle_onpolicy_launches=pt["b1"], roadway_launches=rd["b1"],
              kchunk_launches=e1["b1"], shards_launches=sh["b1"],
+             multiprocess_launches=mp["b1"],
              pred_ms=kern["pred_ms"], wrapper_ms=kern["wrapper_ms"],
              wrapper_b2b_ms=kern["wrapper_b2b_ms"],
              **{k: max(kern[k], e1["err"]) if k == "max_abs_err" else kern[k]

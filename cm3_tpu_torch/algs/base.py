@@ -14,6 +14,14 @@ and ``update`` what ``update_draws(draws, lead)`` makes, ``lead`` being
 the instances' leading shape ([E] or [S, E]; for an update [B] or
 [S, B]).  An actor-critic samples from its policy with Gumbel noise
 [*lead, N, A] in both; QMIX overrides them (``algs/qmix.py``).
+
+Data-parallel training (``parallel/mesh.py``).  With ``data_mesh`` set
+(the driver sets it to the mesh of the rollout state it steps) each
+backward averages its networks' flat gradients over the ranks in one
+all-reduce, before the optimizer (and its clip) reads them; the losses
+are means over the rank's rows, so every rank then steps with the
+global minibatch's gradient, and the replicas stay equal.  Without a
+mesh, and on the seed axis, there is no collective.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from cm3_tpu_torch.algs import common
 from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.core.config import AlgConfig, NNConfig
 from cm3_tpu_torch.models import nets
+from cm3_tpu_torch.parallel import mesh as meshlib
 
 EXPERIMENTS = ("checkers", "particle", "roadway")
 
@@ -71,6 +80,8 @@ class SeededAlgorithm:
         self._tmpl = {}
         # the gradient snapshot's copy of the state, made at its first use
         self._scratch = None
+        # the data mesh whose ranks' gradients each backward averages
+        self.data_mesh = None
 
     def for_seeds(self, n_seeds: Optional[int]):
         """The same algorithm for ``n_seeds`` seeds in lockstep (None:
@@ -158,6 +169,13 @@ class SeededAlgorithm:
         or on them as they are without seeds."""
         if self.n_seeds is None:
             return fn(*args)
+        if not self._tmpl:
+            # a module draws its parameters when it is built, which vmap
+            # refuses: build the templates before the first map (a state
+            # loaded or made by another instance built none here)
+            for make in self._makers():
+                if make is not None:
+                    self._template(make)
         return vmap(fn)(*args)
 
     @staticmethod
@@ -175,16 +193,20 @@ class SeededAlgorithm:
         return torch.as_tensor(epsilon, dtype=torch.float32,
                                device=self.device).expand(self.n_seeds)
 
-    @staticmethod
-    def _backward(loss):
-        """Backward into the flat gradient buffers.  The seed stacks'
-        gradient views are strided (a row of [S, n] each), which autograd
-        notes as a layout it would not have chosen; it accumulates into
-        them in place all the same."""
+    def _backward(self, loss, *nets_):
+        """Backward into the flat gradient buffers of the networks
+        ``nets_`` (None for an absent one); on a data mesh their mean
+        over the ranks then replaces them, in one all-reduce.  The seed
+        stacks' gradient views are strided (a row of [S, n] each), which
+        autograd notes as a layout it would not have chosen; it
+        accumulates into them in place all the same."""
         with warnings.catch_warnings():
             warnings.filterwarnings(
                 "ignore", message="grad and param do not obey")
             loss.backward()
+        if self.data_mesh is not None:
+            meshlib.mean_gradients([n.flat_grad for n in nets_
+                                    if n is not None], self.data_mesh)
 
     def _optax_step(self, *steps, lr_scale=None, apply=None):
         """The optax-order Adam step (``common.adam_apply``, with the

@@ -282,7 +282,8 @@ class Baseline(base.ActorCritic):
             net.flat_grad.zero_()
         loss_v, loss_q, v_adv = self._map(self._critic_losses, h(ts.v),
                                           h(ts.q), batch, y_v, v_next, y_q)
-        self._backward(loss_v.sum() + loss_q.sum())
+        self._backward(loss_v.sum() + loss_q.sum(),
+                       *(net for _, net, _, _ in critics))
         grads = {}
         if with_grads:
             if self.use_v:
@@ -296,7 +297,7 @@ class Baseline(base.ActorCritic):
         ts.actor.flat_grad.zero_()
         loss_pi = self._map(self._policy_loss, h(ts.actor), h(ts.q), batch,
                             v_adv, eps)
-        self._backward(loss_pi.sum())
+        self._backward(loss_pi.sum(), ts.actor)
         if with_grads:
             grads["Policy"] = ts.actor.flat_grad.clone()
         with torch.no_grad():

@@ -104,6 +104,7 @@ from cm3_tpu_torch.algs import base, common
 from cm3_tpu_torch.core.config import AlgConfig, NNConfig
 from cm3_tpu_torch.models import nets
 from cm3_tpu_torch.ops import fused_opt, polyak
+from cm3_tpu_torch.parallel import mesh as meshlib
 
 
 @dataclasses.dataclass
@@ -379,7 +380,11 @@ class CM3(base.ActorCritic):
                               keepdim=True).expand(b, n)
         else:
             sum_a = torch.sum(q_actual, dim=1, keepdim=True).expand(b, n)
-        if cfg.adv_norm:
+        if cfg.adv_norm and self.data_mesh is not None:
+            # the run's minibatch: every rank's rows
+            mean, sd = meshlib.moments(sum_a, self.data_mesh)
+            sum_a = (sum_a - mean) / (sd + 1e-8)
+        elif cfg.adv_norm:
             sd = torch.std(sum_a, correction=0)     # jnp.std: population
             sum_a = (sum_a - torch.mean(sum_a)) / (sd + 1e-8)
         w_mean = sum_a.new_zeros(())
@@ -506,7 +511,8 @@ class CM3(base.ActorCritic):
         loss_qg, loss_qc, loss_v, q = self._map(
             self._critic_losses, h(ts.qg), h(ts.qc), h(ts.v), batch, y_g,
             y_c, y_v)
-        self._backward(loss_qg.sum() + loss_qc.sum() + loss_v.sum())
+        self._backward(loss_qg.sum() + loss_qc.sum() + loss_v.sum(),
+                       *(net for _, net, _, _ in critics))
         grads = {}
         if with_grads:
             grads["Q_global"] = ts.qg.flat_grad.clone()
@@ -532,7 +538,7 @@ class CM3(base.ActorCritic):
             self._policy_loss, h(ts.actor),
             h(ts.qg if self.n_agents == 1 else ts.qc), h(ts.v), batch,
             q_actual, eps)
-        self._backward(loss_pi.sum())
+        self._backward(loss_pi.sum(), ts.actor)
         if with_grads:
             grads["Policy"] = ts.actor.flat_grad.clone()
         with torch.no_grad():

@@ -182,7 +182,7 @@ class QMIX(base.SeededAlgorithm):
             y = self._map(self._target, h(ts.qmix_tgt), h(ts.qmix), batch)
         ts.qmix.flat_grad.zero_()
         loss = self._map(self._loss, h(ts.qmix), batch, y)
-        self._backward(loss.sum())
+        self._backward(loss.sum(), ts.qmix)
         grads = None
         if with_grads:
             g = ts.qmix.flat_grad.clone()

@@ -15,7 +15,11 @@ noise) and replay indices in a fixed order; the dual buffer's indices
 are drawn below a per-seed bound that lives on the device
 (``randint_below``).
 ``GeneratorDraws`` makes them on the device from a ``torch.Generator``;
-``FedDraws`` hands out given arrays.
+``FedDraws`` hands out given arrays.  ``BlockDraws`` serves one rank of a
+multi-process run (``parallel/``): it draws the whole run's tensor from
+the source it wraps and hands out the rank's block, so that W ranks
+together consume exactly the draws of the single-process run of the
+same global program.
 """
 
 from __future__ import annotations
@@ -60,6 +64,11 @@ def for_purpose(key: int, purpose: int) -> int:
 
 def for_step(key: int, purpose: int, step: int) -> int:
     return fold_in(fold_in(key, purpose), step)
+
+
+def for_host(key: int, host_id: int) -> int:
+    """The key of process ``host_id`` (``prng.py:38-39``)."""
+    return fold_in(key, host_id)
 
 
 def generator(key: int, device) -> torch.Generator:
@@ -182,3 +191,48 @@ class FedDraws:
 
     def remaining(self) -> Dict[str, int]:
         return {k: len(v) for k, v in self._q.items()}
+
+
+class BlockDraws:
+    """Block ``index`` of ``count`` along dim 0 of every draw of
+    ``source``: a draw of shape ``shape`` asks ``source`` for the global
+    shape (``shape[0]`` x ``count``) and returns the block, so the ranks
+    of a run split each draw of the single-process run of the same
+    global program between them (the data axis: instances and minibatch
+    rows; the seed axis: seeds; both lead every draw).  ``randint_below`` takes the global
+    62-bit draw ``GeneratorDraws.randint_below`` takes (through
+    ``source.randint``) and reduces the block by this rank's own bounds;
+    from a ``FedDraws`` that returns the fed indices, which lie below
+    their bounds already."""
+
+    def __init__(self, source, index: int, count: int):
+        if not 0 <= index < count:
+            raise ValueError(f"block {index} of {count}")
+        self.source = source
+        self.index, self.count = index, count
+
+    def _draw(self, fn, shape, *args) -> torch.Tensor:
+        n = shape[0]
+        x = fn((n * self.count,) + tuple(shape[1:]), *args)
+        return x[self.index * n:(self.index + 1) * n]
+
+    def randint(self, shape: Sequence[int], high: int) -> torch.Tensor:
+        return self._draw(self.source.randint, shape, high)
+
+    def randint_below(self, shape: Sequence[int],
+                      high: torch.Tensor) -> torch.Tensor:
+        x = self._draw(self.source.randint, shape, 1 << 62)
+        return torch.remainder(x, high[..., None])
+
+    def gumbel(self, shape: Sequence[int]) -> torch.Tensor:
+        return self._draw(self.source.gumbel, shape)
+
+    def uniform(self, shape: Sequence[int], low: float = 0.0,
+                high: float = 1.0) -> torch.Tensor:
+        return self._draw(self.source.uniform, shape, low, high)
+
+    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+        return self._draw(self.source.normal, shape)
+
+    def remaining(self) -> Dict[str, int]:
+        return self.source.remaining()

@@ -293,21 +293,27 @@ def reset_dual(state: DualReplayState) -> DualReplayState:
 
 
 def sample_dual(state: DualReplayState, idx_bad: torch.Tensor,
-                idx_good: torch.Tensor):
+                idx_good: torch.Tensor, first: int = 0,
+                batch: Optional[int] = None):
     """The 50/50 mix of the two memories with JAX's fallbacks
     (``buffer.py:153-195``): of B rows, the first ``from1`` come from
     the bad memory's rows ``idx_bad`` and the rest from the good one's
     ``idx_good`` ([*P, B] each, drawn below each memory's fill, at least
     1); half from each, the good memory's shortfall made up from the
-    bad one, all from one memory when the other is empty."""
-    b = idx_bad.shape[-1]
+    bad one, all from one memory when the other is empty.  Given
+    ``batch``, the indices are rows ``first``, ... of a minibatch of
+    ``batch`` rows (a rank's block of the run's minibatch), and the mix
+    is that minibatch's."""
+    r = idx_bad.shape[-1]
+    b = r if batch is None else batch
     half = b // 2
     s1, s2 = state.bad.size, state.good.size
     from1 = torch.where(s2 < half, b - s2, half)
     from1 = torch.minimum(from1, torch.clamp_min(s1, 0))
     from1 = torch.where(s2 == 0, b, from1)
     from1 = torch.where(s1 == 0, 0, from1)
-    use1 = torch.arange(b, device=idx_bad.device) < from1[..., None]
+    use1 = (torch.arange(first, first + r, device=idx_bad.device)
+            < from1[..., None])
     w1 = _lead_index(state.bad, idx_bad)
     w2 = _lead_index(state.good, idx_good)
 

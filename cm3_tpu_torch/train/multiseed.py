@@ -54,7 +54,17 @@ Shard-local replay (``replay_shards`` = D): each seed's replay is D
 shards, the rings' leading shape [S, D] (``train/offpolicy.py``), as
 JAX maps the sharded buffer over seeds (``multiseed.py:107-120``).
 
-Not ported (ROADMAP.md): the mesh placement (A14b), refused.
+Seeds over processes (``mesh``, a seed mesh of ``parallel.mesh.
+make_mesh(W, axis="seed")``; ``multiseed.py:54-69, 122-126``): rank r
+trains seeds [r S/W, (r+1) S/W) in lockstep, with no collective in a
+chunk (the seeds are independent), its state drawn from those seeds'
+keys and its draws its block of the S-seed run's ([S, ...] draws split
+along the seed axis, ``prng.BlockDraws``), so every seed equals its twin
+in the single-process S-seed run.  The schedule reads every seed's
+episode count (one all-gather a chunk), and a period row carries all S
+seeds, gathered to every rank (one all-gather a row, one more for
+``_grads``); only the primary process calls ``log_fn``, whose ``_ts``
+and the state returned are the rank's own seeds.
 """
 
 from __future__ import annotations
@@ -66,6 +76,10 @@ import numpy as np
 import torch
 
 from cm3_tpu_torch.core import prng
+from cm3_tpu_torch.core.tree import tree_map
+from cm3_tpu_torch.parallel import dist as pdist
+from cm3_tpu_torch.parallel import mesh as meshlib
+from cm3_tpu_torch.train import checkpoint
 from cm3_tpu_torch.train.offpolicy import (OffPolicyDriver, flush_eplog,
                                            init_rollout)
 from cm3_tpu_torch.train.onpolicy import OnPolicyDriver
@@ -79,6 +93,24 @@ def _eps_schedule(cfg, episodes):
 
 def _host(x):
     return x.detach().cpu().numpy()
+
+
+def shard_seed_axis(tree, mesh, n_seeds: int, axis: str = "seed"):
+    """This rank's block of seeds, [r S/W, (r+1) S/W), of every leaf with
+    a leading seed dim ``n_seeds``; the other leaves as they are: the
+    seed axis over the mesh, with no collective between seeds
+    (``multiseed.py:54-69``).  An algorithm's seed-stacked state is cut
+    with ``checkpoint.seed_state`` / ``stack_states``
+    (``train_vmapped_seeds``' ``resume``)."""
+    return meshlib.shard_leading_axis(tree, mesh, n_seeds, axis)
+
+
+def _seed_block(alg, stacked, seeds):
+    """Seeds ``seeds`` of the seed-stacked state ``stacked`` as a state
+    of ``alg`` (built for that many seeds)."""
+    one = alg.for_seeds(None)
+    return checkpoint.stack_states(
+        alg, [checkpoint.seed_state(one, stacked, i) for i in seeds])
 
 
 def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
@@ -99,17 +131,19 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
     place.
     ``draws``, ``eval_draws`` and ``snapshot_draws`` (draw sources; the
     last serves every gradient snapshot) replace the ones made from the
-    seeds' keys.  ``mesh`` is the JAX package's and is refused."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "placing the seed axis over a mesh is not ported (ROADMAP "
-            "A14b)")
-    if alg.n_seeds != n_seeds:
-        alg = alg.for_seeds(n_seeds)
+    seeds' keys.  ``mesh`` (a seed mesh of W processes, W dividing
+    ``n_seeds``) trains this rank's block of the seeds, ``resume``'s state
+    holding all of them; the rows and the draws are the S-seed run's."""
+    s = n_seeds
+    w, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    if s % w:
+        raise ValueError(f"{s} seeds do not split over {w} ranks")
+    mine = range(r * s // w, (r + 1) * s // w)
+    if alg.n_seeds != len(mine):
+        alg = alg.for_seeds(len(mine))
     driver = (OnPolicyDriver if onpolicy else OffPolicyDriver)(hooks, alg,
                                                                cfg)
     n_episodes = n_episodes or cfg.N_train
-    s = n_seeds
     dev = hooks.env.device
 
     keys = [prng.root_key(base_seed + i) for i in range(s)]
@@ -123,10 +157,30 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
         ts, initial = resume
         initial = np.asarray(initial, np.int64).reshape(s)
         rs.episodes = torch.as_tensor(initial, device=dev)
+        if mesh is not None:
+            ts = _seed_block(alg, ts, mine)
     else:
-        ts = alg.init_state(keys)
+        ts = alg.init_state([keys[i] for i in mine])
         initial = np.zeros(s, np.int64)
+    if mesh is not None:
+        rs = shard_seed_axis(rs, mesh, s)
+        draws, eval_draws = (prng.BlockDraws(d, r, w)
+                             for d in (draws, eval_draws))
     buf, rs = driver.init_replay(rs)
+
+    def seen(tree):
+        """``tree``'s leaves of this rank's seeds [S/W, ...] as host
+        arrays of all S seeds (one all-gather on a mesh)."""
+        if mesh is not None:
+            tree = meshlib.all_gather_rows(tree, mesh)
+        return tree_map(_host, tree)
+
+    def filled(buf) -> int:
+        """The rows in every seed's ring (a collective on a mesh)."""
+        n = driver.filled(buf)
+        if mesh is None:
+            return n
+        return int(seen(torch.tensor([n], device=dev)).sum())
 
     history = []
     last_ep_flushed = initial.copy()
@@ -148,7 +202,7 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
             metrics = {}
             buf, rs = driver._rollout_chunk(ts, buf, rs, eps_scalar, draws,
                                             fill)
-            episodes = _host(rs.episodes)
+            episodes = seen(rs.episodes)
             if (not fill and episodes.min() - last_train_eps
                     >= cfg.episodes_per_train):
                 ts, metrics = driver._train_burst(ts, buf, eps_scalar, draws)
@@ -159,51 +213,59 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
                                      eps_scalar - cfg.epsilon_step)
         else:
             warm = not fill and emin < start_min + cfg.pretrain_episodes
-            eps = torch.as_tensor(_eps_schedule(cfg, episodes),
+            eps = torch.as_tensor(_eps_schedule(cfg, episodes)[mine],
                                   dtype=torch.float32, device=dev)
             ts, buf, rs, metrics = driver._chunk(ts, buf, rs, eps, draws,
                                                  not (fill or warm), fill)
-            episodes = _host(rs.episodes)    # one sync per chunk
+            episodes = seen(rs.episodes)    # one sync per chunk
 
         period_idx = int(episodes.min()) // cfg.period
         if period_idx > last_period:
             last_period = period_idx
             r_local, r_global, aux = driver.evaluate(ts, eval_draws,
                                                      cfg.N_eval)
+            local = dict(aux, r_local=r_local, r_global=r_global,
+                         acc_local=rs.acc_ret_local,
+                         acc_global=rs.acc_ret_global, metrics=metrics)
+            if cfg.episode_log:
+                local.update(eplog=rs.eplog, eplog_ep=rs.eplog_ep)
+            g = seen(local)
             row = {
                 "episode": episodes.copy(),                         # [S]
                 "epsilon": (np.full(s, eps_scalar) if onpolicy
                             else _eps_schedule(cfg, episodes)),     # [S]
-                "r_eval_local": _host(r_local),                     # [S, N]
-                "r_eval_global": _host(r_global),                   # [S]
-                "eval_action_dist": _host(aux["act_dist"]).reshape(s, -1),
-                "r_train_local": _host(rs.acc_ret_local)
+                "r_eval_local": g["r_local"],                       # [S, N]
+                "r_eval_global": g["r_global"],                     # [S]
+                "eval_action_dist": g["act_dist"].reshape(s, -1),
+                "r_train_local": g["acc_local"]
                 / max(cfg.period, 1),                               # [S, N]
-                "r_train_global": _host(rs.acc_ret_global)
+                "r_train_global": g["acc_global"]
                 / max(cfg.period, 1),                               # [S]
                 "duration_s": time.time() - t0,
             }
-            row.update({k: _host(v) for k, v in aux.items()
-                        if k != "act_dist"})
+            row.update({k: g[k] for k in aux if k != "act_dist"})
             # in key order, as JAX's metrics leave its jitted chunk
-            row.update({k: _host(v) for k, v in sorted(metrics.items())})
+            row.update(sorted(g["metrics"].items()))
             if cfg.episode_log:
-                eplog, eplog_ep = _host(rs.eplog), _host(rs.eplog_ep)
                 row["_episodes"] = [
-                    flush_eplog(eplog[i], eplog_ep[i],
+                    flush_eplog(g["eplog"][i], g["eplog_ep"][i],
                                 int(last_ep_flushed[i]), int(episodes[i]))
                     for i in range(s)]
                 last_ep_flushed = episodes.copy()
             if cfg.summarize and not fill and (not onpolicy
-                                               or driver.filled(buf) > 0):
-                row["_grads"] = driver._grad_snapshot(
-                    ts, buf, torch.as_tensor(row["epsilon"],
+                                               or filled(buf) > 0):
+                snap = snapshot_draws or driver.snapshot_source(
+                    draw_key, period_idx, dev)
+                if mesh is not None:
+                    snap = prng.BlockDraws(snap, r, w)
+                grads = driver._grad_snapshot(
+                    ts, buf, torch.as_tensor(row["epsilon"][mine],
                                              dtype=torch.float32,
-                                             device=dev),
-                    snapshot_draws or driver.snapshot_source(
-                        draw_key, period_idx, dev))
+                                             device=dev), snap)
+                row["_grads"] = (grads if mesh is None
+                                 else meshlib.all_gather_rows(grads, mesh))
             history.append(row)
-            if log_fn is not None:
+            if log_fn is not None and (mesh is None or pdist.is_primary()):
                 log_fn(dict(row, _ts=ts))
             rs.acc_ret_local = torch.zeros_like(rs.acc_ret_local)
             rs.acc_ret_global = torch.zeros_like(rs.acc_ret_global)

@@ -99,11 +99,35 @@ ones).  ``n_envs``,
 ``eval_hooks`` (``offpolicy.py:107-112``): the evaluation's episodes
 come from these hooks (their engine, goals and eval metrics) when
 given, else from the training hooks.
+
+Data-parallel over processes (``parallel/mesh.py``; one seed).  A
+rollout state placed by ``mesh.shard_driver_state`` carries its mesh
+(``rs.mesh``), and a driver that steps it trains data-parallel, as the
+JAX driver does on sharded arrays: this rank steps its n_envs/W
+instances and holds its D/W replay shards (or, with one ring, the whole
+ring, fed with every rank's transitions), samples its batch/W rows of
+each minibatch (the shards' rows, or its block of the ring's global
+index draw; a dual ring's 50/50 split is the global minibatch's), and
+its algorithm averages each backward's gradients over the ranks.  Each
+step gathers every instance's done flag and returns, so the episode
+counts, return sums and episode log are the run's, the same on every
+rank, and epsilon and the schedule with them; the last update's metrics
+are averaged.  Every draw source is asked for the whole run's draw and
+hands out this rank's block (``prng.BlockDraws``), so W ranks consume
+the single-process run's draws.  The evaluation runs whole on every
+rank with the replicated parameters and the draws as they are, so the
+ranks agree.  The driver takes the mesh of the rollout state it was
+last given and hands it to its algorithm (``alg.data_mesh``, the one
+place it is kept; a burst and a snapshot, which take no rollout state,
+train on it); ``run(..., mesh=)`` builds this rank's block itself,
+only the primary process calls ``log_fn``, and the mesh is unbound when
+the run ends.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -115,6 +139,8 @@ from cm3_tpu_torch.algs import common
 from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.core.config import TrainConfig
 from cm3_tpu_torch.core.tree import tree_map
+from cm3_tpu_torch.parallel import dist as pdist
+from cm3_tpu_torch.parallel import mesh as meshlib
 from cm3_tpu_torch.replay import buffer as replay
 from cm3_tpu_torch.train.experiments import Hooks, flat_call
 
@@ -146,6 +172,9 @@ class RolloutState:
     # length so far [*L] (at most T); None without the dual buffer
     stage: Any = None
     stage_t: Optional[torch.Tensor] = None
+    # the data mesh this rank's block of instances lies on
+    # (``parallel.mesh.shard_driver_state``); None on one device
+    mesh: Any = None
 
 
 def init_rollout(hooks: Hooks, n_envs: int, draws=None,
@@ -221,6 +250,19 @@ def _eplog_write(eplog, eplog_ep, episodes, done, rows):
     return log[..., :k, :], ep[..., :k]
 
 
+def _unbinds(run):
+    """A driver's ``run`` that leaves its algorithm on no mesh when it
+    returns or raises, so that a later update of the algorithm alone
+    issues no collective."""
+    @functools.wraps(run)
+    def wrapped(self, *args, **kwargs):
+        try:
+            return run(self, *args, **kwargs)
+        finally:
+            self._bind(None)
+    return wrapped
+
+
 class OffPolicyDriver:
 
     def __init__(self, hooks: Hooks, alg, cfg: TrainConfig,
@@ -235,12 +277,53 @@ class OffPolicyDriver:
         self.cfg = cfg
         self.n_envs = cfg.n_envs
         self.n_seeds = getattr(alg, "n_seeds", None)
-        self.lead = ((cfg.n_envs,) if self.n_seeds is None
-                     else (self.n_seeds, cfg.n_envs))
+        self._bind(None)
         # the clipped-IS policy gradient reads the behavior probability
         # of each stored action
         self._store_bp = (getattr(getattr(alg, "cfg", None), "pg_is_clip",
                                   0.0) > 0 and hasattr(alg, "act_bp"))
+
+    @property
+    def mesh(self):
+        """The data mesh this driver trains on (None: one device), as its
+        algorithm holds it for the backward's gradient mean."""
+        return self.alg.data_mesh
+
+    def _bind(self, mesh):
+        """Train on ``mesh`` (a data mesh, or None for one device): this
+        rank's instance lead, minibatch rows and replay shards, and the
+        algorithm's gradient mean over the ranks."""
+        cfg, w = self.cfg, 1 if mesh is None else mesh.size
+        if mesh is not None and mesh is not self.mesh:
+            if self.n_seeds is not None:
+                raise ValueError("a data mesh trains one seed; seeds in "
+                                 "lockstep go over a seed mesh "
+                                 "(multiseed.train_vmapped_seeds(mesh=))")
+            replay.check_shards(w, n_envs=cfg.n_envs,
+                                batch_size=cfg.batch_size)
+            if cfg.replay_shards > 1:
+                replay.check_shards(w, replay_shards=cfg.replay_shards)
+        self.alg.data_mesh = mesh
+        e = cfg.n_envs // w
+        self.lead = (e,) if self.n_seeds is None else (self.n_seeds, e)
+        self.batch = cfg.batch_size // w
+        self._sharded = cfg.replay_shards > 1
+        self.shards = cfg.replay_shards // w if self._sharded else 1
+
+    def _draws(self, draws):
+        """``draws`` as this rank takes them: its block of each of the
+        run's draws on a mesh, as they are on one device."""
+        if self.mesh is None or isinstance(draws, prng.BlockDraws):
+            return draws
+        return prng.BlockDraws(draws, self.mesh.rank, self.mesh.size)
+
+    def _over_shards(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, a count over this rank's replay shards, summed over the
+        ranks (each holds its own shards); as it is otherwise (one
+        device, or every rank holding the whole ring)."""
+        if self.mesh is None or not self._sharded:
+            return x
+        return meshlib.sum_over(x, self.mesh)
 
     def _seed_epsilon(self, epsilon):
         """epsilon as the algorithm takes it: the float for one seed, an
@@ -255,20 +338,22 @@ class OffPolicyDriver:
     # ---- replay ---- #
 
     def _replay_init(self, example):
-        cfg, d = self.cfg, self.cfg.replay_shards
+        """The empty replay of this rank: its D/W shards of
+        ``buffer_size``/D rows, or the whole ring."""
+        cfg, d = self.cfg, self.shards
+        if self._sharded:
+            cap = cfg.buffer_size * d // cfg.replay_shards
+            init = (replay.init_dual_sharded if cfg.dual_buffer
+                    else replay.init_sharded)
+            return init(example, cap, d, self.n_seeds)
         if cfg.dual_buffer:
-            if d > 1:
-                return replay.init_dual_sharded(example, cfg.buffer_size, d,
-                                                self.n_seeds)
             return replay.init_dual(example, cfg.buffer_size, self.n_seeds)
-        if d > 1:
-            return replay.init_sharded(example, cfg.buffer_size, d,
-                                       self.n_seeds)
         return replay.init(example, cfg.buffer_size, self.n_seeds)
 
     def init_replay(self, rs: RolloutState):
         """(empty replay, ``rs``) for the rollouts ``rs``; with the dual
         buffer ``rs`` gets its staging slab."""
+        self._bind(rs.mesh)
         example = self.example_transition(rs)
         buf = self._replay_init(example)
         if self.cfg.dual_buffer:
@@ -276,32 +361,33 @@ class OffPolicyDriver:
         return buf, rs
 
     def _replay_add(self, buf, tr):
-        d = self.cfg.replay_shards
-        if d > 1:
-            return replay.add_batch_sharded(buf, tr, d)
+        if self._sharded:
+            return replay.add_batch_sharded(buf, tr, self.shards)
         return replay.add_batch(buf, tr)
 
     def _replay_flush(self, buf, stage, valid, is_bad):
-        d = self.cfg.replay_shards
-        if d > 1:
+        if self._sharded:
             return replay.flush_episodes_sharded(buf, stage, valid, is_bad,
-                                                 d)
+                                                 self.shards)
         return replay.flush_episodes(buf, stage, valid, is_bad)
 
     def _replay_sample(self, buf, draws):
         """A minibatch of ``batch_size`` rows (per seed); its indices
         from ``draws``, below each ring's (shard's, memory's) fill."""
-        cfg, d = self.cfg, self.cfg.replay_shards
-        shape = self.lead[:-1] + ((d, cfg.batch_size // d) if d > 1
-                                  else (cfg.batch_size,))
+        cfg, d = self.cfg, self.shards
+        shape = self.lead[:-1] + ((d, self.batch // d) if self._sharded
+                                  else (self.batch,))
         below = lambda ring: draws.randint_below(
             shape, torch.clamp_min(ring.size, 1))
         if cfg.dual_buffer:
             idx_bad, idx_good = below(buf.bad), below(buf.good)
-            if d > 1:
+            if self._sharded:
                 return replay.sample_dual_sharded(buf, idx_bad, idx_good)
-            return replay.sample_dual(buf, idx_bad, idx_good)
-        if d > 1:
+            # this rank's rows of the run's minibatch
+            first = 0 if self.mesh is None else self.mesh.rank * self.batch
+            return replay.sample_dual(buf, idx_bad, idx_good, first,
+                                      cfg.batch_size)
+        if self._sharded:
             return replay.sample_sharded(buf, below(buf))
         return replay.sample(buf, draws.randint(shape, max(buf.size, 1)))
 
@@ -309,8 +395,9 @@ class OffPolicyDriver:
         """The raw gradients of one update on a fresh replay sample whose
         result is dropped (``offpolicy.py:181-186``); ``draws`` gives the
         sample's indices, then the update's draws."""
+        draws = self._draws(draws)
         batch = self._replay_sample(buf, draws)
-        lead = self.lead[:-1] + (self.cfg.batch_size,)
+        lead = self.lead[:-1] + (self.batch,)
         return self.alg.grad_snapshot(ts_alg, batch, epsilon,
                                       self.alg.update_draws(draws, lead))
 
@@ -323,15 +410,17 @@ class OffPolicyDriver:
             prng.for_purpose(key, prng.EVAL), 1_000_000 + period_idx),
             device))
 
-    @staticmethod
-    def _routed(buf):
+    def _routed(self, buf):
         """(n_bad, n_good): the dual memories' fills, summed over seeds
         and shards (a host sync)."""
-        return int(buf.bad.size.sum()), int(buf.good.size.sum())
+        n = self._over_shards(torch.stack([buf.bad.size.sum(),
+                                           buf.good.size.sum()]))
+        return int(n[0]), int(n[1])
 
     def example_transition(self, rs: RolloutState):
         """One instance's transition (leaves without the instance dims),
         the template of the replay ring."""
+        self._bind(rs.mesh)
         zeros = torch.zeros(self.lead + (self.hooks.n_agents,),
                             dtype=torch.int64, device=self.hooks.env.device)
         ts = flat_call(self.hooks.env.step, self.lead, rs.env_state,
@@ -369,7 +458,8 @@ class OffPolicyDriver:
                          env_state, ep_ret_local):
         """Stage this step's transitions at [instance, episode step] and
         flush every episode that ended, whole, into the bad or the good
-        memory (``offpolicy.py:284-303``); returns the new episode
+        memory (``offpolicy.py:284-303``), on a mesh with one ring every
+        rank's (a gather of the slabs); returns the new episode
         lengths."""
         t_max = self.cfg.max_steps
         k = len(self.lead)
@@ -381,9 +471,11 @@ class OffPolicyDriver:
         stage_len = torch.clamp_max(rs.stage_t + 1, t_max)
         valid = done[..., None] & (torch.arange(t_max + 1, device=done.device)
                                    < stage_len[..., None])
-        self._replay_flush(buf, rs.stage, valid,
-                           self.hooks.is_bad_episode(env_state,
-                                                     ep_ret_local))
+        flushed = (rs.stage, valid,
+                   self.hooks.is_bad_episode(env_state, ep_ret_local))
+        if self.mesh is not None and not self._sharded:
+            flushed = meshlib.all_gather_rows(flushed, self.mesh)
+        self._replay_flush(buf, *flushed)
         return torch.where(done, 0, stage_len)
 
     @torch.no_grad()
@@ -427,7 +519,21 @@ class OffPolicyDriver:
         if self.cfg.dual_buffer:
             stage_t = self._stage_and_flush(buf, rs, tr, done, env_state2,
                                             ep_ret_local)
-        else:
+        # the run's done flags and returns ([E], [E, N] and [E] on every
+        # rank of a mesh: the counts, sums and log below are the run's)
+        d = done.float()
+        ended, e, ret_l, ret_g = done, d, ep_ret_local, ep_ret_global
+        if self.mesh is not None:
+            shared = {"ended": torch.cat([d[..., None], ep_ret_local,
+                                          ep_ret_global[..., None]], dim=-1)}
+            if not (self._sharded or self.cfg.dual_buffer):
+                shared["added"] = tr    # every rank keeps the whole ring
+            shared = meshlib.all_gather_rows(shared, self.mesh)
+            e = shared["ended"][..., 0]
+            ended = e > 0.5
+            ret_l, ret_g = shared["ended"][..., 1:-1], shared["ended"][..., -1]
+            tr = shared.get("added", tr)
+        if not self.cfg.dual_buffer:
             buf = self._replay_add(buf, tr)
 
         # auto-reset finished instances with fresh goals
@@ -436,9 +542,8 @@ class OffPolicyDriver:
         eplog, eplog_ep = rs.eplog, rs.eplog_ep
         if eplog is not None:
             eplog, eplog_ep = _eplog_write(
-                eplog, eplog_ep, rs.episodes, done,
-                torch.cat([ep_ret_local, ep_ret_global[..., None]], dim=-1))
-        d = done.float()
+                eplog, eplog_ep, rs.episodes, ended,
+                torch.cat([ret_l, ret_g[..., None]], dim=-1))
         rs2 = RolloutState(
             env_state=tree_map(sel, new_state, env_state2),
             obs=tree_map(sel, new_ts.obs, ts2.obs),
@@ -448,11 +553,12 @@ class OffPolicyDriver:
             ep_ret_local=ep_ret_local * (1.0 - d[..., None]),
             ep_ret_global=ep_ret_global * (1.0 - d),
             acc_ret_local=rs.acc_ret_local
-            + torch.sum(ep_ret_local * d[..., None], dim=-2),
+            + torch.sum(ret_l * e[..., None], dim=-2),
             acc_ret_global=rs.acc_ret_global
-            + torch.sum(ep_ret_global * d, dim=-1),
-            episodes=rs.episodes + done.sum(dim=-1),
-            eplog=eplog, eplog_ep=eplog_ep, stage=rs.stage, stage_t=stage_t)
+            + torch.sum(ret_g * e, dim=-1),
+            episodes=rs.episodes + ended.sum(dim=-1),
+            eplog=eplog, eplog_ep=eplog_ep, stage=rs.stage, stage_t=stage_t,
+            mesh=rs.mesh)
         return rs2, buf
 
     def _chunk(self, ts_alg, buf, rs, epsilon, draws, do_train: bool,
@@ -465,6 +571,8 @@ class OffPolicyDriver:
         metrics zeroed and ``trained`` (the gate as a float) added
         (``offpolicy.py:345-385``).  Returns (ts_alg, buf, rs, metrics of
         the last update)."""
+        self._bind(rs.mesh)
+        draws = self._draws(draws)
         epsilon = self._seed_epsilon(epsilon)
         for _ in range(self.cfg.steps_per_train):
             rs, buf = self._step_once(ts_alg, rs, buf, epsilon, draws,
@@ -472,17 +580,26 @@ class OffPolicyDriver:
         metrics = {}
         if do_train:
             n_upd = self.cfg.updates_per_chunk or self.n_envs
-            lead = self.lead[:-1] + (self.cfg.batch_size,)
+            lead = self.lead[:-1] + (self.batch,)
             for _ in range(n_upd):
                 batch = self._replay_sample(buf, draws)
                 ts_alg, metrics = self.alg.update(
                     ts_alg, batch, epsilon,
                     self.alg.update_draws(draws, lead), gate=gate)
+            metrics = self._mean_metrics(metrics)
             if gate is not None:
                 metrics = {k: torch.where(gate, v, torch.zeros_like(v))
                            for k, v in metrics.items()}
                 metrics["trained"] = gate.float()
         return ts_alg, buf, rs, metrics
+
+    def _mean_metrics(self, metrics):
+        """The update's metrics (means over this rank's rows) averaged
+        over the ranks of a mesh, in one all-reduce: the run's."""
+        if self.mesh is None:
+            return metrics
+        return dict(zip(metrics, meshlib.mean_over(list(metrics.values()),
+                                                   self.mesh)))
 
     @staticmethod
     def _device_epsilon(cfg, episodes):
@@ -559,10 +676,29 @@ class OffPolicyDriver:
 
     # -------------------------------------------------------------- #
 
+    def _start(self, ts_alg, draws, mesh):
+        """(ts_alg, rollout state, replay) of a run's start on this rank:
+        the state replicated from rank 0 and this rank's block of the
+        instances and the replay on a data mesh."""
+        self._bind(mesh)
+        rs = init_rollout(self.hooks, self.lead[-1], self._draws(draws),
+                          self.cfg.episode_log)
+        rs.mesh = mesh
+        if mesh is not None:
+            ts_alg = meshlib.replicate(ts_alg, mesh)
+        buf, rs = self.init_replay(rs)
+        return ts_alg, rs, buf
+
+    def _log(self, log_fn, row, ts_alg):
+        """``log_fn`` of a period row, on the primary process only."""
+        if log_fn is not None and (self.mesh is None or pdist.is_primary()):
+            log_fn(dict(row, _ts=ts_alg))
+
+    @_unbinds
     def run(self, ts_alg, key: int = 0, n_episodes: Optional[int] = None,
             log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
             initial_episodes: int = 0, draws=None, eval_draws=None,
-            snapshot_draws=None):
+            snapshot_draws=None, mesh=None):
         """Host training loop of one seed until ``n_episodes`` completed
         episodes.  ``initial_episodes`` resumes the episode/epsilon
         schedule (the replay ring restarts empty and is warmed with
@@ -574,7 +710,9 @@ class OffPolicyDriver:
         ``chunks_per_sync`` = K > 1 the fill and training chunks go K to
         a dispatch (``_chunks_scanned``).  Returns (ts_alg, final stats
         dict); ``dispatches`` in it counts the host syncs of the episode
-        count, one per dispatch."""
+        count, one per dispatch.  On a data ``mesh`` this rank trains
+        its block of the run (the draws are the run's, split between the
+        ranks), and only the primary process calls ``log_fn``."""
         cfg = self.cfg
         if self.n_seeds is not None:
             raise ValueError("run trains one seed; seeds in lockstep train "
@@ -585,10 +723,9 @@ class OffPolicyDriver:
             prng.for_purpose(key, purpose), dev))
         draws = draws or source(prng.ROLLOUT)
         eval_draws = eval_draws or source(prng.EVAL)
-        rs = init_rollout(self.hooks, self.n_envs, draws, cfg.episode_log)
+        ts_alg, rs, buf = self._start(ts_alg, draws, mesh)
         if initial_episodes:
             rs.episodes = torch.full_like(rs.episodes, initial_episodes)
-        buf, rs = self.init_replay(rs)
 
         epsilon = max(cfg.epsilon_end, cfg.epsilon_start
                       - max(0, initial_episodes - cfg.pretrain_episodes)
@@ -654,8 +791,7 @@ class OffPolicyDriver:
                 # in key order, as JAX's metrics leave its jitted chunk
                 row.update({k: float(v) for k, v in sorted(metrics.items())})
                 history.append(row)
-                if log_fn is not None:
-                    log_fn(dict(row, _ts=ts_alg))
+                self._log(log_fn, row, ts_alg)
                 rs.acc_ret_local = torch.zeros_like(rs.acc_ret_local)
                 rs.acc_ret_global = torch.zeros_like(rs.acc_ret_global)
                 t0 = time.time()

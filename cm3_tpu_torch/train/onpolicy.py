@@ -40,7 +40,10 @@ driver's gradient snapshot, where the ring holds rows and the episodes
 are past ``pretrain_episodes`` (``onpolicy.py:139-145``).
 
 Seeds in lockstep run through ``train/multiseed.py`` with
-``onpolicy=True``.
+``onpolicy=True``.  On a data mesh (``parallel/mesh.py``) a rollout
+chunk and a burst train data-parallel as the off-policy chunk does, the
+burst on the mesh of the last rollout state stepped; a period row's
+fills and ``n_bad``/``n_good`` are the run's.
 """
 
 from __future__ import annotations
@@ -52,8 +55,8 @@ import torch
 
 from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.replay import buffer as replay
-from cm3_tpu_torch.train.offpolicy import (OffPolicyDriver, flush_eplog,
-                                           init_rollout)
+from cm3_tpu_torch.train.offpolicy import (OffPolicyDriver, _unbinds,
+                                           flush_eplog)
 
 
 class OnPolicyDriver(OffPolicyDriver):
@@ -70,18 +73,20 @@ class OnPolicyDriver(OffPolicyDriver):
 
     def filled(self, buf) -> int:
         """The rows the ring holds (both memories' with the dual buffer,
-        summed over seeds and shards; a host sync where they are device
-        tensors)."""
+        summed over seeds and shards, every rank's on a mesh; a host sync
+        where they are device tensors)."""
         if self.cfg.dual_buffer:
             return sum(self._routed(buf))
         if isinstance(buf, replay.DeviceRing):
-            return int(buf.size.sum())
+            return int(self._over_shards(buf.size.sum()))
         return buf.size
 
     def _rollout_chunk(self, ts_alg, buf, rs, epsilon, draws,
                        random_actions: bool):
         """``steps_per_train`` lockstep env steps with their replay adds
         and auto-resets (``onpolicy.py:41-50``); returns (buf, rs)."""
+        self._bind(rs.mesh)
+        draws = self._draws(draws)
         epsilon = self._seed_epsilon(epsilon)
         for _ in range(self.cfg.steps_per_train):
             rs, buf = self._step_once(ts_alg, rs, buf, epsilon, draws,
@@ -91,24 +96,27 @@ class OnPolicyDriver(OffPolicyDriver):
     def _train_burst(self, ts_alg, buf, epsilon, draws):
         """``epochs`` minibatch updates back to back on the ring
         (``onpolicy.py:52-62``); returns (ts_alg, metrics of the last)."""
+        draws = self._draws(draws)
         epsilon = self._seed_epsilon(epsilon)
-        lead = self.lead[:-1] + (self.cfg.batch_size,)
+        lead = self.lead[:-1] + (self.batch,)
         metrics = {}
         for _ in range(self.cfg.epochs):
             batch = self._replay_sample(buf, draws)
             ts_alg, metrics = self.alg.update(
                 ts_alg, batch, epsilon, self.alg.update_draws(draws, lead))
-        return ts_alg, metrics
+        return ts_alg, self._mean_metrics(metrics)
 
+    @_unbinds
     def run(self, ts_alg, key: int = 0, n_episodes: Optional[int] = None,
             log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
-            draws=None, eval_draws=None, snapshot_draws=None):
+            draws=None, eval_draws=None, snapshot_draws=None, mesh=None):
         """Host training loop of one seed until ``n_episodes`` completed
         episodes (``onpolicy.py:64-158``): a rollout chunk, then a burst
         once ``episodes_per_train`` more episodes are done (after the
         random fill), then the discard and one epsilon decay; one
         evaluation and one history row per ``period`` episodes.  Draws
-        as ``OffPolicyDriver.run``'s.  Returns (ts_alg, final stats)."""
+        and ``mesh`` as ``OffPolicyDriver.run``'s.  Returns (ts_alg, final
+        stats)."""
         cfg = self.cfg
         if self.n_seeds is not None:
             raise ValueError("run trains one seed; seeds in lockstep train "
@@ -119,8 +127,7 @@ class OnPolicyDriver(OffPolicyDriver):
             prng.for_purpose(key, purpose), dev))
         draws = draws or source(prng.ROLLOUT)
         eval_draws = eval_draws or source(prng.EVAL)
-        rs = init_rollout(self.hooks, self.n_envs, draws, cfg.episode_log)
-        buf, rs = self.init_replay(rs)
+        ts_alg, rs, buf = self._start(ts_alg, draws, mesh)
         # rows routed to the bad and the good memory before each discard
         routed = torch.zeros(2, dtype=torch.int64, device=dev)
 
@@ -175,7 +182,8 @@ class OnPolicyDriver(OffPolicyDriver):
                         last_ep_flushed, episodes_done)
                     last_ep_flushed = episodes_done
                 if cfg.dual_buffer:
-                    row["n_bad"], row["n_good"] = routed.tolist()
+                    row["n_bad"], row["n_good"] = self._over_shards(
+                        routed).tolist()
                 if (cfg.summarize and self.filled(buf) > 0
                         and episodes_done > cfg.pretrain_episodes):
                     row["_grads"] = self._grad_snapshot(
@@ -184,8 +192,7 @@ class OnPolicyDriver(OffPolicyDriver):
                 row.update({k: float(v) for k, v in aux.items()
                             if k != "act_dist"})
                 history.append(row)
-                if log_fn is not None:
-                    log_fn(dict(row, _ts=ts_alg))
+                self._log(log_fn, row, ts_alg)
                 rs.acc_ret_local = torch.zeros_like(rs.acc_ret_local)
                 rs.acc_ret_global = torch.zeros_like(rs.acc_ret_global)
                 t0 = time.time()

@@ -24,8 +24,11 @@ against the CPU, the gradient snapshot leaving the state bit for bit
 with its launches, and roadway's occluded observation and traffic
 surfaces against the CPU; shard-local replay: the Checkers chunk (2 and
 4 shards) and the roadway dual chunk (2 shards, one seed and three) on
-the card against the CPU; and a step of each of the nine MPE scenarios
-on both paths against the CPU.  They import
+the card against the CPU; a step of each of the nine MPE scenarios
+on both paths against the CPU; and the multi-process layer
+(``parallel/``): a data mesh of world size 1 over NCCL against no mesh,
+and two gloo ranks sharing the card (the data axis in 2 shards and in
+one ring, and seeds over the ranks) against the single-process run.  They import
 neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1850,3 +1853,155 @@ def test_mpe_step_on_card_matches_cpu(cuda_device, name):
             assert torch.equal(done.cpu(), done_h)
         assert bool(done.all())
     print(f"{name}: {flips} collision flags differ")
+
+
+# ------------------------------------------------------------------ #
+# multi-process runs (parallel/)
+# ------------------------------------------------------------------ #
+
+
+def _dist_cases():
+    """``tests/torch_dist_cases.py`` by its own name (another package
+    named ``tests`` may be installed where these tests run)."""
+    import os
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch_dist_cases
+    return torch_dist_cases
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+def test_world_one_nccl_mesh_on_card_matches_no_mesh(cuda_device, shards,
+                                                     monkeypatch):
+    """A data mesh of this process alone over NCCL (a TCP store on a free
+    local port): the worker's program (fused) through a fill and a
+    training chunk gives the bytes of the run without the mesh under
+    deterministic cuDNN, with B1's 2 launches and 2 gradient all-reduces
+    an update, one gather an env step and one metric mean."""
+    import torch.distributed as tdist
+    from cm3_tpu_torch.core import prng
+    from cm3_tpu_torch.parallel import mesh as meshlib
+    from cm3_tpu_torch.train.offpolicy import init_rollout
+    dc = _dist_cases()
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tdist.init_process_group("nccl", init_method="tcp://localhost:"
+                             f"{_free_port()}", world_size=1, rank=0)
+    try:
+        out = []
+        for mesh in (None, meshlib.make_mesh(1)):
+            hooks, alg, driver = dc.program(
+                "checkers", dict(fused_opt=True), dict(replay_shards=shards),
+                device=cuda_device)
+            ts = alg.init_state(prng.root_key(2))
+            draws = prng.GeneratorDraws(prng.generator(prng.root_key(4),
+                                                       cuda_device))
+            rs = init_rollout(hooks, 16, draws, 16)
+            buf, rs = driver.init_replay(rs)
+            if mesh is not None:
+                assert mesh.device_mesh.device_type == "cuda"
+                ts, buf, rs = meshlib.shard_driver_state(mesh, ts, buf, rs,
+                                                         16, shards)
+            ts, buf, rs, _ = driver._chunk(ts, buf, rs, 0.3, draws, False,
+                                           True)
+            meshlib.COUNTS.clear()
+            fused_opt.adam_polyak.launches = 0
+            ts, buf, rs, m = driver._chunk(ts, buf, rs, 0.3, draws, True,
+                                           False)
+            out.append(((dc.state_arrays(alg, ts), dc.host(rs), dc.host(m)),
+                        dict(meshlib.COUNTS),
+                        fused_opt.adam_polyak.launches))
+    finally:
+        tdist.destroy_process_group()
+    dc.equal_on_ranks([o[0] for o in out], "mesh of one")
+    u = dc.WORKER_TRAIN["updates_per_chunk"]
+    assert [o[2] for o in out] == [2 * u, 2 * u]
+    assert out[0][1] == {}
+    assert out[1][1] == {"grad": 2 * u, "all_gather":
+                         dc.WORKER_TRAIN["steps_per_train"],
+                         "all_reduce": 1}
+
+
+def _card_cases(tmp):
+    """The worker's program in 2 shards (fused) and in one ring (optax),
+    from seeded parameters with random fed draws, and stage 1 with 2
+    seeds over the ranks, on the card."""
+    from cm3_tpu_torch.core import prng
+    from cm3_tpu_torch.train import checkpoint
+    dc = _dist_cases()
+
+    e, b, spt, u = 16, 32, 5, 2
+    cases = {}
+    for shards, fused in ((2, True), (1, False)):
+        rng = np.random.default_rng(shards)
+        randints = [rng.integers(0, 5, (e, 2)) for _ in range(spt)]
+        gumbels = [rng.gumbel(size=(e, 2, 5)).astype(np.float32)
+                   for _ in range(spt)]
+        size = 2 * spt * e
+        for _ in range(u):
+            randints.append(rng.integers(0, size // shards,
+                                         (shards, b // shards))
+                            if shards > 1 else rng.integers(0, size, (b,)))
+            gumbels.append(rng.gumbel(size=(b, 2, 5)).astype(np.float32))
+        _, alg, _ = dc.program("checkers", dict(fused_opt=fused))
+        start = f"{tmp}/start-{shards}"
+        checkpoint.save(start, alg.init_state(prng.root_key(1)))
+        cases[f"D{shards}"] = ("chunks", dict(
+            kind="checkers", device="cuda:0", alg=dict(fused_opt=fused),
+            train=dict(replay_shards=shards, episode_log=16), start=start,
+            draws=[randints, gumbels, [], []],
+            steps=[("chunk", False, True), ("chunk", True, False)]), "data")
+    cases["seeds"] = ("seeds", dict(
+        kind="checkers", n_seeds=2, device="cuda:0", alg=dict(n_agents=1),
+        train=dict(n_envs=8, buffer_size=256, batch_size=16,
+                   steps_per_train=5, updates_per_chunk=2,
+                   pretrain_episodes=8, period=16, N_train=32, N_eval=3,
+                   max_steps=5, episode_log=16)), "seed")
+    return cases
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_card_match_single_process(cuda_device, tmp_path):
+    """Two ranks sharing the card over gloo with CUDA tensors: the data
+    axis in 2 shards (fused, B1 on each rank) and in one ring (optax),
+    and stage 1 with 2 seeds over the ranks.  The ranks agree bit for
+    bit; the run from their blocks equals the single-process run on the
+    card at rtol 1e-4 / atol 1e-5 (cuDNN's weight gradient adds in a
+    varying order), its rows too; no gradient collective on the seed
+    axis."""
+    dc = _dist_cases()
+
+    cases = _card_cases(str(tmp_path))
+    launched = dc.launch(cases, str(tmp_path), device="cuda:0")
+    ranks = dc.collect(launched, timeout=600)
+    single = {name: dc.CASES[case](args, None)
+              for name, (case, args, _) in cases.items()}
+    for name in ("D2", "D1"):
+        steps = dc.joined_steps(cases, ranks, name)
+        for i, (got, want) in enumerate(zip(steps, single[name]["steps"])):
+            dc.close(got["rs"], want["rs"], f"{name} {i} ", 1e-4, 1e-5)
+            dc.close(got["buf"], dc.ring_rows(want["buf"]), f"{name} {i} ",
+                     1e-4, 1e-5)
+            if "ts" in want:
+                dc.close(got["ts"], want["ts"], f"{name} {i} ", 1e-4, 1e-5)
+        assert ranks[name][0]["counts"]["grad"] == 4
+    dc.equal_on_ranks([r["rows"] for r in ranks["seeds"]], "rows")
+    dc.close(ranks["seeds"][0]["rows"], single["seeds"]["rows"], "rows ",
+             1e-4, 1e-5)
+    for r, res in enumerate(ranks["seeds"]):
+        want = {k: (v[r:r + 1] if np.ndim(v) else v)
+                for k, v in single["seeds"]["ts"].items()}
+        dc.close(res["ts"], want, f"seeds rank {r} ", 1e-4, 1e-5)
+        assert "grad" not in res["counts"]

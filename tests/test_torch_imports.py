@@ -3,7 +3,9 @@
 orbax, TensorBoard (the event files are hand-encoded) or ``cm3_tpu``,
 none of them imports Triton (every kernel is CUDA C++, built by
 ``nvcc``), and importing the whole package loads neither JAX nor
-Triton."""
+Triton.  The multi-process layer (``cm3_tpu_torch/parallel/``) and the
+code the tests' gloo ranks run import ``torch.distributed`` and nothing
+of JAX."""
 
 import ast
 import os
@@ -74,8 +76,27 @@ def test_importing_the_port_loads_no_jax_and_no_triton():
                                     "cm3_tpu_torch.algs.baseline",
                                     "cm3_tpu_torch.algs.qmix",
                                     "cm3_tpu_torch.envs.particle",
-                                    "cm3_tpu_torch.train.onpolicy"])
+                                    "cm3_tpu_torch.train.onpolicy",
+                                    "cm3_tpu_torch.parallel",
+                                    "cm3_tpu_torch.parallel.dist",
+                                    "cm3_tpu_torch.parallel.mesh"])
 def test_the_runner_modules_are_scanned(module):
     """The curriculum's, the algorithms', the particle engine's and the
     on-policy driver's modules are among those the scans above read."""
     assert module in _modules()
+
+
+RANK_CODE = ["cm3_tpu_torch/parallel/dist.py", "cm3_tpu_torch/parallel/mesh.py",
+             "tests/torch_dist_cases.py", "tests/torch_dist_worker.py"]
+
+
+@pytest.mark.parametrize("rel", RANK_CODE)
+def test_the_multiprocess_code_imports_torch_distributed_and_no_jax(rel):
+    """The parallel package and what a test's gloo rank runs: no JAX,
+    no ``cm3_tpu``, no Triton; ``torch.distributed`` is allowed, and the
+    parallel modules build on it."""
+    names = list(_imports(os.path.join(ROOT, rel)))
+    for name in names:
+        assert name.split(".")[0] not in FORBIDDEN + ("triton",), (rel, name)
+    if rel.startswith("cm3_tpu_torch/parallel/"):
+        assert "torch.distributed" in names, rel

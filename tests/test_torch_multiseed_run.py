@@ -164,14 +164,31 @@ def test_driver_runs_what_was_refused(field, value, item):
     assert stats["history"][0]["trained_chunks"] == 3.0 and ts.step == 3
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A14")])
-def test_train_vmapped_seeds_refuses_what_is_not_ported(kw, item):
-    """A mesh (A14b)."""
+@pytest.mark.parametrize("onpolicy", [False, True],
+                         ids=["offpolicy", "onpolicy"])
+def test_train_vmapped_seeds_runs_a_seed_mesh(onpolicy):
+    """A seed mesh (once refused, ROADMAP A14b): on one process its
+    single rank trains every seed, and the rows and the state equal the
+    run without a mesh (two ranks: ``test_torch_parallel.py``)."""
+    from cm3_tpu_torch.parallel import mesh as meshlib
     hooks, ta = _small_stage1()
-    kw = dict(kw)
-    cfg = tcfg.TrainConfig(**kw.pop("cfg", {}))
-    with pytest.raises(NotImplementedError, match=item):
-        multiseed.train_vmapped_seeds(hooks, ta, cfg, 2, 0, **kw)
+    cfg = tcfg.TrainConfig(n_envs=2, max_steps=5, steps_per_train=5,
+                           pretrain_episodes=2, period=4, N_eval=1,
+                           batch_size=8, buffer_size=64, updates_per_chunk=1,
+                           N_train=8, episodes_per_train=2, epochs=2,
+                           episode_log=4)
+    runs = [multiseed.train_vmapped_seeds(hooks, ta, cfg, 2, 5,
+                                          onpolicy=onpolicy, **kw)
+            for kw in ({}, dict(mesh=meshlib.make_mesh(1, axis="seed")))]
+    (ts0, h0), (ts1, h1) = runs
+    assert len(h0) == len(h1) == 2
+    for r0, r1 in zip(h0, h1):
+        assert list(r0) == list(r1)
+        for k in r0:
+            if k != "duration_s":
+                np.testing.assert_equal(r1[k], r0[k], err_msg=k)
+    for name in ta.net_names():
+        assert torch.equal(getattr(ts1, name).flat, getattr(ts0, name).flat)
 
 
 def test_driver_runs_summarize():
