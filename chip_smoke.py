@@ -4,16 +4,16 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Seventeen phases, each between progress lines with its elapsed seconds
-and held to a time budget (30 + 45 + 10 + 10 + 73 + 10 + 80 + 48 + 37 +
-120 + 112 + 93 + 67 + 251 + 73 + 61 + 60 s = 1180 s: about 1.46x each
-phase's longest cold time on an H100 over PR 15's and PR 16's runs, 0:
-5.0, 1: 26.3, 2: 3.6, 3: 5.3, 4: 50.2, 5: 1.2, 6: 54.6, 7: 33.2, 8:
-25.6, 9: 82.2, 10: 76.8, 11: 63.5, 12: 45.7, 13: 213.4 (before its K = 1
-/ K = 32 turns were cut from 100 episodes each to 50, ~40 s less), 14:
-50.3, 15: 41.1 s, with at least 10 s a phase and 30 s for a cold
-``nvcc`` build; phase 16 got the 60 s taken from phase 13; a whole run
-493.9-753.8 s):
+Eighteen phases, each between progress lines with its elapsed seconds
+and held to a time budget (15 + 37 + 10 + 10 + 70 + 10 + 76 + 50 + 58 +
+118 + 110 + 89 + 68 + 245 + 70 + 58 + 49 + 31 s = 1174 s: about 1.4x
+each phase's slowest cold time on an H100 over the recorded runs
+(PERF.md), 0: 5.0, 1: 26.3, 2: 3.6, 3: 5.3, 4: 50.2, 5: 1.2, 6: 54.6,
+7: 36.0, 9: 84.4, 10: 78.6, 11: 63.5, 12: 48.3, 13: 175.2 (with its K
+turns at 50 episodes), 14: 50.3, 15: 41.1, 16: 34.7, 17: 22.1 s, with at
+least 10 s a phase and 15 s for a cold ``nvcc`` build; phase 8 1.5x its
+slowest, 38.7 s, where its host-bound chunks ran 1.36x slower than in
+any other run; a whole run 493.9-772 s over those runs):
 
 0. build: the CUDA C++ kernels of ``cm3_tpu_torch/csrc`` built into
    ``build/cm3_tpu_torch/`` by one ``nvcc -c`` per source, all started
@@ -286,6 +286,19 @@ phase's longest cold time on an H100 over PR 15's and PR 16's runs, 0:
    the one-ring program with the mesh equal to it without, bit for bit
    under deterministic cuDNN, and a training chunk with and without the
    mesh timed in turns (the cost of the collectives at W = 1).
+17. the paper's reproduction scripts (``scripts/torch_*.py``) in a
+   temporary working directory, at the cells' settings and full widths
+   with ``RP_EPISODES`` episodes a run: ``torch_reproduce_paper.main``
+   for ``checkers_s1,checkers_s2`` at 2 seeds (neither stage-1 seed
+   passes the gate at this budget, so both run, and stage 2 restores
+   the one of the best score), ``torch_ablation_vmapped.main`` for
+   ``checkers_qmix`` (2 seeds in lockstep), ``write_results`` and
+   ``torch_verify_checkpoints`` (every row's checkpoints restored and
+   evaluated on ``RP_N_EVAL`` episodes, then ``check``), with B1's and
+   B3's launch counts set to 0 just before and read just after (0: the
+   cells run the optax path); the rows and reports printed, the seconds
+   of each step; it fails on a missing row key, a stage-2 restore other
+   than the best-scoring stage-1 seed, or any failure of ``check``.
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
@@ -501,6 +514,17 @@ MP_SEEDS, MP_SEED_ENVS, MP_SEED_PERIOD = 2, 64, 64
 # 0.0192 (its own seed untrained).  The limit lies between (the rows are
 # held at phase 3's tolerance)
 MP_SEED_RTOL, MP_SEED_ATOL = 1e-3, 1e-4
+# phase 17: the paper's reproduction scripts (scripts/torch_*.py) at the
+# cells' settings and full widths, the episodes cut from 50,000 to RP_
+# EPISODES a run (past master.json's 50 fill episodes; its period rule
+# max(e // 500, 1) then evaluates every episode), RP_SEEDS seeds a cell
+RP_EPISODES, RP_SEEDS, RP_N_EVAL = 100, 2, 100
+# the keys of every results row (scripts/reproduce_paper.py:45-79, 936)
+RP_ROW_KEYS = ("cell", "minutes", "episodes", "final_eval_global",
+               "best_eval_global", "final_eval_local", "best_min_eval_local",
+               "final10_min_eval_local", "best_reach_rate",
+               "final_reach_rate", "final10_reach_rate", "seed", "dir_name",
+               "gate", "passed")
 
 T0 = time.time()
 
@@ -4039,6 +4063,111 @@ def phase_multiprocess(dev):
     return {"b1": d0["launches"]}
 
 
+def phase_reproduction(dev):
+    """The paper's reproduction tooling in a temporary working directory:
+    ``torch_reproduce_paper.main`` for ``checkers_s1,checkers_s2``,
+    ``torch_ablation_vmapped.main`` for ``checkers_qmix``, RESULTS.md
+    through ``write_results`` and ``torch_verify_checkpoints`` with its
+    checks, on the optax path (B1 and B3 counted: 0 launches)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from cm3_tpu_torch.ops import fused_opt, polyak
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import torch_ablation_vmapped as tav
+    import torch_reproduce_paper as trp
+    import torch_summarize_reproduce as tsum
+    import torch_verify_checkpoints as tvc
+
+    cwd, wd = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_repro_")
+    real_run_cell, calls, secs = trp.run_cell, [], {}
+
+    def spy(name, ov, **kw):
+        calls.append((name, dict(ov)))
+        return real_run_cell(name, ov, **kw)
+
+    def timed(what, fn):
+        """``fn()`` timed; what the scripts print goes to this log with
+        a prefix, so that no line of it is a bare JSON object."""
+        t0 = time.time()
+        printed = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(printed):
+                out = fn()
+            torch.cuda.synchronize()
+        finally:
+            for line in printed.getvalue().splitlines():
+                log(f"  {what}: {line}")
+        secs[what] = round(time.time() - t0, 2)
+        return out
+
+    seeds = ["--seeds", str(RP_SEEDS), "--episodes", str(RP_EPISODES)]
+    try:
+        os.chdir(wd)
+        trp.run_cell = spy
+        torch.cuda.synchronize()
+        fused_opt.adam_polyak.launches = polyak.polyak_update.launches = 0
+        timed("reproduce_paper", lambda: trp.main(
+            ["--cells", "checkers_s1,checkers_s2"] + seeds))
+        timed("ablation_vmapped", lambda: tav.main(
+            ["--cells", "checkers_qmix"] + seeds))
+        b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
+        assert b1 == b3 == 0, (b1, b3)
+        timed("write_results", lambda: tsum.write_results(trp.WORKDIR))
+        rows = [json.loads(l) for l in open(
+            os.path.join(trp.WORKDIR, "results.jsonl"))]
+        for r in rows:
+            log("  row " + json.dumps(r))
+        want = [("checkers_s1", s) for s in range(RP_SEEDS)] + [
+            ("checkers_s2", s) for s in range(RP_SEEDS)] + [
+            ("checkers_qmix", s) for s in range(RP_SEEDS)]
+        got = [(r["cell"], r["seed"] - 12341) for r in rows]
+        assert got == want, got
+        for r in rows:
+            missing = [k for k in RP_ROW_KEYS if k not in r]
+            assert not missing, (r["dir_name"], missing)
+            assert r["episodes"] >= RP_EPISODES, r
+            assert np.isfinite(r["final_eval_global"]), r
+        assert all(r.get("vmapped") for r in rows[-RP_SEEDS:])
+        # stage 2 restores the stage-1 seed of the best score, the first
+        # of equals (none passes the gate at this budget), as the
+        # ledger's _find_restore picks it
+        s1 = [r for r in rows if r["cell"] == "checkers_s1"]
+        best = s1[0]
+        for r in s1[1:]:
+            if r["best_eval_global"] > best["best_eval_global"]:
+                best = r
+        restores = [ov["dir_restore"] for name, ov in calls
+                    if name == "checkers_s2"]
+        assert restores == [best["dir_name"]] * RP_SEEDS, restores
+        assert trp._find_restore("checkers_s1", "ck_s1") == best["dir_name"]
+        md = open(os.path.join(trp.WORKDIR, "RESULTS.md")).read()
+        assert all(f"| {c} |" in md for c in ("checkers_s1", "checkers_s2",
+                                             "checkers_qmix"))
+        reports = timed("verify_checkpoints", lambda: tvc.verify_rows(
+            rows, n_eval=RP_N_EVAL, verbose=False, device=dev))
+        for rep in reports:
+            log("  verify " + json.dumps(rep))
+        fails = tvc.check(reports)
+        assert not fails, fails
+        assert {(r["dir_name"], "model_final") for r in rows} <= {
+            (r["dir_name"], r["model"]) for r in reports}
+    finally:
+        trp.run_cell = real_run_cell
+        os.chdir(cwd)
+        shutil.rmtree(wd, ignore_errors=True)
+    log(f"  reproduction: {len(rows)} rows, stage 2 restored "
+        f"{best['dir_name']}, {len(reports)} checkpoints verified, "
+        f"adam_polyak {b1} / polyak {b3} launches; seconds {json.dumps(secs)}")
+    return secs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4061,24 +4190,25 @@ def main():
     card = smi_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phases = [
-        ("0 build", 30, phase_build),
-        ("1 kernel vs plain", 45, phase_kernel, dev),
+        ("0 build", 15, phase_build),
+        ("1 kernel vs plain", 37, phase_kernel, dev),
         ("2 the slice", 10, phase_slice, dev),
         ("3 card vs CPU", 10, phase_parity, dev),
-        ("4 fused Checkers rollout", 73, phase_rollout, dev),
+        ("4 fused Checkers rollout", 70, phase_rollout, dev),
         ("5 polyak", 10, phase_polyak, dev),
-        ("6 fused particle rollout", 80, phase_particle, dev),
-        ("7 fused roadway rollout", 48, phase_roadway, dev),
-        ("8 seed-batched training", 37, phase_seeded, dev),
-        ("9 the curriculum through the runner", 120, phase_curriculum, dev),
-        ("10 the baselines and QMIX", 112, phase_baselines, dev),
-        ("11 particle through the runner", 93, phase_particle_runner, dev),
-        ("12 roadway and the dual buffer through the runner", 67,
+        ("6 fused particle rollout", 76, phase_particle, dev),
+        ("7 fused roadway rollout", 50, phase_roadway, dev),
+        ("8 seed-batched training", 58, phase_seeded, dev),
+        ("9 the curriculum through the runner", 118, phase_curriculum, dev),
+        ("10 the baselines and QMIX", 110, phase_baselines, dev),
+        ("11 particle through the runner", 89, phase_particle_runner, dev),
+        ("12 roadway and the dual buffer through the runner", 68,
          phase_roadway_runner, dev),
-        ("13 the single-env cells through the runner", 251, phase_e1, dev),
-        ("14 the tools", 73, phase_tools, dev),
-        ("15 shard-local replay and MPE", 61, phase_shards_mpe, dev),
-        ("16 multi-process runs", 60, phase_multiprocess, dev),
+        ("13 the single-env cells through the runner", 245, phase_e1, dev),
+        ("14 the tools", 70, phase_tools, dev),
+        ("15 shard-local replay and MPE", 58, phase_shards_mpe, dev),
+        ("16 multi-process runs", 49, phase_multiprocess, dev),
+        ("17 the reproduction scripts", 31, phase_reproduction, dev),
     ]
     out = {name.split()[0]: run_phase(name, budget, fn, *args)
            for name, budget, fn, *args in phases}

@@ -5,7 +5,8 @@ none of them imports Triton (every kernel is CUDA C++, built by
 ``nvcc``), and importing the whole package loads neither JAX nor
 Triton.  The multi-process layer (``cm3_tpu_torch/parallel/``) and the
 code the tests' gloo ranks run import ``torch.distributed`` and nothing
-of JAX."""
+of JAX.  The port's reproduction scripts import neither the JAX
+package's scripts nor, when imported, JAX."""
 
 import ast
 import os
@@ -100,3 +101,38 @@ def test_the_multiprocess_code_imports_torch_distributed_and_no_jax(rel):
         assert name.split(".")[0] not in FORBIDDEN + ("triton",), (rel, name)
     if rel.startswith("cm3_tpu_torch/parallel/"):
         assert "torch.distributed" in names, rel
+
+
+# the paper's reproduction tooling on the port, each the counterpart of
+# a JAX package script of the same name without ``torch_``
+REPRODUCTION = ["torch_reproduce_paper", "torch_summarize_reproduce",
+                "torch_ablation_vmapped", "torch_verify_checkpoints",
+                "torch_extend_run", "torch_run_checkers_stage1",
+                "torch_run_full_budget", "torch_render_index",
+                "torch_probe_checkers_optimal", "torch_probe_particle",
+                "torch_probe_roadway2_optimal"]
+JAX_SCRIPTS = {f[:-3] for f in os.listdir(os.path.join(ROOT, "scripts"))
+               if f.endswith(".py") and not f.startswith("torch_")}
+
+
+@pytest.mark.parametrize("name", REPRODUCTION)
+def test_reproduction_scripts_are_scanned_and_stand_alone(name):
+    """Each script is among those the scans above read, and imports no
+    script of the JAX package, neither as ``scripts.<name>`` nor by its
+    own name; its siblings it imports by theirs."""
+    path = os.path.join(ROOT, "scripts", name + ".py")
+    assert path in _sources()
+    for mod in _imports(path):
+        assert mod.split(".")[0] != "scripts", (name, mod)
+        assert mod not in JAX_SCRIPTS, (name, mod)
+
+
+def test_importing_the_reproduction_scripts_loads_no_jax():
+    code = ("import importlib, sys\n"
+            f"sys.path[:0] = [{os.path.join(ROOT, 'scripts')!r}, {ROOT!r}]\n"
+            f"for m in {REPRODUCTION!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('triton',)!r}]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
