@@ -26,6 +26,7 @@ mesh, and on the seed axis, there is no collective.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Dict, Optional, Sequence, Union
@@ -38,6 +39,7 @@ from cm3_tpu_torch.core import prng
 from cm3_tpu_torch.core.config import AlgConfig, NNConfig
 from cm3_tpu_torch.models import nets
 from cm3_tpu_torch.parallel import mesh as meshlib
+from cm3_tpu_torch.utils import profiling
 
 EXPERIMENTS = ("checkers", "particle", "roadway")
 
@@ -187,12 +189,17 @@ class SeededAlgorithm:
         return net if isinstance(net, torch.nn.Module) else net.params
 
     def _epsilon(self, epsilon):
-        """A Python float without seeds; an [S] float32 tensor with."""
+        """A Python float without seeds; an [S] float32 tensor with.  A
+        host value's copy to a CUDA device waits for the device (the
+        evaluation's epsilon 0, at every step): ``cm3.host_sync``."""
         if self.n_seeds is None:
             return epsilon
-        return torch.as_tensor(epsilon, dtype=torch.float32,
-                               device=self.device).expand(self.n_seeds)
+        with (contextlib.nullcontext() if torch.is_tensor(epsilon)
+              else profiling.annotate("cm3.host_sync")):
+            return torch.as_tensor(epsilon, dtype=torch.float32,
+                                   device=self.device).expand(self.n_seeds)
 
+    @profiling.spanned("cm3.backward")
     def _backward(self, loss, *nets_):
         """Backward into the flat gradient buffers of the networks
         ``nets_`` (None for an absent one); on a data mesh their mean

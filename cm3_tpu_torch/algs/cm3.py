@@ -105,6 +105,7 @@ from cm3_tpu_torch.core.config import AlgConfig, NNConfig
 from cm3_tpu_torch.models import nets
 from cm3_tpu_torch.ops import fused_opt, polyak
 from cm3_tpu_torch.parallel import mesh as meshlib
+from cm3_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -495,7 +496,7 @@ class CM3(base.ActorCritic):
         cfg = self.cfg
         h = self._handle
         eps = self._epsilon(epsilon)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.annotate("cm3.targets"):
             y_g, y_c, y_v = self._map(
                 self._td_targets, h(ts.actor_tgt), h(ts.qg_tgt),
                 h(ts.qc_tgt), h(ts.v_tgt), batch, eps, gumbel)
@@ -506,22 +507,23 @@ class CM3(base.ActorCritic):
             critics.append((ts.opt_qc, ts.qc, ts.qc_tgt, cfg.lr_Q))
         if self.use_v:
             critics.append((ts.opt_v, ts.v, ts.v_tgt, cfg.lr_V))
-        for _, net, _, _ in critics:
-            net.flat_grad.zero_()
-        loss_qg, loss_qc, loss_v, q = self._map(
-            self._critic_losses, h(ts.qg), h(ts.qc), h(ts.v), batch, y_g,
-            y_c, y_v)
-        self._backward(loss_qg.sum() + loss_qc.sum() + loss_v.sum(),
-                       *(net for _, net, _, _ in critics))
         grads = {}
-        if with_grads:
-            grads["Q_global"] = ts.qg.flat_grad.clone()
-            if self.use_credit:
-                grads["Q_credit"] = ts.qc.flat_grad.clone()
-            if self.use_v:
-                grads["V"] = ts.v.flat_grad.clone()
-        q_actual = q.detach()
-        with torch.no_grad():
+        with profiling.annotate("cm3.critics"):
+            for _, net, _, _ in critics:
+                net.flat_grad.zero_()
+            loss_qg, loss_qc, loss_v, q = self._map(
+                self._critic_losses, h(ts.qg), h(ts.qc), h(ts.v), batch,
+                y_g, y_c, y_v)
+            self._backward(loss_qg.sum() + loss_qc.sum() + loss_v.sum(),
+                           *(net for _, net, _, _ in critics))
+            if with_grads:
+                grads["Q_global"] = ts.qg.flat_grad.clone()
+                if self.use_credit:
+                    grads["Q_credit"] = ts.qc.flat_grad.clone()
+                if self.use_v:
+                    grads["V"] = ts.v.flat_grad.clone()
+            q_actual = q.detach()
+        with torch.no_grad(), profiling.annotate("cm3.optimizer"):
             self._opt_step(*critics, apply=gate)
 
         # ---- policy gradient (:699-773); the actor frozen for the
@@ -533,21 +535,22 @@ class CM3(base.ActorCritic):
             held = ts.step >= cfg.actor_freeze_updates
             live = held if gate is None else gate & held
             frozen = ~held if gate is None else gate & ~held
-        ts.actor.flat_grad.zero_()
-        loss_pi, ent, w_mean = self._map(
-            self._policy_loss, h(ts.actor),
-            h(ts.qg if self.n_agents == 1 else ts.qc), h(ts.v), batch,
-            q_actual, eps)
-        self._backward(loss_pi.sum(), ts.actor)
-        if with_grads:
-            grads["Policy"] = ts.actor.flat_grad.clone()
-        with torch.no_grad():
+        with profiling.annotate("cm3.actor"):
+            ts.actor.flat_grad.zero_()
+            loss_pi, ent, w_mean = self._map(
+                self._policy_loss, h(ts.actor),
+                h(ts.qg if self.n_agents == 1 else ts.qc), h(ts.v), batch,
+                q_actual, eps)
+            self._backward(loss_pi.sum(), ts.actor)
+            if with_grads:
+                grads["Policy"] = ts.actor.flat_grad.clone()
+        with torch.no_grad(), profiling.annotate("cm3.optimizer"):
             self._opt_step(
                 (ts.opt_actor, ts.actor, ts.actor_tgt, cfg.lr_actor),
                 lr_scale=self._actor_lr_scale(ts.step), apply=live)
             if frozen is not None:
                 self._frozen_target_step(ts.actor_tgt, ts.actor, frozen)
-        self._count_update(ts, gate)
+            self._count_update(ts, gate)
         metrics = {"loss_Q_global": loss_qg.detach()}
         if self.use_credit:
             metrics["loss_Q_credit"] = loss_qc.detach()

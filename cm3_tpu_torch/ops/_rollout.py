@@ -17,6 +17,7 @@ import torch
 
 from cm3_tpu_torch.ops import _nvcc
 from cm3_tpu_torch.ops.philox import MASK32
+from cm3_tpu_torch.utils import profiling
 
 
 def _cuda(name, device):
@@ -24,6 +25,7 @@ def _cuda(name, device):
         raise RuntimeError(f"{name}: no kernel for device {device}")
 
 
+@profiling.spanned("cm3.rollout")
 def _launch(name, wrapper, call, actions, batch, n_steps, seed, device):
     if not 0 <= batch < 2 ** 31 or not 0 <= n_steps < 2 ** 31:
         raise ValueError(f"{name}: batch {batch} or n_steps {n_steps} out "

@@ -83,6 +83,7 @@ from cm3_tpu_torch.train import checkpoint
 from cm3_tpu_torch.train.offpolicy import (OffPolicyDriver, flush_eplog,
                                            init_rollout)
 from cm3_tpu_torch.train.onpolicy import OnPolicyDriver
+from cm3_tpu_torch.utils import profiling
 
 
 def _eps_schedule(cfg, episodes):
@@ -213,62 +214,66 @@ def train_vmapped_seeds(hooks, alg, cfg, n_seeds: int, base_seed: int,
                                      eps_scalar - cfg.epsilon_step)
         else:
             warm = not fill and emin < start_min + cfg.pretrain_episodes
-            eps = torch.as_tensor(_eps_schedule(cfg, episodes)[mine],
-                                  dtype=torch.float32, device=dev)
+            with profiling.annotate("cm3.host_sync"):   # the copy waits
+                eps = torch.as_tensor(_eps_schedule(cfg, episodes)[mine],
+                                      dtype=torch.float32, device=dev)
             ts, buf, rs, metrics = driver._chunk(ts, buf, rs, eps, draws,
                                                  not (fill or warm), fill)
-            episodes = seen(rs.episodes)    # one sync per chunk
+            with profiling.annotate("cm3.host_sync"):
+                episodes = seen(rs.episodes)    # one sync per chunk
 
         period_idx = int(episodes.min()) // cfg.period
         if period_idx > last_period:
-            last_period = period_idx
-            r_local, r_global, aux = driver.evaluate(ts, eval_draws,
-                                                     cfg.N_eval)
-            local = dict(aux, r_local=r_local, r_global=r_global,
-                         acc_local=rs.acc_ret_local,
-                         acc_global=rs.acc_ret_global, metrics=metrics)
-            if cfg.episode_log:
-                local.update(eplog=rs.eplog, eplog_ep=rs.eplog_ep)
-            g = seen(local)
-            row = {
-                "episode": episodes.copy(),                         # [S]
-                "epsilon": (np.full(s, eps_scalar) if onpolicy
-                            else _eps_schedule(cfg, episodes)),     # [S]
-                "r_eval_local": g["r_local"],                       # [S, N]
-                "r_eval_global": g["r_global"],                     # [S]
-                "eval_action_dist": g["act_dist"].reshape(s, -1),
-                "r_train_local": g["acc_local"]
-                / max(cfg.period, 1),                               # [S, N]
-                "r_train_global": g["acc_global"]
-                / max(cfg.period, 1),                               # [S]
-                "duration_s": time.time() - t0,
-            }
-            row.update({k: g[k] for k in aux if k != "act_dist"})
-            # in key order, as JAX's metrics leave its jitted chunk
-            row.update(sorted(g["metrics"].items()))
-            if cfg.episode_log:
-                row["_episodes"] = [
-                    flush_eplog(g["eplog"][i], g["eplog_ep"][i],
-                                int(last_ep_flushed[i]), int(episodes[i]))
-                    for i in range(s)]
-                last_ep_flushed = episodes.copy()
-            if cfg.summarize and not fill and (not onpolicy
-                                               or filled(buf) > 0):
-                snap = snapshot_draws or driver.snapshot_source(
-                    draw_key, period_idx, dev)
-                if mesh is not None:
-                    snap = prng.BlockDraws(snap, r, w)
-                grads = driver._grad_snapshot(
-                    ts, buf, torch.as_tensor(row["epsilon"][mine],
-                                             dtype=torch.float32,
-                                             device=dev), snap)
-                row["_grads"] = (grads if mesh is None
-                                 else meshlib.all_gather_rows(grads, mesh))
-            history.append(row)
-            if log_fn is not None and (mesh is None or pdist.is_primary()):
-                log_fn(dict(row, _ts=ts))
-            rs.acc_ret_local = torch.zeros_like(rs.acc_ret_local)
-            rs.acc_ret_global = torch.zeros_like(rs.acc_ret_global)
-            t0 = time.time()
+            with profiling.annotate("cm3.period"):
+                last_period = period_idx
+                r_local, r_global, aux = driver.evaluate(ts, eval_draws,
+                                                         cfg.N_eval)
+                local = dict(aux, r_local=r_local, r_global=r_global,
+                             acc_local=rs.acc_ret_local,
+                             acc_global=rs.acc_ret_global, metrics=metrics)
+                if cfg.episode_log:
+                    local.update(eplog=rs.eplog, eplog_ep=rs.eplog_ep)
+                with profiling.annotate("cm3.host_sync"):
+                    g = seen(local)
+                row = {
+                    "episode": episodes.copy(),                     # [S]
+                    "epsilon": (np.full(s, eps_scalar) if onpolicy
+                                else _eps_schedule(cfg, episodes)), # [S]
+                    "r_eval_local": g["r_local"],                   # [S, N]
+                    "r_eval_global": g["r_global"],                 # [S]
+                    "eval_action_dist": g["act_dist"].reshape(s, -1),
+                    "r_train_local": g["acc_local"]
+                    / max(cfg.period, 1),                           # [S, N]
+                    "r_train_global": g["acc_global"]
+                    / max(cfg.period, 1),                           # [S]
+                    "duration_s": time.time() - t0,
+                }
+                row.update({k: g[k] for k in aux if k != "act_dist"})
+                # in key order, as JAX's metrics leave its jitted chunk
+                row.update(sorted(g["metrics"].items()))
+                if cfg.episode_log:
+                    row["_episodes"] = [
+                        flush_eplog(g["eplog"][i], g["eplog_ep"][i],
+                                    int(last_ep_flushed[i]), int(episodes[i]))
+                        for i in range(s)]
+                    last_ep_flushed = episodes.copy()
+                if cfg.summarize and not fill and (not onpolicy
+                                                   or filled(buf) > 0):
+                    snap = snapshot_draws or driver.snapshot_source(
+                        draw_key, period_idx, dev)
+                    if mesh is not None:
+                        snap = prng.BlockDraws(snap, r, w)
+                    grads = driver._grad_snapshot(
+                        ts, buf, torch.as_tensor(row["epsilon"][mine],
+                                                 dtype=torch.float32,
+                                                 device=dev), snap)
+                    row["_grads"] = (grads if mesh is None
+                                     else meshlib.all_gather_rows(grads, mesh))
+                history.append(row)
+                if log_fn is not None and (mesh is None or pdist.is_primary()):
+                    log_fn(dict(row, _ts=ts))
+                rs.acc_ret_local = torch.zeros_like(rs.acc_ret_local)
+                rs.acc_ret_global = torch.zeros_like(rs.acc_ret_global)
+                t0 = time.time()
 
     return ts, history

@@ -143,6 +143,7 @@ from cm3_tpu_torch.parallel import dist as pdist
 from cm3_tpu_torch.parallel import mesh as meshlib
 from cm3_tpu_torch.replay import buffer as replay
 from cm3_tpu_torch.train.experiments import Hooks, flat_call
+from cm3_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -371,6 +372,7 @@ class OffPolicyDriver:
                                                  self.shards)
         return replay.flush_episodes(buf, stage, valid, is_bad)
 
+    @profiling.spanned("cm3.replay_sample")
     def _replay_sample(self, buf, draws):
         """A minibatch of ``batch_size`` rows (per seed); its indices
         from ``draws``, below each ring's (shard's, memory's) fill."""
@@ -478,6 +480,7 @@ class OffPolicyDriver:
         self._replay_flush(buf, *flushed)
         return torch.where(done, 0, stage_len)
 
+    @profiling.spanned("cm3.env_step")
     @torch.no_grad()
     def _step_once(self, ts_alg, rs: RolloutState, buf, epsilon, draws,
                    random_actions: bool, policy_gate=None):
@@ -490,35 +493,42 @@ class OffPolicyDriver:
         lead = self.lead
         shape = lead + (hooks.n_agents,)
         probs = bp = None
-        if random_actions:
-            actions = draws.randint(shape, self.alg.n_actions)
-        elif self._store_bp:
-            actions, probs = self.alg.act_bp(
-                ts_alg, rs.obs, rs.goals, rs.a_prev, epsilon,
-                self.alg.act_draws(draws, lead))
-        else:
-            actions = self.alg.act(ts_alg, rs.obs, rs.goals, rs.a_prev,
-                                   epsilon, self.alg.act_draws(draws, lead))
-        if policy_gate is not None and not random_actions:
-            actions = torch.where(policy_gate, actions,
-                                  draws.randint(shape, self.alg.n_actions))
+        with profiling.annotate("cm3.act"):
+            if random_actions:
+                actions = draws.randint(shape, self.alg.n_actions)
+            elif self._store_bp:
+                actions, probs = self.alg.act_bp(
+                    ts_alg, rs.obs, rs.goals, rs.a_prev, epsilon,
+                    self.alg.act_draws(draws, lead))
+            else:
+                actions = self.alg.act(ts_alg, rs.obs, rs.goals, rs.a_prev,
+                                       epsilon,
+                                       self.alg.act_draws(draws, lead))
+            if policy_gate is not None and not random_actions:
+                actions = torch.where(policy_gate, actions, draws.randint(
+                    shape, self.alg.n_actions))
         # the filter's replacement is what is stepped and stored, and bp
         # is the behavior probability of that action (the uniform 1/A
         # where the gate took random actions)
-        actions = self._filter(env, rs.env_state, actions, lead)
-        if probs is not None:
-            bp = torch.gather(probs, -1, actions[..., None])[..., 0]
-            if policy_gate is not None:
-                bp = torch.where(policy_gate, bp, 1.0 / self.alg.n_actions)
-        env_state2, ts2 = flat_call(env.step, lead, rs.env_state, actions)
+        with profiling.annotate("cm3.filter"):
+            actions = self._filter(env, rs.env_state, actions, lead)
+            if probs is not None:
+                bp = torch.gather(probs, -1, actions[..., None])[..., 0]
+                if policy_gate is not None:
+                    bp = torch.where(policy_gate, bp,
+                                     1.0 / self.alg.n_actions)
+        with profiling.annotate("cm3.engine"):
+            env_state2, ts2 = flat_call(env.step, lead, rs.env_state,
+                                        actions)
         tr = self._transition(rs, actions, ts2, bp)
         done = ts2.done
         ep_ret_local = rs.ep_ret_local + ts2.reward_local
         ep_ret_global = rs.ep_ret_global + ts2.reward
         stage_t = rs.stage_t
         if self.cfg.dual_buffer:
-            stage_t = self._stage_and_flush(buf, rs, tr, done, env_state2,
-                                            ep_ret_local)
+            with profiling.annotate("cm3.replay"):
+                stage_t = self._stage_and_flush(buf, rs, tr, done,
+                                                env_state2, ep_ret_local)
         # the run's done flags and returns ([E], [E, N] and [E] on every
         # rank of a mesh: the counts, sums and log below are the run's)
         d = done.float()
@@ -534,33 +544,36 @@ class OffPolicyDriver:
             ret_l, ret_g = shared["ended"][..., 1:-1], shared["ended"][..., -1]
             tr = shared.get("added", tr)
         if not self.cfg.dual_buffer:
-            buf = self._replay_add(buf, tr)
+            with profiling.annotate("cm3.replay"):
+                buf = self._replay_add(buf, tr)
 
         # auto-reset finished instances with fresh goals
-        new_state, new_ts, new_goals = hooks.episode_init(lead, draws)
-        sel = lambda a, b: _where(done, a, b)
-        eplog, eplog_ep = rs.eplog, rs.eplog_ep
-        if eplog is not None:
-            eplog, eplog_ep = _eplog_write(
-                eplog, eplog_ep, rs.episodes, ended,
-                torch.cat([ret_l, ret_g[..., None]], dim=-1))
-        rs2 = RolloutState(
-            env_state=tree_map(sel, new_state, env_state2),
-            obs=tree_map(sel, new_ts.obs, ts2.obs),
-            state=tree_map(sel, new_ts.state, ts2.state),
-            goals=sel(new_goals, rs.goals),
-            a_prev=torch.where(done[..., None], 0, actions),
-            ep_ret_local=ep_ret_local * (1.0 - d[..., None]),
-            ep_ret_global=ep_ret_global * (1.0 - d),
-            acc_ret_local=rs.acc_ret_local
-            + torch.sum(ret_l * e[..., None], dim=-2),
-            acc_ret_global=rs.acc_ret_global
-            + torch.sum(ret_g * e, dim=-1),
-            episodes=rs.episodes + ended.sum(dim=-1),
-            eplog=eplog, eplog_ep=eplog_ep, stage=rs.stage, stage_t=stage_t,
-            mesh=rs.mesh)
+        with profiling.annotate("cm3.reset"):
+            new_state, new_ts, new_goals = hooks.episode_init(lead, draws)
+            sel = lambda a, b: _where(done, a, b)
+            eplog, eplog_ep = rs.eplog, rs.eplog_ep
+            if eplog is not None:
+                eplog, eplog_ep = _eplog_write(
+                    eplog, eplog_ep, rs.episodes, ended,
+                    torch.cat([ret_l, ret_g[..., None]], dim=-1))
+            rs2 = RolloutState(
+                env_state=tree_map(sel, new_state, env_state2),
+                obs=tree_map(sel, new_ts.obs, ts2.obs),
+                state=tree_map(sel, new_ts.state, ts2.state),
+                goals=sel(new_goals, rs.goals),
+                a_prev=torch.where(done[..., None], 0, actions),
+                ep_ret_local=ep_ret_local * (1.0 - d[..., None]),
+                ep_ret_global=ep_ret_global * (1.0 - d),
+                acc_ret_local=rs.acc_ret_local
+                + torch.sum(ret_l * e[..., None], dim=-2),
+                acc_ret_global=rs.acc_ret_global
+                + torch.sum(ret_g * e, dim=-1),
+                episodes=rs.episodes + ended.sum(dim=-1),
+                eplog=eplog, eplog_ep=eplog_ep, stage=rs.stage,
+                stage_t=stage_t, mesh=rs.mesh)
         return rs2, buf
 
+    @profiling.spanned("cm3.chunk")
     def _chunk(self, ts_alg, buf, rs, epsilon, draws, do_train: bool,
                random_actions: bool, gate=None):
         """steps_per_train lockstep env steps, then (``do_train``)
@@ -583,9 +596,10 @@ class OffPolicyDriver:
             lead = self.lead[:-1] + (self.batch,)
             for _ in range(n_upd):
                 batch = self._replay_sample(buf, draws)
-                ts_alg, metrics = self.alg.update(
-                    ts_alg, batch, epsilon,
-                    self.alg.update_draws(draws, lead), gate=gate)
+                with profiling.annotate("cm3.update"):
+                    ts_alg, metrics = self.alg.update(
+                        ts_alg, batch, epsilon,
+                        self.alg.update_draws(draws, lead), gate=gate)
             metrics = self._mean_metrics(metrics)
             if gate is not None:
                 metrics = {k: torch.where(gate, v, torch.zeros_like(v))
@@ -632,6 +646,7 @@ class OffPolicyDriver:
 
     # -------------------------------------------------------------- #
 
+    @profiling.spanned("cm3.evaluate")
     @torch.no_grad()
     def evaluate(self, ts_alg, draws, n_eval: int):
         """Policy rollouts at epsilon 0 (alg/evaluate.py) of ``n_eval``

@@ -28,7 +28,8 @@ the card against the CPU; a step of each of the nine MPE scenarios
 on both paths against the CPU; and the multi-process layer
 (``parallel/``): a data mesh of world size 1 over NCCL against no mesh,
 and two gloo ranks sharing the card (the data axis in 2 shards and in
-one ring, and seeds over the ranks) against the single-process run.  They import
+one ring, and seeds over the ranks) against the single-process run;
+and the program's spans' stream time on the card.  They import
 neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -2005,3 +2006,53 @@ def test_two_gloo_ranks_on_card_match_single_process(cuda_device, tmp_path):
                 for k, v in single["seeds"]["ts"].items()}
         dc.close(res["ts"], want, f"seeds rank {r} ", 1e-4, 1e-5)
         assert "grad" not in res["counts"]
+
+
+# --------------------------------------------------------------------- #
+# the program's spans on the card
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+def test_spans_on_card_read_stream_time(cuda_device):
+    """A three-seed Checkers training chunk on the card under
+    ``profiling.record()``: every span path has stream time, the
+    update's covers its two backward passes', the chunk's its updates';
+    spans run with recording off leave the record as it was; under a
+    profiler started by other code the spans keep no stream time."""
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.envs.checkers import Checkers
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
+    from cm3_tpu_torch.utils import profiling
+
+    env = Checkers(CheckersEnvConfig(max_steps=7), device=cuda_device)
+    alg = CM3("checkers", env.spec(), config.AlgConfig(n_agents=2, stage=2),
+              _small_nn(), device=cuda_device, n_seeds=3)
+    cfg = config.TrainConfig(n_envs=4, batch_size=8, buffer_size=256,
+                             updates_per_chunk=2)
+    drv = OffPolicyDriver(make_hooks("checkers", env), alg, cfg)
+    draws = prng.GeneratorDraws(prng.generator(3, cuda_device))
+    rs = init_rollout(drv.hooks, cfg.n_envs, draws, n_seeds=3)
+    ts = alg.init_state([1, 2, 3])
+    buf = drv._replay_init(drv.example_transition(rs))
+    ts, buf, rs, _ = drv._chunk(ts, buf, rs, 1.0, draws, False, True)
+    with profiling.record():
+        ts, buf, rs, _ = drv._chunk(ts, buf, rs, 0.2, draws, True, False)
+    rec = profiling.summary()
+    assert rec and all(v["stream_s"] is not None and v["stream_s"] >= 0
+                       for v in rec.values())
+    upd = rec["cm3.chunk/cm3.update"]
+    assert upd["count"] == 2
+    backward = sum(v["stream_s"] for p, v in rec.items()
+                   if p.startswith("cm3.chunk/cm3.update/")
+                   and p.endswith("/cm3.backward"))
+    assert 0 < backward <= upd["stream_s"] <= rec["cm3.chunk"]["stream_s"]
+    drv._chunk(ts, buf, rs, 0.2, draws, True, False)
+    assert profiling.summary() == rec
+    with torch.profiler.profile():
+        drv._chunk(ts, buf, rs, 0.2, draws, True, False)
+    rec = profiling.summary()
+    assert rec["cm3.chunk/cm3.update"]["count"] == 2
+    assert all(v["stream_s"] is None for v in rec.values())

@@ -2,7 +2,7 @@
 ``--render-only`` from the port's checkpoints, the live viewer
 (serving, updating, and refusing traversal, non-SVG files and symlinks
 out of its root), the interactive harness with its input fed, and
-``profiling``'s trace and timers, on the CPU."""
+``profiling``'s trace and a span in it, on the CPU."""
 
 import io
 import json
@@ -141,14 +141,3 @@ def test_profiling_trace_and_timers(tmp_path):
     names = {e.get("name") for e in trace["traceEvents"]}
     assert "matmul_span" in names
     assert any("mm" in (k.key or "") for k in prof.key_averages())
-    timer = profiling.SplitTimer(device="cpu")
-    with timer.section("env"):
-        pass
-    with timer.section("env"):
-        pass
-    assert set(timer.summary()) == {"env"} and timer.summary()["env"] >= 0
-    tp_ = profiling.Throughput()
-    tp_.add(10)
-    assert tp_.rate() >= 0
-    tp_.reset()
-    assert tp_.units == 0
