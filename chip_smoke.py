@@ -4,9 +4,9 @@ check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Eighteen phases, each between progress lines with its elapsed seconds
+Nineteen phases, each between progress lines with its elapsed seconds
 and held to a time budget (15 + 37 + 10 + 10 + 70 + 10 + 76 + 50 + 58 +
-118 + 110 + 89 + 68 + 245 + 70 + 58 + 49 + 31 s = 1174 s: about 1.4x
+118 + 110 + 89 + 68 + 245 + 70 + 58 + 49 + 31 + 26 s = 1200 s: about 1.4x
 each phase's slowest cold time on an H100 over the recorded runs
 (PERF.md), 0: 5.0, 1: 26.3, 2: 3.6, 3: 5.3, 4: 50.2, 5: 1.2, 6: 54.6,
 7: 36.0, 9: 84.4, 10: 78.6, 11: 63.5, 12: 48.3, 13: 175.2 (with its K
@@ -299,6 +299,25 @@ any other run; a whole run 493.9-772 s over those runs):
    cells run the optax path); the rows and reports printed, the seconds
    of each step; it fails on a missing row key, a stage-2 restore other
    than the best-scoring stage-1 seed, or any failure of ``check``.
+18. the seed-stacked convolution (CUDA C++, ``csrc/seed_conv.cu``) at
+   the 256-seed sweeps' sizes (256 seeds of 256 rows; the Checkers state
+   grid and observation convs and roadway's grid conv): the forward
+   output, dw and db within 1e-5 of their plain versions in float64
+   (relative to the largest magnitude); the forward's and the weight
+   gradient's device time in CUDA graphs beside their bound (bytes at
+   the HBM rate), their plain versions' time and cuDNN's grouped
+   convolution's (``vmap`` over the plain version, forward, and its
+   backward to weight and bias: the yardstick the port no longer calls);
+   the kernels' registers, resident blocks and spills (none allowed, in
+   the variants for operands past shared memory too); the op's launches
+   on the training paths of phases 2, 8, 9 and 12, each counted from 0
+   just before its run and read just after: inside CM3 updates 22 an
+   update on Checkers and 4 on roadway (asserted there), and outside
+   them, one forward per lockstep env step in phases 2 and 8 (asserted;
+   the runners' counts, evaluation included, only printed).  Phase 16's
+   ranks run in processes of their own and are not counted.  Its budget
+   is the new phase's 26 s (ROADMAP "Smoke budget"); it took 10.2-20.0 s
+   on an H100.
 
 Prints a ``kernels`` JSON line (the flat updates' ``ms``, ``plain_ms``
 and ``library_ms`` are device times after a PyTorch kernel; B1's the
@@ -308,7 +327,11 @@ beside them ``particle_onpolicy_launches``, phase 11's fused stage 2,
 ``roadway_launches``, phase 12's fused roadway stage 2, and
 ``kchunk_launches``, phase 13's fused single-env run,
 ``shards_launches``, phase 15's sharded ``checkers_s2``, and
-``multiprocess_launches``, phase 16's on one of two ranks; ``pred_ms``,
+``multiprocess_launches``, phase 16's on one of two ranks; the
+seed-stacked convolution's sums over phase 18's three shapes, forward
+and weight gradient, and each shape's numbers, its ``launches`` phase
+2's (inside and outside the updates) and ``paths`` the count of each
+path of phase 18; ``pred_ms``,
 the kernel's time under a device predicate of 1; and B1's
 ``wrapper_ms``, ``adam_polyak_many``'s device time after a PyTorch
 kernel as the update calls it, and ``wrapper_b2b_ms``, its time per
@@ -320,6 +343,7 @@ exits non-zero and prints no result.  Writes nothing into the checkout
 but the kernel library under ``build/``.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -342,6 +366,17 @@ HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 # operations (mu' 3, nu' 4, the update 4 with a quotient or a root as one,
 # p' 2, tgt' 3)
 BYTES_PER_ELEM, OPS_PER_ELEM = 36, 16
+# the seed-stacked convolution at the 256-seed sweeps' sizes: S seeds of R
+# rows, (H, W, C, F, kh, kw) of each conv of the cells' nets
+SC_SEEDS, SC_ROWS = 256, 256
+SC_SHAPES = {"checkers_state": (3, 9, 2, 4, 3, 5),
+             "checkers_obs": (5, 5, 3, 6, 3, 3),
+             "roadway_grid": (13, 9, 2, 4, 5, 3)}
+# its launches in one CM3 stage-2 update (a forward 1, a weight gradient 2;
+# itemized in tests/test_torch_cuda.py:SEED_CONV_LAUNCHES)
+SC_PER_UPDATE = {"checkers": 22, "roadway": 4}
+# its launches on each training path, as ``seed_conv_counted`` records them
+SC_PATHS = {}
 # the buffer sets a cold-cache graph rotates over: > 2.5x the 50 MB L2
 COLD_BYTES = 128 << 20
 # card vs CPU after one training chunk: float32 sums in other orders
@@ -958,14 +993,16 @@ def phase_slice(device):
     torch.cuda.synchronize()
     fused_opt.adam_polyak.launches = 0
     times, per_chunk = [], []
-    for _ in range(TRAIN_CHUNKS):
-        before = fused_opt.adam_polyak.launches
-        t0 = time.perf_counter()
-        ts, buf, rs, metrics = driver._chunk(ts, buf, rs, EPSILON, draws,
-                                             True, False)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        per_chunk.append(fused_opt.adam_polyak.launches - before)
+    with seed_conv_counted("the slice (phase 2)", SC_PER_UPDATE["checkers"],
+                           acts=STEPS * TRAIN_CHUNKS):
+        for _ in range(TRAIN_CHUNKS):
+            before = fused_opt.adam_polyak.launches
+            t0 = time.perf_counter()
+            ts, buf, rs, metrics = driver._chunk(ts, buf, rs, EPSILON, draws,
+                                                 True, False)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            per_chunk.append(fused_opt.adam_polyak.launches - before)
     launches = fused_opt.adam_polyak.launches
     assert per_chunk == [2 * UPDATES] * TRAIN_CHUNKS, (
         f"adam_polyak launches per training chunk: {per_chunk}")
@@ -1181,10 +1218,12 @@ def phase_seeded(dev):
     per_chunk = []
     torch.cuda.synchronize()
     fused_opt.adam_polyak.launches = 0
-    for _ in range(3):
-        before = fused_opt.adam_polyak.launches
-        rate = bench.train_blocks(fused, 1, 1, 0)[0]
-        per_chunk.append(fused_opt.adam_polyak.launches - before)
+    with seed_conv_counted(f"{SEEDS} seeds, fused (phase 8)",
+                           SC_PER_UPDATE["checkers"], acts=3 * STEPS):
+        for _ in range(3):
+            before = fused_opt.adam_polyak.launches
+            rate = bench.train_blocks(fused, 1, 1, 0)[0]
+            per_chunk.append(fused_opt.adam_polyak.launches - before)
     assert per_chunk == [2 * UPDATES] * 3, per_chunk
     log(f"  {SEEDS} seeds x {N_ENVS} envs, fused optimizer: "
         f"{per_chunk[0]} adam_polyak launches per chunk (segments of "
@@ -1329,11 +1368,13 @@ def phase_curriculum(dev):
         torch.cuda.synchronize()
         fused_opt.adam_polyak.launches = 0
         polyak.polyak_update.launches = 0
-        (ts2, st2), _ = _timed_run(
-            "stage 2 (fused, the actor frozen for its first "
-            f"{CURR_FREEZE} updates), train_function",
-            lambda: runner.train_function(s2, wd, verbose=False,
-                                          device=dev))
+        with seed_conv_counted("the curriculum's stage 2 (phase 9)",
+                               SC_PER_UPDATE["checkers"]):
+            (ts2, st2), _ = _timed_run(
+                "stage 2 (fused, the actor frozen for its first "
+                f"{CURR_FREEZE} updates), train_function",
+                lambda: runner.train_function(s2, wd, verbose=False,
+                                              device=dev))
         b1, b3 = fused_opt.adam_polyak.launches, polyak.polyak_update.launches
         steps = int(ts2.step)
         frozen = min(CURR_FREEZE, steps)
@@ -2297,7 +2338,12 @@ def phase_roadway_runner(dev):
         # 5. the stable cell, QMIX, the fused stage 2, particle dual
         b1 = b3 = 0
         for name, m in cells.items():
-            ts, st = run(name, m)
+            if m.get("fused_opt"):
+                with seed_conv_counted("the fused roadway_s2 (phase 12)",
+                                       SC_PER_UPDATE["roadway"]):
+                    ts, st = run(name, m)
+            else:
+                ts, st = run(name, m)
             if m.get("fused_opt"):
                 b1 = fused_opt.adam_polyak.launches
                 b3 = polyak.polyak_update.launches
@@ -4168,6 +4214,130 @@ def phase_reproduction(dev):
     return secs
 
 
+@contextlib.contextmanager
+def seed_conv_counted(path, per_update, acts=None):
+    """The seed-stacked convolution's launches over the block, counted
+    from 0: those inside CM3 updates (``CM3.update`` wrapped at the
+    class), held to ``per_update`` an update, and those outside them (the
+    acting nets' forwards), held to ``acts`` when it is given; recorded
+    in ``SC_PATHS[path]`` and logged."""
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.ops import seed_conv as sc
+
+    update, got = CM3.update, dict(updates=0, in_updates=0)
+
+    def counted(self, *args, **kwargs):
+        before = sc.relu_flat_conv.launches
+        out = update(self, *args, **kwargs)
+        got["updates"] += 1
+        got["in_updates"] += sc.relu_flat_conv.launches - before
+        return out
+    sc.relu_flat_conv.launches = 0
+    CM3.update = counted
+    try:
+        yield got
+    finally:
+        CM3.update = update
+    got["outside"] = sc.relu_flat_conv.launches - got["in_updates"]
+    assert got["updates"] > 0 and (
+        got["in_updates"] == per_update * got["updates"]) and (
+        acts is None or got["outside"] == acts), (path, got, acts)
+    SC_PATHS[path] = got
+    log(f"  seed_conv on {path}: {got['in_updates']} launches in "
+        f"{got['updates']} CM3 updates = {per_update} x {got['updates']}, "
+        f"{got['outside']} outside them (the acting nets' forwards)")
+
+
+def seed_conv_bound(s, r, shape):
+    """The least times (ms, "bytes" or "operations") of the forward and
+    of the weight gradient: each input float read once and each output
+    float written once at the HBM rate (the forward: x, weights, bias,
+    out; the gradient: the output's gradient, the output, x, dw, db),
+    against 2 FLOPs a multiply-add at the float32 rate."""
+    h, w, c, f, kh, kw = shape
+    n, k = s * r * h * w, c * kh * kw
+    fwd = 4 * (n * c + s * f * (k + 1) + n * f)
+    grad = 4 * (2 * n * f + n * c + s * f * (k + 1))
+    ops = 2 * n * f * k
+    best = lambda b: max((b / HBM_BPS * 1e3, "bytes"),
+                         (ops / F32_FLOPS * 1e3, "operations"))
+    return best(fwd), best(grad)
+
+
+def phase_seed_conv(dev):
+    """The seed-stacked convolution (``ops/seed_conv.py``) at the sweeps'
+    sizes: against its plain versions in float64, then the forward and
+    the weight gradient's time beside their bound, the plain versions and
+    cuDNN's grouped convolution, which the port ran before (``vmap`` over
+    the plain version: its forward, and the backward to the weight and
+    bias), the yardstick the port no longer calls."""
+    import torch
+    from cm3_tpu_torch.ops import seed_conv as sc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out, err = {}, 0.0
+    for name, shape in SC_SHAPES.items():
+        h, w, c, f, kh, kw = shape
+        rand = lambda *d: torch.randn(d, device=dev, generator=gen)
+        x, weight, bias = (rand(SC_SEEDS, SC_ROWS, h, w, c),
+                           rand(SC_SEEDS, f, c, kh, kw), rand(SC_SEEDS, f))
+        g = rand(SC_SEEDS, SC_ROWS, h * w * f)
+        y = sc._forward_kernel(x, weight, bias)
+        dw, db = sc._wgrad_kernel(g, y, x, kh, kw)
+        d = lambda t: t.double()
+        want = (sc.forward_plain(d(x), d(weight), d(bias)),
+                *sc.wgrad_plain(d(g), d(y), d(x), kh, kw))
+        for a, b in zip((y, dw, db), want):
+            rel = float((a.double() - b).abs().max() / b.abs().max())
+            assert rel <= 1e-5, f"seed_conv {name}: {rel:.3g} off float64"
+            err = max(err, rel)
+        del want
+        fwd = lambda: sc._forward_kernel(x, weight, bias)
+        grad = lambda: sc._wgrad_kernel(g, y, x, kh, kw)
+        k_fwd, k_grad = graph_time_ms(fwd, 20, 10), graph_time_ms(grad, 20,
+                                                                     10)
+        p_fwd = cuda_time_ms(lambda: sc.forward_plain(x, weight, bias), 5, 2)
+        p_grad = cuda_time_ms(lambda: sc.wgrad_plain(g, y, x, kh, kw), 5, 2)
+        wl, bl = (t.clone().requires_grad_(True) for t in (weight, bias))
+        lib_y = torch.func.vmap(sc.relu_flat_conv_plain)(x, wl, bl)
+        l_fwd = cuda_time_ms(lambda: torch.func.vmap(
+            sc.relu_flat_conv_plain)(x, weight, bias), 10, 3)
+        l_grad = cuda_time_ms(lambda: torch.autograd.grad(
+            lib_y, (wl, bl), g, retain_graph=True), 10, 3)
+        (b_fwd, by_fwd), (b_grad, by_grad) = seed_conv_bound(
+            SC_SEEDS, SC_ROWS, shape)
+        occ = [sc.occupancy(i, f) for i in range(3)]
+        # the variants for operands past shared memory: no spills either
+        assert all(sc.occupancy(i, f, False)["local_bytes"] == 0
+                   for i in range(2))
+        log(f"  seed_conv {name} (H, W, C, F, kh, kw) {shape}, S {SC_SEEDS} "
+            f"R {SC_ROWS}: forward {k_fwd * 1e3:.2f} us against "
+            f"{b_fwd * 1e3:.2f} us of {by_fwd} ({b_fwd / k_fwd:.3f}), plain "
+            f"{p_fwd:.3f} ms, library {l_fwd * 1e3:.2f} us; weight "
+            f"gradient {k_grad * 1e3:.2f} us against {b_grad * 1e3:.2f} us "
+            f"of {by_grad} ({b_grad / k_grad:.3f}), plain {p_grad:.3f} ms, "
+            f"library {l_grad * 1e3:.2f} us; registers / blocks per SM / "
+            "spills (forward, partial sums, sum) "
+            + ", ".join(f"{o['registers']}/{o['blocks_per_sm']}/"
+                        f"{o['local_bytes']}" for o in occ))
+        assert all(o["local_bytes"] == 0 for o in occ), occ
+        out[name] = dict(ms=k_fwd + k_grad, forward_ms=k_fwd,
+                         wgrad_ms=k_grad, plain_ms=p_fwd + p_grad,
+                         library_ms=l_fwd + l_grad,
+                         library_forward_ms=l_fwd, library_wgrad_ms=l_grad,
+                         bound_ms=b_fwd + b_grad)
+        del x, y, g, dw, db, lib_y
+    log(f"  seed_conv: within 1e-5 of float64 (largest {err:.3g} of the "
+        "largest magnitude); launches on the training paths: "
+        + (json.dumps(SC_PATHS) if SC_PATHS else "none ran"))
+    total = {k: sum(v[k] for v in out.values())
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    slice_ = SC_PATHS.get("the slice (phase 2)")
+    launches = slice_ and slice_["in_updates"] + slice_["outside"]
+    return dict(total, launches=launches, paths=dict(SC_PATHS),
+                max_abs_err=err, bound_by="bytes", shapes=out)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4209,12 +4379,13 @@ def main():
         ("15 shard-local replay and MPE", 58, phase_shards_mpe, dev),
         ("16 multi-process runs", 49, phase_multiprocess, dev),
         ("17 the reproduction scripts", 31, phase_reproduction, dev),
+        ("18 the seed-stacked convolution", 26, phase_seed_conv, dev),
     ]
     out = {name.split()[0]: run_phase(name, budget, fn, *args)
            for name, budget, fn, *args in phases}
     (kern, launches, rollout, soft, particle, roadway, frozen, pt, rd, e1,
-     sh, mp) = (out[k] for k in ("1", "2", "4", "5", "6", "7", "9", "11",
-                                 "12", "13", "15", "16"))
+     sh, mp, conv) = (out[k] for k in ("1", "2", "4", "5", "6", "7", "9",
+                                       "11", "12", "13", "15", "16", "18"))
     log(f"all phases done at {time.time() - T0:.1f} s")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4250,6 +4421,11 @@ def main():
              source="cm3_tpu_torch/csrc/roadway_rollout.cu",
              replaces="cm3_tpu/ops/roadway_rollout.py:83",
              **{k: roadway[k] for k in keys}),
+        dict(name="seed_conv", route="cuda",
+             source="cm3_tpu_torch/csrc/seed_conv.cu",
+             replaces="no TPU kernel (XLA's convolution)",
+             paths=conv["paths"], shapes=conv["shapes"],
+             **{k: conv[k] for k in keys}),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

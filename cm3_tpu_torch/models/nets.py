@@ -16,9 +16,11 @@ same (``W_h2``, ``b``, ``bias``, the mixer's raw matrices
 Layouts.  The public forwards take the JAX layouts: observation and
 state grids are NHWC.  Flax convolutions are NHWC/HWIO with SAME
 padding (``nets.py:99-101``) and flatten their output in (H, W, C)
-order (``nets.py:134,142``).  Here the grid is permuted to NCHW for
-``F.conv2d`` and the activation back to NHWC before the flatten, so a
-flax dense kernel carries over as a plain transpose.
+order (``nets.py:134,142``).  The port's convolution keeps that order
+(``ops/seed_conv.py``: on the CPU the grid is permuted to NCHW for
+``F.conv2d`` and the activation back to NHWC before the flatten; on the
+card a kernel reads NHWC and writes the (H, W, C) order), so a flax
+dense kernel carries over as a plain transpose.
 
 Flat parameters.  ``flatten_parameters`` moves a module's parameters
 into one flat f32 buffer in ``ravel_pytree`` order (the sorted-key
@@ -33,8 +35,9 @@ above), each parameter an [S, *shape] view into it, and a flat [S, n]
 gradient buffer the same way.  The module's forward code is unchanged:
 ``torch.func.functional_call`` runs it with a given parameter dict, and
 a caller maps that over the seed axis with ``torch.func.vmap``, so a
-convolution becomes one grouped convolution and a dense layer one
-batched product over all seeds.
+convolution becomes one call of the seed-stacked kernels
+(``ops/seed_conv.py``) and a dense layer one batched product over all
+seeds.
 Seeds share no parameter, so one backward pass of the sum of the S
 seeds' losses leaves each seed's gradient in its row of ``flat_grad``.
 
@@ -47,9 +50,10 @@ COMA critic's ``FC3`` draws its kernels truncated-normal 0.01 under
 every scheme (``nets.py:364-377``), as do the mixer's ``hyper_w_1``
 and ``hyper_w_final``; its ``hyper_b_1`` is a kernel of the scheme.
 
-Precision.  On the card a float32 convolution goes through cuDNN in
-TF32 unless ``torch.backends.cudnn.allow_tf32`` is False, and that is
-PyTorch's default; a matrix product does when
+Precision.  On the card the convolutions run in the port's own float32
+kernels (``ops/seed_conv.py``), which never use TF32 (cuDNN's TF32
+flag, on by default in PyTorch, no longer reaches them); a matrix
+product runs in TF32 when
 ``torch.backends.cuda.matmul.allow_tf32`` is True (or
 ``torch.set_float32_matmul_precision`` is not "highest").  The JAX
 package pins full float32 (``cm3_tpu/train/runner.py:302,480``), and
@@ -74,6 +78,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cm3_tpu_torch.ops import seed_conv
 
 INIT_SCHEMES = ("ref", "tf1", "trunc001")
 
@@ -168,9 +174,10 @@ def init_parameters(module: nn.Module, gen: torch.Generator,
 
 
 def _relu_flat_conv(conv: nn.Conv2d, t_nhwc: torch.Tensor) -> torch.Tensor:
-    """conv -> relu -> flatten in (H, W, C) order, NHWC in."""
-    c = F.relu(conv(t_nhwc.permute(0, 3, 1, 2)))
-    return c.permute(0, 2, 3, 1).reshape(c.shape[0], -1)
+    """conv -> relu -> flatten in (H, W, C) order, NHWC in: the plain
+    version on the CPU, the seed-stacked kernels on the card
+    (``ops/seed_conv.py``)."""
+    return seed_conv.relu_flat_conv(t_nhwc, conv.weight, conv.bias)
 
 
 class Branch(nn.Module):

@@ -76,6 +76,14 @@ SIGNATURES = {
     # out: registers, blocks per SM, threads, local bytes
     "cm3_adam_polyak_occupancy": ([_P], _I),
     "cm3_polyak_occupancy": ([_P], _I),
+    # x, w, w's seed stride, b, b's seed stride, out, S, R, H, W, C, F, kh,
+    # kw, stream
+    "cm3_seed_conv_forward": ([_P, _P, _LL, _P, _LL, _P] + [_I] * 8 + [_P],
+                              _I),
+    # g, y, x, partial, dw, db, S, R, H, W, C, F, kh, kw, slices, stream
+    "cm3_seed_conv_wgrad": ([_P] * 6 + [_I] * 9 + [_P], _I),
+    # which kernel (0 forward, 1 partial sums, 2 their sum), F, tiled, out
+    "cm3_seed_conv_occupancy": ([_I, _I, _I, _P], _I),
 }
 
 

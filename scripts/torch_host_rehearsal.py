@@ -24,7 +24,17 @@ The rollout entries then run on host buffers, fed and with Philox draws,
 and the results are held against the plain versions on the CPU:
 episodes exactly; reward sums bit for bit for Checkers and roadway, and
 for the particle game to the tolerance of ``chip_smoke.py``'s CPU
-comparison where a contact term's ``exp``/``log1p`` differ.  The flat
+comparison where a contact term's ``exp``/``log1p`` differ.  The
+seed-stacked convolution's entries (``cm3_seed_conv_forward``,
+``cm3_seed_conv_wgrad``, through the wrapper's ``forward_entry`` and
+``wgrad_entry``) run over the port's conv shapes and edge shapes (one
+filter, eight, more than 32 taps, a 1x1 kernel, even kernels, more
+filters than a launch takes, images past a block's shared memory, more
+taps than it holds), weights at a seed stride wider than a seed's block,
+and are held against the plain versions in float64 within 1e-5 of the
+largest magnitude; a seed's weight gradient in a stack of three against
+the same seed alone bit for bit; more filters than a launch takes refused
+by the C entry.  The flat
 updates' entries (``cm3_adam_polyak``, ``cm3_polyak``) run over ragged
 sizes, views at offsets of 1-3 floats, several segments in one launch
 and device predicates of 0, 1 and none, and are held against the plain
@@ -56,6 +66,7 @@ from cm3_tpu_torch.ops import _nvcc, fused_opt, polyak  # noqa: E402
 from cm3_tpu_torch.ops import checkers_rollout as cr  # noqa: E402
 from cm3_tpu_torch.ops import particle_rollout as pr  # noqa: E402
 from cm3_tpu_torch.ops import roadway_rollout as rr  # noqa: E402
+from cm3_tpu_torch.ops import seed_conv  # noqa: E402
 
 # the CUDA runtime and device functions the sources use, for the host
 PRELUDE = r"""
@@ -107,13 +118,14 @@ inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 
 template <class F>
 void host_launch(dim3 grid, unsigned threads, F body) {
+  for (unsigned by = 0; by < grid.y; ++by)
   for (unsigned bx = 0; bx < grid.x; ++bx) {
     std::barrier<> bar(threads);
     host_block_barrier = &bar;
     std::vector<std::thread> pool;
     for (unsigned tx = 0; tx < threads; ++tx)
-      pool.emplace_back([&, bx, tx] {
-        blockIdx = dim3(bx);
+      pool.emplace_back([&, bx, by, tx] {
+        blockIdx = dim3(bx, by);
         gridDim = grid;
         threadIdx = dim3(tx);
         body();
@@ -288,6 +300,76 @@ def flat_cases(lib, gen):
     return ok
 
 
+# (H, W, C, F, kh, kw): the port's conv shapes (Checkers' state grid and
+# observation, the central-V critic, roadway's grid), then edge shapes: the
+# last four are even kernels, filters in two groups, images past a block's
+# shared memory and more taps than it holds
+SEED_CONV_SHAPES = ((3, 9, 2, 4, 3, 5), (5, 5, 3, 6, 3, 3),
+                    (3, 9, 2, 2, 3, 5), (13, 9, 2, 4, 5, 3),
+                    (4, 6, 3, 1, 5, 5), (5, 5, 3, 8, 1, 1),
+                    (2, 3, 4, 8, 3, 3), (4, 5, 2, 3, 2, 4),
+                    (3, 4, 2, 11, 3, 3), (30, 30, 2, 3, 3, 5),
+                    (6, 7, 4, 2, 9, 9))
+
+
+def _fail(code, what):
+    if code != 0:
+        raise RuntimeError(f"{what} returned {code}")
+
+
+def seed_conv_case(lib, gen, s, r, shape):
+    h, w, c, f, kh, kw = shape
+    rand = lambda *d: torch.from_numpy(
+        gen.standard_normal(d).astype(np.float32))
+    x = rand(s, r, h, w, c)
+    # each seed's weights a row of a wider buffer, as in a seed stack
+    row = rand(s, f * c * kh * kw + f + 3)
+    wt = row[:, :f * c * kh * kw].unflatten(1, (f, c, kh, kw))
+    b = row[:, f * c * kh * kw:-3]
+    g = rand(s, r, h * w * f)
+
+    def call(*args):
+        out = seed_conv.forward_entry(lib, *args[:3], fail=_fail)
+        return (out, *seed_conv.wgrad_entry(lib, args[3], out, args[0], kh,
+                                            kw, fail=_fail))
+    out, dw, db = call(x, wt, b, g)
+    d = lambda t: t.double()
+    want = [seed_conv.forward_plain(d(x), d(wt), d(b)),
+            *seed_conv.wgrad_plain(d(g), d(out), d(x), kh, kw)]
+    errs = [float((d(k) - p).abs().max() / p.abs().max().clamp_min(1e-30))
+            for k, p in zip((out, dw, db), want)]
+    ok = max(errs) <= 1e-5
+    if s > 1:
+        _, dw1, db1 = call(x[1:2], wt[1:2], b[1:2], g[1:2])
+        alone = torch.equal(dw1[0], dw[1]) and torch.equal(db1[0], db[1])
+        ok = ok and alone
+    print(f"  seed_conv S={s} R={r} (H, W, C, F, kh, kw) {shape}: error "
+          f"over the largest magnitude out {errs[0]:.2g}, dw {errs[1]:.2g}, "
+          f"db {errs[2]:.2g}"
+          + ("" if s == 1 else f"; seed 1 alone bit-equal {alone}")
+          + f"; {'ok' if ok else 'MISMATCH'}")
+    return ok
+
+
+def seed_conv_cases(lib, gen):
+    ok = True
+    for shape in SEED_CONV_SHAPES:
+        h, w = shape[:2]
+        for s, r in ((1, 1), (3, 37) if h * w < 200 else (3, 2)):
+            ok &= seed_conv_case(lib, gen, s, r, shape)
+    # more filters than a launch takes are refused by the C entry
+    f = seed_conv.MAX_FILTERS + 1
+    x, w, b = torch.zeros(1, 1, 3, 9, 2), torch.zeros(1, f, 2, 3, 5), \
+        torch.zeros(1, f)
+    code = lib.cm3_seed_conv_forward(x.data_ptr(), w.data_ptr(), 0,
+                                     b.data_ptr(), 0, x.data_ptr(), 1, 1, 3,
+                                     9, 2, f, 3, 5, None)
+    refused = code != 0
+    print(f"  seed_conv's C entry refuses {f} filters in a launch: "
+          f"{refused}; {'ok' if refused else 'MISMATCH'}")
+    return ok and refused
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=300)
@@ -340,6 +422,7 @@ def main():
                        run(lib, call, None, b, t, seed),
                        mod.rollout_prng_plain(cfg, b, t, seed, "cpu"), tol)
         ok &= flat_cases(build(tmp, "flat_update"), gen)
+        ok &= seed_conv_cases(build(tmp, "seed_conv"), gen)
     print("host rehearsal:", "all held" if ok else "MISMATCH")
     return 0 if ok else 1
 

@@ -11,6 +11,7 @@ import torch
 from cm3_tpu_torch import convert
 from cm3_tpu_torch.core import config as tcfg
 from cm3_tpu_torch.algs.cm3 import CM3
+from cm3_tpu_torch.ops import seed_conv
 from tests import torch_parity as tp
 
 tp.set_torch_cpu()
@@ -83,11 +84,11 @@ def test_update_matches_jax(target_clip, monkeypatch):
                      [tts.actor.flat.numel()]]
 
 
-def test_nets_run_in_full_float32_whatever_the_caller_set():
-    """``act`` and ``update`` run every convolution, forward and
-    backward, with cuDNN's and cuBLAS's TF32 off, though the caller left
-    both on; the caller's flags are back afterwards, also after a
-    raise."""
+def test_nets_run_in_full_float32_whatever_the_caller_set(monkeypatch):
+    """``act`` and ``update`` run every convolution, forward (each call
+    of the nets' convolution op, ``ops/seed_conv.py``) and backward,
+    with cuDNN's and cuBLAS's TF32 off, though the caller left both on;
+    the caller's flags are back afterwards, also after a raise."""
     b = 8
     je, _ = tp.envs()
     ja, ta = tp.algs(je.spec())
@@ -102,9 +103,14 @@ def test_nets_run_in_full_float32_whatever_the_caller_set():
     convs = [m for name in ("actor", "qg", "qc")
              for m in getattr(tts, name).modules()
              if isinstance(m, torch.nn.Conv2d)]
-    hooks = [h for m in convs for h in (
-        m.register_forward_hook(lambda *_: seen.append(("fwd", flags()))),
-        m.weight.register_hook(lambda _: seen.append(("bwd", flags()))))]
+    conv_op = seed_conv.relu_flat_conv
+
+    def recorded(*args):
+        seen.append(("fwd", flags()))
+        return conv_op(*args)
+    monkeypatch.setattr(seed_conv, "relu_flat_conv", recorded)
+    hooks = [m.weight.register_hook(
+        lambda _: seen.append(("bwd", flags()))) for m in convs]
     saved = flags()
     try:
         torch.backends.cudnn.allow_tf32 = True

@@ -29,7 +29,12 @@ on both paths against the CPU; and the multi-process layer
 (``parallel/``): a data mesh of world size 1 over NCCL against no mesh,
 and two gloo ranks sharing the card (the data axis in 2 shards and in
 one ring, and seeds over the ranks) against the single-process run;
-and the program's spans' stream time on the card.  They import
+the program's spans' stream time on the card; and the seed-stacked
+convolution's kernels against their plain versions in float64 at every
+conv shape of the cells and at edge shapes (an even kernel, filters in
+two groups, operands past shared memory), bit for bit from run to run
+and from 1 seed to 3, refusing an input that requires grad, with their launches in one CM3
+update and no cuDNN convolution in its trace.  They import
 neither JAX nor ``cm3_tpu``, so they run on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -53,6 +58,7 @@ from cm3_tpu_torch.ops import checkers_rollout as cr
 from cm3_tpu_torch.ops import fused_opt, polyak
 from cm3_tpu_torch.ops import particle_rollout as pr
 from cm3_tpu_torch.ops import roadway_rollout as rr
+from cm3_tpu_torch.ops import seed_conv
 
 ROLLOUT_CASES = {
     "two_agents": (dict(n_agents=2, agents_r=(0, 2), agents_c=(8, 8)),
@@ -2056,3 +2062,198 @@ def test_spans_on_card_read_stream_time(cuda_device):
     rec = profiling.summary()
     assert rec["cm3.chunk/cm3.update"]["count"] == 2
     assert all(v["stream_s"] is None for v in rec.values())
+
+
+# --------------------------------------------------------------------- #
+# the seed-stacked convolution
+# --------------------------------------------------------------------- #
+
+# (H, W, C, F, kh, kw) of every conv a ``_conv`` call site of
+# models/nets.py builds at the benchmark cells' widths (the Checkers state
+# grid, its observation, the central-V critic, roadway's grid)
+SEED_CONV_SHAPES = {"state_grid": (3, 9, 2, 4, 3, 5),
+                    "observation": (5, 5, 3, 6, 3, 3),
+                    "central_v": (3, 9, 2, 2, 3, 5),
+                    "roadway_grid": (13, 9, 2, 4, 5, 3)}
+
+
+def _seed_conv_inputs(dev, s, r, shape, seed=0):
+    """x, the weights as rows of a wider buffer (a seed stack's layout),
+    the bias and an output gradient, standard normal."""
+    h, w, c, f, kh, kw = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *d: torch.randn(d, device=dev, generator=gen)
+    k = f * c * kh * kw
+    row = rand(s, k + f + 5)
+    return (rand(s, r, h, w, c), row[:, :k].unflatten(1, (f, c, kh, kw)),
+            row[:, k:k + f], rand(s, r, h * w * f))
+
+
+def _seed_conv_kernels(x, weight, bias, g):
+    """The forward kernel, then the weight-gradient kernels on (g, its
+    output, x): (out, dw, db)."""
+    out = seed_conv._forward_kernel(x, weight, bias)
+    return (out, *seed_conv._wgrad_kernel(g, out, x, *weight.shape[-2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 37, 256])
+@pytest.mark.parametrize("s", [1, 3, 256])
+@pytest.mark.parametrize("shape", sorted(SEED_CONV_SHAPES))
+def test_seed_conv_kernels_match_float64(cuda_device, shape, s, r):
+    """The forward output, dw and db against the plain versions computed
+    in float64 on the card (the weight gradient from the same output and
+    gradient, so the ReLU's mask is the same): within 1e-5 relative, and
+    1e-5 of the largest magnitude absolute (float32 sums of up to ~30,000
+    terms)."""
+    x, weight, bias, g = _seed_conv_inputs(cuda_device, s, r,
+                                           SEED_CONV_SHAPES[shape])
+    got = _seed_conv_kernels(x, weight, bias, g)
+    d = lambda t: t.double()
+    kh, kw = weight.shape[-2:]
+    want = (seed_conv.forward_plain(d(x), d(weight), d(bias)),
+            *seed_conv.wgrad_plain(d(g), d(got[0]), d(x), kh, kw))
+    for name, a, b in zip(("out", "dw", "db"), got, want):
+        torch.testing.assert_close(a.double(), b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SEED_CONV_SHAPES))
+def test_seed_conv_kernels_are_deterministic_per_seed(cuda_device, shape,
+                                                      monkeypatch):
+    """Two calls give the same bits without ``cudnn.deterministic``, and
+    each seed's output, dw and db in a stack of three are the bits of the
+    same seed called alone (S = 1)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    x, weight, bias, g = _seed_conv_inputs(cuda_device, 3, 256,
+                                           SEED_CONV_SHAPES[shape])
+    first = _seed_conv_kernels(x, weight, bias, g)
+    again = _seed_conv_kernels(x, weight, bias, g)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    for i in range(3):
+        one = slice(i, i + 1)
+        alone = _seed_conv_kernels(x[one], weight[one], bias[one], g[one])
+        for a, b in zip(first, alone):
+            assert torch.equal(a[one], b)
+
+
+# shapes no net of the cells builds: an even kernel, more filters than a
+# launch takes (two groups), images past a block's shared memory, and more
+# taps than it holds (the last two read global memory)
+SEED_CONV_EDGE_SHAPES = {"even_kernel": (4, 5, 2, 3, 2, 4),
+                         "eleven_filters": (3, 4, 2, 11, 3, 3),
+                         "large_images": (30, 30, 2, 3, 3, 5),
+                         "324_taps": (6, 7, 4, 2, 9, 9)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SEED_CONV_EDGE_SHAPES))
+def test_seed_conv_kernels_take_any_size(cuda_device, shape):
+    """At the edge shapes, three seeds of 37 rows: the forward output, dw
+    and db against the plain versions in float64 as above, and seed 1's
+    dw and db the bits of the same seed called alone."""
+    x, weight, bias, g = _seed_conv_inputs(cuda_device, 3, 37,
+                                           SEED_CONV_EDGE_SHAPES[shape])
+    got = _seed_conv_kernels(x, weight, bias, g)
+    d = lambda t: t.double()
+    kh, kw = weight.shape[-2:]
+    want = (seed_conv.forward_plain(d(x), d(weight), d(bias)),
+            *seed_conv.wgrad_plain(d(g), d(got[0]), d(x), kh, kw))
+    for name, a, b in zip(("out", "dw", "db"), got, want):
+        torch.testing.assert_close(a.double(), b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")
+    one = slice(1, 2)
+    alone = _seed_conv_kernels(x[one], weight[one], bias[one], g[one])
+    for a, b in zip(got, alone):
+        assert torch.equal(a[one], b)
+
+
+@pytest.mark.cuda
+def test_seed_conv_refuses_an_input_that_requires_grad(cuda_device):
+    """The input gradient is not computed: a CUDA input that requires
+    grad raises, in one seed's call and under ``vmap``."""
+    x, weight, bias, _ = _seed_conv_inputs(cuda_device, 2, 4,
+                                           SEED_CONV_SHAPES["state_grid"])
+    x.requires_grad_(True)
+    with pytest.raises(ValueError, match="input gradient"):
+        seed_conv.relu_flat_conv(x[0], weight[0], bias[0])
+    with pytest.raises(ValueError, match="input gradient"):
+        torch.func.vmap(seed_conv.relu_flat_conv)(x, weight, bias)
+
+
+def _one_update(dev, experiment):
+    """A CM3 stage-2 state of two seeds after a fill chunk, and a call that
+    runs one update of it on a sampled minibatch."""
+    import dataclasses
+    from cm3_tpu_torch.algs.cm3 import CM3
+    from cm3_tpu_torch.core import config, prng
+    from cm3_tpu_torch.envs.checkers import Checkers
+    from cm3_tpu_torch.envs.roadway import Roadway
+    from cm3_tpu_torch.train.experiments import make_hooks
+    from cm3_tpu_torch.train.offpolicy import OffPolicyDriver, init_rollout
+
+    roadway = experiment == "roadway"
+    if roadway:
+        env = Roadway(dataclasses.replace(config.roadway_env_config(2, 0.5),
+                                          **SHORT_ROAD), device=dev)
+        nn = config.NNConfig()
+    else:
+        env = Checkers(CheckersEnvConfig(max_steps=7), device=dev)
+        nn = _small_nn()
+    alg = CM3(experiment, env.spec(), config.AlgConfig(n_agents=2, stage=2),
+              nn, device=dev, n_seeds=2)
+    cfg = config.TrainConfig(n_envs=4, batch_size=8, buffer_size=256,
+                             updates_per_chunk=1, dual_buffer=roadway,
+                             max_steps=3 if roadway else 7)
+    drv = OffPolicyDriver(make_hooks(experiment, env, 12.0), alg, cfg)
+    draws = prng.GeneratorDraws(prng.generator(3, dev))
+    rs = init_rollout(drv.hooks, cfg.n_envs, draws, n_seeds=2)
+    state = {"ts": alg.init_state([1, 2])}
+    buf, rs = drv.init_replay(rs)
+    state["ts"], buf, rs, _ = drv._chunk(state["ts"], buf, rs, 1.0, draws,
+                                         False, True)
+    eps = torch.tensor([0.1, 0.2], device=dev)
+
+    def update():
+        batch = drv._replay_sample(buf, draws)
+        state["ts"], _ = alg.update(state["ts"], batch, eps,
+                                    alg.update_draws(draws, (2, 8)))
+    return update
+
+
+# launches of the seed-stacked convolution in one CM3 stage-2 update: a
+# forward 1, a weight gradient 2.  Checkers: the targets' actor and two
+# critics of two convs each (5 forwards), the critics' losses (4 forwards
+# and 4 weight gradients), the policy (1 forward and its weight gradient)
+# and its counterfactual Q_credit (2 forwards): 12 + 5 x 2.  Roadway's
+# critics have no conv: the target actor's and the actor's forwards and
+# the actor's weight gradient.
+SEED_CONV_LAUNCHES = {"checkers": 22, "roadway": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("experiment", sorted(SEED_CONV_LAUNCHES))
+def test_seed_conv_launches_in_one_update(cuda_device, experiment):
+    """One CM3 update at two seeds advances ``relu_flat_conv.launches`` by
+    the count above, and a profiler's trace of it holds no cuDNN
+    convolution kernel (no name with "cudnn" and "conv" or "wgrad")."""
+    update = _one_update(cuda_device, experiment)
+    update()
+    torch.cuda.synchronize()
+    before = seed_conv.relu_flat_conv.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        update()
+        torch.cuda.synchronize()
+    assert seed_conv.relu_flat_conv.launches - before == \
+        SEED_CONV_LAUNCHES[experiment]
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("seed_conv" in n for n in names), sorted(names)
+    cudnn = [n for n in names if "cudnn" in n.lower()
+             and ("conv" in n.lower() or "wgrad" in n.lower())]
+    assert not cudnn, cudnn

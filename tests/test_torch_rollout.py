@@ -173,7 +173,7 @@ def test_nvcc_command_names_sm90a_and_every_source():
     srcs = _nvcc.sources()
     assert [os.path.basename(s) for s in srcs] == [
         "checkers_rollout.cu", "flat_update.cu", "particle_rollout.cu",
-        "roadway_rollout.cu", "runtime.cu"]
+        "roadway_rollout.cu", "runtime.cu", "seed_conv.cu"]
     for src in srcs:
         cmd = _nvcc.compile_command("nvcc", src, "/out/x.o")
         assert "arch=compute_90a,code=sm_90a" in cmd
