@@ -1,29 +1,42 @@
 """Window driver ``train_sweep``: S seeds of CM3 trained in lockstep
 through the port's ``train.multiseed.train_vmapped_seeds``, the program
 built by ``train.runner.build`` from the configuration's master and
-``alg.for_seeds(S)``.
+``alg.for_seeds(S)``, on-policy where the driver that ``runner.build``
+returns is the ``OnPolicyDriver`` (particle), off-policy otherwise.
 
 Set-up: the build, the weights made on the card from ``--seed``
 (``reference/weights.py``) and loaded into the program's empty seed
 stack (``resume`` with every seed at episode 0, which trains as a fresh
 start), the random fill until the slowest seed has ``pretrain_episodes``
 episodes, and the training chunks up to the first period row: every
-shape of the window (fill, training chunk, evaluation) has run.  The
-window runs whole periods of the lockstep loop, evaluations and its
-per-chunk sync included, from that row to the first row at or after
-``--seconds``.  ``train_env_steps_per_s`` counts the training-rollout
-env steps of all seeds in the window, S x E x ``steps_per_train`` per
-chunk, the chunks read from the update count of the state the rows hand
-over (``updates_per_chunk`` updates a chunk), over the window's host
-seconds; counting adds no host sync.
+shape of the window (fill, training chunk or on-policy rollout chunk and
+burst, evaluation) has run.  The window runs whole periods of the
+lockstep loop, evaluations and its per-chunk sync included, from that
+row to the first row at or after ``--seconds``.
+``train_env_steps_per_s`` counts the training-rollout env steps of all
+seeds in the window, S x E x ``steps_per_train`` per chunk, over the
+window's host seconds; counting adds no host sync.  Off-policy the
+chunks are read from the update count of the state the rows hand over
+(``updates_per_chunk`` updates a chunk).  On-policy, where a burst of
+``epochs`` updates follows every few rollout chunks, a host counter
+around ``OnPolicyDriver._rollout_chunk`` counts the chunks that start
+inside the window.
 
 With ``--trace 1`` the first ``traced_chunks`` chunks after the window
 (the cell's file; a third of a period) run under the profiler, with the
-benchmark's spans around the driver's chunk (``OffPolicyDriver._chunk``),
-env step (``_step_once``) and the algorithm's update, and the run ends
-with them; a whole period's trace runs to gigabytes and minutes of the
-profiler's own work.  The evaluations are timed on the host clock over
-the window instead (``eval_share``).
+benchmark's spans around the driver's chunk (``OffPolicyDriver._chunk``,
+on-policy ``OnPolicyDriver._rollout_chunk``), env step (``_step_once``)
+and the algorithm's update, and the run ends with them; a whole
+period's trace runs to gigabytes and minutes of the profiler's own
+work.  On-policy the traced stretch is whole cycles: it starts with the
+first rollout chunk after a burst and ends with the first burst after
+its ``traced_chunks``-th chunk, so it holds every burst that its chunks
+bring about and a per-chunk reading does not depend on where in the
+cycle the window closed.  The evaluations are timed on the host clock
+over the window instead (``eval_share``).  ``train_mfu`` counts the
+FLOPs of the updates run in the window (their count read from the
+state's step, on-policy the bursts' ``epochs`` each), of each chunk's
+actions and of each evaluation's.
 
 Correctness: the first ``n_checked`` updates, which set-up runs through
 the same call and draw source as the window, are recomputed by the
@@ -95,33 +108,77 @@ class Capture:
 class Window:
     """The period rows' callback: opens the window at the first row,
     closes it at the first row at or after ``seconds``, and, tracing,
-    profiles the next ``traced_chunks`` chunks.  Tracing, it also times
-    the driver's evaluations inside the window on the host clock
-    (``install``)."""
+    profiles the next ``traced_chunks`` chunks; on-policy, whole cycles
+    of rollout chunks and the burst that ends each, from the first chunk
+    after a burst to the first burst after the ``traced_chunks``-th
+    chunk, so a per-chunk reading does not hang on where the stretch
+    cut the cycle.  ``install`` puts one wrapper around the driver's
+    chunk (``_chunk``, on-policy ``_rollout_chunk``), which counts the
+    chunks that start inside the window (``window_chunks``; no sync)
+    and the traced ones, and, on-policy, one around the burst
+    (``_train_burst``); tracing, it also times the driver's evaluations
+    inside the window on the host clock."""
 
     def __init__(self, seconds, trace, out_dir, device, driver_cls,
-                 traced_chunks=7):
+                 onpolicy, traced_chunks=7):
         self.seconds, self.trace, self.out_dir = seconds, trace, out_dir
         self.device, self.driver_cls = device, driver_cls
-        self.traced_chunks = traced_chunks
-        self.targets = [(driver_cls, "_chunk", "chunk"),
-                        (driver_cls, "_step_once", "env_step")]
-        self.spanned = False
+        self.onpolicy, self.traced_chunks = onpolicy, traced_chunks
+        self.targets = [(driver_cls, "_step_once", "env_step")]
+        self.spanned = self.armed = self.after_burst = False
         self.t0 = self.t1 = None
         self.rows = 0
         self.steps = []
         self.traced = None
         self.eval_s = 0.0
         self.chunks = self.updates = 0
+        self.window_chunks = 0
         self._undo = []
         self._installed = []
 
-    def install(self):
-        """Tracing: time each evaluation inside the window."""
-        if not self.trace:
-            return
-        evaluate = self.driver_cls.evaluate
+    def _patch(self, attr, make):
+        """``driver_cls.attr`` replaced by ``make(inner)`` until
+        ``close``."""
+        self._installed.append(harness.replace(self.driver_cls, attr,
+                                               make))
 
+    def install(self):
+        self._patch("_rollout_chunk" if self.onpolicy else "_chunk",
+                    self._chunk)
+        if self.onpolicy:
+            self._patch("_train_burst", self._burst)
+        if self.trace:
+            self._patch("evaluate", self._timed)
+
+    def _chunk(self, inner):
+        def chunk(*args, **kwargs):
+            if self.armed and self.after_burst:
+                self.armed = False
+                self._start_trace()
+            self.after_burst = False
+            if not self.spanned:
+                if self.t0 is not None and self.t1 is None:
+                    self.window_chunks += 1
+                return inner(*args, **kwargs)
+            with torch.profiler.record_function("chunk"):
+                out = inner(*args, **kwargs)
+            self.chunks += 1
+            if not self.onpolicy and self.chunks == self.traced_chunks:
+                self._end()
+            return out
+        return chunk
+
+    def _burst(self, inner):
+        def burst(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            self.after_burst = True
+            if self.spanned and self.chunks >= self.traced_chunks:
+                self._end()
+            return out
+        return burst
+
+    def _timed(self, evaluate):
+        """Tracing: time each evaluation inside the window."""
         def timed(*args, **kwargs):
             t = time.perf_counter()
             try:
@@ -129,30 +186,14 @@ class Window:
             finally:
                 if self.t0 is not None and self.t1 is None:
                     self.eval_s += time.perf_counter() - t
+        return timed
 
-        self.driver_cls.evaluate = timed
-        self._installed = [("evaluate", evaluate)]
-
-    def _count_chunks(self):
-        """Around the spanned chunk: after the ``traced_chunks``-th, stop
-        the profiler and end the run (``WindowClosed``)."""
-        cls = self.driver_cls
-        chunk = cls._chunk
-
-        def counted(*args, **kwargs):
-            out = chunk(*args, **kwargs)
-            self.chunks += 1
-            if self.chunks == self.traced_chunks:
-                harness.synchronize(self.device)
-                self._stop_trace()
-                raise WindowClosed
-            return out
-
-        cls._chunk = counted
-
-        def restore():
-            cls._chunk = chunk
-        return restore
+    def _end(self):
+        """The last traced chunk or burst has run: stop the profiler and
+        end the run."""
+        harness.synchronize(self.device)
+        self._stop_trace()
+        raise WindowClosed
 
     def __call__(self, row):
         now = time.perf_counter()
@@ -168,7 +209,10 @@ class Window:
             self.steps.append(step)
             if not self.trace:
                 raise WindowClosed
-            self._start_trace()
+            if self.onpolicy:
+                self.armed = True   # the trace starts with a cycle
+            else:
+                self._start_trace()
             return
         # a row inside the traced chunks (a period shorter than they
         # are) changes nothing: the chunk count ends the run
@@ -185,7 +229,6 @@ class Window:
 
     def _start_trace(self):
         self._undo = [harness.wrap(*t) for t in self.targets]
-        self._undo.append(self._count_chunks())
         self.spanned = True
         self._prof = harness.profile(self.out_dir, self.device)
         self._prof.__enter__()
@@ -216,18 +259,19 @@ class Window:
             self.spanned = False
             for u in reversed(self._undo):
                 u()
-        for attr, inner in self._installed:
-            setattr(self.driver_cls, attr, inner)
+        for restore in reversed(self._installed):
+            restore()
         self._installed = []
 
 
 def build_program(config, n_seeds, seed, device):
-    """(alg for S seeds, hooks, train config, state, initial weights):
-    the program built by the port's runner from the configuration's
-    master, its state the benchmark's weights."""
+    """(alg for S seeds, hooks, train config, state, initial weights,
+    the one-seed driver): the program built by the port's runner from
+    the configuration's master, its state the benchmark's weights."""
     from cm3_tpu_torch.train import runner
 
-    _, alg, hooks, cfg = runner.build(dict(config["master"]), device=device)
+    driver, alg, hooks, cfg = runner.build(dict(config["master"]),
+                                           device=device)
     alg = alg.for_seeds(n_seeds)
     ref_alg = rt.build(config, "cpu")[1]
     weights = wts.make_weights(ref_alg, n_seeds, seed, device)
@@ -241,7 +285,7 @@ def build_program(config, n_seeds, seed, device):
                                      f"{tuple(flat.shape)} is not the "
                                      f"reference's {tuple(w.shape)}")
                 flat.copy_(w)
-    return alg, hooks, cfg, ts, weights
+    return alg, hooks, cfg, ts, weights, driver
 
 
 class Run:
@@ -255,26 +299,38 @@ class Run:
         self.n_seeds = w["seeds"]
         self.n_checked = w.get("checked_updates", 3)
 
+    def _build(self):
+        """Build the program (``build_program``; ``_train`` lets it go)
+        and tell whether its driver trains on-policy."""
+        from cm3_tpu_torch.train.onpolicy import OnPolicyDriver
+
+        self.program = build_program(self.ctx.config, self.n_seeds,
+                                     self.ctx.seed, self.ctx.device)
+        self.weights, driver = self.program[4:]
+        self.driver_cls = type(driver)
+        self.onpolicy = isinstance(driver, OnPolicyDriver)
+
     def _train(self, log_fn=None, stop=False, update=None):
-        """Build the program and train it through the lockstep loop until
+        """Train the built program through the lockstep loop until
         ``log_fn`` or (``stop``) the last checked update ends it; returns
         its train config.  ``update`` wraps the algorithm's update (the
         control's planted faults)."""
         from cm3_tpu_torch.train import multiseed
 
         ctx, s = self.ctx, self.n_seeds
-        alg, hooks, cfg, ts, self.weights = build_program(
-            ctx.config, s, ctx.seed, ctx.device)
+        alg, hooks, cfg, ts = self.program[:4]
         if update is not None:
             alg.update = update(alg.update)
         self.capture = Capture(alg, self.n_checked, stop)
         try:
             multiseed.train_vmapped_seeds(
                 hooks, alg, cfg, s, ctx.seed, n_episodes=10 ** 12,
-                log_fn=log_fn, resume=(ts, np.zeros(s, np.int64)),
+                log_fn=log_fn, onpolicy=self.onpolicy,
+                resume=(ts, np.zeros(s, np.int64)),
                 draws=rt.draw_source(ctx.seed, ctx.device))
         except WindowClosed:
             pass
+        self.program = None
         if self.capture.k < self.n_checked:
             raise RuntimeError(f"set-up ran {self.capture.k} updates, fewer "
                                f"than the {self.n_checked} it checks")
@@ -282,24 +338,29 @@ class Run:
 
     def checked_only(self, update=None):
         """Set-up up to the last checked update, and no window."""
+        self._build()
         self._train(stop=True, update=update)
         return self
 
     def run(self):
-        from cm3_tpu_torch.train.offpolicy import OffPolicyDriver
-
         ctx, s = self.ctx, self.n_seeds
+        self._build()
         window = Window(ctx.seconds, ctx.trace, ctx.out_dir, ctx.device,
-                        OffPolicyDriver,
+                        self.driver_cls, self.onpolicy,
                         ctx.workload.get("traced_chunks", 7))
         window.install()
         try:
             cfg = self._train(log_fn=window, update=window.wrap_update)
         finally:
             window.close()
-        n_upd = cfg.updates_per_chunk or cfg.n_envs
         per_chunk = s * cfg.n_envs * cfg.steps_per_train
-        chunks = (window.steps[1] - window.steps[0]) // n_upd
+        if self.onpolicy:
+            chunks = window.window_chunks
+            updates = window.steps[1] - window.steps[0]
+        else:
+            n_upd = cfg.updates_per_chunk or cfg.n_envs
+            chunks = (window.steps[1] - window.steps[0]) // n_upd
+            updates = chunks * n_upd
         seconds = window.t1 - window.t0
         self.attempted, self.failed = chunks, 0
         self.setup_s = window.t0 - ctx.t_process
@@ -309,7 +370,7 @@ class Run:
         if window.traced:
             upd_f = s * flops.update_flops(ctx.config, cfg.batch_size)
             act_f = s * flops.act_flops(ctx.config)
-            window_flops = (chunks * n_upd * upd_f
+            window_flops = (updates * upd_f
                             + chunks * cfg.steps_per_train * cfg.n_envs
                             * act_f
                             + window.rows * cfg.N_eval * cfg.max_steps

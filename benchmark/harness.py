@@ -66,20 +66,12 @@ def forbidden_modules():
 
 # ---- spans ---- #
 
-def wrap(obj, attr: str, span: str):
-    """Wrap ``obj.attr`` (a class's function or an instance's method) in
-    the span ``span``; returns a function that restores it."""
-    import torch
-
+def replace(obj, attr: str, make):
+    """Replace ``obj.attr`` (a class's function or an instance's method)
+    by ``make(inner)``; returns a function that restores it."""
     inner = getattr(obj, attr)
-
-    @functools.wraps(inner)
-    def spanned(*args, **kwargs):
-        with torch.profiler.record_function(span):
-            return inner(*args, **kwargs)
-
     had = attr in vars(obj)
-    setattr(obj, attr, spanned)
+    setattr(obj, attr, functools.wraps(inner)(make(inner)))
 
     def restore():
         if had:
@@ -87,6 +79,19 @@ def wrap(obj, attr: str, span: str):
         else:
             delattr(obj, attr)
     return restore
+
+
+def wrap(obj, attr: str, span: str):
+    """Wrap ``obj.attr`` in the span ``span``; returns a function that
+    restores it."""
+    import torch
+
+    def make(inner):
+        def spanned(*args, **kwargs):
+            with torch.profiler.record_function(span):
+                return inner(*args, **kwargs)
+        return spanned
+    return replace(obj, attr, make)
 
 
 # ---- the trace ---- #

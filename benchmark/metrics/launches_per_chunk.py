@@ -1,7 +1,8 @@
 """``launches_per_chunk``: the device operations (kernels, copies,
 fills) launched inside the span around the driver's chunk
-(``OffPolicyDriver._chunk``, its env steps and updates included), per
-traced chunk."""
+(``OffPolicyDriver._chunk``, its env steps and updates included; on-policy
+``OnPolicyDriver._rollout_chunk`` and the updates of the bursts that the
+traced cycles hold), per traced chunk."""
 
 INSIDE = ("chunk", "env_step", "update")
 

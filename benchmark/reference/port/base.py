@@ -18,7 +18,7 @@ from . import common
 from .config import AlgConfig, NNConfig
 from . import nets
 
-EXPERIMENTS = ("checkers", "roadway")
+EXPERIMENTS = ("checkers", "particle", "roadway")
 
 
 class StepCounted:
@@ -114,6 +114,10 @@ class ActorCritic(SeededAlgorithm):
 
     def _actor_module(self):
         c = self.nn_cfg
+        if self.experiment == "particle":
+            return nets.ActorParticle(
+                self.spec, n_h1_others=c.Actor_n_others, n_h2=c.Actor_n_h2,
+                stage=self.stage)
         if self.experiment == "roadway":
             return nets.ActorRoadway(self.spec, stage=self.stage)
         return nets.ActorCheckers(
@@ -122,10 +126,14 @@ class ActorCritic(SeededAlgorithm):
 
     def actor_probs(self, actor, obs, goals, a_prev, epsilon):
         """eps-mixed policy probabilities, [B, N, A]; ``a_prev`` feeds
-        only the Checkers actor (roadway has none: pass None)."""
+        only the Checkers actor (particle and roadway have none: pass
+        None)."""
         b, n = goals.shape[0], goals.shape[1]
         f = common.flatten_bn
-        if self.experiment == "roadway":
+        if self.experiment == "particle":
+            probs = self._call(self._actor_module, actor, f(obs["others"]),
+                               f(obs["self_v"]), f(goals))
+        elif self.experiment == "roadway":
             probs = self._call(self._actor_module, actor, f(obs["self_t"]),
                                f(obs["self_v"]), f(goals))
         else:

@@ -110,6 +110,18 @@ def add_batch(state, transitions, valid: Optional[torch.Tensor] = None):
     return state
 
 
+def reset(state):
+    """Empty the ring (cursor and fill to 0; the rows stay and are
+    overwritten), as the on-policy driver discards it after a burst
+    (``cm3_tpu/train/onpolicy.py:100-107``); in place."""
+    if isinstance(state, DeviceRing):
+        state.insert.zero_()
+        state.size.zero_()
+    else:
+        state.insert = state.size = 0
+    return state
+
+
 def sample(state, idx: torch.Tensor):
     """The rows ``idx`` (replay_buffer.py:28-37): [B] -> leaves [B, ...];
     with seeds [S, B] -> leaves [S, B, ...], row idx[s, b] of seed s
@@ -230,6 +242,14 @@ def flush_episodes(state: DualReplayState, stage, valid: torch.Tensor,
     bad = is_bad[..., None].expand(valid.shape).reshape(lead + (e * t,))
     add_masked(state.bad, flat, v & bad)
     add_masked(state.good, flat, v & ~bad)
+    return state
+
+
+def reset_dual(state: DualReplayState) -> DualReplayState:
+    """Empty both memories (the on-policy burst's discard,
+    ``train_onpolicy.py:372-377``); in place."""
+    reset(state.bad)
+    reset(state.good)
     return state
 
 

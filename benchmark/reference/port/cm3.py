@@ -1,15 +1,16 @@
 """CM3: multi-goal actor-critic with a counterfactual credit function.
 
-Port of ``cm3_tpu.algs.cm3`` for Checkers and roadway at stage 2
-(n_agents > 1) with the Q_credit critic, on the optax path, one seed in
-flattened modules (the networks and their inputs per experiment,
-``cm3.py:76-87, 155-318``; the roadway nets take no global grid and no
-previous action, and roadway's critics take the others' goals, which
-they do not use).  The port's V ablation critic, stage 1's
-counterfactual, the actor freeze, the fused optimizer kernels, the data
-mesh and the seed stacks are left out of this copy: the benchmark's
-configurations run none of them, and the constructor refuses them.  The
-update keeps the JAX package's order:
+Port of ``cm3_tpu.algs.cm3`` for Checkers, particle and roadway at
+stage 2 (n_agents > 1) with the Q_credit critic, on the optax path, one
+seed in flattened modules (the networks and their inputs per
+experiment, ``cm3.py:76-87, 155-318``; the particle and roadway nets
+take no global grid and no previous action, so particle's critics take
+the plain inputs of the ``_q_*`` helpers, and roadway's critics also
+take the others' goals, which they do not use).  The port's V ablation
+critic, stage 1 and its counterfactual, the actor freeze, the fused
+optimizer kernels, the data mesh and the seed stacks are left out of
+this copy: the benchmark's configurations run none of them, and the
+constructor refuses them.  The update keeps the JAX package's order:
 
   * target-policy actions a' from the slow target actor with the
     eps-mixed policy, conditioned on the taken action as previous
@@ -74,6 +75,7 @@ class CM3(base.ActorCritic):
                  nn_cfg: NNConfig = NNConfig(), device="cuda"):
         super().__init__(experiment, spec, alg, nn_cfg, device)
         left_out = {"n_agents == 1": alg.n_agents == 1,
+                    "stage 1": alg.stage != 2,
                     "use_Q_credit off": not alg.use_Q_credit,
                     "use_V": alg.use_V, "fused_opt": alg.fused_opt,
                     "grad_clip": alg.grad_clip,
@@ -86,6 +88,8 @@ class CM3(base.ActorCritic):
 
     def _qg_module(self):
         c = self.nn_cfg
+        if self.experiment == "particle":
+            return nets.QGlobalParticle(self.spec, stage=self.stage)
         if self.experiment == "roadway":
             return nets.QGlobalRoadway(self.spec, stage=self.stage)
         return nets.QGlobalCheckers(
@@ -95,6 +99,8 @@ class CM3(base.ActorCritic):
 
     def _qc_module(self):
         c = self.nn_cfg
+        if self.experiment == "particle":
+            return nets.QCreditParticle(self.spec, stage=self.stage)
         if self.experiment == "roadway":
             return nets.QCreditRoadway(self.spec, stage=self.stage)
         return nets.QCreditCheckers(

@@ -1,6 +1,6 @@
 """Typed configuration: the subset of ``cm3_tpu.core.config`` that the
-copied modules read: CM3 training on Checkers and roadway, and the
-roadway struct-of-arrays engine of the fused rollout.
+copied modules read: CM3 training on Checkers, particle and roadway,
+and the roadway struct-of-arrays engine of the fused rollout.
 
 Same frozen dataclasses, same field names and defaults.  ``NNConfig`` has the Checkers
 widths and the generic staged nets' widths of ``master.json``'s "nn"
@@ -38,6 +38,28 @@ class CheckersEnvConfig:
     @property
     def max_collectible(self) -> int:
         return self.n_rows * self.n_columns
+
+
+@dataclasses.dataclass(frozen=True)
+class ParticleEnvConfig:
+    """Cooperative navigation particle env
+    (reference ``multiagent/core.py`` + ``scenarios/multi-goal_spread.py``)."""
+
+    n_agents: int = 4
+    agents_x: Tuple[float, ...] = (-0.9, 0.9, -0.9, 0.9)
+    agents_y: Tuple[float, ...] = (-0.9, 0.9, 0.9, -0.9)
+    landmarks_x: Tuple[float, ...] = (0.9, -0.9, 0.9, -0.9)
+    landmarks_y: Tuple[float, ...] = (0.9, -0.9, -0.9, 0.9)
+    initial_std: float = 0.0
+    prob_random: float = 0.2
+    max_steps: int = 33
+    # physics constants (reference core.py:94-99)
+    dt: float = 0.1
+    damping: float = 0.25
+    contact_force: float = 100.0
+    contact_margin: float = 1e-3
+    agent_size: float = 0.15
+    accel: float = 5.0  # action force sensitivity (environment.py:211)
 
 
 @dataclasses.dataclass(frozen=True)

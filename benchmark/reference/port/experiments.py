@@ -1,6 +1,6 @@
 """Per-experiment episode hooks (``cm3_tpu.train.experiments``): the
 env, per-episode goals and the dual buffer's routing predicate, for
-Checkers and roadway.
+Checkers, particle and roadway (the evaluation's metrics left out).
 
 Instances are laid out on a leading ``shape``: (E,) for one seed, or
 (S, E) for S seeds in lockstep, whose S x E instances the engine steps
@@ -85,6 +85,32 @@ class CheckersHooks(Hooks):
         return state, ts, goals
 
 
+class ParticleHooks(Hooks):
+    """Goals are the landmarks the reset places (train_offpolicy.py:
+    286-290; ``experiments.py:88-123``); the reset's draws come from the
+    draw source (``Particle.draw_reset``)."""
+
+    experiment = "particle"
+
+    def __init__(self, env):
+        self.env = env
+        self.n_agents = env.cfg.n_agents
+        self.l_goal = 2
+
+    def episode_init(self, shape, draws=None):
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        if draws is None:
+            raise ValueError("the particle reset draws its positions: "
+                             "pass a draw source")
+        state, ts = flat_call(self.env.reset, shape,
+                              self.env.draw_reset(shape, draws))
+        return state, ts, state.landmarks
+
+    def is_bad_episode(self, env_state, ep_return_local):
+        # the scenario's collision count != 0 (train_offpolicy.py:373-374)
+        return env_state.collisions != 0
+
+
 class RoadwayHooks(Hooks):
     """Goals are the goal lanes, one-hot over 4; with probability
     ``prob_random`` an episode's start lanes and goal lanes are uniform
@@ -123,7 +149,8 @@ class RoadwayHooks(Hooks):
         return base.sum_agents(ep_return_local) < self.threshold
 
 
-HOOKS = {"checkers": CheckersHooks, "roadway": RoadwayHooks}
+HOOKS = {"checkers": CheckersHooks, "particle": ParticleHooks,
+         "roadway": RoadwayHooks}
 
 
 def make_hooks(experiment: str, env, threshold: float = 16.0) -> Hooks:

@@ -1,4 +1,5 @@
-"""Checkers and roadway networks: the actor and the two CM3 critics.
+"""Checkers, particle and roadway networks: the actor and the two CM3
+critics.
 
 Port of the nets of ``cm3_tpu.models.nets`` (itself the reference
 ``alg/networks.py``) as ``nn.Module``s; the roadway nets are dense but
@@ -226,7 +227,8 @@ class QCreditCheckers(_QCheckers):
 
 
 # --------------------------------------------------------------------- #
-# roadway (dense, with a convolutional branch over the egocentric grid)
+# particle (dense) and roadway (dense, with a convolutional branch over
+# the egocentric grid)
 # --------------------------------------------------------------------- #
 
 
@@ -264,6 +266,30 @@ class ActorRoadway(nn.Module):
         return F.softmax(self.out(h2), dim=-1)
 
 
+class ActorParticle(nn.Module):
+    """networks.actor_particle:517-538 (``nets.py:150``): a self branch
+    over (own velocity and position, goal), a stage-2 branch over the
+    others' relative observations, the raw bias ``b``, softmax."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_self: int = 64,
+                 n_h1_others: int = 64, n_h2: int = 64, stage: int = 1):
+        super().__init__()
+        self.stage = stage
+        self.self_branch = Branch(spec["l_obs_self"] + spec["l_goal"],
+                                  n_h1_self, n_h2)
+        if stage > 1:
+            self.stage2 = Branch(spec["l_obs_others"], n_h1_others, n_h2)
+        self.b = nn.Parameter(torch.empty(n_h2))
+        self.out = _dense(n_h2, spec["l_action"])
+
+    def forward(self, obs_others, v_obs, goal):
+        h2 = self.self_branch(torch.cat([v_obs, goal], dim=-1))
+        if self.stage > 1:
+            h2 = h2 + self.stage2(obs_others)
+        h2 = F.relu(h2 + self.b)
+        return F.softmax(self.out(h2), dim=-1)
+
+
 class _QParticle(nn.Module):
     """Shared body of the roadway CM3 critics (the particle critics' too)
     (networks.py:97-152, 186-241): a stage-1 branch over (s^n, g^n, a), a
@@ -287,6 +313,33 @@ class _QParticle(nn.Module):
         if self.stage > 1:
             h2 = h2 + self.stage2(torch.cat(stage2_in, dim=-1))
         return self.out(F.relu(h2))
+
+
+class QGlobalParticle(_QParticle):
+    """networks.Q_global_1output:97-122 (``nets.py:226``)."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_1: int = 64,
+                 n_h1_2: int = 128, n_h2: int = 64, stage: int = 1):
+        super().__init__(
+            spec, (spec["n_agents"] - 1) * (spec["l_state_one"]
+                                            + spec["l_action"]),
+            n_h1_1, n_h1_2, n_h2, stage)
+
+    def forward(self, s_n, g_n, a_n, s_others, a_others):
+        return self._forward(s_n, g_n, a_n,
+                             [s_others, a_others.flatten(-2)])
+
+
+class QCreditParticle(_QParticle):
+    """networks.Q_credit:186-211 (``nets.py:247``)."""
+
+    def __init__(self, spec: Dict[str, int], n_h1_1: int = 64,
+                 n_h1_2: int = 128, n_h2: int = 64, stage: int = 2):
+        super().__init__(spec, spec["n_agents"] * spec["l_state_one"],
+                         n_h1_1, n_h1_2, n_h2, stage)
+
+    def forward(self, s_n, g_n, a_m, s_m, s_others):
+        return self._forward(s_n, g_n, a_m, [s_m, s_others])
 
 
 class QGlobalRoadway(_QParticle):

@@ -8,9 +8,24 @@ own engines, hooks, replay and algorithm from the frozen copy in
 ``port/``, one seed's networks at a time in plain flattened modules
 (the program runs all seeds in one seed stack), and replays the lockstep
 schedule of ``train_vmapped_seeds`` up to the program's first
-``n_updates`` updates: the random fill until the slowest seed has
-``pretrain_episodes`` episodes, then training chunks, each its env
-steps with each seed's epsilon-greedy policy and then its updates.
+``n_updates`` updates: the random fill, ``steps_per_train`` random
+steps at a time until the slowest seed has ``pretrain_episodes``
+episodes, then the configuration's schedule (``onpolicy``: the port's
+runner trains particle on-policy, Checkers and roadway off-policy):
+
+* off-policy (``multiseed.py:203-209``): training chunks, each its env
+  steps with each seed's epsilon-greedy policy (each seed's epsilon
+  from its own completed episodes) and then ``updates_per_chunk`` (or
+  ``n_envs``) updates;
+* on-policy (``multiseed.py:189-200``): rollout chunks of
+  ``steps_per_train`` steps at one epsilon for all seeds, from
+  ``epsilon_start``; after a chunk, once the slowest seed has
+  ``episodes_per_train`` more episodes than at the last burst (0 at the
+  start), a burst of ``epochs`` updates, then the ring discarded
+  (cursor and fill to 0) and epsilon decayed once.  The first burst
+  follows the first policy chunk after the fill, on a ring that still
+  holds the fill's rows.
+
 Engines, hooks and replay run over all S x E instances at once, as the
 program's do; their arithmetic is elementwise per instance, so the
 batch does not change a result.
@@ -32,6 +47,7 @@ from benchmark.reference.port import nets, prng
 from benchmark.reference.port.checkers import Checkers
 from benchmark.reference.port.cm3 import CM3
 from benchmark.reference.port.experiments import flat_call, make_hooks
+from benchmark.reference.port.particle import Particle
 from benchmark.reference.port.roadway import Roadway
 from benchmark.reference.port.tree import tree_map
 
@@ -53,7 +69,20 @@ def nn_config(config) -> cfgmod.NNConfig:
 
 
 def build_env(config, device):
+    """The configuration's engine; its ``stage_file`` holds the file the
+    port's runner reads: ``{experiment}_stage{stage}.json``, or for
+    particle ``particle_`` + ``master["particle_config"]`` (the contract
+    test holds the two equal)."""
     master, sf = config["master"], config["stage_file"]
+    if master["experiment"] == "particle":
+        return Particle(cfgmod.ParticleEnvConfig(
+            n_agents=sf["n_agents"], agents_x=tuple(sf["agents_x"]),
+            agents_y=tuple(sf["agents_y"]),
+            landmarks_x=tuple(sf["landmarks_x"]),
+            landmarks_y=tuple(sf["landmarks_y"]),
+            initial_std=sf["initial_std"],
+            prob_random=master["prob_random"],
+            max_steps=master["max_steps"]), device=device)
     if master["experiment"] == "checkers":
         init = sf["init"]
         return Checkers(cfgmod.CheckersEnvConfig(
@@ -104,6 +133,15 @@ def build(config, device):
     return env, alg, hooks, train_cfg
 
 
+def onpolicy(config) -> bool:
+    """Whether the program trains the configuration on-policy: as the
+    port's runner decides, particle with CM3, COMA or IAC (the reference
+    trains CM3 only)."""
+    master = config["master"]
+    return (master["experiment"] == "particle"
+            and master.get("alg_name", "cm3") in ("cm3", "coma", "iac"))
+
+
 def epsilons(cfg, episodes):
     """Each seed's epsilon from its completed episodes, float64 as the
     lockstep loop computes it."""
@@ -121,10 +159,12 @@ def _where(done, new, old):
 class Sweep:
     """The lockstep rollouts of S seeds x E instances with one replay ring
     (or pair of memories) per seed, stepped as the off-policy driver
-    steps them on one device."""
+    steps them on one device (the on-policy driver steps them alike, and
+    ``discard`` empties the replay after its bursts)."""
 
     def __init__(self, config, n_seeds: int, draws, device):
         self.env, self.alg, self.hooks, self.cfg = build(config, device)
+        self.onpolicy = onpolicy(config)
         self.device = torch.device(device)
         self.draws = draws
         self.lead = (n_seeds, self.cfg.n_envs)
@@ -222,6 +262,12 @@ class Sweep:
         self.ep_ret_local = ep_ret_local * (1.0 - done.float()[..., None])
         self.episodes = self.episodes + done.sum(dim=-1)
 
+    def discard(self):
+        """Empty the replay (cursor and fill to 0; both memories with the
+        dual buffer), as the on-policy driver does after a burst."""
+        self.buf = (replay.reset_dual if self.cfg.dual_buffer
+                    else replay.reset)(self.buf)
+
     def sample(self):
         """One minibatch per seed, [S, B, ...], its indices from the draw
         source below each ring's fill."""
@@ -286,6 +332,43 @@ def run_reference(config, n_seeds: int, seed: int, weights, device,
         torch.backends.cudnn.enabled = saved
 
 
+def _offpolicy_chunks(sweep, states):
+    """The off-policy training chunks after the fill: each its env steps
+    at each seed's epsilon; yields (epsilon [S], the updates that
+    follow)."""
+    cfg = sweep.cfg
+    per_chunk = cfg.updates_per_chunk or cfg.n_envs
+    while True:
+        eps = torch.as_tensor(epsilons(cfg, sweep.episodes.cpu().numpy()),
+                              dtype=torch.float32, device=sweep.device)
+        for _ in range(cfg.steps_per_train):
+            sweep.step(states, eps)
+        yield eps, per_chunk
+
+
+def _onpolicy_bursts(sweep, states):
+    """The on-policy rollout chunks after the fill, at one host epsilon
+    for all seeds; yields (epsilon [S], ``epochs``) for each burst, and
+    once its updates have run discards the ring and decays epsilon, as
+    ``train_vmapped_seeds(onpolicy=True)`` does."""
+    cfg = sweep.cfg
+    n_seeds = sweep.lead[0]
+    eps_scalar, last_train_eps = cfg.epsilon_start, 0
+    while True:
+        eps = torch.as_tensor(eps_scalar, dtype=torch.float32,
+                              device=sweep.device).expand(n_seeds)
+        for _ in range(cfg.steps_per_train):
+            sweep.step(states, eps)
+        emin = int(sweep.episodes.min())
+        if emin - last_train_eps >= cfg.episodes_per_train:
+            yield eps, cfg.epochs
+            last_train_eps = emin
+            sweep.discard()
+            if eps_scalar > cfg.epsilon_end:
+                eps_scalar = max(cfg.epsilon_end,
+                                 eps_scalar - cfg.epsilon_step)
+
+
 def _run(config, n_seeds, seed, weights, device, n_updates):
     sweep = Sweep(config, n_seeds, draw_source(seed, device), device)
     cfg, alg = sweep.cfg, sweep.alg
@@ -295,13 +378,9 @@ def _run(config, n_seeds, seed, weights, device, n_updates):
             sweep.step()
     losses, grads = [], {}
     lead = (n_seeds, cfg.batch_size)
-    per_chunk = cfg.updates_per_chunk or cfg.n_envs
-    while len(losses) < n_updates:
-        eps = torch.as_tensor(epsilons(cfg, sweep.episodes.cpu().numpy()),
-                              dtype=torch.float32, device=sweep.device)
-        for _ in range(cfg.steps_per_train):
-            sweep.step(states, eps)
-        for _ in range(min(per_chunk, n_updates - len(losses))):
+    chunks = _onpolicy_bursts if sweep.onpolicy else _offpolicy_chunks
+    for eps, n_upd in chunks(sweep, states):
+        for _ in range(min(n_upd, n_updates - len(losses))):
             first = not losses
             batch = sweep.sample()
             gumbel = alg.update_draws(sweep.draws, lead)
@@ -317,6 +396,8 @@ def _run(config, n_seeds, seed, weights, device, n_updates):
                 grads = {GRAD_NAMES[g]: torch.stack(
                     [m["grads"][g] for m in out]).cpu()
                     for g in out[0]["grads"]}
+        if len(losses) >= n_updates:
+            break
     params = {}
     for name in alg.net_names():
         for key in (name, name + "_tgt"):

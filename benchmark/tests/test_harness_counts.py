@@ -1,7 +1,11 @@
 """The benchmark's counts against what they count: the FLOPs of one
 update against ``FlopCounterMode`` over the port's own update on the
-CPU at B = 128, and the rollout kernels' operation counts against the
-kernel notes' formulas counted directly on small inputs."""
+CPU at B = 128 (the two sweeps' configurations and the tests' particle
+one), and the rollout kernels' operation counts against the kernel
+notes' formulas counted directly on small inputs."""
+
+import json
+import os
 
 import pytest
 import torch
@@ -12,15 +16,23 @@ from benchmark.counts import flops, rollout_ops
 from benchmark.reference import rollout as rr
 
 
+PARTICLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "particle_cm3_s2.json")
+
+
 def _config(cell):
+    """A cell's configuration, or (``particle``) the tests' particle
+    configuration, which ``BENCHMARK.json`` does not hold."""
     from benchmark.run import merged_config
 
+    if cell == "particle":
+        return json.load(open(PARTICLE))
     _, _, workload, conf = harness.cell(cell)
     return merged_config(conf, workload)
 
 
 @pytest.mark.parametrize("cell", ["checkers_cm3_s2.sweep256",
-                                  "roadway_cm3_s2.sweep256"])
+                                  "roadway_cm3_s2.sweep256", "particle"])
 def test_update_flops_equal_flop_counter(cell):
     from cm3_tpu_torch.core import prng
     from cm3_tpu_torch.train import runner

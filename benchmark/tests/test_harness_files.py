@@ -1,5 +1,7 @@
 """BENCHMARK.json against the benchmark's contract, and every file it
-names found by name."""
+names found by name.  The stage-file check also reads the particle
+configuration the tests hold (``particle_cm3_s2.json`` beside this
+file)."""
 
 import json
 import os
@@ -43,14 +45,34 @@ def test_config_found(entry):
         assert not re.search(r"(_dim|_rank|units|_h\d|size)$", key), key
 
 
+def stage_file_name(master):
+    """The file of ``cm3_tpu/configs`` that the port's runner reads for
+    ``master`` (``train/runner.py:build_env``): for particle
+    ``particle_`` + ``particle_config`` (default ``stage{stage}``) with
+    ``config_particle_`` and ``.json`` stripped, else
+    ``{experiment}_stage{stage}.json``."""
+    exp, stage = master["experiment"], master["stage"]
+    if exp == "particle":
+        name = master.get("particle_config", f"stage{stage}")
+        name = name.replace("config_particle_", "").replace(".json", "")
+        return f"particle_{name}.json"
+    return f"{exp}_stage{stage}.json"
+
+
+PARTICLE = os.path.join(harness.HERE, "tests", "particle_cm3_s2.json")
+
+
 def test_config_stage_files_are_the_programs():
-    for entry in BENCH["configs"]:
-        conf = json.load(open(os.path.join(ROOT, entry["file"])))
-        exp = conf["master"]["experiment"]
-        stage = conf["master"]["stage"]
-        path = os.path.join(ROOT, "cm3_tpu", "configs",
-                            f"{exp}_stage{stage}.json")
-        assert conf["stage_file"] == json.load(open(path))
+    files = [os.path.join(ROOT, e["file"]) for e in BENCH["configs"]]
+    for path in files + [PARTICLE]:
+        conf = json.load(open(path))
+        name = stage_file_name(conf["master"])
+        if path == PARTICLE:
+            assert name == "particle_stage2_antipodal.json" == \
+                stage_file_name(dict(conf["master"], particle_config=(
+                    "config_particle_stage2_antipodal.json")))
+        stage_file = os.path.join(ROOT, "cm3_tpu", "configs", name)
+        assert conf["stage_file"] == json.load(open(stage_file))
 
 
 @pytest.mark.parametrize("entry", BENCH["workloads"], ids=lambda w: w["name"])
